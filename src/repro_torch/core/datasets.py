@@ -1,0 +1,41 @@
+"""Synthetic training sets (port of ``repro.core.datasets``, regression
+and binary classification).
+
+Draws come from an explicit ``torch.Generator`` on the device the data
+is made on, so a full-size set never crosses the host.  They do not
+reproduce ``jax.random``'s numbers: parity tests hand both packages the
+same numpy arrays instead.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+
+def regression(gen: torch.Generator, n: int, d: int, noise: float = 0.1,
+               w_scale: float = 1.0
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(X, y, w_true)``: ``X ~ N(0, 1)``, ``y = X w + noise``."""
+    dev = gen.device
+    X = torch.randn((n, d), generator=gen, device=dev)
+    w = torch.randn((d,), generator=gen, device=dev) * w_scale
+    y = X @ w + noise * torch.randn((n,), generator=gen, device=dev)
+    return X, y, w
+
+
+def binary_classification(gen: torch.Generator, n: int, d: int,
+                          w_scale: float = 2.0
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """``(X, y in {0, 1}, w_true)``: labels drawn from the logistic
+    model ``P(y=1) = sigmoid(X w)``."""
+    dev = gen.device
+    X = torch.randn((n, d), generator=gen, device=dev)
+    w = torch.randn((d,), generator=gen, device=dev) * (w_scale
+                                                        / math.sqrt(d))
+    p = torch.sigmoid(X @ w)
+    y = (torch.rand((n,), generator=gen, device=dev) < p).float()
+    return X, y, w

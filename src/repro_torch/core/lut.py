@@ -1,0 +1,91 @@
+"""Lookup-table activations (the paper's insight I2).
+
+Port of ``repro.core.lut``.  Tables are built by the same numpy code
+(float64 grid, one cast to float32), so their bytes equal the JAX
+package's.  The nearest-entry index is computed as ``repro.core.lut``
+does, in float32: subtract ``x_min``, divide by ``step`` (rounded once
+from the Python double), round half to even, clamp.  The card's kernel
+(``kernels/csrc/lut_activation.cu``) repeats that sequence bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.quantize import div_scalar
+
+
+@dataclasses.dataclass(frozen=True)
+class LutTable:
+    """``table[i] = fn(x_min + i*step)``, ``step = (x_max-x_min)/(n-1)``;
+    out-of-range inputs clamp to the end entries."""
+
+    table: torch.Tensor       # (n_entries,) float32
+    x_min: float
+    x_max: float
+
+    @property
+    def n_entries(self) -> int:
+        return int(self.table.shape[0])
+
+    @property
+    def step(self) -> float:
+        return (self.x_max - self.x_min) / (self.n_entries - 1)
+
+
+def build_lut(fn: Callable[[np.ndarray], np.ndarray], x_min: float,
+              x_max: float, n_entries: int = 1024,
+              device="cpu") -> LutTable:
+    """Tabulate ``fn`` on a uniform grid on the host, once."""
+    xs = np.linspace(x_min, x_max, n_entries, dtype=np.float64)
+    vals = np.asarray(fn(xs), dtype=np.float64)
+    table = torch.from_numpy(vals.astype(np.float32)).to(device)
+    return LutTable(table, float(x_min), float(x_max))
+
+
+def _index(lut: LutTable, x: torch.Tensor) -> torch.Tensor:
+    """Nearest entry; NaN goes to entry 0, as XLA's float-to-int
+    conversion (and the kernel's ``fmaxf``) send it."""
+    pos = torch.round(div_scalar(x.float() - lut.x_min, lut.step))
+    pos = torch.nan_to_num(torch.clamp(pos, 0, lut.n_entries - 1), nan=0.0)
+    return pos.to(torch.int64)
+
+
+def lut_lookup(lut: LutTable, x: torch.Tensor) -> torch.Tensor:
+    """Nearest-entry lookup (the paper's DPU variant)."""
+    return lut.table[_index(lut, x)].to(x.dtype)
+
+
+def lut_lookup_interp(lut: LutTable, x: torch.Tensor) -> torch.Tensor:
+    """Linearly interpolated lookup: error O(step^2) instead of O(step)."""
+    pos = div_scalar(x.float() - lut.x_min, lut.step)
+    pos = torch.clamp(pos, 0.0, lut.n_entries - 1.0)
+    lo = torch.nan_to_num(torch.floor(pos), nan=0.0).to(torch.int64)
+    hi = torch.clamp(lo + 1, max=lut.n_entries - 1)
+    w = pos - lo.float()
+    return ((1.0 - w) * lut.table[lo] + w * lut.table[hi]).to(x.dtype)
+
+
+def _np_sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+def sigmoid_lut(n_entries: int = 1024, bound: float = 8.0,
+                device="cpu") -> LutTable:
+    """The paper's sigmoid table on [-8, 8]."""
+    return build_lut(_np_sigmoid, -bound, bound, n_entries, device)
+
+
+def taylor_sigmoid(x: torch.Tensor, order: int = 7) -> torch.Tensor:
+    """The paper's losing baseline: the odd series of sigmoid about 0,
+    evaluated by Horner's rule in float32."""
+    coeffs = [0.5, 0.25, 0.0, -1.0 / 48, 0.0, 1.0 / 480, 0.0, -17.0 / 80640]
+    xf = x.float()
+    acc = torch.zeros_like(xf)
+    for c in reversed(coeffs[: order + 1]):
+        acc = acc * xf + c
+    return acc.to(x.dtype)

@@ -1,0 +1,190 @@
+"""Workload — the estimator API over the PimGrid engine.
+
+Port of ``repro.core.mlalgos.api``.  A Workload packages what is
+per-algorithm:
+
+    prepare(grid, X, y)           -> (data, n, consts), the one-time
+                                     resident placement (quantize +
+                                     ``shard_rows``)
+    init_state(consts)            -> the model state
+    local_step(consts, state, sl) -> per-vDPU partial statistics
+    update(consts, state, merged) -> (state', metrics)
+    eval(state, X, y)             -> quality metrics
+    predict(state, X)             -> the serving forward pass
+
+Lanes are a batch dimension: ``sl`` is the whole resident data dict
+with its leading ``n_vdpus`` dim, and ``local_step`` returns partials
+with that leading dim.  ``state`` is one shared tensor at cadence 1 and
+one per lane (leading ``n_vdpus`` dim) inside a cadence-k round.
+
+``fit`` is the one entry point.  Minibatch sampling (``batch_size``),
+streaming sources and the non-default merge plans are not ported yet
+(ROADMAP queue A) and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Callable, Optional
+
+from repro_torch.core.pim import PimGrid
+from repro_torch.distributed import merge_plan as mp
+
+
+class MergeFallbackWarning(UserWarning):
+    """A fit asked for a merge axis its workload cannot honour and was
+    run at the exact default instead."""
+
+
+@dataclasses.dataclass(frozen=True)
+class MergeCaps:
+    """Which merge axes a workload can honour; :meth:`constrain` degrades
+    an unsupported request to the exact default and warns."""
+
+    cadence: bool = True
+    minibatch: bool = True
+    reason: str = ""
+
+    def constrain(self, name: str, plan: mp.MergePlan,
+                  batch_size: Optional[int]):
+        dropped = []
+        if plan.cadence > 1 and not self.cadence:
+            dropped.append(f"merge_every={plan.cadence}")
+            plan = mp.MergePlan()
+        if batch_size is not None and not self.minibatch:
+            dropped.append(f"batch_size={batch_size}")
+            batch_size = None
+        if dropped:
+            warnings.warn(f"{name}: {' + '.join(dropped)} dropped "
+                          f"({self.reason})", MergeFallbackWarning,
+                          stacklevel=3)
+        return plan, batch_size
+
+
+class Workload:
+    """Base estimator: subclasses are frozen dataclasses of
+    hyperparameters implementing the protocol in the module docstring.
+    ``consts`` holds the constants the step functions read (row and
+    feature counts, quantization scales, the device)."""
+
+    name: str = "workload"
+    merge_caps: MergeCaps = MergeCaps()
+
+    def prepare(self, grid: PimGrid, X, y=None):
+        raise NotImplementedError
+
+    def init_state(self, consts: dict):
+        raise NotImplementedError
+
+    def local_step(self, consts: dict, state, sl: dict) -> dict:
+        raise NotImplementedError
+
+    def update(self, consts: dict, state, merged: dict):
+        raise NotImplementedError
+
+    def eval(self, state, X, y=None) -> dict:
+        raise NotImplementedError
+
+    def predict(self, state, X):
+        """Raw predictions for a batch of rows (the forward half of
+        ``eval``); pad-invariant, like the JAX package's."""
+        raise NotImplementedError(
+            f"workload {self.name!r} does not implement predict")
+
+    def bind(self, grid: PimGrid, X, y=None) -> "Program":
+        """Shard the dataset and assemble the engine closures once."""
+        data, n, consts = self.prepare(grid, X, y)
+        return Program.assemble(self, grid, data, n, consts)
+
+
+@dataclasses.dataclass
+class FitResult:
+    """The trained state and one metrics entry per local step."""
+
+    state: Any
+    history: list
+    workload: Workload
+
+    def eval(self, X, y=None) -> dict:
+        return self.workload.eval(self.state, X, y)
+
+
+@dataclasses.dataclass
+class Program:
+    """A workload bound to a grid and a resident dataset: the
+    ``(local_fn, update_fn, state0)`` triple plus the placement."""
+
+    workload: Workload
+    grid: PimGrid
+    data: dict
+    n: int
+    consts: dict
+    local_fn: Callable
+    update_fn: Callable
+    state0: Any
+
+    @classmethod
+    def assemble(cls, workload: Workload, grid: PimGrid, data: dict, n: int,
+                 consts: dict) -> "Program":
+        def local_fn(state, sl):
+            return workload.local_step(consts, state, sl)
+
+        def update_fn(state, merged):
+            return workload.update(consts, state, merged)
+
+        return cls(workload=workload, grid=grid, data=data, n=n,
+                   consts=consts, local_fn=local_fn, update_fn=update_fn,
+                   state0=workload.init_state(consts))
+
+    def fit(self, *, steps: int, engine: str = "scan", scan_chunk: int = 32,
+            merge_every: int = 1, merge_plan=None,
+            callback: Optional[Callable] = None) -> FitResult:
+        """Train on the bound dataset at the exact default plan."""
+        plan = mp.MergePlan.resolve(merge_plan, merge_every=merge_every)
+        plan, _ = self.workload.merge_caps.constrain(self.workload.name,
+                                                     plan, None)
+        state, history = self.grid.fit(
+            init_state=self.state0, local_fn=self.local_fn,
+            update_fn=self.update_fn, data=self.data, steps=steps,
+            engine=engine, scan_chunk=scan_chunk, merge_plan=plan,
+            callback=callback)
+        return FitResult(state=state, history=history,
+                         workload=self.workload)
+
+
+def fit(workload: Workload, grid: PimGrid, X, y=None, *, steps: int,
+        batch_size: Optional[int] = None, engine: str = "scan",
+        scan_chunk: int = 32, merge_every: int = 1,
+        overlap_merge: bool = False, merge_compression=None,
+        merge_plan=None, callback: Optional[Callable] = None) -> FitResult:
+    """Train any workload on the grid — the entry point every layer above
+    the algorithms goes through.
+
+    >>> import numpy as np
+    >>> from repro_torch.core import make_cpu_grid
+    >>> from repro_torch.core.mlalgos import api, LogReg
+    >>> rng = np.random.default_rng(0)
+    >>> X = rng.standard_normal((512, 8)).astype(np.float32)
+    >>> y = (X[:, 0] > 0).astype(np.float32)
+    >>> res = api.fit(LogReg(precision="int8", sigmoid="lut"),
+    ...               make_cpu_grid(8), X, y, steps=20)
+    >>> len(res.history), res.eval(X, y)["accuracy"] > 0.9
+    (20, True)
+    """
+    plan = mp.MergePlan.resolve(
+        merge_plan, merge_every=merge_every, overlap_merge=overlap_merge,
+        merge_compression=merge_compression)
+    plan, batch_size = workload.merge_caps.constrain(workload.name, plan,
+                                                     batch_size)
+    if batch_size is not None:
+        raise NotImplementedError(
+            "batch_size (on-device minibatch sampling) is not ported to "
+            "repro_torch yet (ROADMAP queue A, item 9)")
+    if getattr(X, "is_streaming_source", False):
+        raise NotImplementedError(
+            "streaming sources are not ported to repro_torch yet (ROADMAP "
+            "queue A, item 14)")
+    return workload.bind(grid, X, y).fit(
+        steps=steps, engine=engine, scan_chunk=scan_chunk, merge_plan=plan,
+        callback=callback)

@@ -1,0 +1,136 @@
+"""Linear regression by batch gradient descent on the PIM grid.
+
+Port of ``repro.core.mlalgos.linreg``.  Each vDPU computes the partial
+gradient ``g_p = X_pᵀ(X_p w − y_p)`` over its resident rows; the host
+merges the partials and applies the GD step.  Three numeric paths:
+
+  * ``fp32``  — the float reference,
+  * ``int16`` / ``int8`` — hybrid-precision fixed point: the resident
+    dataset is quantized once (per-feature scales), the dots run in
+    integers on the ``fxp_matmul`` kernel with int32 accumulation, and
+    only the merged gradient is rescaled to float.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+import torch
+
+from repro_torch.core import quantize as qz
+from repro_torch.core.mlalgos import api
+from repro_torch.core.pim import PimGrid
+from repro_torch.kernels import dispatch
+
+Precision = Literal["fp32", "int16", "int8"]
+BITS = {"int16": 16, "int8": 8}
+
+
+def as_f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def matvec(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``X @ w`` per lane: ``(..., R, d)`` with a shared ``(d,)`` or a
+    per-lane ``(L, d)`` weight -> ``(..., R)``, in full float32."""
+    # fp32 paths keep full float32 products: TF32 on the card would keep
+    # ~10 mantissa bits and leave the JAX reference behind
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.matmul(X, w.unsqueeze(-1)).squeeze(-1)
+
+
+def rmatvec(X: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """``Xᵀ @ r`` per lane: ``(L, R, d)``, ``(L, R)`` -> ``(L, d)``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.matmul(X.transpose(-1, -2), r.unsqueeze(-1)).squeeze(-1)
+
+
+def quantize_weight(w: torch.Tensor, x_scale: torch.Tensor) -> qz.Quantized:
+    """The weight with the per-feature data scale folded in, quantized to
+    16 bits: one scale for a shared ``(d,)`` weight, one per lane for an
+    ``(L, d)`` weight."""
+    return qz.quantize_symmetric(w * x_scale[0], bits=16,
+                                 axis=None if w.dim() == 1 else -1)
+
+
+def int_forward(Xi: torch.Tensor, wq: qz.Quantized) -> torch.Tensor:
+    """``Xi @ w`` on the ``fxp_matmul`` kernel: int8/int16 ``(..., R, d)``
+    and a 16-bit weight -> float32 ``(..., R)``."""
+    return dispatch.hybrid_matmul(Xi, wq.values.unsqueeze(-1))[..., 0] \
+        * wq.scale
+
+
+def int_gradient(Xi: torch.Tensor, r: torch.Tensor,
+                 x_scale: torch.Tensor) -> torch.Tensor:
+    """``Xᵀ r`` per lane on the ``fxp_matmul`` kernel: the residual is
+    quantized to 16 bits with one scale per lane, and ``Xi``'s
+    transposed view goes to the kernel as it is (no copy)."""
+    rq = qz.quantize_symmetric(r, bits=16, axis=-1)
+    gacc = dispatch.hybrid_matmul(Xi.transpose(-1, -2),
+                                  rq.values.unsqueeze(-1))[..., 0]
+    return gacc * (x_scale[0] * rq.scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class LinReg(api.Workload):
+    """GD linear regression (optionally hybrid fixed point)."""
+
+    lr: float = 0.1
+    precision: Precision = "fp32"
+    l2: float = 0.0
+
+    name = "linreg"
+
+    def prepare(self, grid: PimGrid, X, y=None):
+        X, y = as_f32(X, grid.device), as_f32(y, grid.device)
+        d = X.shape[1]
+        if self.precision == "fp32":
+            data, n = grid.shard_rows(X, y)
+            return data, n, {"n": n, "d": d, "device": grid.device}
+        Xq = qz.quantize_symmetric(X, bits=BITS[self.precision], axis=0)
+        yq = qz.quantize_symmetric(y, bits=16)
+        data, n = grid.shard_rows(Xq.values, yq.values)
+        return data, n, {"n": n, "d": d, "device": grid.device,
+                         "x_scale": Xq.scale, "y_scale": yq.scale}
+
+    def init_state(self, consts):
+        return torch.zeros((consts["d"],), dtype=torch.float32,
+                           device=consts["device"])
+
+    def local_step(self, consts, w, sl):
+        if self.precision == "fp32":
+            r = (matvec(sl["X"], w) - sl["y0"]) * sl["w"]
+            return {"g": rmatvec(sl["X"], r), "loss": (r * r).sum(-1)}
+        x_scale = consts["x_scale"]
+        pred = int_forward(sl["X"], quantize_weight(w, x_scale))
+        yf = sl["y0"].float() * consts["y_scale"]
+        r = (pred - yf) * sl["w"]
+        return {"g": int_gradient(sl["X"], r, x_scale),
+                "loss": (r * r).sum(-1)}
+
+    def update(self, consts, w, merged):
+        n = consts["n"]
+        g = qz.div_scalar(merged["g"], n) + self.l2 * w
+        return w - self.lr * g, {"loss": qz.div_scalar(merged["loss"], n)}
+
+    def eval(self, state, X, y=None) -> dict:
+        out = {}
+        if y is not None:
+            X, y = as_f32(X, state.device), as_f32(y, state.device)
+            out["mse"] = float(((linreg_predict(state, X) - y) ** 2).mean())
+        return out
+
+    def predict(self, state, X):
+        """fp32: ``X @ w``.  Quantized: ``local_step``'s forward recipe on
+        the request's own per-feature scales (pad-invariant: zero rows
+        never move an absmax)."""
+        X = as_f32(X, state.device)
+        if self.precision == "fp32":
+            return linreg_predict(state, X)
+        Xq = qz.quantize_symmetric(X, bits=BITS[self.precision], axis=0)
+        return int_forward(Xq.values, quantize_weight(state, Xq.scale))
+
+
+def linreg_predict(w: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    return matvec(X, w)

@@ -1,0 +1,105 @@
+"""Build the CUDA kernels from ``kernels/csrc/`` at first use.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
+own by ``nvcc`` into ``_build/lib<name>-<digest>.so`` next to this file
+(the directory is git-ignored), then loaded with ``ctypes``.  The digest
+covers the source and the flags, so an edited source is rebuilt and a
+stale library is never loaded.  :func:`build_all` starts one ``nvcc``
+per missing library, all at once, and waits for them together.
+
+The flags target Hopper only (``sm_90a``) and leave out
+``--use_fast_math``: the LUT index must be an IEEE float32 divide.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+KERNELS = ("fxp_matmul", "lut_activation")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict = {}
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda/bin/nvcc`` or the one on
+    ``PATH``; raises when there is none."""
+    candidates = [os.path.join(os.environ.get("CUDA_HOME", ""), "bin",
+                               "nvcc"),
+                  "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]
+    for path in candidates:
+        if path and os.path.isfile(path) and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the CUDA kernels are built from kernels/csrc/ at first use")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build_all(names=KERNELS) -> dict:
+    """Compile every library in ``names`` that is not built yet, all in
+    parallel.  Returns ``{name: ptxas report}`` (registers, shared
+    memory, spills) for the ones built here;
+    raises with nvcc's output if any build fails."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(prefix=f"lib{name}-", suffix=".so.tmp",
+                                   dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (exit {proc.returncode}) ---\n{out}")
+            os.unlink(tmp)
+            continue
+        os.replace(tmp, library_path(name))
+        logs[name] = out
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library for kernel ``name``, built first if needed.
+    ``signatures`` maps each C function to ``(restype, argtypes)``."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, (restype, argtypes) in signatures.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err:
+        msg = getattr(lib, f"{name}_error_string")(err)
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({msg.decode() if msg else '?'})")

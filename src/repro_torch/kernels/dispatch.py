@@ -1,0 +1,105 @@
+"""Kernel dispatch: routes the mlalgos' inner loops to the CUDA kernels.
+
+Port of ``repro.kernels.dispatch`` for the two kernels of the training
+path:
+
+  ==================  ===================  ==============================
+  dispatch fn         kernel               used by
+  ==================  ===================  ==============================
+  ``hybrid_matmul``   ``fxp_matmul``       linreg/logreg int8/int16
+                                           forward and gradient dots
+  ``lut_apply``       ``lut_activation``   logreg LUT sigmoid
+  ==================  ===================  ==============================
+
+``use_kernels(False)`` routes both to the plain PyTorch functions of
+``core`` (``quantize.hybrid_dot``, ``lut.lut_lookup``); parity tests and
+``chip_smoke.py`` use it.  With kernels on, each wrapper launches its
+kernel on a CUDA tensor and runs its plain version on a CPU tensor.
+``kmeans_partials``, ``nearest_centroid`` and ``level_histogram`` come
+with their kernels' slices.
+
+Example — the kernel path equals the plain path on an integer product:
+
+>>> import torch
+>>> from repro_torch.kernels import dispatch
+>>> a = torch.ones((4, 8), dtype=torch.int8)
+>>> b = torch.ones((8, 2), dtype=torch.int16)
+>>> out = dispatch.hybrid_matmul(a, b)
+>>> with dispatch.use_kernels(False):
+...     ref = dispatch.hybrid_matmul(a, b)
+>>> out.dtype, bool(torch.equal(out, ref))
+(torch.float32, True)
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from repro_torch.core import lut as lut_mod
+from repro_torch.core import quantize as qz
+from repro_torch.kernels import fxp_matmul as _fxp
+from repro_torch.kernels import lut_activation as _lut
+
+_ENABLED = [True]
+# the a-limbs hybrid_dot takes, as (weight, limb selector of fxp_matmul)
+_A_LIMBS = {torch.int8: [(1.0, 0)], torch.int16: [(256.0, 1), (1.0, 2)]}
+
+
+def kernels_enabled() -> bool:
+    """True when dispatch routes to the kernel wrappers."""
+    return _ENABLED[0]
+
+
+@contextlib.contextmanager
+def use_kernels(enabled: bool):
+    """Temporarily route dispatch to the kernels (True) or to the plain
+    PyTorch functions (False)."""
+    prev = _ENABLED[0]
+    _ENABLED[0] = enabled
+    try:
+        yield
+    finally:
+        _ENABLED[0] = prev
+
+
+def hybrid_matmul(a: torch.Tensor, b: torch.Tensor, *,
+                  k_chunk: int = 4096) -> torch.Tensor:
+    """Drop-in for ``quantize.hybrid_dot``: ``(..., M, K)`` int8/int16 x
+    ``(..., K, N)`` int8/int16 -> float32 ``(..., M, N)``.
+
+    ``b``'s limbs ride as the columns of one ``fxp_matmul`` launch per
+    limb of ``a`` (one launch for an int8 ``a``), which returns the
+    int32 partial of every ``k_chunk`` chunk; the partials convert to
+    float32 and combine in the order ``hybrid_dot`` uses (limb of a,
+    limb of b, chunk), so the two paths agree bit for bit.
+    """
+    if not kernels_enabled():
+        return qz.hybrid_dot(a, b, k_chunk=k_chunk)
+    if a.dtype not in _A_LIMBS:
+        raise TypeError(f"hybrid_matmul takes an int8 or int16 a, got "
+                        f"{a.dtype}")
+    b_limbs = qz.int8_limbs(b)
+    N = b.shape[-1]
+    bcat = torch.cat([lb for _, lb in b_limbs], dim=-1)
+    out = None
+    for wa, limb in _A_LIMBS[a.dtype]:
+        parts = _fxp.fxp_matmul(a, bcat, k_chunk=k_chunk, limb=limb)
+        for j, (wb, _) in enumerate(b_limbs):
+            pj = parts[..., j * N:(j + 1) * N]
+            acc = None
+            for c in range(parts.shape[-3]):
+                part = pj[..., c, :, :].float()
+                acc = part if acc is None else acc + part
+            term = acc * (wa * wb)
+            out = term if out is None else out + term
+    return out
+
+
+def lut_apply(table: lut_mod.LutTable, x: torch.Tensor) -> torch.Tensor:
+    """Nearest-entry LUT evaluation of a float32 ``x`` (any shape)."""
+    if kernels_enabled():
+        return _lut.lut_activation(x, table.table, x_min=table.x_min,
+                                   x_max=table.x_max)
+    return lut_mod.lut_lookup(table, x)

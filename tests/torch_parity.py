@@ -1,0 +1,61 @@
+"""Shared helpers of the port's parity tests (``tests/test_torch_*.py``).
+
+Inputs are made with numpy from a fixed seed and handed to both
+packages; JAX stays on the CPU and values cross as numpy arrays.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+
+def rng(seed: int = 0) -> np.random.Generator:
+    return np.random.default_rng(seed)
+
+
+def to_torch(x) -> "torch.Tensor":
+    """A numpy (or JAX) array as a CPU tensor, dtype kept."""
+    return torch.from_numpy(np.array(np.asarray(x)))
+
+
+def to_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def assert_bits_equal(port, ref) -> None:
+    """Same dtype, shape and bytes (so -0.0 != 0.0 and NaN payloads
+    count)."""
+    a, b = to_numpy(port), to_numpy(ref)
+    assert a.dtype == b.dtype and a.shape == b.shape, (a.dtype, a.shape,
+                                                        b.dtype, b.shape)
+    bits = np.dtype(f"u{a.dtype.itemsize}")
+    np.testing.assert_array_equal(np.ascontiguousarray(a).view(bits),
+                                  np.ascontiguousarray(b).view(bits))
+
+
+def require_cuda() -> "torch.device":
+    """Skip the calling test when there is no CUDA device (decided when the
+    test runs, never when the module is imported)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    return torch.device("cuda")
+
+
+def classification(seed: int, n: int, d: int):
+    r = rng(seed)
+    X = r.standard_normal((n, d)).astype(np.float32)
+    w = (r.standard_normal(d) * 2.0 / np.sqrt(d)).astype(np.float32)
+    p = 1.0 / (1.0 + np.exp(-(X @ w)))
+    y = (r.random(n) < p).astype(np.float32)
+    return X, y
+
+
+def regression(seed: int, n: int, d: int):
+    r = rng(seed)
+    X = r.standard_normal((n, d)).astype(np.float32)
+    w = r.standard_normal(d).astype(np.float32)
+    y = (X @ w + 0.1 * r.standard_normal(n)).astype(np.float32)
+    return X, y
