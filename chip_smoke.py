@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's training path once on the card.
+"""Drive the PyTorch/H100 port's training paths once on the card.
 
     python3 chip_smoke.py              # one CUDA card, full size
     python3 chip_smoke.py --rehearse   # CPU, small size, plain versions
@@ -7,21 +7,27 @@
 Phases, each printed as one JSON line:
 
   1. device   — the card, and its name and power limit from nvidia-smi;
-  2. build    — both CUDA kernels built from src/repro_torch/kernels/csrc;
+  2. build    — the four CUDA kernels built from
+                src/repro_torch/kernels/csrc, in parallel;
   3. compare  — each kernel's wrapper against its plain PyTorch version
-                on the card, bit for bit, at the training path's shapes
-                (256 lanes x 65,536 rows x 64 features), on ragged shapes,
-                with K > 4096 and the strided transposed view, and their
-                median times (CUDA events);
-  4. train    — ``api.fit`` of LogReg(int8, LUT sigmoid) on 256 vDPUs x
-                d=64 x 2^24 rows made on the card from --seed: 50 steps at
-                cadence 1 and 48 at cadence 8, against the fp32 + exact
-                sigmoid run on the same data, then LinReg int8 for 20
-                steps; the launch counters are set to 0 before each run
-                and must show the launches the design implies; a small
-                fit must equal its ``use_kernels(False)`` twin bit for bit;
-  5. predict  — the trained state answers requests of 1, 7 and 512 rows
-                through ``Workload.predict``, bit-exact with the plain
+                on the card at the training paths' shapes (256 lanes x
+                65,536 rows) and on ragged shapes: fxp_matmul,
+                lut_activation and split_hist bit for bit; kmeans_assign's
+                assignments and counts bit for bit, its sums and sse
+                within 1e-5 of their mass, and two launches bit-equal;
+                then their median times (CUDA events) and bounds;
+  4. train    — ``api.fit`` on 256 vDPUs x 2^24 rows made on the card
+                from --seed: LogReg(int8, LUT sigmoid) at d=64, 50 steps
+                at cadence 1 and 48 at cadence 8, against fp32 + exact
+                sigmoid, then LinReg int8 for 20 steps; KMeans k=8 d=16
+                for 10 iterations at fp32 and int16 (cadence 1 and 8);
+                DecisionTree depth 6, 32 bins, 4 classes, d=16, against
+                its ``use_kernels(False)`` twin.  The launch counters are
+                set to 0 before each run and must show the launches the
+                design implies; small fits must equal (K-means: within
+                atol 1e-4, rtol 1e-5) their ``use_kernels(False)`` twins;
+  5. predict  — each trained workload answers requests of 1, 7 and 512
+                rows through ``Workload.predict``, equal to the plain
                 path;
   6. the ``kernels`` line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
@@ -52,17 +58,27 @@ from repro_torch.configs.pim_ml import CONFIG  # noqa: E402
 from repro_torch.core import datasets, make_grid  # noqa: E402
 from repro_torch.core import lut as lut_mod  # noqa: E402
 from repro_torch.core import quantize as qz  # noqa: E402
-from repro_torch.core.mlalgos import LinReg, LogReg, accuracy, api  # noqa: E402
+from repro_torch.core.mlalgos import (DecisionTree, KMeans,  # noqa: E402
+                                      LinReg, LogReg, accuracy, api)
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
 from repro_torch.kernels.fxp_matmul import fxp_matmul  # noqa: E402
+from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
 from repro_torch.kernels.lut_activation import lut_activation  # noqa: E402
+from repro_torch.kernels.split_hist import split_hist  # noqa: E402
 
-# PimMLConfig's regression workload at a size the card holds for real
-# (its reg_rows=65536 was cut to fit the JAX package's CPU container):
-# 2^24 rows, a 1 GiB int8 resident dataset at d=64
+# PimMLConfig's workloads at a size the card holds for real (its reg_rows,
+# km_rows and dt_rows were cut to fit the JAX package's CPU container):
+# 2^24 rows, a 1 GiB int8 regression set at d=64, a 512 MiB int16 K-means
+# set and 1 GiB of int32 tree bins at d=16
 FULL_ROWS = 2 ** 24
 LINREG_STEPS = 20
 TIMING_ITERS = 20
+KM_RATE_FITS = 5
+DT_TIMED_TREES = 3
+# kmeans_assign's sums and sse against the plain version's: another
+# summation order, so each may differ by 1e-5 of its mass (Σ w·|x| of the
+# cell; |sse| + 1 for the sse)
+KM_REL_TOL = 1e-5
 # NVIDIA H100 SXM data sheet (dense): HBM3 rate, int8 tensor-core rate,
 # float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -73,7 +89,34 @@ SOURCES = {
                    "src/repro/kernels/fxp_matmul.py:48"),
     "lut_activation": ("src/repro_torch/kernels/csrc/lut_activation.cu",
                        "src/repro/kernels/lut_activation.py:41"),
+    "kmeans_assign": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
+                      "src/repro/kernels/kmeans_assign.py:61"),
+    "split_hist": ("src/repro_torch/kernels/csrc/split_hist.cu",
+                   "src/repro/kernels/split_hist.py:58"),
 }
+LIBRARY_NOTES = {
+    "fxp_matmul": "no single PyTorch call computes int32 chunk partials of "
+                  "int8 x int16 limbs (see PERF.md)",
+    "lut_activation": "the lookup is an index computation plus a gather, "
+                      "two PyTorch calls (see PERF.md)",
+    "kmeans_assign": "no single PyTorch call computes the fused distance, "
+                     "argmin and weighted one-hot sums",
+    "split_hist": "torch.bincount(flat, weights, minlength) on the combined "
+                  "(lane, node, feature, bin, class) index, computed outside "
+                  "the timed region (the index is excluded)",
+}
+PER = {
+    "fxp_matmul": "one training step: forward (L,R,d)x(d,2) + gradient "
+                  "(L,d,R)x(L,R,2), int32 chunk partials",
+    "lut_activation": "one training step: sigmoid of z (L,R)",
+    "kmeans_assign": "one Lloyd iteration: int16 rows (L,R,16), shared "
+                     "centroids (8,16)",
+    "split_hist": "one depth-6 tree: the six level passes and the leaf pass "
+                  "(1, 2, ..., 64 nodes), (L,R,16) int32 bins, 32 bins, "
+                  "4 classes",
+}
+PORT_KERNELS = re.compile(r"(fxp_\w+?_kernel|lut_kernel|km_partials|km_reduce"
+                          r"|hist_kernel)")
 
 
 class SmokeFailure(Exception):
@@ -89,14 +132,21 @@ def require(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+WRAPPERS = (fxp_matmul, lut_activation, kmeans_assign, split_hist)
+
+
 def reset_counts() -> None:
-    fxp_matmul.launches = 0
-    lut_activation.launches = 0
+    for fn in WRAPPERS:
+        fn.launches = 0
 
 
 def counts() -> dict:
-    return {"fxp_matmul": fxp_matmul.launches,
-            "lut_activation": lut_activation.launches}
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+def expected(**launches) -> dict:
+    """Every wrapper's expected count: those named, and 0 for the rest."""
+    return {fn.__name__: launches.get(fn.__name__, 0) for fn in WRAPPERS}
 
 
 def sync(dev: torch.device) -> None:
@@ -289,13 +339,195 @@ def time_kernels(gen, lanes: int, rows: int, d: int, iters: int) -> dict:
     return {"fxp_matmul": fxp, "lut_activation": lut}
 
 
+def km_inputs(gen, lanes: int, rows: int, d: int, k: int, dtype,
+              per_lane: bool) -> tuple:
+    """K-means kernel inputs as the path makes them: blobs, quantized per
+    feature to int16/int8 (with their scales) or kept float32, sharded
+    into (lanes, rows, d); centroids drawn from the rows, shared or one
+    per lane; every tenth row masked out."""
+    dev = gen.device
+    X, _, _ = datasets.blobs(gen, lanes * rows, d, k)
+    scale = None
+    if dtype != torch.float32:
+        q = qz.quantize_symmetric(X, bits=8 * dtype.itemsize, axis=0)
+        X, scale = q.values, q.scale
+    x = X.reshape(lanes, rows, d)
+    xf = x.float() * scale if scale is not None else x
+    c = xf[0, :k].clone()
+    if per_lane:
+        c = c + 0.1 * torch.randn((lanes, k, d), generator=gen, device=dev)
+    w = (torch.arange(rows, device=dev) % 10 != 9).float().expand(
+        lanes, rows).contiguous()
+    return x, c, w, scale, xf
+
+
+def km_check(name: str, x, c, w, scale, xf) -> dict:
+    """kmeans_assign against its plain version: assignments and counts
+    bit-equal, sums within KM_REL_TOL of their mass, sse within
+    KM_REL_TOL of |sse| + 1, and a second launch bit-equal."""
+    got = kmeans_assign(x, c, w, scale, return_assign=True)
+    want = ref.kmeans_assign_ref(x, c, w, scale, return_assign=True)
+    again = kmeans_assign(x, c, w, scale, return_assign=True)
+    K = want[0].shape[-2]
+    onehot = (want[3].long()[..., None] == torch.arange(K, device=x.device)
+              ).double() * w.double()[..., None]
+    mass = onehot.transpose(-1, -2) @ xf.abs().double()
+    del onehot
+    d_sums = (got[0].double() - want[0].double()).abs()
+    d_sse = (got[2].double() - want[2].double()).abs()
+    out = {"case": name, "x": list(x.shape), "dtype": str(x.dtype),
+           "centroids": list(c.shape),
+           "assign_equal": bool(torch.equal(got[3], want[3])),
+           "counts_equal": bool(torch.equal(got[1], want[1])),
+           "sums_max_abs_err": float(d_sums.max()),
+           "sums_max_err_over_mass": float((d_sums / mass.clamp(
+               min=1e-30)).max()),
+           "sse_max_abs_err": float(d_sse.max()),
+           "deterministic": all(bool(torch.equal(a, b))
+                                for a, b in zip(got, again))}
+    require(out["assign_equal"] and out["counts_equal"],
+            f"kmeans_assign assignments/counts != plain: {name}")
+    require(bool((d_sums <= KM_REL_TOL * mass + 1e-30).all()),
+            f"kmeans_assign sums beyond {KM_REL_TOL} of their mass: {out}")
+    require(bool((d_sse <= KM_REL_TOL * (want[2].double().abs() + 1)).all()),
+            f"kmeans_assign sse beyond tolerance: {out}")
+    require(out["deterministic"], f"kmeans_assign not deterministic: {name}")
+    return out
+
+
+def compare_km(gen, lanes: int, rows: int, d: int, k: int) -> list:
+    """At the path's shapes (every lane, shared and per-lane centroids,
+    float32, int16 and int8 rows) and on ragged ones."""
+    out = []
+    for dtype in (torch.float32, torch.int16, torch.int8):
+        for per_lane in (False, True):
+            name = (f"path, {str(dtype)[6:]}, "
+                    f"{'per-lane' if per_lane else 'shared'} centroids")
+            out.append(km_check(name, *km_inputs(gen, lanes, rows, d, k,
+                                                 dtype, per_lane)))
+    for L, R, D, K, dtype in ((3, 1001, 5, 3, torch.float32),
+                              (2, 777, 33, 17, torch.int8),
+                              (5, 300, 16, 1, torch.int16)):
+        out.append(km_check(f"ragged L={L} R={R} D={D} K={K}",
+                            *km_inputs(gen, L, R, D, K, dtype, True)))
+    return out
+
+
+def sh_inputs(gen, lanes: int, rows: int, F: int, nodes: int, bins: int,
+              classes: int) -> tuple:
+    dev = gen.device
+    node = rand_int(gen, (lanes, rows), 0, nodes, torch.int32)
+    xbin = rand_int(gen, (lanes, rows, F), 0, bins, torch.int32)
+    y = rand_int(gen, (lanes, rows), 0, classes, torch.int32)
+    w = (torch.arange(rows, device=dev) % 10 != 9).float().expand(
+        lanes, rows).contiguous()
+    return node, xbin, y, w
+
+
+def compare_sh(gen, lanes: int, rows: int, F: int, bins: int,
+               classes: int) -> list:
+    """Bit-equal at depth 0 and at the full tree's final pass (1 and 64
+    nodes, every lane), with int16/uint8 bins and a lane-strided view,
+    out-of-range indices, and on ragged shapes; two launches equal."""
+    cases = []
+    for nodes in (1, 64):
+        cases.append((f"path, {nodes} node(s)", sh_inputs(
+            gen, lanes, rows, F, nodes, bins, classes), nodes, bins,
+            classes))
+    node, xbin, y, w = sh_inputs(gen, 6, 5000, 40, 96, 16, 3)
+    node[0, :3], xbin[1, :3, 0], y[2, 3:6] = 96, 16, -1
+    cases.append(("ragged, out-of-range indices", (node, xbin, y, w), 96,
+                  16, 3))
+    cases.append(("int16 bins, lane stride 2",
+                  (node[::2], xbin[::2].to(torch.int16), y[::2], w[::2]),
+                  96, 16, 3))
+    node, xbin, y, w = sh_inputs(gen, 3, 1001, 7, 3, 9, 5)
+    cases.append(("uint8 bins, 7 features",
+                  (node, xbin.to(torch.uint8), y, w), 3, 9, 5))
+    out = []
+    for name, args, nodes, nb, nc in cases:
+        kw = {"n_nodes": nodes, "n_bins": nb, "n_classes": nc}
+        got = split_hist(*args, **kw)
+        equal = bool(torch.equal(got, ref.split_hist_ref(*args, **kw)))
+        again = bool(torch.equal(got, split_hist(*args, **kw)))
+        out.append({"case": name, "xbin": list(args[1].shape),
+                    "nodes": nodes, "equal": equal, "deterministic": again})
+        require(equal and again, f"split_hist != plain version: {name}")
+    return out
+
+
+def time_km(gen, lanes: int, rows: int, d: int, k: int, iters: int) -> dict:
+    """One Lloyd iteration of the main K-means path: int16 rows, shared
+    centroids.  ops = rows x (2KD + 2K distances, 2D |x|^2, D dequantize,
+    2D + 2 accumulation)."""
+    x, c, w, scale, xf = km_inputs(gen, lanes, rows, d, k, torch.int16,
+                                   False)
+    check = km_check("timed shapes", x, c, w, scale, xf)
+    fn = lambda: kmeans_assign(x, c, w, scale)                  # noqa: E731
+    plain = lambda: ref.kmeans_assign_ref(x, c, w, scale)       # noqa: E731
+    outs = kmeans_assign(x, c, w, scale)
+    n = lanes * rows
+    t = {"ms": median_ms(fn, gen.device, iters),
+         "plain_ms": median_ms(plain, gen.device, max(1, iters // 5)),
+         "bytes": nbytes(x, c, w, scale, *outs),
+         "ops": n * (2 * k * d + 2 * k + 5 * d + 2),
+         "max_abs_err": check["sums_max_abs_err"],
+         "sse_max_abs_err": check["sse_max_abs_err"],
+         "library_ms": None}
+    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
+                                         FP32_OPS_PER_S)
+    return t
+
+
+def time_sh(gen, lanes: int, rows: int, F: int, depth: int, bins: int,
+            classes: int, iters: int) -> dict:
+    """The histograms of one depth-``depth`` tree: one pass per level and
+    the leaf pass (1, 2, ..., 2^depth nodes).  ops = one add per (row,
+    feature) element of weight 1."""
+    dev = gen.device
+    parts = {}
+    for level in range(depth + 1):
+        nodes = 2 ** level
+        node, xbin, y, w = sh_inputs(gen, lanes, rows, F, nodes, bins,
+                                     classes)
+        kw = {"n_nodes": nodes, "n_bins": bins, "n_classes": classes}
+        fn = lambda: split_hist(node, xbin, y, w, **kw)         # noqa: E731
+        plain = lambda: ref.split_hist_ref(node, xbin, y, w, **kw)  # noqa
+        H = fn()
+        err = max_abs_err(H, plain())
+        require(err == 0.0, f"split_hist != plain at {nodes} nodes ({err})")
+        size = H.numel()
+        lane = torch.arange(lanes, device=dev)[:, None, None]
+        flat = (((((lane * nodes + node.long()[..., None]) * F
+                   + torch.arange(F, device=dev)) * bins + xbin.long())
+                 * classes + y.long()[..., None])).reshape(-1)
+        wf = w[..., None].expand(lanes, rows, F).reshape(-1)
+        lib = lambda: torch.bincount(flat, weights=wf,           # noqa: E731
+                                     minlength=size)
+        require(bool(torch.equal(lib().float(), H.reshape(-1))),
+                f"bincount != split_hist at {nodes} nodes")
+        parts[f"{nodes} nodes"] = {
+            "ms": median_ms(fn, dev, iters),
+            "plain_ms": median_ms(plain, dev, max(1, iters // 5)),
+            "library_ms": median_ms(lib, dev, max(1, iters // 5)),
+            "bytes": nbytes(node, xbin, y, w, H),
+            "ops": int(w.sum()) * F, "max_abs_err": err}
+        del flat, wf, node, xbin, y, w, H
+    t = {key: sum(p[key] for p in parts.values())
+         for key in ("ms", "plain_ms", "library_ms", "bytes", "ops",
+                     "max_abs_err")}
+    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
+                                         FP32_OPS_PER_S)
+    t["parts"] = parts
+    return t
+
+
 # -- phases 4 and 5 --------------------------------------------------------
 
 
-def fit_run(name, workload, grid, X, y, steps, expect, check_counts,
-            **kw) -> tuple:
+def counted_fit(workload, grid, X, y, steps, **kw) -> tuple:
     """``api.fit`` with the counters set to 0 just before and read just
-    after; returns (result, summary)."""
+    after: (result, launches, {seconds_fit, peak_memory_gib})."""
     dev = grid.device
     sync(dev)
     if dev.type == "cuda":
@@ -304,15 +536,23 @@ def fit_run(name, workload, grid, X, y, steps, expect, check_counts,
     t0 = time.perf_counter()
     res = api.fit(workload, grid, X, y, steps=steps, **kw)
     sync(dev)
-    seconds = time.perf_counter() - t0
+    stats = {"seconds_fit": time.perf_counter() - t0}
     seen = counts()
+    if dev.type == "cuda":
+        stats["peak_memory_gib"] = \
+            torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return res, seen, stats
+
+
+def fit_run(name, workload, grid, X, y, steps, expect, check_counts,
+            **kw) -> tuple:
+    """A regression fit through :func:`counted_fit`; returns (result,
+    summary)."""
+    res, seen, stats = counted_fit(workload, grid, X, y, steps, **kw)
     losses = [float(m["loss"]) for m in res.history]
     summary = {"run": name, "steps": steps, "launches": seen,
-               "expected_launches": expect, "seconds_fit": seconds,
+               "expected_launches": expect, **stats,
                "loss_first": losses[0], "loss_last": losses[-1]}
-    if dev.type == "cuda":
-        summary["peak_memory_gib"] = \
-            torch.cuda.max_memory_allocated(dev) / 2 ** 30
     require(len(losses) == steps, f"{name}: {len(losses)} history entries")
     require(all(math.isfinite(v) for v in losses), f"{name}: loss not "
             "finite")
@@ -344,36 +584,42 @@ def step_rate(workload, grid, X, y, steps, reps=5, **kw) -> dict:
 
 def profile_steps(workload, grid, X, y, steps: int) -> dict:
     """Where a main-path step's time goes: ``torch.profiler`` over
-    ``steps`` warm steps of ``Program.fit``, device time by kernel, and
-    the device's idle share of the traced window."""
+    ``steps`` warm steps of ``Program.fit``."""
+    program = workload.bind(grid, X, y)
+    program.fit(steps=2)
+    return profile_call(lambda: program.fit(steps=steps), grid.device,
+                        steps=steps)
+
+
+def profile_call(run, dev, **label) -> dict:
+    """``torch.profiler`` over one call of ``run()`` (after a warm-up
+    elsewhere): device time by kernel and the device's idle share of the
+    traced window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    program = workload.bind(grid, X, y)
-    program.fit(steps=2)
-    sync(grid.device)
+    sync(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        program.fit(steps=steps)
-        sync(grid.device)
+        run()
+        sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     if not kernels:
-        return {"steps": steps, "device_time": "not measured (the profiler "
+        return {**label, "device_time": "not measured (the profiler "
                 "recorded no device events)", "traced_wall_ms": wall_ms}
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    port = re.compile(r"(fxp_\w+?_kernel|lut_kernel)")   # names are mangled
 
-    def name(key: str) -> str:
-        found = port.search(key)
+    def name(key: str) -> str:                         # names are mangled
+        found = PORT_KERNELS.search(key)
         return found.group(1) if found else key[:90]
 
     ours = sum(e.self_device_time_total for e in kernels
-               if port.search(e.key))
-    return {"steps": steps, "traced_wall_ms": wall_ms,
+               if PORT_KERNELS.search(e.key))
+    return {**label, "traced_wall_ms": wall_ms,
             "device_busy_ms": busy_us / 1e3,
             "idle_share": max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
             "port_kernels_ms": ours / 1e3,
@@ -409,8 +655,7 @@ def train(args, dev, card: str) -> tuple:
     runs = []
     t0 = time.perf_counter()
     ref_res, s = fit_run("logreg fp32 exact", LogReg(lr=0.5), grid, X, y,
-                         args.steps, {"fxp_matmul": 0, "lut_activation": 0},
-                         check)
+                         args.steps, expected(), check)
     acc_ref = accuracy(ref_res.state, X, y)
     s["accuracy"] = acc_ref
     runs.append(s)
@@ -418,21 +663,22 @@ def train(args, dev, card: str) -> tuple:
     wl = LogReg(lr=0.5, precision="int8", sigmoid="lut")
     # the main path: its counters are the kernels line's "launches"
     main_res, s = fit_run("logreg int8 lut, cadence 1", wl, grid, X, y,
-                          args.steps, {"fxp_matmul": 2 * args.steps,
-                                       "lut_activation": args.steps}, check)
+                          args.steps, expected(fxp_matmul=2 * args.steps,
+                                               lut_activation=args.steps),
+                          check)
     main_counts = s["launches"]
     s["accuracy"] = accuracy(main_res.state, X, y)
     s["steps_per_s"] = step_rate(wl, grid, X, y, args.steps)
     require(abs(s["accuracy"] - acc_ref) <= 0.01, "int8 + LUT accuracy "
             f"{s['accuracy']} is not within 0.01 of fp32 {acc_ref}")
     runs.append(s)
-    emit("profile", **profile_steps(wl, grid, X, y, 5))
+    emit("profile", workload="logreg", **profile_steps(wl, grid, X, y, 5))
 
     k = args.cadence
     cad_res, s = fit_run(f"logreg int8 lut, cadence {k}", wl, grid, X, y,
                          args.cadence_steps,
-                         {"fxp_matmul": 2 * args.cadence_steps,
-                          "lut_activation": args.cadence_steps}, check,
+                         expected(fxp_matmul=2 * args.cadence_steps,
+                                  lut_activation=args.cadence_steps), check,
                          merge_every=k)
     s["accuracy"] = accuracy(cad_res.state, X, y)
     s["steps_per_s"] = step_rate(wl, grid, X, y, args.cadence_steps,
@@ -446,18 +692,166 @@ def train(args, dev, card: str) -> tuple:
     Xr, yr, _ = datasets.regression(gen, args.rows, args.features)
     lin = LinReg(lr=0.1, precision="int8")
     _, s = fit_run("linreg int8, cadence 1", lin, grid, Xr, yr,
-                   args.linreg_steps, {"fxp_matmul": 2 * args.linreg_steps,
-                                       "lut_activation": 0}, check)
+                   args.linreg_steps,
+                   expected(fxp_matmul=2 * args.linreg_steps), check)
     runs.append(s)
     del Xr, yr
-    emit("train", card=card, lanes=args.lanes, rows=args.rows,
-         features=args.features,
+    emit("train", workload="logreg/linreg", card=card, lanes=args.lanes,
+         rows=args.rows, features=args.features,
          runs=runs, small_parity=small_parity(dev, args.seed, args.features),
          seconds=time.perf_counter() - t0)
     return wl, main_res.state, requests, main_counts
 
 
-def predict(wl, state, requests, check_counts: bool) -> None:
+def km_run(name, wl, grid, X, iters, check, **kw) -> tuple:
+    """One K-means fit: one ``kmeans_assign`` launch per iteration, a
+    finite state, and (at cadence 1, where Lloyd's SSE cannot rise) the
+    last SSE at most the first."""
+    res, seen, stats = counted_fit(wl, grid, X, None, iters, **kw)
+    sse = [float(m["sse"]) for m in res.history]
+    want = expected(kmeans_assign=iters)
+    summary = {"run": name, "iterations": iters, "launches": seen,
+               "expected_launches": want, **stats,
+               "sse_first": sse[0], "sse_last": sse[-1],
+               "moved_last": float(res.history[-1]["moved"]),
+               "eval_sse": res.eval(X)["sse"]}
+    require(len(sse) == iters and all(math.isfinite(v) for v in sse),
+            f"{name}: history {sse}")
+    require(bool(torch.isfinite(res.state).all()), f"{name}: state not "
+            "finite")
+    if kw.get("merge_every", 1) == 1:
+        require(sse[-1] <= sse[0], f"{name}: the SSE rose")
+    if check:
+        require(seen == want, f"{name}: launches {seen}, the design "
+                f"implies {want}")
+    return res, summary
+
+
+def small_km_parity(dev, seed: int, d: int, k: int) -> dict:
+    """Small K-means fits against their use_kernels(False) twins (within
+    atol 1e-4, rtol 1e-5: counts are exact, sums differ in order), and
+    the python engine bit-equal to the scan engine.  The fits start near
+    the blobs' centres: from random rows two centroids can split one
+    blob, and a row on that dense boundary flips on a 1-ulp difference
+    of the centroids and moves them by |x| / count."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    X, _, centers = datasets.blobs(gen, 8 * 4096 + 5, d, k)
+    c0 = centers + 0.1 * torch.randn(centers.shape, generator=gen,
+                                     device=dev)
+    grid = make_grid(8, device=dev)
+    out = {}
+    for precision in ("fp32", "int16"):
+        for cadence in (1, 4):
+            program = KMeans(k=k, precision=precision).bind(grid, X)
+            program.state0 = c0
+            a = program.fit(steps=10, merge_every=cadence)
+            with dispatch.use_kernels(False):
+                b = program.fit(steps=10, merge_every=cadence)
+            c = program.fit(steps=10, merge_every=cadence, engine="python")
+            case = {"max_abs_err": max_abs_err(a.state, b.state),
+                    "within_tolerance": bool(torch.allclose(
+                        a.state, b.state, atol=1e-4, rtol=1e-5)),
+                    "python_equals_scan": bool(torch.equal(a.state,
+                                                           c.state))}
+            out[f"{precision}, cadence {cadence}"] = case
+            require(case["within_tolerance"] and case["python_equals_scan"],
+                    f"small K-means fit ({precision}, cadence {cadence}): "
+                    f"{case}")
+    return out
+
+
+def train_kmeans(args, dev, card: str) -> tuple:
+    """K-means on blobs: fp32 (the yardstick), int16 at cadence 1 (the
+    main K-means path) and int16 at cadence 8 (a round of 8 and one of
+    2)."""
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 10)
+    grid = make_grid(args.lanes, device=dev)
+    d, k, iters = args.km_features, args.km_clusters, args.km_iters
+    X, _, _ = datasets.blobs(gen, args.rows, d, k)
+    check = not args.rehearse
+    t0 = time.perf_counter()
+    _, ref_s = km_run("kmeans fp32, cadence 1", KMeans(k=k), grid, X, iters,
+                      check)
+    wl = KMeans(k=k, precision="int16")
+    main_res, s = km_run("kmeans int16, cadence 1", wl, grid, X, iters,
+                         check)
+    main_counts = s["launches"]
+    s["iterations_per_s"] = step_rate(wl, grid, X, None, iters,
+                                      reps=KM_RATE_FITS)
+    require(s["eval_sse"] <= 1.05 * ref_s["eval_sse"], f"int16 SSE "
+            f"{s['eval_sse']} above 1.05 x fp32 {ref_s['eval_sse']}")
+    emit("profile", workload="kmeans", **profile_steps(wl, grid, X, None,
+                                                        iters))
+    _, cad_s = km_run(f"kmeans int16, cadence {args.cadence}", wl, grid, X,
+                      iters, check, merge_every=args.cadence)
+    cad_s["iterations_per_s"] = step_rate(wl, grid, X, None, iters,
+                                          reps=KM_RATE_FITS,
+                                          merge_every=args.cadence)
+    requests = X[:512].clone()
+    del X
+    emit("train", workload="kmeans", card=card, lanes=args.lanes,
+         rows=args.rows, features=d, clusters=k,
+         runs=[ref_s, s, cad_s],
+         small_parity=small_km_parity(dev, args.seed, d, k),
+         seconds=time.perf_counter() - t0)
+    return wl, main_res.state, requests, main_counts
+
+
+def train_tree(args, dev, card: str) -> tuple:
+    """DecisionTree on the labelled mixture: one split_hist launch per
+    level and one for the leaf pass, and the tree equal to its
+    use_kernels(False) twin."""
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
+    grid = make_grid(args.lanes, device=dev)
+    X, y = datasets.mixture_classification(gen, args.rows, args.dt_features,
+                                           args.dt_classes)
+    wl = DecisionTree(max_depth=args.dt_depth, n_bins=args.dt_bins,
+                      n_classes=args.dt_classes)
+    t0 = time.perf_counter()
+    res, seen, stats = counted_fit(wl, grid, X, y, wl.max_depth)
+    levels = len(res.history)
+    reached = sum(1 for h in res.history if h["splits"] > 0)
+    want = expected(split_hist=levels + (1 if reached else 0))
+    if not args.rehearse:
+        require(seen == want, f"tree: launches {seen}, the design implies "
+                f"{want}")
+    with dispatch.use_kernels(False):
+        twin = api.fit(wl, grid, X, y, steps=wl.max_depth)
+    equal = {f: bool(torch.equal(getattr(res.state, f),
+                                 getattr(twin.state, f)))
+             for f in ("feature", "threshold", "leaf_value", "bin_edges")}
+    require(all(equal.values()), f"tree != its plain twin: {equal}")
+    acc = res.eval(X, y)["accuracy"]
+    require(acc > 0.5, f"tree training accuracy {acc}")
+    times = []
+    for _ in range(DT_TIMED_TREES):
+        sync(dev)
+        t1 = time.perf_counter()
+        api.fit(wl, grid, X, y, steps=wl.max_depth)
+        sync(dev)
+        times.append(time.perf_counter() - t1)
+    emit("profile", workload="dtree", **profile_call(
+        lambda: api.fit(wl, grid, X, y, steps=wl.max_depth), dev, trees=1))
+    requests = X[:512].clone()
+    emit("train", workload="dtree", card=card, lanes=args.lanes,
+         rows=args.rows, features=args.dt_features, depth=wl.max_depth,
+         bins=wl.n_bins, classes=wl.n_classes,
+         runs=[{"run": "dtree, first fit", "launches": seen,
+                "expected_launches": want, **stats, "levels": levels,
+                "reached_depth": reached,
+                "splits_per_level": [h["splits"] for h in res.history],
+                "accuracy": acc, "equal_to_plain_twin": equal,
+                "seconds_per_tree": {"median": statistics.median(times),
+                                     "min": min(times), "max": max(times),
+                                     "trees": len(times)}}],
+         seconds=time.perf_counter() - t0)
+    return wl, res.state, requests, seen
+
+
+def predict(name, wl, state, requests, launches: dict,
+            check_counts: bool) -> None:
+    """Requests of 1, 7 and 512 rows through ``Workload.predict``, equal
+    to the plain path, with the launches each request implies."""
     results = []
     for n in (1, 7, 512):
         rows = requests[:n]
@@ -465,17 +859,17 @@ def predict(wl, state, requests, check_counts: bool) -> None:
         got = wl.predict(state, rows)
         seen = counts()
         if check_counts:
-            require(seen == {"fxp_matmul": 1, "lut_activation": 1},
-                    f"predict({n}) launched {seen}")
+            require(seen == launches, f"{name} predict({n}) launched {seen}")
         with dispatch.use_kernels(False):
             want = wl.predict(state, rows)
         equal = bool(torch.equal(got, want))
         results.append({"rows": n, "launches": seen, "equal": equal,
-                        "mean_p": float(got.mean())})
+                        "mean": float(got.float().mean())})
         require(got.shape == (n,) and bool(torch.isfinite(got).all()),
-                f"predict({n}) gave {tuple(got.shape)} or non-finite")
-        require(equal, f"predict({n}) != its plain twin")
-    emit("predict", requests=results)
+                f"{name} predict({n}) gave {tuple(got.shape)} or "
+                "non-finite")
+        require(equal, f"{name} predict({n}) != its plain twin")
+    emit("predict", workload=name, requests=results)
 
 
 # -- main ------------------------------------------------------------------
@@ -508,6 +902,10 @@ def main(argv=None) -> int:
     args.cadence = cfg.merge_every
     args.cadence_steps = cfg.reg_steps // cfg.merge_every * cfg.merge_every
     args.linreg_steps, args.iters = LINREG_STEPS, TIMING_ITERS
+    args.km_features, args.km_clusters = cfg.km_features, cfg.km_clusters
+    args.km_iters = cfg.km_iters
+    args.dt_features, args.dt_classes = cfg.dt_features, cfg.dt_classes
+    args.dt_depth, args.dt_bins = cfg.dt_depth, cfg.dt_bins
 
     if args.rehearse:
         dev = torch.device("cpu")
@@ -535,27 +933,46 @@ def main(argv=None) -> int:
     emit("compare", fxp_matmul=compare_fxp(gen, args.lanes, per_lane,
                                            args.features),
          lut_activation=compare_lut(gen, args.lanes, per_lane))
+    emit("compare", kmeans_assign=compare_km(
+        gen, args.lanes, per_lane, args.km_features, args.km_clusters),
+         split_hist=compare_sh(gen, args.lanes, per_lane, args.dt_features,
+                               args.dt_bins, args.dt_classes))
     times = time_kernels(gen, args.lanes, per_lane, args.features,
                          args.iters)
+    times["kmeans_assign"] = time_km(gen, args.lanes, per_lane,
+                                     args.km_features, args.km_clusters,
+                                     args.iters)
+    times["split_hist"] = time_sh(gen, args.lanes, per_lane,
+                                  args.dt_features, args.dt_depth,
+                                  args.dt_bins, args.dt_classes, args.iters)
     torch.cuda.empty_cache() if dev.type == "cuda" else None
 
-    wl, state, requests, main_counts = train(args, dev, smi)
-    predict(wl, state, requests, check_counts=dev.type == "cuda")
+    on_card = dev.type == "cuda"
+    main_counts = {}
+    wl, state, requests, seen = train(args, dev, smi)
+    main_counts.update(fxp_matmul=seen["fxp_matmul"],
+                       lut_activation=seen["lut_activation"])
+    predict("logreg", wl, state, requests,
+            expected(fxp_matmul=1, lut_activation=1), on_card)
+    del state, requests
+    wl, state, requests, seen = train_kmeans(args, dev, smi)
+    main_counts["kmeans_assign"] = seen["kmeans_assign"]
+    predict("kmeans", wl, state, requests, expected(), on_card)
+    del state, requests
+    wl, state, requests, seen = train_tree(args, dev, smi)
+    main_counts["split_hist"] = seen["split_hist"]
+    predict("dtree", wl, state, requests, expected(), on_card)
 
     kernels = []
     for name, t in times.items():
         src, replaces = SOURCES[name]
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": main_counts[name],
-                 "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
-                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                 "library_ms": None,
-                 "library_note": "no single PyTorch call computes the same "
-                                 "function (see PERF.md)",
-                 "per": ("one training step: forward (L,R,d)x(d,2) + "
-                         "gradient (L,d,R)x(L,R,2), int32 chunk partials"
-                         if name == "fxp_matmul" else
-                         "one training step: sigmoid of z (L,R)")}
+                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"],
+                 "library_ms": t.get("library_ms"),
+                 "library_note": LIBRARY_NOTES[name], "per": PER[name]}
         if "parts" in t:
             entry["parts"] = t["parts"]
         kernels.append(entry)

@@ -2,8 +2,8 @@
 
 The package mirrors ``repro``'s module names so each module's
 counterpart is easy to find, but it imports neither JAX nor anything of
-``repro``.  Plain tensor code is PyTorch; the two TPU kernels on the
-training path are hand-written CUDA C++ (``kernels/csrc/``), built with
+``repro``.  Plain tensor code is PyTorch; the four TPU kernels of the
+training paths are hand-written CUDA C++ (``kernels/csrc/``), built with
 ``nvcc`` at first use and bound through ``ctypes``.
 
 Entry points (``make_grid``, ``PimGrid``, ``api.fit``,
@@ -11,16 +11,18 @@ Entry points (``make_grid``, ``PimGrid``, ``api.fit``,
 ``device="cpu"``; on the CPU every kernel wrapper runs its plain
 PyTorch version.
 
-Ported so far (the training path of ``examples/quickstart.py``):
+Ported so far (the training paths of the paper's four workloads):
 
   * ``core.quantize``  — symmetric quantization, int8 limbs, hybrid dot
   * ``core.lut``       — LUT tables and lookups, Taylor sigmoid
   * ``core.pim``       — single-device ``PimGrid`` (shard, map-reduce, fit)
-  * ``core.datasets``  — synthetic regression / classification sets
-  * ``core.mlalgos``   — Workload API, ``LinReg``, ``LogReg``
-  * ``kernels``        — ``fxp_matmul`` and ``lut_activation`` + dispatch
+  * ``core.datasets``  — regression, classification, blobs, mixture sets
+  * ``core.mlalgos``   — Workload API, ``LinReg``, ``LogReg``, ``KMeans``,
+                         ``DecisionTree``
+  * ``kernels``        — ``fxp_matmul``, ``lut_activation``,
+                         ``kmeans_assign``, ``split_hist`` + dispatch
   * ``distributed.merge_plan`` — the exact default merge plan
-  * ``configs.pim_ml`` — the regression fields of ``PimMLConfig``
+  * ``configs.pim_ml`` — the four workloads' fields of ``PimMLConfig``
   * ``interop``        — values carried across from the JAX package
 """
 

@@ -1,9 +1,9 @@
-"""The paper's regression workloads as a configuration.
+"""The paper's four workloads as a configuration.
 
 Port of the fields of ``repro.configs.pim_ml.PimMLConfig`` that the
-training slice reads.  ``reg_rows=65536`` is the size the JAX package
-scaled down to for its CPU container; ``chip_smoke.py`` runs the same
-configuration at 2^24 rows, which the card holds for real.
+ported slices read.  The row counts (65,536 and 32,768) are the sizes the
+JAX package scaled down to for its CPU container; ``chip_smoke.py`` runs
+the same configuration at 2^24 rows, which the card holds for real.
 """
 
 import dataclasses
@@ -17,6 +17,17 @@ class PimMLConfig:
     reg_rows: int = 65536
     reg_features: int = 64
     reg_steps: int = 50
+    # K-means
+    km_rows: int = 65536
+    km_features: int = 16
+    km_clusters: int = 8
+    km_iters: int = 10
+    # decision tree
+    dt_rows: int = 32768
+    dt_features: int = 16
+    dt_classes: int = 4
+    dt_depth: int = 6
+    dt_bins: int = 32
 
 
 CONFIG = PimMLConfig()

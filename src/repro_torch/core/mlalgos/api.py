@@ -17,9 +17,12 @@ with its leading ``n_vdpus`` dim, and ``local_step`` returns partials
 with that leading dim.  ``state`` is one shared tensor at cadence 1 and
 one per lane (leading ``n_vdpus`` dim) inside a cadence-k round.
 
-``fit`` is the one entry point.  Minibatch sampling (``batch_size``),
-streaming sources and the non-default merge plans are not ported yet
-(ROADMAP queue A) and raise ``NotImplementedError``.
+``fit`` is the one entry point: it applies the workload's
+``merge_caps`` and hands over to ``Workload.run`` — bind and the
+``PimGrid.fit`` loop by default, an algorithm-owned loop where training
+is not that loop (the tree's levels).  Minibatch sampling
+(``batch_size``), streaming sources and the non-default merge plans are
+not ported yet (ROADMAP queue A) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,6 +49,12 @@ class MergeCaps:
     minibatch: bool = True
     reason: str = ""
 
+    @classmethod
+    def exact_only(cls, reason: str) -> "MergeCaps":
+        """Merge every step, full batch only (the tree's discrete
+        commits)."""
+        return cls(cadence=False, minibatch=False, reason=reason)
+
     def constrain(self, name: str, plan: mp.MergePlan,
                   batch_size: Optional[int]):
         dropped = []
@@ -70,6 +79,9 @@ class Workload:
 
     name: str = "workload"
     merge_caps: MergeCaps = MergeCaps()
+    # False marks a forward pass that is not one device computation (the
+    # tree bins and descends level by level), as in the JAX package
+    predict_device: bool = True
 
     def prepare(self, grid: PimGrid, X, y=None):
         raise NotImplementedError
@@ -96,6 +108,16 @@ class Workload:
         """Shard the dataset and assemble the engine closures once."""
         data, n, consts = self.prepare(grid, X, y)
         return Program.assemble(self, grid, data, n, consts)
+
+    def run(self, grid: PimGrid, X, y=None, *, steps: int,
+            plan: mp.MergePlan, engine: str, scan_chunk: int,
+            callback: Optional[Callable]) -> "FitResult":
+        """Train from raw arrays, ``plan`` already constrained by
+        :func:`fit`.  The default is bind and the ``PimGrid.fit`` loop;
+        a workload whose training is not that loop overrides it."""
+        return self.bind(grid, X, y).fit(
+            steps=steps, engine=engine, scan_chunk=scan_chunk,
+            merge_plan=plan, callback=callback)
 
 
 @dataclasses.dataclass
@@ -185,6 +207,5 @@ def fit(workload: Workload, grid: PimGrid, X, y=None, *, steps: int,
         raise NotImplementedError(
             "streaming sources are not ported to repro_torch yet (ROADMAP "
             "queue A, item 14)")
-    return workload.bind(grid, X, y).fit(
-        steps=steps, engine=engine, scan_chunk=scan_chunk, merge_plan=plan,
-        callback=callback)
+    return workload.run(grid, X, y, steps=steps, plan=plan, engine=engine,
+                        scan_chunk=scan_chunk, callback=callback)

@@ -3,7 +3,8 @@
 Each function takes what ``repro`` produced, handed over as numpy
 arrays (``np.asarray(jax_array)``), and returns the port's tensors on
 ``device`` (``None`` means the card).  With them a JAX-trained state
-predicts in the port (``Workload.predict``), a JAX state resumes
+predicts in the port (``Workload.predict``; K-means centroids cross as a
+state, a tree with :func:`dtree_from_numpy`), a JAX state resumes
 training in the port (``PimGrid.fit(init_state=...)``), and a JAX
 resident placement feeds the port's step functions.
 """
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.lut import LutTable
+from repro_torch.core.mlalgos.dtree import DTree
 from repro_torch.core.quantize import Quantized
 from repro_torch.device import resolve_device
 
@@ -49,3 +51,20 @@ def resident_from_numpy(data: dict, device=None) -> dict:
     dev = resolve_device(device)
     return {k: torch.tensor(np.asarray(v), device=dev)
             for k, v in data.items()}
+
+
+def dtree_from_numpy(feature, threshold, leaf_value, bin_edges,
+                     max_depth: int, n_classes: int, device=None) -> DTree:
+    """A ``repro.core.mlalgos.dtree.DTree``: int32 node arrays and
+    float32 bin edges."""
+    dev = resolve_device(device)
+
+    def as_int(a):
+        return torch.tensor(np.asarray(a, dtype=np.int32), device=dev)
+
+    return DTree(feature=as_int(feature), threshold=as_int(threshold),
+                 leaf_value=as_int(leaf_value),
+                 bin_edges=torch.tensor(np.asarray(bin_edges,
+                                                   dtype=np.float32),
+                                        device=dev),
+                 max_depth=int(max_depth), n_classes=int(n_classes))

@@ -1,22 +1,23 @@
 """Kernel dispatch: routes the mlalgos' inner loops to the CUDA kernels.
 
-Port of ``repro.kernels.dispatch`` for the two kernels of the training
-path:
+Port of ``repro.kernels.dispatch``:
 
-  ==================  ===================  ==============================
-  dispatch fn         kernel               used by
-  ==================  ===================  ==============================
-  ``hybrid_matmul``   ``fxp_matmul``       linreg/logreg int8/int16
-                                           forward and gradient dots
-  ``lut_apply``       ``lut_activation``   logreg LUT sigmoid
-  ==================  ===================  ==============================
+  ====================  ===================  ============================
+  dispatch fn           kernel               used by
+  ====================  ===================  ============================
+  ``hybrid_matmul``     ``fxp_matmul``       linreg/logreg int8/int16
+                                             forward and gradient dots
+  ``lut_apply``         ``lut_activation``   logreg LUT sigmoid
+  ``kmeans_partials``   ``kmeans_assign``    kmeans Lloyd iteration
+  ``level_histogram``   ``split_hist``       dtree level statistics
+  ``nearest_centroid``  — (matmul + argmin)  kmeans eval / predict
+  ====================  ===================  ============================
 
-``use_kernels(False)`` routes both to the plain PyTorch functions of
-``core`` (``quantize.hybrid_dot``, ``lut.lut_lookup``); parity tests and
-``chip_smoke.py`` use it.  With kernels on, each wrapper launches its
-kernel on a CUDA tensor and runs its plain version on a CPU tensor.
-``kmeans_partials``, ``nearest_centroid`` and ``level_histogram`` come
-with their kernels' slices.
+``use_kernels(False)`` routes each to its plain PyTorch function
+(``quantize.hybrid_dot``, ``lut.lut_lookup``, ``ref.kmeans_assign_ref``,
+``ref.split_hist_ref``); parity tests and ``chip_smoke.py`` use it.
+With kernels on, each wrapper launches its kernel on a CUDA tensor and
+runs its plain version on a CPU tensor.
 
 Example — the kernel path equals the plain path on an integer product:
 
@@ -40,7 +41,10 @@ import torch
 from repro_torch.core import lut as lut_mod
 from repro_torch.core import quantize as qz
 from repro_torch.kernels import fxp_matmul as _fxp
+from repro_torch.kernels import kmeans_assign as _km
 from repro_torch.kernels import lut_activation as _lut
+from repro_torch.kernels import ref
+from repro_torch.kernels import split_hist as _sh
 
 _ENABLED = [True]
 # the a-limbs hybrid_dot takes, as (weight, limb selector of fxp_matmul)
@@ -103,3 +107,48 @@ def lut_apply(table: lut_mod.LutTable, x: torch.Tensor) -> torch.Tensor:
         return _lut.lut_activation(x, table.table, x_min=table.x_min,
                                    x_max=table.x_max)
     return lut_mod.lut_lookup(table, x)
+
+
+def kmeans_partials(x: torch.Tensor, centroids: torch.Tensor,
+                    w: torch.Tensor, x_scale: torch.Tensor | None = None):
+    """Per-lane K-means partials: ``x`` ``(L, R, D)`` resident rows
+    (float32, or int16/int8 dequantized by ``x_scale`` inside the
+    kernel), ``centroids`` ``(K, D)`` or ``(L, K, D)``, ``w`` ``(L, R)``
+    0/1 row mask -> ``sums (L, K, D)``, ``counts (L, K)``, ``sse (L,)``;
+    padding rows contribute nothing.
+
+    >>> import torch
+    >>> from repro_torch.kernels import dispatch
+    >>> x = torch.tensor([[[0.0, 0.0], [4.0, 4.0], [9.9, 9.9]]])
+    >>> c = torch.tensor([[0.0, 0.0], [4.0, 4.0]])
+    >>> w = torch.tensor([[1.0, 1.0, 0.0]])      # third row is padding
+    >>> sums, counts, sse = dispatch.kmeans_partials(x, c, w)
+    >>> counts.tolist(), sse.tolist()
+    ([[1.0, 1.0]], [0.0])
+    """
+    if kernels_enabled():
+        return _km.kmeans_assign(x, centroids, w, x_scale)
+    return ref.kmeans_assign_ref(x, centroids, w, x_scale)
+
+
+def nearest_centroid(x: torch.Tensor, centroids: torch.Tensor
+                     ) -> torch.Tensor:
+    """Per-row nearest centroid of float32 ``x`` ``(N, D)``: the serving
+    companion of :func:`kmeans_partials`, which never exposes its argmin.
+    As in the JAX package it has no kernel: one Gram matmul (full
+    float32) and an argmin of ``|c|² − 2·x·cᵀ``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c2 = (centroids * centroids).sum(dim=1)
+    return torch.argmin(c2[None, :] - 2.0 * (x @ centroids.T), dim=1)
+
+
+def level_histogram(node_idx: torch.Tensor, xbin: torch.Tensor,
+                    y: torch.Tensor, w: torch.Tensor, *, n_nodes: int,
+                    n_bins: int, n_classes: int) -> torch.Tensor:
+    """Per-lane ``H[lane, node, feature, bin, class]`` weighted counts
+    for one tree level (``map_reduce`` sums the lanes)."""
+    if kernels_enabled():
+        return _sh.split_hist(node_idx, xbin, y, w, n_nodes=n_nodes,
+                              n_bins=n_bins, n_classes=n_classes)
+    return ref.split_hist_ref(node_idx, xbin, y, w, n_nodes=n_nodes,
+                              n_bins=n_bins, n_classes=n_classes)

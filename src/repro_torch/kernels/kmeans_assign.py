@@ -1,0 +1,130 @@
+"""Wrapper of the ``kmeans_assign`` CUDA kernel (``csrc/kmeans_assign.cu``).
+
+Port of ``repro/kernels/kmeans_assign.py::kmeans_assign`` as
+``KMeans.local_step`` drives it: one launch computes every lane's
+K-means partials (sums, counts, sse) straight from the resident rows,
+dequantizing int16/int8 rows in registers.  A CPU tensor runs the plain
+version (:func:`repro_torch.kernels.ref.kmeans_assign_ref`); a CUDA
+tensor launches the kernel or raises.  ``kmeans_assign.launches`` counts
+the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+MAX_SMEM_BYTES = 227 * 1024    # what a block may take on Hopper
+BLOCKS_PER_SM = 32             # a few waves: the last leaves few SMs idle
+_X_DTYPES = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
+_SIGNATURES = {
+    "kmeans_assign_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]),
+    "kmeans_assign_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+def smem_bytes(K: int, D: int) -> int:
+    """Shared memory of one block at ``(K, D)``: the centroids, ``|c|²``,
+    the scales, a 256-row tile and the statistics (mirrors
+    ``smem_words`` in the source)."""
+    return 4 * (K * D + K + D + 256 * (D | 1) + 3 * 256 + K * (D + 1) + 1)
+
+
+def _check(x, centroids, w, x_scale):
+    if x.dtype not in _X_DTYPES:
+        raise TypeError(f"x must be float32, int16 or int8, got {x.dtype}")
+    if centroids.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError(f"centroids and w must be float32, got "
+                        f"{centroids.dtype}, {w.dtype}")
+    if x.dim() != 3 or w.shape != x.shape[:2]:
+        raise ValueError(f"need x (L, R, D) and w (L, R); got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    L, _, D = x.shape
+    if centroids.dim() not in (2, 3) or centroids.shape[-1] != D or (
+            centroids.dim() == 3 and centroids.shape[0] != L):
+        raise ValueError(f"centroids must be (K, {D}) or ({L}, K, {D}), got "
+                         f"{tuple(centroids.shape)}")
+    if centroids.shape[-2] < 1 or D < 1 or x.shape[1] < 1:
+        raise ValueError("need K, R and D >= 1")
+    if x_scale is not None:
+        if x_scale.dtype != torch.float32 or x_scale.numel() != D:
+            raise ValueError(f"x_scale must be float32 with {D} entries, got "
+                             f"{x_scale.dtype} {tuple(x_scale.shape)}")
+        if x.dtype == torch.float32:
+            raise ValueError("x_scale dequantizes int rows; x is float32")
+    tensors = [x, centroids, w] + ([x_scale] if x_scale is not None else [])
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("x, centroids, w and x_scale must share a device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"kmeans_assign runs on CPU or CUDA, got {x.device}")
+
+
+def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, w: torch.Tensor,
+                  x_scale: torch.Tensor | None = None, *,
+                  return_assign: bool = False):
+    """Per-lane K-means partials of the rows ``x`` against ``centroids``.
+
+    ``x``: ``(L, R, D)`` float32, or int16/int8 with ``x_scale`` (``D``
+    float32 per-feature scales: a row is ``x.float() * x_scale``); unit
+    stride along ``D``, any lane and row strides.  ``centroids``: float32
+    ``(K, D)`` shared by every lane or ``(L, K, D)`` per lane (an expanded
+    view costs no copy).  ``w``: float32 ``(L, R)`` row weights.  Returns
+    ``sums (L, K, D)``, ``counts (L, K)``, ``sse (L,)`` =
+    Σ w·|x − c_a|², and with ``return_assign`` the int32 nearest centroid of every row
+    ``(L, R)`` (first index on ties).
+    """
+    _check(x, centroids, w, x_scale)
+    if x.device.type == "cpu":
+        return ref.kmeans_assign_ref(x, centroids, w, x_scale,
+                                     return_assign=return_assign)
+    if x.stride(-1) != 1:
+        raise ValueError("x must have unit stride along D")
+    L, R, D = x.shape
+    K = centroids.shape[-2]
+    if L > 65535:
+        raise ValueError(f"at most 65535 lanes, got {L}")
+    smem = smem_bytes(K, D)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"K={K} x D={D} needs {smem} B of shared memory "
+                         f"per block, above the {MAX_SMEM_BYTES} B limit")
+    if centroids.dim() == 3 and centroids.stride(0) == 0:
+        centroids = centroids[0]                 # an expanded shared copy
+    c = centroids.contiguous()
+    c_lane = K * D if c.dim() == 3 else 0
+    dev = x.device
+    sums = torch.empty((L, K, D), dtype=torch.float32, device=dev)
+    counts = torch.empty((L, K), dtype=torch.float32, device=dev)
+    sse = torch.empty((L,), dtype=torch.float32, device=dev)
+    assign = (torch.empty((L, R), dtype=torch.int32, device=dev)
+              if return_assign else None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_blocks = max(1, min(-(-R // 256), -(-BLOCKS_PER_SM * sms // L)))
+    part = torch.empty((L, max_blocks, K * (D + 1) + 1), dtype=torch.float32,
+                       device=dev)
+    scale = (x_scale.reshape(-1).contiguous() if x_scale is not None
+             else None)
+    lib = build.load("kmeans_assign", _SIGNATURES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.kmeans_assign_launch(
+            x.data_ptr(), _X_DTYPES[x.dtype], x.stride(0), x.stride(1),
+            c.data_ptr(), c_lane, w.data_ptr(), w.stride(0), w.stride(1),
+            scale.data_ptr() if scale is not None else None, L, R, D, K,
+            max_blocks, part.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+            sse.data_ptr(), assign.data_ptr() if return_assign else None,
+            R, stream)
+    build.check(lib, "kmeans_assign", err)
+    kmeans_assign.launches += 1
+    return (sums, counts, sse) + ((assign,) if return_assign else ())
+
+
+kmeans_assign.launches = 0

@@ -40,3 +40,67 @@ def lut_activation_ref(x: torch.Tensor, table: torch.Tensor, x_min: float,
                        x_max: float) -> torch.Tensor:
     """Nearest-entry lookup, ``repro_torch.core.lut.lut_lookup``."""
     return lut_mod.lut_lookup(lut_mod.LutTable(table, x_min, x_max), x)
+
+
+def kmeans_assign_ref(x: torch.Tensor, centroids: torch.Tensor,
+                      w: torch.Tensor, x_scale: torch.Tensor | None = None,
+                      *, return_assign: bool = False):
+    """Per-lane K-means partials: ``x`` ``(L, R, D)`` float32, int16 or
+    int8 (dequantized as ``x.float() * x_scale``), ``centroids`` ``(K, D)``
+    shared or ``(L, K, D)`` per lane, ``w`` ``(L, R)`` -> ``sums (L, K,
+    D)``, ``counts (L, K)``, ``sse (L,)`` (and the int32 assignments
+    ``(L, R)`` with ``return_assign``).
+
+    ``x·c`` and ``|c|²`` are summed over ``j = 0..D-1`` in order with
+    one elementwise product and one add per term, as the kernel does, so
+    the assignments (first index on ties) are the kernel's bit for bit;
+    a matmul would sum in its own order.  The sums over rows and the sse
+    accumulate in float64 and round once: a float32 matmul sums each cell
+    along the rows one after another, and where int8 rows repeat a value
+    thousands of times its rounding drifts to ~1e-4 of the cell's mass.
+    """
+    xf = x.float()
+    if x_scale is not None:
+        xf = xf * x_scale.reshape(-1)
+    c = centroids.float()
+    c = c if c.dim() == 3 else c.unsqueeze(0)                 # (L|1, K, D)
+    K = c.shape[-2]
+    xc = xf.new_zeros(xf.shape[:-1] + (K,))
+    c2 = c.new_zeros(c.shape[:-1])
+    x2 = xf.new_zeros(xf.shape[:-1])
+    for j in range(xf.shape[-1]):
+        xj, cj = xf[..., j], c[..., j]
+        xc = xc + xj[..., None] * cj[:, None, :]
+        c2 = c2 + cj * cj
+        x2 = x2 + xj * xj
+    d = c2[:, None, :] - 2.0 * xc                             # (L, R, K)
+    a = torch.argmin(d, dim=-1)
+    best = d.gather(-1, a[..., None])[..., 0]
+    onehot = (a[..., None] == torch.arange(K, device=x.device)).float() \
+        * w[..., None]
+    sums = torch.matmul(onehot.transpose(-1, -2).double(), xf.double())
+    sse = ((best + x2) * w).double().sum(dim=-1)
+    out = (sums.float(), onehot.sum(dim=-2), sse.float())
+    return out + (a.to(torch.int32),) if return_assign else out
+
+
+def split_hist_ref(node: torch.Tensor, xbin: torch.Tensor, y: torch.Tensor,
+                   w: torch.Tensor, *, n_nodes: int, n_bins: int,
+                   n_classes: int) -> torch.Tensor:
+    """Per-lane weighted split histogram: ``node`` ``(L, R)``, ``xbin``
+    ``(L, R, F)``, ``y`` ``(L, R)``, ``w`` ``(L, R)`` -> ``H (L, n_nodes,
+    F, n_bins, n_classes)`` float32.  Elements whose node, bin or class
+    lies outside its range add nothing (as the kernel)."""
+    L, R, F = xbin.shape
+    nd, yc, b = node.long()[..., None], y.long()[..., None], xbin.long()
+    ok = ((nd >= 0) & (nd < n_nodes) & (yc >= 0) & (yc < n_classes)
+          & (b >= 0) & (b < n_bins))
+    lane = torch.arange(L, device=xbin.device)[:, None, None]
+    f = torch.arange(F, device=xbin.device)
+    flat = ((((lane * n_nodes + nd) * F + f) * n_bins + b) * n_classes + yc)
+    flat = torch.where(ok, flat, 0)
+    inc = torch.where(ok, w.float()[..., None], 0.0)
+    H = torch.zeros(L * n_nodes * F * n_bins * n_classes,
+                    dtype=torch.float32, device=xbin.device)
+    H.index_add_(0, flat.reshape(-1), inc.reshape(-1))
+    return H.reshape(L, n_nodes, F, n_bins, n_classes)

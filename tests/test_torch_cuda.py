@@ -1,6 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-PyTorch version, bit for bit, and a small fit on the card against its
-``use_kernels(False)`` twin.  They skip where there is no CUDA device and
+PyTorch version (bit for bit; K-means sums and sse within their stated
+tolerance), and small fits on the card against their
+``use_kernels(False)`` twins.  They skip where there is no CUDA device and
 import no JAX, so the machine with the card runs them as they are:
 
     PYTHONPATH=src python -m pytest -q -m requires_cuda tests/test_torch_cuda.py
@@ -11,10 +12,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import datasets, lut, make_grid  # noqa: E402
-from repro_torch.core.mlalgos import LinReg, LogReg, api  # noqa: E402
+from repro_torch.core.mlalgos import (DecisionTree, KMeans,  # noqa: E402
+                                      LinReg, LogReg, api)
 from repro_torch.kernels import dispatch, ref  # noqa: E402
 from repro_torch.kernels.fxp_matmul import fxp_matmul  # noqa: E402
+from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
 from repro_torch.kernels.lut_activation import lut_activation  # noqa: E402
+from repro_torch.kernels.split_hist import split_hist  # noqa: E402
 from torch_parity import require_cuda  # noqa: E402
 
 pytestmark = pytest.mark.requires_cuda
@@ -81,3 +85,131 @@ def test_small_fit_equals_its_plain_twin(workload, k):
     assert torch.equal(a.state, b.state)
     for m, n in zip(a.history, b.history):
         assert torch.equal(m["loss"], n["loss"])
+
+
+def _mass(xf, assign, w, K):
+    """Σ w·|x| per (lane, cluster, feature) in float64: the scale of a
+    cluster sum, against which two summation orders are compared."""
+    onehot = (assign.long()[..., None] == torch.arange(K, device=xf.device)
+              ).double() * w.double()[..., None]
+    return onehot.transpose(-1, -2) @ xf.abs().double()
+
+
+# (L, R, D, K): the path's per-lane widths, ragged rows and odd D, a wide
+# D with many clusters
+@pytest.mark.parametrize("L,R,D,K", [(4, 65536, 16, 8), (3, 1001, 5, 3),
+                                     (2, 777, 33, 17)])
+@pytest.mark.parametrize("per_lane", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16, torch.int8])
+def test_kmeans_kernel_equals_plain(L, R, D, K, per_lane, dtype):
+    """Assignments and counts bit-equal to the plain version, sums and sse
+    within 1e-5 of their mass (another summation order), and a second
+    launch bit-equal to the first."""
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(L * R + D)
+    xf = torch.randn((L, R, D), generator=g, device=dev) * 2
+    scale = None
+    if dtype == torch.float32:
+        x = xf
+    else:
+        info = torch.iinfo(dtype)
+        x = torch.randint(info.min, info.max + 1, (L, R, D), generator=g,
+                          device=dev).to(dtype)
+        scale = torch.rand(D, generator=g, device=dev) / info.max + 1e-4
+        xf = x.float() * scale
+    c = xf[0, :K].clone()
+    if per_lane:
+        c = c + 0.1 * torch.randn((L, K, D), generator=g, device=dev)
+    w = (torch.rand((L, R), generator=g, device=dev) < 0.9).float()
+    before = kmeans_assign.launches
+    got = kmeans_assign(x, c, w, scale, return_assign=True)
+    assert kmeans_assign.launches == before + 1
+    want = ref.kmeans_assign_ref(x, c, w, scale, return_assign=True)
+    assert torch.equal(got[3], want[3]) and torch.equal(got[1], want[1])
+    mass = _mass(xf, want[3], w, K)
+    assert ((got[0].double() - want[0].double()).abs()
+            <= 1e-5 * mass + 1e-30).all()
+    sse_mass = (want[2].double().abs() + 1.0)
+    assert ((got[2].double() - want[2].double()).abs()
+            <= 1e-5 * sse_mass).all()
+    again = kmeans_assign(x, c, w, scale, return_assign=True)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_kmeans_kernel_takes_an_expanded_centroid_view():
+    dev = require_cuda()
+    x = torch.randn((5, 300, 4), device=dev)
+    w = torch.ones((5, 300), device=dev)
+    c = torch.randn((3, 4), device=dev)
+    a = kmeans_assign(x, c, w)
+    b = kmeans_assign(x, c.expand(5, 3, 4), w)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+# (L, R, F, n_nodes, n_bins, n_classes): depth 0 and the final pass of the
+# full tree (one feature per block), and a ragged case with several tiles
+@pytest.mark.parametrize("L,R,F,nodes,bins,classes", [
+    (4, 65536, 16, 1, 32, 4), (4, 65536, 16, 64, 32, 4),
+    (3, 1001, 7, 3, 9, 5), (2, 5000, 40, 96, 16, 3)])
+@pytest.mark.parametrize("lane_step", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16, torch.uint8])
+def test_split_hist_kernel_equals_plain(L, R, F, nodes, bins, classes,
+                                        lane_step, dtype):
+    """Bit-equal to the plain version, on lane-strided views too, with
+    out-of-range indices and masked rows; a second launch bit-equal."""
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(R + F + nodes)
+    Lx = L * lane_step
+    node = torch.randint(0, nodes, (Lx, R), generator=g, device=dev,
+                         dtype=torch.int32)
+    xbin = torch.randint(0, bins, (Lx, R, F), generator=g, device=dev,
+                         dtype=torch.int32)
+    y = torch.randint(0, classes, (Lx, R), generator=g, device=dev,
+                      dtype=torch.int32)
+    w = (torch.rand((Lx, R), generator=g, device=dev) < 0.9).float()
+    node[0, :3], xbin[-1, :3, 0], y[0, 3:6] = nodes, bins, -1
+    args = [t[::lane_step] for t in (node, xbin.to(dtype), y, w)]
+    before = split_hist.launches
+    got = split_hist(*args, n_nodes=nodes, n_bins=bins, n_classes=classes)
+    assert split_hist.launches == before + 1
+    want = ref.split_hist_ref(*args, n_nodes=nodes, n_bins=bins,
+                              n_classes=classes)
+    assert torch.equal(got, want)
+    assert torch.equal(got, split_hist(*args, n_nodes=nodes, n_bins=bins,
+                                       n_classes=classes))
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("precision", ["fp32", "int16", "int8"])
+def test_small_kmeans_fit_near_its_plain_twin(precision, k):
+    """Counts are exact and the sums differ only in summation order, so
+    the centroids agree within atol 1e-4, rtol 1e-5.  The fits start near
+    the blobs' centres, so no centroid boundary runs through a blob
+    (where a row would flip on a 1-ulp difference)."""
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    X, _, centers = datasets.blobs(gen, 8 * 512 + 3, 16, 8)
+    program = KMeans(k=8, precision=precision).bind(make_grid(8), X)
+    program.state0 = centers + 0.1 * torch.randn(
+        centers.shape, generator=gen, device=dev)
+    a = program.fit(steps=6, merge_every=k)
+    with dispatch.use_kernels(False):
+        b = program.fit(steps=6, merge_every=k)
+    torch.testing.assert_close(a.state, b.state, atol=1e-4, rtol=1e-5)
+    c = program.fit(steps=6, merge_every=k, engine="python")
+    assert torch.equal(a.state, c.state)
+
+
+def test_small_tree_equals_its_plain_twin():
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    X, y = datasets.mixture_classification(gen, 8 * 1024 + 5, 16, 4)
+    grid = make_grid(8)
+    wl = DecisionTree(max_depth=6, n_bins=32, n_classes=4)
+    a = api.fit(wl, grid, X, y, steps=6)
+    with dispatch.use_kernels(False):
+        b = api.fit(wl, grid, X, y, steps=6)
+    for field in ("feature", "threshold", "leaf_value", "bin_edges"):
+        assert torch.equal(getattr(a.state, field), getattr(b.state, field))

@@ -111,7 +111,10 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 20, mods\n"
+        "for m in ('kernels.kmeans_assign', 'kernels.split_hist',\n"
+        "          'core.mlalgos.kmeans', 'core.mlalgos.dtree'):\n"
+        "    assert 'repro_torch.' + m in mods, m\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), ROOT]))

@@ -59,3 +59,24 @@ def regression(seed: int, n: int, d: int):
     w = r.standard_normal(d).astype(np.float32)
     y = (X @ w + 0.1 * r.standard_normal(n)).astype(np.float32)
     return X, y
+
+
+def blobs(seed: int, n: int, d: int, k: int, spread: float = 0.3):
+    """``k`` gaussian blobs with centres uniform in [-2, 2]^d."""
+    r = rng(seed)
+    centers = r.uniform(-2.0, 2.0, (k, d)).astype(np.float32)
+    X = centers[r.integers(0, k, n)] + spread * r.standard_normal((n, d))
+    return X.astype(np.float32)
+
+
+def mixture(seed: int, n: int, d: int, n_classes: int,
+            clusters_per_class: int = 2, spread: float = 0.5):
+    """A labelled gaussian mixture (component ``c`` has label
+    ``c % n_classes``), as ``repro.core.datasets.mixture_classification``
+    draws it."""
+    r = rng(seed)
+    k = n_classes * clusters_per_class
+    centers = r.uniform(-2.0, 2.0, (k, d)).astype(np.float32)
+    comp = r.integers(0, k, n)
+    X = centers[comp] + spread * r.standard_normal((n, d))
+    return X.astype(np.float32), (comp % n_classes).astype(np.int32)
