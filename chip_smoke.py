@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's training paths once on the card.
+"""Drive the PyTorch/H100 port's training and serving paths once on the card.
 
     python3 chip_smoke.py              # one CUDA card, full size
     python3 chip_smoke.py --rehearse   # CPU, small size, plain versions
@@ -7,7 +7,7 @@
 Phases, each printed as one JSON line:
 
   1. device   — the card, and its name and power limit from nvidia-smi;
-  2. build    — the four CUDA kernels built from
+  2. build    — the five CUDA kernels built from
                 src/repro_torch/kernels/csrc, in parallel;
   3. compare  — each kernel's wrapper against its plain PyTorch version
                 on the card at the training paths' shapes (256 lanes x
@@ -15,7 +15,11 @@ Phases, each printed as one JSON line:
                 lut_activation and split_hist bit for bit; kmeans_assign's
                 assignments and counts bit for bit, its sums and sse
                 within 1e-5 of their mass, and two launches bit-equal;
-                then their median times (CUDA events) and bounds;
+                flash_attention within float32 2e-5 / bf16 1e-2 at
+                qwen2-0.5b's prefill shape (4 x 14 heads, 2 KV heads, S =
+                4096, D = 64), ragged S, D = 128 and a packed view, two
+                launches bit-equal; then their median times (CUDA events)
+                and bounds;
   4. train    — ``api.fit`` on 256 vDPUs x 2^24 rows made on the card
                 from --seed: LogReg(int8, LUT sigmoid) at d=64, 50 steps
                 at cadence 1 and 48 at cadence 8, against fp32 + exact
@@ -29,7 +33,16 @@ Phases, each printed as one JSON line:
   5. predict  — each trained workload answers requests of 1, 7 and 512
                 rows through ``Workload.predict``, equal to the plain
                 path;
-  6. the ``kernels`` line, the nvidia-smi line, and last
+  6. serve_lm — qwen2-0.5b at its full config (24 layers, bf16, random
+                weights from --seed): ``Model.prefill`` of 4 x 4096 tokens
+                (one flash launch per layer, last logits within 3e-2 x
+                max|logit| of the ``use_kernels(False)`` twin), its
+                tokens/s and a profile; ``generate`` on 8 requests of 64
+                prompt + 32 greedy tokens, and a profile of 8 decode
+                steps; in float32 at full width, the
+                prefill against its twin (1e-4 x max|logit|) and against
+                the replay through ``decode_step`` (1e-3 x max|logit|);
+  7. the ``kernels`` line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 
 Any mismatch, missing launch or exception ends the run with a non-zero
@@ -40,6 +53,7 @@ exit code and without the ``ok`` line.  Without CUDA (and without
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -54,6 +68,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import torch  # noqa: E402
 
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.pim_ml import CONFIG  # noqa: E402
 from repro_torch.core import datasets, make_grid  # noqa: E402
 from repro_torch.core import lut as lut_mod  # noqa: E402
@@ -61,10 +76,14 @@ from repro_torch.core import quantize as qz  # noqa: E402
 from repro_torch.core.mlalgos import (DecisionTree, KMeans,  # noqa: E402
                                       LinReg, LogReg, accuracy, api)
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fxp_matmul import fxp_matmul  # noqa: E402
 from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
 from repro_torch.kernels.lut_activation import lut_activation  # noqa: E402
 from repro_torch.kernels.split_hist import split_hist  # noqa: E402
+from repro_torch.launch.serve_lm import generate  # noqa: E402
+from repro_torch.models import build as build_model  # noqa: E402
+from repro_torch.models.transformer import padded_vocab  # noqa: E402
 
 # PimMLConfig's workloads at a size the card holds for real (its reg_rows,
 # km_rows and dt_rows were cut to fit the JAX package's CPU container):
@@ -84,6 +103,24 @@ KM_REL_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+# the serving path: qwen2-0.5b at its published widths and depth
+LM_ARCH = "qwen2-0.5b"
+LM_BATCH, LM_SEQ = 4, 4096            # prefill: 4 x 4096 tokens
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 64, 32
+LM_RATE_REPS = 5
+# flash_attention against its plain version (the same online softmax over
+# the same 64-key tiles): float32 within 2e-5 (summation order); bf16
+# within atol = rtol = 1e-2, one bf16 ulp of the output (a sum in another
+# order can move p across a bf16 rounding boundary)
+FLASH_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
+# last logits, as a share of max|logit|: the kernel path against its
+# use_kernels(False) twin (float32: summation order through 24 layers;
+# bf16: one-ulp differences re-rounded through 24 layers), and the
+# float32 prefill against the replay through decode_step (other kernels
+# and shapes for every product)
+PREFILL_TWIN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+CROSS_PATH_TOL = 1e-3
 SOURCES = {
     "fxp_matmul": ("src/repro_torch/kernels/csrc/fxp_matmul.cu",
                    "src/repro/kernels/fxp_matmul.py:48"),
@@ -93,6 +130,8 @@ SOURCES = {
                       "src/repro/kernels/kmeans_assign.py:61"),
     "split_hist": ("src/repro_torch/kernels/csrc/split_hist.cu",
                    "src/repro/kernels/split_hist.py:58"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:73"),
 }
 LIBRARY_NOTES = {
     "fxp_matmul": "no single PyTorch call computes int32 chunk partials of "
@@ -104,6 +143,9 @@ LIBRARY_NOTES = {
     "split_hist": "torch.bincount(flat, weights, minlength) on the combined "
                   "(lane, node, feature, bin, class) index, computed outside "
                   "the timed region (the index is excluded)",
+    "flash_attention": "torch.nn.functional.scaled_dot_product_attention("
+                       "is_causal=True, enable_gqa=True) on the same "
+                       "(B, H, S, D) views, timed outside the path",
 }
 PER = {
     "fxp_matmul": "one training step: forward (L,R,d)x(d,2) + gradient "
@@ -114,9 +156,13 @@ PER = {
     "split_hist": "one depth-6 tree: the six level passes and the leaf pass "
                   "(1, 2, ..., 64 nodes), (L,R,16) int32 bins, 32 bins, "
                   "4 classes",
+    "flash_attention": "one layer's causal self-attention in qwen2-0.5b's "
+                       "prefill: q (4, 14, 4096, 64), k and v (4, 2, 4096, "
+                       "64), bf16",
 }
 PORT_KERNELS = re.compile(r"(fxp_\w+?_kernel|lut_kernel|km_partials|km_reduce"
-                          r"|hist_kernel)")
+                          r"|hist_kernel|flash_\w+?_kernel)")
+GEMM_KERNELS = re.compile(r"gemm|cutlass|xmma|cublas|nvjet", re.IGNORECASE)
 
 
 class SmokeFailure(Exception):
@@ -132,7 +178,8 @@ def require(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-WRAPPERS = (fxp_matmul, lut_activation, kmeans_assign, split_hist)
+WRAPPERS = (fxp_matmul, lut_activation, kmeans_assign, split_hist,
+            flash_attention)
 
 
 def reset_counts() -> None:
@@ -619,10 +666,13 @@ def profile_call(run, dev, **label) -> dict:
 
     ours = sum(e.self_device_time_total for e in kernels
                if PORT_KERNELS.search(e.key))
+    gemm = sum(e.self_device_time_total for e in kernels
+               if GEMM_KERNELS.search(e.key))
     return {**label, "traced_wall_ms": wall_ms,
             "device_busy_ms": busy_us / 1e3,
             "idle_share": max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
             "port_kernels_ms": ours / 1e3,
+            "gemm_kernels_ms": gemm / 1e3,
             "top_kernels": [{"name": name(e.key), "calls": e.count,
                              "ms": e.self_device_time_total / 1e3}
                             for e in top]}
@@ -872,6 +922,231 @@ def predict(name, wl, state, requests, launches: dict,
     emit("predict", workload=name, requests=results)
 
 
+# -- phase 6: the serving path ----------------------------------------------
+
+
+def flash_inputs(gen, B, H, Kh, S, D, dtype) -> tuple:
+    """q, k, v as the model hands them over: (B, H, S, D) views of
+    (B, S, H, D) tensors."""
+    return tuple(torch.randn((B, S, h, D), generator=gen, device=gen.device
+                             ).to(dtype).transpose(1, 2) for h in (H, Kh, Kh))
+
+
+def flash_check(name, q, k, v, causal) -> dict:
+    """flash_attention against its plain version within FLASH_TOL, and a
+    second launch bit-equal."""
+    got = flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    atol, rtol = FLASH_TOL[q.dtype]
+    err = (got.double() - want.double()).abs()
+    ok = bool((err <= atol + rtol * want.double().abs()).all())
+    out = {"case": name, "q": list(q.shape), "k": list(k.shape),
+           "dtype": str(q.dtype)[6:], "causal": causal,
+           "max_abs_err": float(err.max()), "within_tolerance": ok,
+           "deterministic": bool(torch.equal(got, again)),
+           "finite": bool(torch.isfinite(got).all())}
+    require(ok and out["finite"], f"flash_attention != plain version: {out}")
+    require(out["deterministic"], f"flash_attention not deterministic: "
+            f"{name}")
+    return out
+
+
+def compare_flash(gen, seq: int) -> list:
+    """At qwen2-0.5b's prefill shape, ragged S, the smoke config's D = 32,
+    MQA at D = 128 without the causal mask, and q, k, v sliced from one
+    packed (B, S, H + 2 Kh, D) tensor; in bf16 and float32."""
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, shape, causal in (
+                ("qwen2 prefill", (LM_BATCH, 14, 2, seq, 64), True),
+                ("ragged S", (2, 14, 2, 1000, 64), True),
+                ("smoke heads, D=32", (2, 2, 1, 128, 32), True),
+                ("MQA, D=128, full", (1, 8, 1, 512, 128), False)):
+            out.append(flash_check(name, *flash_inputs(gen, *shape, dtype),
+                                   causal))
+        packed = torch.randn((2, 300, 18, 64), generator=gen,
+                             device=gen.device).to(dtype).transpose(1, 2)
+        out.append(flash_check("packed (B, S, H, D) view", packed[:, :14],
+                               packed[:, 14:16], packed[:, 16:], True))
+    return out
+
+
+def sdpa(q, k, v):
+    """PyTorch's fused attention on the same views: the yardstick of
+    ``library_ms``, never called by the port."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                          enable_gqa=True)
+
+
+def time_flash(gen, seq: int, iters: int) -> dict:
+    """One layer's attention in qwen2-0.5b's bf16 prefill.  ops: causal
+    q·kᵀ and p·v, 4·D per (query, key) pair with key <= query."""
+    dev = gen.device
+    B, H, Kh, D = LM_BATCH, 14, 2, 64
+    q, k, v = flash_inputs(gen, B, H, Kh, seq, D, torch.bfloat16)
+    check = flash_check("timed shapes", q, k, v, True)
+    o = flash_attention(q, k, v)
+    lib_err = max_abs_err(sdpa(q, k, v), o)
+    t = {"ms": median_ms(lambda: flash_attention(q, k, v), dev, iters),
+         "plain_ms": median_ms(lambda: ref.flash_attention_ref(q, k, v),
+                               dev, max(1, iters // 5)),
+         "library_ms": median_ms(lambda: sdpa(q, k, v), dev, iters),
+         "library_max_abs_err": lib_err,
+         "bytes": nbytes(q, k, v, o),
+         "ops": 4 * B * H * D * seq * (seq + 1) // 2,
+         "max_abs_err": check["max_abs_err"]}
+    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
+                                         BF16_OPS_PER_S)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    t["float32_ms"] = median_ms(lambda: flash_attention(qf, kf, vf), dev,
+                                max(1, iters // 5))
+    return t
+
+
+def logits_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """max|got - want| and that over max|want|, on the vocabulary."""
+    gap = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    return {"max_abs_gap": gap, "max_abs_logit": top,
+            "gap_over_max": gap / max(top, 1e-30)}
+
+
+def timed_prefill(model, params, tokens) -> float:
+    sync(model.device)
+    t0 = time.perf_counter()
+    model.prefill(params, {"tokens": tokens})
+    sync(model.device)
+    return time.perf_counter() - t0
+
+
+def serve_lm(args, dev, card: str) -> dict:
+    """qwen2-0.5b (the smoke config in a rehearsal): the prefill main path
+    with its launch count, twin check, rate and profile; ``generate`` on
+    the serving requests; the float32 checks at full width."""
+    cfg = (get_smoke_config if args.rehearse else get_config)(LM_ARCH)
+    check = not args.rehearse
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        model = build_model(cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 30)
+        params = model.init(gen)
+        tokens = torch.randint(0, V, (LM_BATCH, args.lm_seq), generator=gen,
+                               device=dev)
+        prompts = torch.randint(0, V, (SERVE_REQUESTS, SERVE_PROMPT),
+                                generator=gen, device=dev)
+        sync(dev)
+        init_s = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        # the main path: counts set to 0 just before, read just after
+        reset_counts()
+        logits = model.prefill(params, {"tokens": tokens})
+        sync(dev)
+        seen = counts()
+        want = expected(flash_attention=cfg.n_layers)
+        if check:
+            require(seen == want, f"prefill launched {seen}, the design "
+                    f"implies {want}")
+        require(tuple(logits.shape) == (LM_BATCH, 1, padded_vocab(cfg))
+                and bool(torch.isfinite(logits).all()),
+                f"prefill logits {tuple(logits.shape)} or not finite")
+        with dispatch.use_kernels(False):
+            twin = model.prefill(params, {"tokens": tokens})
+        twin_gap = logits_gap(logits, twin)
+        require(twin_gap["gap_over_max"] <= PREFILL_TWIN_TOL[cfg.dtype],
+                f"prefill vs its plain twin: {twin_gap}")
+        del twin
+        times = [timed_prefill(model, params, tokens)
+                 for _ in range(LM_RATE_REPS)]
+        n_tok = LM_BATCH * args.lm_seq
+        prefill = {"batch": LM_BATCH, "seq": args.lm_seq,
+                   "launches": seen, "expected_launches": want,
+                   "twin": twin_gap,
+                   "tokens_per_s": {"median": n_tok / statistics.median(
+                       times), "min": n_tok / max(times),
+                       "max": n_tok / min(times), "runs": len(times)}}
+        if dev.type == "cuda":
+            prefill["peak_memory_gib"] = \
+                torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        emit("profile", workload="prefill", **profile_call(
+            lambda: model.prefill(params, {"tokens": tokens}), dev,
+            prefills=1))
+
+        # serving: the cache filled by replaying the prompts, then greedy
+        generate(model, params, prompts, SERVE_NEW)            # warm-up
+        reset_counts()
+        res = generate(model, params, prompts, SERVE_NEW)
+        seen_serve = counts()
+        if check:
+            require(seen_serve == expected(), f"generate launched "
+                    f"{seen_serve}: decode runs the plain mha")
+        require(tuple(res.tokens.shape) == (SERVE_REQUESTS, SERVE_NEW)
+                and int(res.tokens.min()) >= 0 and int(res.tokens.max()) < V,
+                f"generate gave {tuple(res.tokens.shape)}")
+        cache = model.init_cache(SERVE_REQUESTS, SERVE_PROMPT)
+        emit("profile", workload="decode", **profile_call(
+            lambda: [model.decode_step(params, cache, prompts[:, t:t + 1], t)
+                     for t in range(8)], dev, decode_steps=8,
+            requests=SERVE_REQUESTS))
+        del cache
+        pre = model.prefill(params, {"tokens": prompts})[:, 0]
+        serve = {"requests": SERVE_REQUESTS, "prompt": SERVE_PROMPT,
+                 "new_tokens": SERVE_NEW, "launches": seen_serve,
+                 "replay_tokens_per_s":
+                     SERVE_REQUESTS * SERVE_PROMPT / res.prefill_s,
+                 "decode_tokens_per_s":
+                     SERVE_REQUESTS * (SERVE_NEW - 1) / res.decode_s,
+                 "replay_s": res.prefill_s, "decode_s": res.decode_s,
+                 "prefill_vs_replay": logits_gap(pre, res.prompt_logits),
+                 "first_tokens": res.tokens[0, :8].tolist()}
+        del params, model, logits, pre, res
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # float32 at full width: the kernel path against its twin and
+        # against the replay through decode_step
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model = build_model(cfg32, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            args.seed + 31))
+        reset_counts()
+        pre = model.prefill(params, {"tokens": tokens})
+        f32_seen = counts()
+        if check:
+            require(f32_seen == want, f"float32 prefill launched {f32_seen}")
+        with dispatch.use_kernels(False):
+            twin = model.prefill(params, {"tokens": tokens})
+        f32_twin = logits_gap(pre, twin)
+        require(f32_twin["gap_over_max"] <= PREFILL_TWIN_TOL["float32"],
+                f"float32 prefill vs its plain twin: {f32_twin}")
+        del pre, twin
+        pre = model.prefill(params, {"tokens": prompts})[:, 0]
+        res = generate(model, params, prompts, SERVE_NEW)
+        cross = logits_gap(pre, res.prompt_logits)
+        require(cross["gap_over_max"] <= CROSS_PATH_TOL,
+                f"float32 prefill vs the replay through decode_step: {cross}")
+        first = torch.argmax(pre[:, :V], dim=-1)
+        top2 = torch.topk(pre[:, :V].float(), 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * cross["max_abs_gap"]
+        same = bool(torch.equal(first[clear], res.tokens[clear, 0]))
+        require(same, "float32: prefill's greedy token != the replay's where "
+                "the top-2 gap exceeds the logit gap")
+        float32 = {"launches": f32_seen, "prefill_vs_twin": f32_twin,
+                   "prefill_vs_replay": cross,
+                   "first_token_equal_where_clear": same,
+                   "clear_requests": int(clear.sum())}
+    emit("serve_lm", arch=cfg.name, card=card, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+         vocab=cfg.vocab_size, dtype=cfg.dtype,
+         params=model.param_count(params), init_s=init_s,
+         prefill=prefill, serve=serve, float32=float32,
+         seconds=time.perf_counter() - t0)
+    return seen
+
+
 # -- main ------------------------------------------------------------------
 
 
@@ -906,6 +1181,7 @@ def main(argv=None) -> int:
     args.km_iters = cfg.km_iters
     args.dt_features, args.dt_classes = cfg.dt_features, cfg.dt_classes
     args.dt_depth, args.dt_bins = cfg.dt_depth, cfg.dt_bins
+    args.lm_seq = 256 if args.rehearse else LM_SEQ
 
     if args.rehearse:
         dev = torch.device("cpu")
@@ -937,6 +1213,7 @@ def main(argv=None) -> int:
         gen, args.lanes, per_lane, args.km_features, args.km_clusters),
          split_hist=compare_sh(gen, args.lanes, per_lane, args.dt_features,
                                args.dt_bins, args.dt_classes))
+    emit("compare", flash_attention=compare_flash(gen, args.lm_seq))
     times = time_kernels(gen, args.lanes, per_lane, args.features,
                          args.iters)
     times["kmeans_assign"] = time_km(gen, args.lanes, per_lane,
@@ -945,6 +1222,7 @@ def main(argv=None) -> int:
     times["split_hist"] = time_sh(gen, args.lanes, per_lane,
                                   args.dt_features, args.dt_depth,
                                   args.dt_bins, args.dt_classes, args.iters)
+    times["flash_attention"] = time_flash(gen, args.lm_seq, args.iters)
     torch.cuda.empty_cache() if dev.type == "cuda" else None
 
     on_card = dev.type == "cuda"
@@ -962,6 +1240,9 @@ def main(argv=None) -> int:
     wl, state, requests, seen = train_tree(args, dev, smi)
     main_counts["split_hist"] = seen["split_hist"]
     predict("dtree", wl, state, requests, expected(), on_card)
+    del wl, state, requests
+    main_counts["flash_attention"] = serve_lm(args, dev, smi)[
+        "flash_attention"]
 
     kernels = []
     for name, t in times.items():
@@ -973,8 +1254,9 @@ def main(argv=None) -> int:
                  "bound_by": t["bound_by"],
                  "library_ms": t.get("library_ms"),
                  "library_note": LIBRARY_NOTES[name], "per": PER[name]}
-        if "parts" in t:
-            entry["parts"] = t["parts"]
+        for extra in ("parts", "float32_ms", "library_max_abs_err"):
+            if extra in t:
+                entry[extra] = t[extra]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -2,16 +2,17 @@
 
 The package mirrors ``repro``'s module names so each module's
 counterpart is easy to find, but it imports neither JAX nor anything of
-``repro``.  Plain tensor code is PyTorch; the four TPU kernels of the
-training paths are hand-written CUDA C++ (``kernels/csrc/``), built with
+``repro``.  Plain tensor code is PyTorch; each of ``repro``'s five TPU
+kernels is hand-written CUDA C++ (``kernels/csrc/``), built with
 ``nvcc`` at first use and bound through ``ctypes``.
 
 Entry points (``make_grid``, ``PimGrid``, ``api.fit``,
-``Workload.predict``) run on ``cuda`` unless the caller passes
-``device="cpu"``; on the CPU every kernel wrapper runs its plain
+``Workload.predict``, ``models.build``) run on ``cuda`` unless the caller
+passes ``device="cpu"``; on the CPU every kernel wrapper runs its plain
 PyTorch version.
 
-Ported so far (the training paths of the paper's four workloads):
+Ported so far (the training paths of the paper's four workloads, and
+dense decoder LM serving):
 
   * ``core.quantize``  — symmetric quantization, int8 limbs, hybrid dot
   * ``core.lut``       — LUT tables and lookups, Taylor sigmoid
@@ -20,9 +21,15 @@ Ported so far (the training paths of the paper's four workloads):
   * ``core.mlalgos``   — Workload API, ``LinReg``, ``LogReg``, ``KMeans``,
                          ``DecisionTree``
   * ``kernels``        — ``fxp_matmul``, ``lut_activation``,
-                         ``kmeans_assign``, ``split_hist`` + dispatch
+                         ``kmeans_assign``, ``split_hist``,
+                         ``flash_attention`` + dispatch
   * ``distributed.merge_plan`` — the exact default merge plan
-  * ``configs.pim_ml`` — the four workloads' fields of ``PimMLConfig``
+  * ``models``         — dense decoder LMs: norms, RoPE, GQA attention
+                         with a KV cache, SwiGLU/GELU MLP, prefill and
+                         decode behind ``Model``
+  * ``configs``        — ``pim_ml`` (the four workloads' fields of
+                         ``PimMLConfig``) and ``qwen2_0_5b``
+  * ``launch.serve_lm`` — batched greedy serving
   * ``interop``        — values carried across from the JAX package
 """
 

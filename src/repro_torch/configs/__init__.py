@@ -1,1 +1,55 @@
-"""Configurations of the port (``pim_ml``: the paper's own workloads)."""
+"""Architecture registry of the port: ``get_config(name)`` / ``--arch``.
+
+Port of ``repro/configs/__init__.py``.  Each ported module defines
+``CONFIG`` (the published full-size config) and ``smoke_config()`` (a
+reduced same-family config for CPU tests); ``pim_ml`` holds the paper's
+own workloads.  The JAX package's other architectures need model
+families the port does not have yet: asking for one raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.models.common import ModelConfig
+
+_ARCHS: Dict[str, str] = {
+    "qwen2-0.5b": "qwen2_0_5b",
+}
+# arch -> the ROADMAP item whose model family it needs
+_PENDING: Dict[str, str] = {
+    "phi4-mini-3.8b": "A18.1 (the other dense decoder configs)",
+    "minitron-8b": "A18.1 (the other dense decoder configs)",
+    "qwen1.5-110b": "A18.1 (the other dense decoder configs)",
+    "recurrentgemma-2b": "A18.2 (LOCAL_ATTN ring buffer) and A18.5 (RG-LRU)",
+    "qwen3-moe-235b-a22b": "A18.3 (MoE)",
+    "phi3.5-moe-42b-a6.6b": "A18.3 (MoE)",
+    "mamba2-370m": "A18.4 (Mamba-2)",
+    "whisper-tiny": "A18.6 (enc-dec)",
+    "llava-next-mistral-7b": "A18.6 (VLM prefix)",
+}
+
+
+def list_archs() -> List[str]:
+    """The architectures the port serves."""
+    return list(_ARCHS)
+
+
+def _module(name: str):
+    if name in _PENDING:
+        raise NotImplementedError(
+            f"{name!r} is not ported yet: ROADMAP queue A, item "
+            f"{_PENDING[name]}")
+    if name not in _ARCHS:
+        raise KeyError(f"unknown arch {name!r}; available: {list(_ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{_ARCHS[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).smoke_config()

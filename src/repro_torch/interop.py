@@ -5,8 +5,9 @@ arrays (``np.asarray(jax_array)``), and returns the port's tensors on
 ``device`` (``None`` means the card).  With them a JAX-trained state
 predicts in the port (``Workload.predict``; K-means centroids cross as a
 state, a tree with :func:`dtree_from_numpy`), a JAX state resumes
-training in the port (``PimGrid.fit(init_state=...)``), and a JAX
-resident placement feeds the port's step functions.
+training in the port (``PimGrid.fit(init_state=...)``), a JAX
+resident placement feeds the port's step functions, and a JAX LM's
+parameters serve in the port (:func:`lm_params_from_numpy`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from repro_torch.core.lut import LutTable
 from repro_torch.core.mlalgos.dtree import DTree
 from repro_torch.core.quantize import Quantized
 from repro_torch.device import resolve_device
+from repro_torch.models.common import ModelConfig
 
 
 def state_from_numpy(w, device=None) -> torch.Tensor:
@@ -68,3 +70,49 @@ def dtree_from_numpy(feature, threshold, leaf_value, bin_edges,
                                                    dtype=np.float32),
                                         device=dev),
                  max_depth=int(max_depth), n_classes=int(n_classes))
+
+
+def tensor_from_numpy(a, device=None) -> torch.Tensor:
+    """One array, dtype and bits kept.  bf16 arrives as
+    ``ml_dtypes.bfloat16``, which torch refuses: it crosses as its 16-bit
+    pattern and is viewed as ``torch.bfloat16`` on the other side."""
+    a = np.asarray(a)
+    dev = resolve_device(device)
+    if a.dtype.name == "bfloat16":
+        bits = torch.tensor(np.ascontiguousarray(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.tensor(a, device=dev)
+
+
+def _tree_from_numpy(tree, dev, index=None):
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, dev, index) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return tensor_from_numpy(a if index is None else a[index], dev)
+
+
+def lm_params_from_numpy(params: dict, cfg: ModelConfig,
+                         device=None) -> dict:
+    """A JAX ``Model.init`` pytree (``repro.models.transformer.init_lm``)
+    as the port's parameters, every dtype kept.
+
+    JAX stacks the layers of the pattern's repeating unit: ``params
+    ["stack"]["scan"]`` holds one layer dict per layer of the unit, each
+    leaf with a leading ``reps`` dim, and ``["tail"]`` the unrolled rest.
+    The port's ``"layers"`` list takes them in model order: repeat 0's
+    unit, repeat 1's unit, ..., then the tail."""
+    dev = resolve_device(device)
+    unit = list(params["stack"]["scan"])
+    reps = np.asarray(unit[0]["norm1"]["scale"]).shape[0]
+    layers = [_tree_from_numpy(unit[u], dev, r)
+              for r in range(reps) for u in range(len(unit))]
+    layers += [_tree_from_numpy(p, dev) for p in params["stack"]["tail"]]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} layers in the pytree, {cfg.name} "
+                         f"has {cfg.n_layers}")
+    out = {"embed": tensor_from_numpy(params["embed"], dev),
+           "layers": layers,
+           "final_norm": _tree_from_numpy(params["final_norm"], dev)}
+    if "head" in params:
+        out["head"] = tensor_from_numpy(params["head"], dev)
+    return out

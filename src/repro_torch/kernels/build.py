@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("fxp_matmul", "lut_activation", "kmeans_assign", "split_hist")
+KERNELS = ("fxp_matmul", "lut_activation", "kmeans_assign", "split_hist",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -10,12 +10,14 @@ Port of ``repro.kernels.dispatch``:
   ``lut_apply``         ``lut_activation``   logreg LUT sigmoid
   ``kmeans_partials``   ``kmeans_assign``    kmeans Lloyd iteration
   ``level_histogram``   ``split_hist``       dtree level statistics
+  ``flash_attention``   ``flash_attention``  LM causal self-attention
+                                             (``models.attention.attn_full``)
   ``nearest_centroid``  — (matmul + argmin)  kmeans eval / predict
   ====================  ===================  ============================
 
 ``use_kernels(False)`` routes each to its plain PyTorch function
 (``quantize.hybrid_dot``, ``lut.lut_lookup``, ``ref.kmeans_assign_ref``,
-``ref.split_hist_ref``); parity tests and ``chip_smoke.py`` use it.
+``ref.split_hist_ref``, ``ref.flash_attention_ref``); parity tests and ``chip_smoke.py`` use it.
 With kernels on, each wrapper launches its kernel on a CUDA tensor and
 runs its plain version on a CPU tensor.
 
@@ -40,6 +42,7 @@ import torch
 
 from repro_torch.core import lut as lut_mod
 from repro_torch.core import quantize as qz
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fxp_matmul as _fxp
 from repro_torch.kernels import kmeans_assign as _km
 from repro_torch.kernels import lut_activation as _lut
@@ -152,3 +155,16 @@ def level_histogram(node_idx: torch.Tensor, xbin: torch.Tensor,
                               n_bins=n_bins, n_classes=n_classes)
     return ref.split_hist_ref(node_idx, xbin, y, w, n_nodes=n_nodes,
                               n_bins=n_bins, n_classes=n_classes)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Self-attention of the model's ``q`` ``(B, S, H, D)`` and ``k``/``v``
+    ``(B, S, Kh, D)`` -> ``(B, S, H, D)``: the kernel reads them as
+    ``(B, H, S, D)`` views, by strides, with no copy."""
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    if kernels_enabled():
+        out = _fa.flash_attention(*args, causal=causal)
+    else:
+        out = ref.flash_attention_ref(*args, causal=causal)
+    return out.transpose(1, 2)

@@ -104,3 +104,49 @@ def split_hist_ref(node: torch.Tensor, xbin: torch.Tensor, y: torch.Tensor,
                     dtype=torch.float32, device=xbin.device)
     H.index_add_(0, flat.reshape(-1), inc.reshape(-1))
     return H.reshape(L, n_nodes, F, n_bins, n_classes)
+
+
+FLASH_TILE = 64               # the kernel's query rows and keys per tile
+FLASH_NEG_INF = -1e30         # the TPU kernel's mask value
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention over the kernel's 64-key tiles, as the
+    kernel computes it: ``q`` ``(B, H, S, D)``, ``k``/``v`` ``(B, Kh, S,
+    D)`` with ``H % Kh == 0`` (query head ``h`` reads key head ``h //
+    (H / Kh)``) -> ``(B, H, S, D)`` in ``q``'s dtype.
+
+    Scores ``q·kᵀ · (1/√D)`` in float32 (the scale is the Python float
+    rounded once, as the TPU kernel has it); masked scores are ``-1e30``
+    and their ``p`` is 0; per block ``p = exp(s − m_new)`` is rounded to
+    ``v``'s dtype before ``p·v`` while ``l`` sums it unrounded; the output
+    is ``acc / max(l, 1e-30)``, so a row with no unmasked key gives 0."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    kx = k.repeat_interleave(G, dim=1) if G > 1 else k
+    vx = v.repeat_interleave(G, dim=1) if G > 1 else v
+    scale = torch.tensor(1.0 / D ** 0.5, dtype=torch.float32).item()
+    qf = q.float()
+    rows = torch.arange(S, device=q.device)
+    m = torch.full((B, H, S), FLASH_NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, S, D), dtype=torch.float32, device=q.device)
+    for k0 in range(0, S, FLASH_TILE):
+        k1 = min(S, k0 + FLASH_TILE)
+        cols = torch.arange(k0, k1, device=q.device)
+        s = torch.matmul(qf, kx[:, :, k0:k1].float().transpose(-1, -2)
+                         ) * scale
+        ok = cols[None, :] <= rows[:, None] if causal else \
+            torch.ones((S, cols.numel()), dtype=torch.bool, device=q.device)
+        s = torch.where(ok, s, FLASH_NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.matmul(p.to(v.dtype).float(),
+                          vx[:, :, k0:k1].float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)

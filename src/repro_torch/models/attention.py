@@ -1,0 +1,214 @@
+"""Attention: GQA + RoPE + optional QKV bias + sliding window, with a KV
+cache for serving.
+
+Port of ``repro/models/attention.py`` for one device (no sharding
+hints).  Parameters keep JAX's shapes: ``wq`` (d, H, Dh), ``wk``/``wv``
+(d, Kh, Dh), ``wo`` (H, Dh, d), biases (H|Kh, Dh).
+
+``mha`` is the plain path, with JAX's direct softmax and its chunked
+online-softmax branch (one function; the chunked branch only bounds
+memory).  ``attn_full`` sends causal self-attention without a window --
+every prefill layer of a dense decoder -- to
+``kernels.dispatch.flash_attention``, the CUDA kernel that replaces the
+TPU kernel this module is the reference of; decode (``kv_valid_len``),
+windows and cross-attention stay on ``mha``, as the TPU kernel computes
+none of them.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import dispatch
+from repro_torch.models import common as cm
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def init_attn(cfg: cm.ModelConfig, gen: torch.Generator) -> dict:
+    d, H, Kh, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = cfg.compute_dtype
+    p = {
+        "wq": cm.dense_init(gen, (d, H, Dh), dt, fan_in=d),
+        "wk": cm.dense_init(gen, (d, Kh, Dh), dt, fan_in=d),
+        "wv": cm.dense_init(gen, (d, Kh, Dh), dt, fan_in=d),
+        "wo": cm.dense_init(gen, (H, Dh, d), dt, fan_in=H * Dh),
+    }
+    if cfg.qkv_bias:
+        for name, heads in (("bq", H), ("bk", Kh), ("bv", Kh)):
+            p[name] = torch.zeros((heads, Dh), dtype=dt, device=gen.device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# core softmax attention (direct + chunked/online)
+# ---------------------------------------------------------------------------
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+               window: int, kv_valid_len=None) -> torch.Tensor:
+    """Additive mask bias (0 / -inf) of shape (q, k) in float32."""
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    if kv_valid_len is not None:
+        ok &= k_pos[None, :] < kv_valid_len
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, -torch.inf)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``einsum("bqhd,bshd->bhqs")`` with float32 products and sums."""
+    return torch.matmul(q.float().transpose(1, 2),
+                        k.float().permute(0, 2, 3, 1))
+
+
+def _weighted(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``einsum("bhqs,bshd->bhqd")`` of ``p`` rounded to ``v``'s dtype,
+    float32 sums."""
+    return torch.matmul(p.to(v.dtype).float(), v.float().transpose(1, 2))
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+        window: int = 0, q_offset=0, kv_valid_len=None,
+        chunk: int = 0) -> torch.Tensor:
+    """Grouped-query attention.
+
+    q: (B, Sq, H, Dh); k/v: (B, Skv, Kh, Dh); returns (B, Sq, H, Dh).
+    ``q_offset`` is the absolute position of q[0] (decode / windowed).
+    ``chunk`` > 0 and Skv > chunk selects the online-softmax path.
+    """
+    B, Sq, H, Dh = q.shape
+    G = H // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    dev = q.device
+    # 1/sqrt(Dh) in float32 as JAX rounds it, as a Python float: a tensor
+    # made on the card from a host value would wait for the card
+    scale = (1.0 / torch.sqrt(torch.tensor(Dh, dtype=torch.float32))).item()
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    Skv = k.shape[1]
+
+    if not chunk or Skv <= chunk:
+        bias = _mask_bias(q_pos, torch.arange(Skv, device=dev),
+                          causal=causal, window=window,
+                          kv_valid_len=kv_valid_len)
+        s = _scores(q, k) * scale + bias
+        p = torch.softmax(s, dim=-1)
+        return _weighted(p, v).transpose(1, 2).to(q.dtype)
+
+    # online softmax: q blocks in turn, each over the kv blocks in turn;
+    # memory O(B·H·cq·ck) whatever S
+    out = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=dev)
+    for q0 in range(0, Sq, chunk):
+        qi = q[:, q0:q0 + chunk]
+        qp = q_pos[q0:q0 + chunk]
+        cq = qi.shape[1]
+        m = torch.full((B, H, cq), -torch.inf, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, H, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, cq, Dh), dtype=torch.float32, device=dev)
+        for k0 in range(0, Skv, chunk):
+            kj, vj = k[:, k0:k0 + chunk], v[:, k0:k0 + chunk]
+            bias = _mask_bias(qp, torch.arange(k0, k0 + kj.shape[1],
+                                               device=dev),
+                              causal=causal, window=window,
+                              kv_valid_len=kv_valid_len)
+            s = _scores(qi, kj) * scale + bias
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # guard all-masked rows: exp(-inf - -inf)
+            m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+            p = torch.exp(s - m_safe[..., None])
+            corr = torch.exp(torch.where(torch.isneginf(m), m_safe, m)
+                             - m_safe)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + _weighted(p, vj)
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, q0:q0 + cq] = o.transpose(1, 2).to(q.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# block-level forward (projections + rope + cache plumbing)
+# ---------------------------------------------------------------------------
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk")``: one matmul over the flattened heads."""
+    B, S, _ = x.shape
+    return (x @ w.reshape(w.shape[0], -1)).view(B, S, *w.shape[1:])
+
+
+def qkv_proj(cfg: cm.ModelConfig, p: dict, x: torch.Tensor,
+             kv_x: torch.Tensor | None = None):
+    kv_x = x if kv_x is None else kv_x
+    q = _project(x, p["wq"])
+    k = _project(kv_x, p["wk"])
+    v = _project(kv_x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return q, k, v
+
+
+def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd")``."""
+    B, S = o.shape[:2]
+    wo = p["wo"]
+    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def attn_full(cfg: cm.ModelConfig, p: dict, x: torch.Tensor,
+              positions: torch.Tensor, *, causal: bool = True,
+              window: int = 0, kv_x: torch.Tensor | None = None,
+              kv_positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence attention (prefill).  Causal self-attention without
+    a window goes to the flash kernel; the rest to ``mha``."""
+    q, k, v = qkv_proj(cfg, p, x, kv_x)
+    if cfg.pos_emb == "rope":
+        q = cm.rope(q, positions, cfg.rope_base, cfg.rope_dim)
+        kp = positions if kv_positions is None else kv_positions
+        k = cm.rope(k, kp, cfg.rope_base, cfg.rope_dim)
+    if causal and window == 0 and kv_x is None:
+        o = dispatch.flash_attention(q, k, v, causal=True)
+    else:
+        o = mha(q, k, v, causal=causal, window=window,
+                chunk=cfg.attn_chunk if k.shape[1] > cfg.attn_chunk else 0)
+    return out_proj(p, o)
+
+
+def init_cache(cfg: cm.ModelConfig, batch: int, max_len: int,
+               device) -> dict:
+    """KV cache of one full-attention layer: ``k``/``v`` (batch, max_len,
+    Kh, Dh), zeros in the compute dtype."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {name: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+            for name in ("k", "v")}
+
+
+def attn_decode(cfg: cm.ModelConfig, p: dict, x: torch.Tensor, cache: dict,
+                pos: int) -> Tuple[torch.Tensor, dict]:
+    """One-token decode: x (B, 1, d) at absolute position ``pos``.
+
+    RoPE is applied before insertion.  The new key and value are written
+    into the cache in place (JAX returns an updated copy), and the query
+    attends over the whole ``max_len`` cache with positions ``>= pos + 1``
+    masked, as JAX does."""
+    B = x.shape[0]
+    q, k, v = qkv_proj(cfg, p, x)
+    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    if cfg.pos_emb == "rope":
+        q = cm.rope(q, posb, cfg.rope_base, cfg.rope_dim)
+        k = cm.rope(k, posb, cfg.rope_base, cfg.rope_dim)
+    cache["k"][:, pos] = k[:, 0]
+    cache["v"][:, pos] = v[:, 0]
+    o = mha(q, cache["k"], cache["v"], causal=False, kv_valid_len=pos + 1)
+    return out_proj(p, o), cache

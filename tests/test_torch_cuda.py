@@ -1,11 +1,14 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-PyTorch version (bit for bit; K-means sums and sse within their stated
-tolerance), and small fits on the card against their
-``use_kernels(False)`` twins.  They skip where there is no CUDA device and
-import no JAX, so the machine with the card runs them as they are:
+PyTorch version (bit for bit; K-means sums and sse, and attention, within
+their stated tolerances), and small fits and a small LM's prefill on the
+card against their ``use_kernels(False)`` twins.  They skip where there
+is no CUDA device and import no JAX, so the machine with the card runs
+them as they are:
 
     PYTHONPATH=src python -m pytest -q -m requires_cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import pytest
 
@@ -14,11 +17,14 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import datasets, lut, make_grid  # noqa: E402
 from repro_torch.core.mlalgos import (DecisionTree, KMeans,  # noqa: E402
                                       LinReg, LogReg, api)
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import dispatch, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fxp_matmul import fxp_matmul  # noqa: E402
 from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
 from repro_torch.kernels.lut_activation import lut_activation  # noqa: E402
 from repro_torch.kernels.split_hist import split_hist  # noqa: E402
+from repro_torch.models import build  # noqa: E402
 from torch_parity import require_cuda  # noqa: E402
 
 pytestmark = pytest.mark.requires_cuda
@@ -213,3 +219,115 @@ def test_small_tree_equals_its_plain_twin():
         b = api.fit(wl, grid, X, y, steps=6)
     for field in ("feature", "threshold", "leaf_value", "bin_edges"):
         assert torch.equal(getattr(a.state, field), getattr(b.state, field))
+
+
+# flash_attention against its plain version (the same online softmax over
+# the same 64-key tiles): float32 within atol 2e-5 (summation order); bf16
+# within atol = rtol = 1e-2, one bf16 ulp of the output (a float32 sum in
+# another order can move p across a bf16 rounding boundary); two launches
+# bit-equal.
+FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=0),
+             torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+
+
+def _flash_inputs(dev, B, H, Kh, S, D, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    # the model's (B, S, H, D) layout, read as (B, H, S, D) views
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev
+                           ).to(dtype).transpose(1, 2)
+               for h in (H, Kh, Kh))
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,Kh,S,D,causal", [
+    (2, 2, 1, 128, 32, True),        # the smoke config's heads
+    (1, 14, 2, 1024, 64, True),      # qwen2-0.5b's heads
+    (2, 14, 2, 1000, 64, True),      # ragged S
+    (1, 3, 1, 1, 64, True),          # one position
+    (2, 14, 2, 77, 64, False),
+    (1, 8, 1, 512, 128, False),      # MQA, D = 128
+    (1, 4, 2, 200, 128, True)])
+def test_flash_kernel_equals_plain(B, H, Kh, S, D, causal, dtype):
+    dev = require_cuda()
+    q, k, v = _flash_inputs(dev, B, H, Kh, S, D, dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, S, D)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, **FLASH_TOL[dtype])
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_reads_a_packed_view(dtype):
+    """q, k and v sliced from one packed (B, S, H + 2 Kh, D) tensor: no
+    copy, the same values as contiguous inputs."""
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(1)
+    packed = torch.randn((2, 300, 18, 64), generator=g, device=dev
+                         ).to(dtype).transpose(1, 2)
+    q, k, v = packed[:, :14], packed[:, 14:16], packed[:, 16:]
+    got = flash_attention(q, k, v)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v),
+                               **FLASH_TOL[dtype])
+
+
+def test_flash_kernel_raises_on_what_it_does_not_take():
+    """On the card an unsupported dtype, head dim or layout raises; it
+    never runs the plain version instead."""
+    dev = require_cuda()
+    q, k, v = _flash_inputs(dev, 1, 2, 1, 64, 64, torch.float32)
+    before = flash_attention.launches
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):                    # head dim 48
+        flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError):                    # D not unit-stride
+        flash_attention(*(t.transpose(-1, -2) for t in
+                          _flash_inputs(dev, 1, 2, 1, 64, 64,
+                                        torch.float32)))
+    odd = torch.zeros((1, 64, 2 * 64 + 1), device=dev)[..., 1:]
+    with pytest.raises(ValueError):                    # rows not 16-byte
+        flash_attention(odd.view(1, 64, 2, 64).transpose(1, 2), k, v)
+    assert flash_attention.launches == before
+
+
+def _small_lm(dev, dtype):
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"), dtype=dtype)
+    model = build(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = model.init(gen)
+    toks = torch.randint(0, cfg.vocab_size, (3, 130), generator=gen,
+                         device=dev)
+    return cfg, model, params, toks
+
+
+def test_prefill_launches_flash_once_per_layer():
+    dev = require_cuda()
+    cfg, model, params, toks = _small_lm(dev, "float32")
+    flash_attention.launches = 0
+    model.prefill(params, {"tokens": toks})
+    assert flash_attention.launches == cfg.n_layers
+    cache = model.init_cache(3, 4)
+    for t in range(4):                 # decode stays on the plain mha
+        model.decode_step(params, cache, toks[:, t:t + 1], t)
+    assert flash_attention.launches == cfg.n_layers
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+def test_small_prefill_near_its_plain_twin(dtype, tol):
+    """The kernel path's last logits against the use_kernels(False) twin's,
+    within tol * max|logit| (float32: summation order through two layers;
+    bf16: a one-ulp difference in one attention output re-rounds through
+    the rest of the stack)."""
+    dev = require_cuda()
+    _, model, params, toks = _small_lm(dev, dtype)
+    got = model.prefill(params, {"tokens": toks}).float()
+    with dispatch.use_kernels(False):
+        want = model.prefill(params, {"tokens": toks}).float()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())

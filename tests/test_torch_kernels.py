@@ -111,9 +111,13 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 20, mods\n"
+        "assert len(mods) >= 30, mods\n"
         "for m in ('kernels.kmeans_assign', 'kernels.split_hist',\n"
-        "          'core.mlalgos.kmeans', 'core.mlalgos.dtree'):\n"
+        "          'core.mlalgos.kmeans', 'core.mlalgos.dtree',\n"
+        "          'kernels.flash_attention', 'models.common',\n"
+        "          'models.attention', 'models.mlp', 'models.transformer',\n"
+        "          'models.model_api', 'configs.qwen2_0_5b',\n"
+        "          'launch.serve_lm'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
