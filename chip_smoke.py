@@ -15,11 +15,12 @@ Phases, each printed as one JSON line:
                 lut_activation and split_hist bit for bit; kmeans_assign's
                 assignments and counts bit for bit, its sums and sse
                 within 1e-5 of their mass, and two launches bit-equal;
-                flash_attention within float32 2e-5 / bf16 1e-2 at
-                qwen2-0.5b's prefill shape (4 x 14 heads, 2 KV heads, S =
-                4096, D = 64), ragged S, D = 128 and a packed view, two
-                launches bit-equal; then their median times (CUDA events)
-                and bounds;
+                flash_attention within float32 2e-5 / bf16 1e-2 (and
+                >= 99 % of bf16 outputs bit-equal) at qwen2-0.5b's
+                prefill shape (4 x 14 heads, 2 KV heads, S = 4096, D =
+                64), ragged S, D = 32, D = 128 and a packed view, two
+                launches bit-equal; then their median times (CUDA
+                events) and bounds;
   4. train    — ``api.fit`` on 256 vDPUs x 2^24 rows made on the card
                 from --seed: LogReg(int8, LUT sigmoid) at d=64, 50 steps
                 at cadence 1 and 48 at cadence 8, against fp32 + exact
@@ -76,7 +77,8 @@ from repro_torch.core import quantize as qz  # noqa: E402
 from repro_torch.core.mlalgos import (DecisionTree, KMeans,  # noqa: E402
                                       LinReg, LogReg, accuracy, api)
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
+                                                 route)
 from repro_torch.kernels.fxp_matmul import fxp_matmul  # noqa: E402
 from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
 from repro_torch.kernels.lut_activation import lut_activation  # noqa: E402
@@ -109,11 +111,14 @@ LM_ARCH = "qwen2-0.5b"
 LM_BATCH, LM_SEQ = 4, 4096            # prefill: 4 x 4096 tokens
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 64, 32
 LM_RATE_REPS = 5
-# flash_attention against its plain version (the same online softmax over
-# the same 64-key tiles): float32 within 2e-5 (summation order); bf16
-# within atol = rtol = 1e-2, one bf16 ulp of the output (a sum in another
-# order can move p across a bf16 rounding boundary)
+# flash_attention against its plain version (the same online softmax, p
+# in float32): float32 within 2e-5 (summation order); bf16 within atol =
+# rtol = 1e-2, one bf16 ulp of the output, with at least FLASH_BIT_EQUAL of
+# the outputs bit-equal (summation order, tile width and p carried to
+# 2^-16 as two bf16 terms move an output across a rounding boundary now
+# and then)
 FLASH_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
+FLASH_BIT_EQUAL = 0.99
 # last logits, as a share of max|logit|: the kernel path against its
 # use_kernels(False) twin (float32: summation order through 24 layers;
 # bf16: one-ulp differences re-rounded through 24 layers), and the
@@ -144,8 +149,11 @@ LIBRARY_NOTES = {
                   "(lane, node, feature, bin, class) index, computed outside "
                   "the timed region (the index is excluded)",
     "flash_attention": "torch.nn.functional.scaled_dot_product_attention("
-                       "is_causal=True, enable_gqa=True) on the same "
-                       "(B, H, S, D) views, timed outside the path",
+                       "is_causal=True, enable_gqa=True) on float32 copies "
+                       "of q, k and v: the same function (p in float32), "
+                       "timed outside the path; library_bf16_ms is the "
+                       "same call on the bf16 views, which rounds p to "
+                       "bf16",
 }
 PER = {
     "fxp_matmul": "one training step: forward (L,R,d)x(d,2) + gradient "
@@ -158,7 +166,7 @@ PER = {
                   "4 classes",
     "flash_attention": "one layer's causal self-attention in qwen2-0.5b's "
                        "prefill: q (4, 14, 4096, 64), k and v (4, 2, 4096, "
-                       "64), bf16",
+                       "64), bf16, on the wgmma kernel",
 }
 PORT_KERNELS = re.compile(r"(fxp_\w+?_kernel|lut_kernel|km_partials|km_reduce"
                           r"|hist_kernel|flash_\w+?_kernel)")
@@ -933,17 +941,23 @@ def flash_inputs(gen, B, H, Kh, S, D, dtype) -> tuple:
 
 
 def flash_check(name, q, k, v, causal) -> dict:
-    """flash_attention against its plain version within FLASH_TOL, and a
-    second launch bit-equal."""
+    """flash_attention against its plain version within FLASH_TOL (bf16:
+    and at least FLASH_BIT_EQUAL of the outputs bit-equal), and a second
+    launch bit-equal."""
     got = flash_attention(q, k, v, causal=causal)
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     again = flash_attention(q, k, v, causal=causal)
     atol, rtol = FLASH_TOL[q.dtype]
     err = (got.double() - want.double()).abs()
     ok = bool((err <= atol + rtol * want.double().abs()).all())
+    share = float((got == want).double().mean())
+    if q.dtype == torch.bfloat16:
+        ok = ok and share >= FLASH_BIT_EQUAL
     out = {"case": name, "q": list(q.shape), "k": list(k.shape),
            "dtype": str(q.dtype)[6:], "causal": causal,
-           "max_abs_err": float(err.max()), "within_tolerance": ok,
+           "kernel": route(q.dtype, q.shape[-1]),
+           "max_abs_err": float(err.max()), "bit_equal_share": share,
+           "within_tolerance": ok,
            "deterministic": bool(torch.equal(got, again)),
            "finite": bool(torch.isfinite(got).all())}
     require(ok and out["finite"], f"flash_attention != plain version: {out}")
@@ -981,25 +995,29 @@ def sdpa(q, k, v):
 
 
 def time_flash(gen, seq: int, iters: int) -> dict:
-    """One layer's attention in qwen2-0.5b's bf16 prefill.  ops: causal
-    q·kᵀ and p·v, 4·D per (query, key) pair with key <= query."""
+    """One layer's attention in qwen2-0.5b's bf16 prefill.  ops: the
+    causal q·kᵀ once and p·v as two bf16 products (p's hi and lo terms),
+    6·D per (query, key) pair with key <= query, at the bf16 peak (p·v in
+    float32 at the TF32 peak gives the same time)."""
     dev = gen.device
     B, H, Kh, D = LM_BATCH, 14, 2, 64
     q, k, v = flash_inputs(gen, B, H, Kh, seq, D, torch.bfloat16)
     check = flash_check("timed shapes", q, k, v, True)
     o = flash_attention(q, k, v)
-    lib_err = max_abs_err(sdpa(q, k, v), o)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    lib_err = max_abs_err(sdpa(qf, kf, vf), o)
     t = {"ms": median_ms(lambda: flash_attention(q, k, v), dev, iters),
          "plain_ms": median_ms(lambda: ref.flash_attention_ref(q, k, v),
                                dev, max(1, iters // 5)),
-         "library_ms": median_ms(lambda: sdpa(q, k, v), dev, iters),
+         "library_ms": median_ms(lambda: sdpa(qf, kf, vf), dev, iters),
+         "library_bf16_ms": median_ms(lambda: sdpa(q, k, v), dev, iters),
          "library_max_abs_err": lib_err,
          "bytes": nbytes(q, k, v, o),
-         "ops": 4 * B * H * D * seq * (seq + 1) // 2,
-         "max_abs_err": check["max_abs_err"]}
+         "ops": 6 * B * H * D * seq * (seq + 1) // 2,
+         "max_abs_err": check["max_abs_err"],
+         "bit_equal_share": check["bit_equal_share"]}
     t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
                                          BF16_OPS_PER_S)
-    qf, kf, vf = (x.float() for x in (q, k, v))
     t["float32_ms"] = median_ms(lambda: flash_attention(qf, kf, vf), dev,
                                 max(1, iters // 5))
     return t
@@ -1254,7 +1272,8 @@ def main(argv=None) -> int:
                  "bound_by": t["bound_by"],
                  "library_ms": t.get("library_ms"),
                  "library_note": LIBRARY_NOTES[name], "per": PER[name]}
-        for extra in ("parts", "float32_ms", "library_max_abs_err"):
+        for extra in ("parts", "float32_ms", "library_bf16_ms",
+                      "library_max_abs_err", "bit_equal_share"):
             if extra in t:
                 entry[extra] = t[extra]
         kernels.append(entry)

@@ -45,18 +45,22 @@ def nvcc_path() -> str:
         "PATH): the CUDA kernels are built from kernels/csrc/ at first use")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def library_path(name: str, src: Path | None = None) -> Path:
+    """Where the library of ``src`` (default ``csrc/<name>.cu``) is built."""
+    src = CSRC / f"{name}.cu" if src is None else Path(src)
+    digest = hashlib.sha256(src.read_bytes() +
+                            " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build_all(names=KERNELS) -> dict:
+def build_all(names=KERNELS, sources: dict | None = None) -> dict:
     """Compile every library in ``names`` that is not built yet, all in
-    parallel.  Returns ``{name: ptxas report}`` (registers, shared
-    memory, spills) for the ones built here;
-    raises with nvcc's output if any build fails."""
-    todo = [n for n in names if not library_path(n).exists()]
+    parallel; ``sources`` maps a name to a source other than
+    ``csrc/<name>.cu`` (an edited copy, for comparing versions).  Returns
+    ``{name: ptxas report}`` (registers, shared memory, spills) for the
+    ones built here; raises with nvcc's output if any build fails."""
+    srcs = {n: (sources or {}).get(n, CSRC / f"{n}.cu") for n in names}
+    todo = [n for n in names if not library_path(n, srcs[n]).exists()]
     if not todo:
         return {}
     nvcc = nvcc_path()
@@ -66,7 +70,7 @@ def build_all(names=KERNELS) -> dict:
         fd, tmp = tempfile.mkstemp(prefix=f"lib{name}-", suffix=".so.tmp",
                                    dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(srcs[name])]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
@@ -77,7 +81,7 @@ def build_all(names=KERNELS) -> dict:
             failed.append(f"--- {name} (exit {proc.returncode}) ---\n{out}")
             os.unlink(tmp)
             continue
-        os.replace(tmp, library_path(name))
+        os.replace(tmp, library_path(name, srcs[name]))
         logs[name] = out
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
@@ -90,11 +94,16 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, (restype, argtypes) in signatures.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        _LIBS[name] = lib
+        lib = _LIBS[name] = bind(library_path(name), signatures)
+    return lib
+
+
+def bind(path: Path, signatures: dict) -> ctypes.CDLL:
+    """Load the library at ``path`` and declare ``signatures``."""
+    lib = ctypes.CDLL(str(path))
+    for fn, (restype, argtypes) in signatures.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
     return lib
 
 

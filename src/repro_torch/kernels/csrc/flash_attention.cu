@@ -5,50 +5,69 @@
 // (_flash_kernel).  There the grid's last dimension walks the key blocks in
 // order on one core and carries the running max m, sum l and accumulator in
 // VMEM scratch from one grid step to the next.  Blocks of a GPU run in no
-// order, so here one block owns one (batch, head, 64-row query tile) and
-// walks the key tiles itself, keeping m, l and the accumulator in
-// registers:
+// order, so here one block owns one (batch, head, query tile) and walks the
+// key tiles itself, keeping m, l and the accumulator in registers:
 //
 //   s   = (q . k^T) * scale                       float32, scale = 1/sqrt(D)
 //   s   = -1e30 where masked (causal: key > query; keys >= S)
 //   m'  = max(m, rowmax(s));  p = exp(s - m') (0 where masked)
 //   l   = l * exp(m - m') + rowsum(p)
-//   acc = acc * exp(m - m') + round_to_v_dtype(p) . v
-//   out = acc / max(l, 1e-30)                      cast to q's dtype
+//   acc = acc * exp(m - m') + p . v               p in float32
+//   out = acc / max(l, 1e-30)                      a division, cast to q's dtype
 //
-// p is rounded to v's dtype before the product, as the TPU kernel does
-// (flash_attention.py:61-62); l sums the unrounded p.  Key tiles strictly
-// after the query tile's last row are skipped (causal), and the grid starts
-// the longest query tiles first.  Query head h reads key/value head
-// h / (H / Kh).  Any S >= 1: rows and keys past S are masked, and a row
-// with no unmasked key gives 0.  The plain PyTorch version
-// (repro_torch.kernels.ref.flash_attention_ref) runs the same recurrence
-// over the same 64-key tiles, so the two differ only in float32 summation
-// order (and, for bf16, where that moves p across a rounding boundary).
+// The TPU kernel casts q, k and v to float32 before any product
+// (flash_attention.py:43-45), so p enters p.v in float32 and the one
+// rounding to bf16 is the output's.  The bf16 tensor cores take p as two
+// bf16 terms, hi = bf16(p) and lo = bf16(p - hi) (split_bf16), each
+// multiplied by v into the float32 accumulator: p is kept to 2^-16
+// relative.  Key tiles strictly after the query tile's last row are
+// skipped (causal), and the longest query tiles start first.  Query head
+// h reads key/value head h / (H / Kh).  Any S >= 1: rows and keys past S
+// are masked, and a row with no unmasked key gives 0.  The plain PyTorch
+// version (repro_torch.kernels.ref.flash_attention_ref) runs the same
+// recurrence in float32 over 64-key tiles; the kernels differ from it in
+// float32 summation order, tile width, the 2^-16 of p and (wgmma kernel)
+// exp taken as ex2.approx of a scaled score, which moves a bf16 output
+// across a rounding boundary now and then (<= 1 ulp).
 //
 // Layout: q, k, v and out are addressed by element strides of (batch, seq,
 // head) with unit stride along D -- the (B, S, H, D) layout the model's
 // projections produce, taken without a transpose copy.
 //
-// Two kernels:
-//   * bf16: mma.sync m16n8k16 (bf16 in, float32 accumulate) on the tensor
-//     cores.  Four warps, 16 query rows each; the Q tile's fragments stay in
-//     registers, K and V tiles (64 x D) are staged in shared memory with
-//     16-byte loads, V's B-fragments come from ldmatrix.trans, and the
-//     score fragments are re-packed as the A operand of p.v in registers.
-//   * float32: the same recurrence on the CUDA cores (no tensor-core path
-//     keeps float32 products exact): 256 threads, each owning a 4 x 4 block
-//     of the 64 x 64 score tile and 4 x D/16 outputs; Q, K, V and p in
-//     shared memory.
+// Three kernels, chosen by the wrapper (flash_attention.py, route()):
+//   * bf16, D in {64, 128}: flash_wgmma_kernel.  One block of three
+//     warpgroups per (batch, head, 128-row query tile).  A producer
+//     warpgroup, shrunk by setmaxnreg, issues TMA copies (Q once, then K and
+//     V tiles of 128 keys into a three-stage ring guarded by full and empty
+//     mbarriers); two consumer warpgroups of 64 rows each, grown by
+//     setmaxnreg, run S = Q.K^T as wgmma m64n128k16 from 128-byte swizzled
+//     shared memory, the online softmax in registers, and O += P.V as wgmma
+//     with P's hi and lo fragments in registers and V read MN-major through
+//     the descriptor's transpose bit.  Each consumer issues S_j and
+//     P_{j-1}.V_{j-1} together and runs S_j's softmax while they are in
+//     flight.
+//   * bf16, D = 32: flash_mma_kernel, mma.sync m16n8k16.  Four warps, 16
+//     query rows each; the Q tile's fragments stay in registers, K and V
+//     tiles (64 x D) are staged in shared memory with 16-byte loads, V's B
+//     fragments come from ldmatrix.trans, and p's hi and lo fragments are
+//     packed from the score fragments in registers.
+//   * float32: flash_simt_kernel, the same recurrence on the CUDA cores (no
+//     tensor-core path keeps float32 products exact): 256 threads, each
+//     owning a 4 x 4 block of the 64 x 64 score tile and 4 x D/16 outputs;
+//     Q, K, V and p in shared memory.
 //
-// What bounds it on the H100: operations.  At qwen2-0.5b's prefill (S =
-// 4096, D = 64) a head reads 1.5 MB and does ~2 GFLOP of causal products,
-// far above the 295 flop/byte the tensor cores need.  This simple form
-// stays well above that bound: the tile loads are synchronous (no cp.async
-// or TMA pipeline; several blocks per SM overlap them) and the products are
-// mma.sync, not wgmma.  Variants with 128-row tiles or cp.async double
-// buffering measured slower on the H100 (PERF.md).
+// What bounds it on the H100: operations.  At qwen2-0.5b's prefill (q (4,
+// 14, 4096, 64), k and v (4, 2, 4096, 64), causal) the causal q.k^T is
+// 60.15 GFLOP and p.v, as two bf16 products, 120.3: 0.182 ms at the bf16
+// peak of 989 TFLOP/s, against 67 MB of q, k, v and out (0.020 ms).  Why
+// the earlier pipelines lost (PERF.md): the mma.sync kernel overlaps its
+// synchronous tile loads only through other blocks on the SM, and a
+// cp.async double buffer raised it to 138 registers, so three blocks fit
+// an SM where four did -- the pipeline cost a block of occupancy.  Here
+// the pipeline runs inside one block: one thread issues whole-tile TMA
+// copies, and the producer's registers go to the consumers.
 
+#include <cuda.h>                  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,6 +109,20 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// p (two float32 values) as hi = bf16(p) and lo = bf16(p - hi), packed
+// pairs.  p - hi is exact in float32, so hi + lo holds p to a relative
+// 2^-16 (one bf16 rounding: 2^-8).  Two terms, not three: a third,
+// bf16(p - hi - lo), would make the product float32-exact at 1.5x the p.v
+// work again, and two already keep >= 99 % of the bf16 outputs bit-equal
+// to the float32-p plain version (PERF.md).
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(__fsub_rn(a, hf.x), __fsub_rn(b, hf.y));
 }
 
 // Copy rows [row0, row0 + 64) of one head into a (64, D + 8) shared tile
@@ -210,8 +243,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
       m_new[i] = fmaxf(m[i], mx[i]);
       corr[i] = expf(m[i] - m_new[i]);
     }
-    // p = exp(s - m') (0 where masked), packed as bf16 A fragments of p.v
-    uint32_t pa[4][4];
+    // p = exp(s - m') (0 where masked) in float32, split into the hi and
+    // lo bf16 A fragments of p.v
+    uint32_t ph[4][4], pl[4][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       float p[4];
@@ -221,8 +255,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
         sum[e >> 1] += p[e];
       }
       // keys nt*8.. of k-step nt/2: low half (a0, a1) or high half (a2, a3)
-      pa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+      split_bf16(p[0], p[1], ph[nt / 2][(nt % 2) * 2], pl[nt / 2][(nt % 2) * 2]);
+      split_bf16(p[2], p[3], ph[nt / 2][(nt % 2) * 2 + 1],
+                 pl[nt / 2][(nt % 2) * 2 + 1]);
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -238,7 +273,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
       acc[nd][2] *= corr[1];
       acc[nd][3] *= corr[1];
     }
-    // acc += p . v: V's B fragments by ldmatrix.trans, two d-tiles a load
+    // acc += hi . v, then lo . v: V's B fragments by ldmatrix.trans, two
+    // d-tiles a load
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
@@ -248,25 +284,490 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
         const int col = (nd + (mat >> 1)) * 8;
         uint32_t vb[4];
         ldmatrix_x4_trans(vb, Vs + key * kLd + col);
-        mma_bf16(acc[nd], pa[kk], vb[0], vb[1]);
-        mma_bf16(acc[nd + 1], pa[kk], vb[2], vb[3]);
+        mma_bf16(acc[nd], ph[kk], vb[0], vb[1]);
+        mma_bf16(acc[nd], pl[kk], vb[0], vb[1]);
+        mma_bf16(acc[nd + 1], ph[kk], vb[2], vb[3]);
+        mma_bf16(acc[nd + 1], pl[kk], vb[2], vb[3]);
       }
     }
   }
 
   // out = acc / max(l, 1e-30), rows past S not written
-  const float inv_lo = 1.f / fmaxf(l[0], 1e-30f);
-  const float inv_hi = 1.f / fmaxf(l[1], 1e-30f);
+  const float l_lo = fmaxf(l[0], 1e-30f), l_hi = fmaxf(l[1], 1e-30f);
   __nv_bfloat16* oh = out + b * so.b + h * so.h;
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) {
     const int col = nd * 8 + t * 2;
     if (row_lo < S)
-      *reinterpret_cast<uint32_t*>(oh + row_lo * so.s + col) =
-          pack_bf16(acc[nd][0] * inv_lo, acc[nd][1] * inv_lo);
+      *reinterpret_cast<uint32_t*>(oh + row_lo * so.s + col) = pack_bf16(
+          __fdiv_rn(acc[nd][0], l_lo), __fdiv_rn(acc[nd][1], l_lo));
     if (row_hi < S)
-      *reinterpret_cast<uint32_t*>(oh + row_hi * so.s + col) =
-          pack_bf16(acc[nd][2] * inv_hi, acc[nd][3] * inv_hi);
+      *reinterpret_cast<uint32_t*>(oh + row_hi * so.s + col) = pack_bf16(
+          __fdiv_rn(acc[nd][2], l_hi), __fdiv_rn(acc[nd][3], l_hi));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16, D in {64, 128}: wgmma on TMA-fed tiles, warp-specialised
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 128;       // query rows per block, keys per tile
+constexpr int kWgThreads = 384;    // one producer + two consumer warpgroups
+constexpr int kStages = 3;         // K/V ring depth
+constexpr int kHalf = kWgRows * 128;  // one 64-column half of a tile: 16 KB
+constexpr int kConsumerWarps = 8;
+
+// Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
+// repeats every 8 rows of 128 bytes): Q, then the K and V rings, each tile
+// D / 64 halves of 128 rows x 64 columns, then the mbarriers.
+template <int D>
+struct WgLayout {
+  static constexpr int kTile = (D / 64) * kHalf;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;  // q, full[], empty[]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait for the completion of the barrier's phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 64-column x 128-row box of a (B, S, heads, D) tensor into shared
+// memory, 128-byte swizzled; rows past S arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int row,
+                                         int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(row),
+      "r"(head), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 =
+// SWIZZLE_128B.  K-major (Q, K): stride = 1024 B between 8-row groups,
+// leading unused.  MN-major (V): stride = 1024 B between 8-key groups,
+// leading = the distance between 64-column halves.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lead,
+                                               uint32_t stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lead >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((stride >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are in flight
+// (groups complete in order).
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving register reads or writes of wgmma
+// operands across the asynchronous issue / wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (+)= a . b: a and b from shared memory, both K-major; m64n128k16.
+// scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d += a . b: a (4 registers of bf16 pairs) from registers, b MN-major
+// from shared memory (the transpose bit); m64n64k16 and m64n128k16.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 64)
+    wgmma_rs_n64(o, a, b);
+  else
+    wgmma_rs_n128(o, a, b);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One warpgroup's view of the tiles: its 64 query rows, the shared memory
+// and the scale.  The score and P.V accumulators follow the wgmma layout:
+// s[4j + e] is row (e < 2 ? row_lo : row_hi), key 8j + 2t + (e & 1) of
+// the tile; o[4j + e] the same rows, column 8j + 2t + (e & 1).
+template <int D>
+struct Consumer {
+  uint32_t q, k, v;                // shared addresses: this warpgroup's Q
+                                   // rows, the K and V rings
+  int q0, row_lo, row_hi, t, S, causal;
+  float scale_log2;                // 1/sqrt(D) * log2(e)
+
+  // s = q . k^T for the tile in stage st: D / 16 k-steps of m64n128k16
+  __device__ __forceinline__ void issue_qk(float (&s)[64], int st) const {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kHalf + (kk % 4) * 32;
+      wgmma_ss_n128(s, sw128_desc(q + off, 16, 1024),
+                    sw128_desc(k + st * WgLayout<D>::kTile + off, 16, 1024),
+                    kk > 0);
+    }
+    wg_commit();
+  }
+
+  // o += hi . v, then lo . v, for each 16-key step of the tile in stage st
+  __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                           const uint32_t (&ph)[8][4],
+                                           const uint32_t (&pl)[8][4],
+                                           int st) const {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t dv = sw128_desc(
+          v + st * WgLayout<D>::kTile + kk * 16 * 128, kHalf, 1024);
+      wgmma_pv<D>(o, ph[kk], dv);
+      wgmma_pv<D>(o, pl[kk], dv);
+    }
+    wg_commit();
+  }
+
+  // The online-softmax step on the score tile of keys k0..k0+127: mask
+  // (only the diagonal tile and the ragged tail need it), the rows' new
+  // maxima, corr = exp(m_old - m_new), l, and s replaced by p =
+  // exp(s * scale - m_new) in float32.  exp(x) is ex2(x * log2(e)) with
+  // the scale folded into one fma; m is kept unscaled (scaling is
+  // monotonic, so the max is the same).  The edge test depends on the
+  // block and the tile only, so every thread takes the same branch.
+  __device__ __forceinline__ void softmax(float (&s)[64], float (&m)[2],
+                                          float (&l)[2], float (&corr)[2],
+                                          int k0) const {
+    const bool edge = (causal && k0 == q0) || k0 + kWgRows > S;
+    float mx[2] = {kNegInf, kNegInf};
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int row = (i & 2) ? row_hi : row_lo;
+        const int col = k0 + (i / 4) * 8 + t * 2 + (i & 1);
+        s[i] = (col >= S || (causal && col > row)) ? kNegInf : s[i];
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+    float mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = ex2((m[r] - m_new) * scale_log2);
+      m[r] = m_new;
+      mc[r] = m_new * scale_log2;
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const float p = ex2(fmaf(s[i], scale_log2, -mc[(i >> 1) & 1]));
+      s[i] = (edge && s[i] == kNegInf) ? 0.f : p;
+      sum[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = l[r] * corr[r] + sum[r];
+    }
+  }
+};
+
+// p (float32, in s) as the hi and lo bf16 A fragments of p.v: k-step kk
+// holds keys 16kk.. as (a0, a1) from s[8kk..8kk+3] and (a2, a3) from
+// s[8kk+4..8kk+7].
+__device__ __forceinline__ void split_p(const float (&s)[64],
+                                        uint32_t (&ph)[8][4],
+                                        uint32_t (&pl)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    split_bf16(s[4 * j], s[4 * j + 1], ph[j / 2][(j % 2) * 2],
+               pl[j / 2][(j % 2) * 2]);
+    split_bf16(s[4 * j + 2], s[4 * j + 3], ph[j / 2][(j % 2) * 2 + 1],
+               pl[j / 2][(j % 2) * 2 + 1]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+}
+
+// One block per (batch, query head, 128-row query tile), flattened with
+// the query tile slowest and reversed, so every head's longest tiles start
+// first.  Warpgroup 0 produces: one thread loads the Q tile once, then K
+// and V tiles of 128 keys into a ring of kStages stages (full / empty
+// mbarriers).  Warpgroups 1 and 2 consume, 64 query rows each.  A
+// consumer's step j issues S_j = Q.K_j^T and O += P_{j-1}.V_{j-1} together
+// (wgmma, P as register A fragments: the score accumulator's layout is the
+// A-operand layout, so p never touches shared memory), then runs the
+// softmax of S_j while its products are in flight.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ out, Strides so, int S, int H,
+                   int B, int group, int causal, float scale) {
+  using L = WgLayout<D>;
+  constexpr int kHalves = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_q + 8 * (1 + kStages);
+
+  const int n_q = (S + kWgRows - 1) / kWgRows;
+  const int heads = H * B;
+  const int iq = n_q - 1 - static_cast<int>(blockIdx.x) / heads;
+  const int h = static_cast<int>(blockIdx.x) % heads % H;
+  const int b = static_cast<int>(blockIdx.x) % heads / H;
+  const int hk = h / group, q0 = iq * kWgRows;
+  const int n_k = causal ? iq + 1 : n_q;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: gives up registers; one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, L::kTile);
+      for (int hf = 0; hf < kHalves; ++hf)
+        tma_load(base + L::kQ + hf * kHalf, &tq, bar_q, hf * 64, q0, h, b);
+      for (int jk = 0; jk < n_k; ++jk) {
+        const int st = jk % kStages;
+        // the first pass over the ring finds every stage free
+        mbar_wait(bar_empty + 8 * st, ((jk / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * st, 2 * L::kTile);
+        for (int hf = 0; hf < kHalves; ++hf) {
+          tma_load(base + L::kK + st * L::kTile + hf * kHalf, &tk,
+                   bar_full + 8 * st, hf * 64, jk * kWgRows, hk, b);
+          tma_load(base + L::kV + st * L::kTile + hf * kHalf, &tv,
+                   bar_full + 8 * st, hf * 64, jk * kWgRows, hk, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = threadIdx.x / 128 - 1;          // consumer 0 or 1
+    const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+    Consumer<D> w;
+    w.q = base + L::kQ + c * 64 * 128;
+    w.k = base + L::kK;
+    w.v = base + L::kV;
+    w.q0 = q0;
+    w.row_lo = q0 + c * 64 + warp * 16 + lane / 4;
+    w.row_hi = w.row_lo + 8;
+    w.t = lane % 4;
+    w.S = S;
+    w.causal = causal;
+    w.scale_log2 = scale * 1.44269504088896341f;
+
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float s[64];
+    uint32_t ph[8][4], pl[8][4];
+
+    mbar_wait(bar_q, 0);
+    // step 0: S_0 only
+    mbar_wait(bar_full, 0);
+    wg_fence();
+    w.issue_qk(s, 0);
+    wg_wait<0>();
+    fence_regs(s);
+    w.softmax(s, m, l, corr, 0);
+    split_p(s, ph, pl);
+    fence_regs(ph);
+    fence_regs(pl);
+    // step j: S_j and P_{j-1}.V_{j-1}
+    for (int jk = 1; jk < n_k; ++jk) {
+      const int st = jk % kStages, prev = (jk - 1) % kStages;
+      mbar_wait(bar_full + 8 * st, (jk / kStages) & 1);
+      rescale<D>(o, corr);                        // to P_{j-1}'s maxima
+      fence_regs(o);
+      wg_fence();
+      w.issue_qk(s, st);
+      w.issue_pv(o, ph, pl, prev);
+      wg_wait<1>();                               // S_j is in
+      fence_regs(s);
+      w.softmax(s, m, l, corr, jk * kWgRows);
+      wg_wait<0>();                               // P_{j-1}.V_{j-1} is in
+      fence_regs(o);
+      fence_regs(ph);
+      fence_regs(pl);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * prev);   // stage free
+      split_p(s, ph, pl);
+      fence_regs(ph);
+      fence_regs(pl);
+    }
+    rescale<D>(o, corr);
+    fence_regs(o);
+    wg_fence();
+    w.issue_pv(o, ph, pl, (n_k - 1) % kStages);
+    wg_wait<0>();
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+
+    // out = o / max(l, 1e-30), rows past S not written
+    const float l_lo = fmaxf(l[0], 1e-30f), l_hi = fmaxf(l[1], 1e-30f);
+    __nv_bfloat16* oh = out + b * so.b + h * so.h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + w.t * 2;
+      if (w.row_lo < S)
+        *reinterpret_cast<uint32_t*>(oh + w.row_lo * so.s + col) = pack_bf16(
+            __fdiv_rn(o[4 * j], l_lo), __fdiv_rn(o[4 * j + 1], l_lo));
+      if (w.row_hi < S)
+        *reinterpret_cast<uint32_t*>(oh + w.row_hi * so.s + col) = pack_bf16(
+            __fdiv_rn(o[4 * j + 2], l_hi), __fdiv_rn(o[4 * j + 3], l_hi));
+    }
   }
 }
 
@@ -408,20 +909,111 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kCols; ++j)
-      oh[row * so.s + tx + 16 * j] = acc[i][j] * inv;
+      oh[row * so.s + tx + 16 * j] = __fdiv_rn(acc[i][j], li);
   }
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+constexpr int kErrNoEncoder = 100001;   // the driver has no tensor maps
+constexpr int kErrTensorMap = 100002;   // the layout was refused
+
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-d map of a (batch, seq, head, D) bf16 tensor given by element
+// strides: boxes of 64 columns x 128 rows of one head, 128-byte swizzled,
+// rows past S filled with zeros.
+int tensor_map(CUtensorMap* map, const void* base, Strides st, int B, int S,
+               int heads, int D) {
+  const EncodeTiledFn fn = encoder();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {64, kWgRows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
 template <int D>
-int launch_d(int dtype, const void* q, const void* k, const void* v,
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 Strides sq, Strides sk, Strides sv, Strides so, int B, int S,
+                 int H, int Kh, float scale, int causal,
+                 cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = tensor_map(&tq, q, sq, B, S, H, D);
+  if (err == 0) err = tensor_map(&tk, k, sk, B, S, Kh, D);
+  if (err == 0) err = tensor_map(&tv, v, sv, B, S, Kh, D);
+  if (err != 0) return err;
+  const long long blocks =
+      static_cast<long long>((S + kWgRows - 1) / kWgRows) * H * B;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = WgLayout<D>::kBytes;
+  cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  flash_wgmma_kernel<D><<<static_cast<unsigned>(blocks), kWgThreads, smem,
+                          stream>>>(tq, tk, tv,
+                                    static_cast<__nv_bfloat16*>(out), so, S,
+                                    H, B, H / Kh, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_d(int kernel, const void* q, const void* k, const void* v,
              void* out, Strides sq, Strides sk, Strides sv, Strides so, int B,
-             int S, int H, int group, int causal, float scale,
+             int S, int H, int Kh, int causal, float scale,
              cudaStream_t stream) {
+  const int group = H / Kh;
   const dim3 grid((S + kTile - 1) / kTile, H, B);
-  if (dtype == 0) {
+  if (kernel == 1) {
+    const size_t smem =
+        (2 * kTile * (D + 1) + kTile * D + kTile * (kTile + 1)) *
+        sizeof(float);
+    cudaFuncSetAttribute(flash_simt_kernel<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    flash_simt_kernel<D><<<grid, kSimtThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), sq, sk, sv,
+        so, S, group, causal, scale);
+  } else if constexpr (D == 32) {
+    if (kernel != 0) return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = 3 * kTile * (D + 8) * sizeof(__nv_bfloat16);
     cudaFuncSetAttribute(flash_mma_kernel<D>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -433,16 +1025,9 @@ int launch_d(int dtype, const void* q, const void* k, const void* v,
         static_cast<__nv_bfloat16*>(out), sq, sk, sv, so, S, group, causal,
         scale);
   } else {
-    const size_t smem =
-        (2 * kTile * (D + 1) + kTile * D + kTile * (kTile + 1)) *
-        sizeof(float);
-    cudaFuncSetAttribute(flash_simt_kernel<D>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-    flash_simt_kernel<D><<<grid, kSimtThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), sq, sk, sv,
-        so, S, group, causal, scale);
+    if (kernel != 2) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wgmma<D>(q, k, v, out, sq, sk, sv, so, B, S, H, Kh, scale,
+                           causal, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -450,37 +1035,42 @@ int launch_d(int dtype, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, out: base pointers; each has element strides (batch, seq, head)
-// and unit stride along D.  dtype 0 = bf16, 1 = float32; D in {32, 64,
-// 128}.  Returns cudaGetLastError() after the launch (the wrapper checks
-// shapes, strides and alignment before calling).
+// and unit stride along D.  kernel 0 = bf16 on mma.sync (D = 32), 1 =
+// float32 on the CUDA cores, 2 = bf16 on wgmma + TMA (D in {64, 128}); D
+// in {32, 64, 128}, and another kernel for a D is an invalid value.
+// Returns cudaGetLastError() after the launch, or an error of its own (the
+// wrapper checks shapes, strides and alignment before calling).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int dtype,
+    const void* q, const void* k, const void* v, void* out, int kernel,
     long long sqb, long long sqs, long long sqh, long long skb,
     long long sks, long long skh, long long svb, long long svs,
     long long svh, long long sob, long long sos, long long soh, int B, int S,
     int H, int Kh, int D, int causal, float scale, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || Kh < 1 || H % Kh != 0 ||
-      (dtype != 0 && dtype != 1) || B > 65535 || H > 65535)
+  if (B < 1 || S < 1 || H < 1 || Kh < 1 || H % Kh != 0 || kernel < 0 ||
+      kernel > 2 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{sqb, sqs, sqh}, sk{skb, sks, skh}, sv{svb, svs, svh},
       so{sob, sos, soh};
-  const int group = H / Kh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch_d<32>(dtype, q, k, v, out, sq, sk, sv, so, B, S, H, group,
+      return launch_d<32>(kernel, q, k, v, out, sq, sk, sv, so, B, S, H, Kh,
                           causal, scale, st);
     case 64:
-      return launch_d<64>(dtype, q, k, v, out, sq, sk, sv, so, B, S, H, group,
+      return launch_d<64>(kernel, q, k, v, out, sq, sk, sv, so, B, S, H, Kh,
                           causal, scale, st);
     case 128:
-      return launch_d<128>(dtype, q, k, v, out, sq, sk, sv, so, B, S, H,
-                           group, causal, scale, st);
+      return launch_d<128>(kernel, q, k, v, out, sq, sk, sv, so, B, S, H, Kh,
+                           causal, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 extern "C" const char* flash_attention_error_string(int err) {
+  if (err == kErrNoEncoder)
+    return "the driver offers no cuTensorMapEncodeTiled";
+  if (err == kErrTensorMap)
+    return "cuTensorMapEncodeTiled refused the tensor's layout";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -2,11 +2,11 @@
 (``csrc/flash_attention.cu``).
 
 Port of ``repro/kernels/flash_attention.py::flash_attention``: causal
-(or full) grouped-query attention forward with an online softmax.  A
-CPU tensor runs the plain version
+(or full) grouped-query attention forward with an online softmax, p in
+float32 as the TPU kernel keeps it.  A CPU tensor runs the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); a CUDA tensor
-launches the kernel or raises.  ``flash_attention.launches`` counts the
-launches.
+launches one of the library's three kernels (:func:`route`) or raises.
+``flash_attention.launches`` counts the launches.
 """
 
 from __future__ import annotations
@@ -18,7 +18,9 @@ import torch
 from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (32, 64, 128)
-_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# the kernels of csrc/flash_attention.cu, by the code the launcher takes
+_KERNELS = {"mma": 0, "simt": 1, "wgmma": 2}
+_DTYPES = (torch.bfloat16, torch.float32)
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "flash_attention_launch": (ctypes.c_int, [
@@ -75,6 +77,17 @@ def _check_cuda_layout(q, k, v):
                          f"{tuple(q.shape)}")
 
 
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call takes: bf16 at ``D`` in (64, 128) runs on
+    ``wgmma`` fed by TMA, bf16 at ``D = 32`` on ``mma.sync`` (a 64-byte
+    row is narrower than the 128-byte swizzle the ``wgmma`` kernel's
+    tiles use), float32 on the CUDA cores (``simt``).  A rule on the
+    shape, not a fallback: a failed build or launch raises."""
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if head_dim in (64, 128) else "mma"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Attention forward: ``q`` ``(B, H, S, D)``, ``k``/``v`` ``(B, Kh,
@@ -89,21 +102,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
     _check_cuda_layout(q, k, v)
+    o = _launch(build.load("flash_attention", _SIGNATURES),
+                route(q.dtype, q.shape[-1]), q, k, v, causal)
+    flash_attention.launches += 1
+    return o
+
+
+def _launch(lib, kernel: str, q, k, v, causal: bool) -> torch.Tensor:
+    """One launch of ``kernel`` from ``lib``, a build of
+    ``csrc/flash_attention.cu``, on tensors that passed the wrapper's
+    checks.  Counts nothing: :func:`flash_attention` counts its own calls,
+    and ``tools/flash_ab.py`` times builds of edited sources with it."""
     B, H, S, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     o = out.transpose(1, 2)
     strides = []
     for t in (q, k, v, o):                     # (batch, seq, head)
         strides += [t.stride(0), t.stride(2), t.stride(1)]
-    lib = build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], *strides, B, S, H, k.shape[1], D, int(causal),
+            _KERNELS[kernel], *strides, B, S, H, k.shape[1], D, int(causal),
             1.0 / D ** 0.5, stream)
     build.check(lib, "flash_attention", err)
-    flash_attention.launches += 1
     return o
 
 

@@ -106,22 +106,26 @@ def split_hist_ref(node: torch.Tensor, xbin: torch.Tensor, y: torch.Tensor,
     return H.reshape(L, n_nodes, F, n_bins, n_classes)
 
 
-FLASH_TILE = 64               # the kernel's query rows and keys per tile
+FLASH_TILE = 64               # keys per tile, as the mma.sync kernel walks them
 FLASH_NEG_INF = -1e30         # the TPU kernel's mask value
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True) -> torch.Tensor:
-    """Online-softmax attention over the kernel's 64-key tiles, as the
-    kernel computes it: ``q`` ``(B, H, S, D)``, ``k``/``v`` ``(B, Kh, S,
-    D)`` with ``H % Kh == 0`` (query head ``h`` reads key head ``h //
-    (H / Kh)``) -> ``(B, H, S, D)`` in ``q``'s dtype.
+    """Online-softmax attention over 64-key tiles, in float32 throughout
+    as the TPU kernel computes it: ``q`` ``(B, H, S, D)``, ``k``/``v``
+    ``(B, Kh, S, D)`` with ``H % Kh == 0`` (query head ``h`` reads key
+    head ``h // (H / Kh)``) -> ``(B, H, S, D)`` in ``q``'s dtype.
 
-    Scores ``q·kᵀ · (1/√D)`` in float32 (the scale is the Python float
-    rounded once, as the TPU kernel has it); masked scores are ``-1e30``
-    and their ``p`` is 0; per block ``p = exp(s − m_new)`` is rounded to
-    ``v``'s dtype before ``p·v`` while ``l`` sums it unrounded; the output
-    is ``acc / max(l, 1e-30)``, so a row with no unmasked key gives 0."""
+    q, k and v are upcast to float32 before any product, as
+    ``repro/kernels/flash_attention.py:43-45`` does, so ``p = exp(s −
+    m_new)`` enters ``p·v`` in float32 and the one rounding to a narrower
+    dtype is the output's.  Hence the bf16 result equals this function on
+    ``q.float(), k.float(), v.float()`` rounded once to bf16, bit for
+    bit.  Scores ``q·kᵀ · (1/√D)`` (the scale is the Python float rounded
+    once, as the TPU kernel has it); masked scores are ``-1e30`` and
+    their ``p`` is 0; the output is ``acc / max(l, 1e-30)``, a division,
+    so a row with no unmasked key gives 0."""
     B, H, S, D = q.shape
     G = H // k.shape[1]
     kx = k.repeat_interleave(G, dim=1) if G > 1 else k
@@ -145,8 +149,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        pv = torch.matmul(p.to(v.dtype).float(),
-                          vx[:, :, k0:k1].float())
+        pv = torch.matmul(p, vx[:, :, k0:k1].float())
         acc = acc * corr[..., None] + pv
         m = m_new
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)

@@ -25,7 +25,8 @@ from repro.models import common as jcm  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
 from repro_torch import configs, interop  # noqa: E402
 from repro_torch.kernels import dispatch, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
+                                                 route)
 from repro_torch.launch.serve_lm import generate, main  # noqa: E402
 from repro_torch.models import attention as att  # noqa: E402
 from repro_torch.models import build  # noqa: E402
@@ -193,10 +194,12 @@ def _bhsd(seed, B, H, Kh, S, D):
             _normal(r, (B, Kh, S, D)))
 
 
-@pytest.mark.parametrize("B,H,Kh,S,D", [
-    (1, 2, 2, 128, 64),          # MHA
-    (2, 4, 2, 256, 64),          # GQA 2:1
-    (1, 8, 1, 128, 128)])        # MQA
+FLASH_SHAPES = [(1, 2, 2, 128, 64),          # MHA
+                (2, 4, 2, 256, 64),          # GQA 2:1
+                (1, 8, 1, 128, 128)]         # MQA
+
+
+@pytest.mark.parametrize("B,H,Kh,S,D", FLASH_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_plain_vs_pallas_interpret(B, H, Kh, S, D, causal):
     """atol 2e-5, the bar of the JAX package's own kernel test."""
@@ -210,18 +213,40 @@ def test_flash_plain_vs_pallas_interpret(B, H, Kh, S, D, causal):
                                rtol=2e-5)
 
 
-def test_flash_plain_bf16_vs_pallas_interpret():
-    """bf16 within 3e-2, the JAX package's bar (p is rounded to bf16)."""
+@pytest.mark.parametrize("B,H,Kh,S,D", FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_bf16_vs_pallas_interpret(B, H, Kh, S, D, causal):
+    """bf16: at least 99.9 % of outputs bit-equal to the Pallas kernel's,
+    every one within atol = rtol = 1e-2 (one bf16 ulp).  Both keep p in
+    float32 (the TPU kernel upcasts q, k and v before any product), so
+    they differ only in float32 summation order, which moves an output
+    across a bf16 rounding boundary now and then."""
     q, k, v = (to_torch(a).to(torch.bfloat16)
-               for a in _bhsd(36, 1, 2, 2, 128, 64))
-    got = flash_attention(q, k, v)
+               for a in _bhsd(36, B, H, Kh, S, D))
+    got = flash_attention(q, k, v, causal=causal)
     as_jax = [jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
               for a in (q, k, v)]
-    want = jops.flash_attention(*as_jax, block_q=64, block_k=64)
+    want = np.asarray(jops.flash_attention(*as_jax, causal=causal,
+                                           block_q=64, block_k=64),
+                      np.float32)
     assert got.dtype == torch.bfloat16
-    np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(want, np.float32), atol=3e-2,
-                               rtol=3e-2)
+    got = got.float().numpy()
+    assert np.mean(got == want) >= 0.999
+    np.testing.assert_allclose(got, want, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("S", [100, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_bf16_is_float32_rounded_once(S, causal):
+    """The bf16 plain version equals the float32 plain version of the
+    upcast inputs rounded once to bf16, bit for bit (ragged S = 100 and
+    S = 128)."""
+    q, k, v = (to_torch(a).to(torch.bfloat16)
+               for a in _bhsd(39, 2, 4, 2, S, 64))
+    got = ref.flash_attention_ref(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal).to(torch.bfloat16)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("S", [1, 63, 100, 200])
@@ -265,6 +290,14 @@ def test_flash_wrapper_rejects_what_it_does_not_take():
         flash_attention(q[0], kv[0], kv[0])
     with pytest.raises(TypeError):
         flash_attention(q, kv.double(), kv)
+
+
+@pytest.mark.parametrize("dtype,D,kernel", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 32, "mma"), (torch.float32, 64, "simt"),
+    (torch.float32, 32, "simt")])
+def test_flash_route_is_a_rule_on_dtype_and_head_dim(dtype, D, kernel):
+    assert route(dtype, D) == kernel
 
 
 def test_cpu_tensors_never_move_the_flash_counter():
