@@ -452,7 +452,8 @@ def km_check(name: str, x, c, w, scale, xf) -> dict:
 
 def compare_km(gen, lanes: int, rows: int, d: int, k: int) -> list:
     """At the path's shapes (every lane, shared and per-lane centroids,
-    float32, int16 and int8 rows) and on ragged ones."""
+    float32, int16 and int8 rows), on ragged ones, with every row in one
+    cluster, and on rows off the 16-byte grid."""
     out = []
     for dtype in (torch.float32, torch.int16, torch.int8):
         for per_lane in (False, True):
@@ -465,6 +466,22 @@ def compare_km(gen, lanes: int, rows: int, d: int, k: int) -> list:
                               (5, 300, 16, 1, torch.int16)):
         out.append(km_check(f"ragged L={L} R={R} D={D} K={K}",
                             *km_inputs(gen, L, R, D, K, dtype, True)))
+    few = min(lanes, 4)
+    # every row of a lane in one cluster (the others far off), int8: the
+    # longest chain into one cell, of values that repeat thousands of times
+    x, c, w, scale, xf = km_inputs(gen, few, rows, d, k, torch.int8, True)
+    c = xf.mean(1, keepdim=True) + torch.zeros_like(c)
+    c[:, 1:] += 1e3
+    out.append(km_check("int8, one cluster", x, c, w, scale, xf))
+    require(bool((ref.kmeans_assign_ref(x, c, w, scale, return_assign=True)
+                  [3] == 0).all()), "one-cluster case: a row left cluster 0")
+    # rows d + 1 elements apart from a base off the 16-byte grid: the
+    # element-by-element loads
+    x, c, w, scale, xf = km_inputs(gen, few, rows, d + 1, k, torch.int16,
+                                   False)
+    out.append(km_check("int16, unaligned rows", x[..., 1:],
+                        c[:, 1:].contiguous(), w,
+                        scale.reshape(-1)[1:].contiguous(), xf[..., 1:]))
     return out
 
 

@@ -112,7 +112,7 @@ def _launch(lib, kernel: str, q, k, v, causal: bool) -> torch.Tensor:
     """One launch of ``kernel`` from ``lib``, a build of
     ``csrc/flash_attention.cu``, on tensors that passed the wrapper's
     checks.  Counts nothing: :func:`flash_attention` counts its own calls,
-    and ``tools/flash_ab.py`` times builds of edited sources with it."""
+    and ``tools/kernel_ab.py`` times builds of edited sources with it."""
     B, H, S, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     o = out.transpose(1, 2)

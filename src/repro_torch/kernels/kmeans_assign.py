@@ -12,12 +12,16 @@ the launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build, ref
 
 MAX_SMEM_BYTES = 227 * 1024    # what a block may take on Hopper
+TARGET_SMEM_BYTES = 57344      # four blocks of an SM's 228 KB, 1 KB each kept
+THREADS = 256                  # most threads a block
+WARP_ROWS = 32                 # rows a warp takes at a time
 BLOCKS_PER_SM = 32             # a few waves: the last leaves few SMs idle
 _X_DTYPES = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
 _SIGNATURES = {
@@ -32,11 +36,44 @@ _SIGNATURES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def layout(K: int, D: int) -> dict:
+    """A block's layout at ``(K, D)`` (mirrors ``layout`` in the source):
+    its warps, each warp's statistics groups, the rows a block takes a
+    round (``tile``), the float32 words of its partial statistics
+    (``cells``) and its bytes of dynamic shared memory (``smem``): per
+    warp its staged rows, its groups' partials, its own partial, weights
+    and assignments; then the centroids, scales and ``|c|²``."""
+    dq = -(-D // 4)
+    q = dq + 1
+    max_d = 8 if D <= 8 else 16 if D <= 16 else 32 if D <= 32 else 0
+    cstride = max_d if max_d else 4 * dq
+    kq = K * q
+    fixed = (K + 1) * cstride + (K + 3) // 4 * 4
+    per_warp = 4 * (WARP_ROWS * (q | 1) + kq) + 2 * WARP_ROWS
+    per_group = 4 * (kq + 1)
+    warps = THREADS // 32
+    while warps > 1 and fixed + warps * (per_warp + per_group) \
+            > MAX_SMEM_BYTES // 4:
+        warps //= 2
+    groups = (TARGET_SMEM_BYTES // 4 - fixed - warps * per_warp) \
+        // (warps * per_group)
+    groups = max(1, min(groups, WARP_ROWS // min(q, WARP_ROWS)))
+    return {"warps": warps, "groups": groups, "tile": WARP_ROWS * warps,
+            "cells": 4 * kq,
+            "smem": 4 * (fixed + warps * (per_warp + groups * per_group))}
+
+
 def smem_bytes(K: int, D: int) -> int:
-    """Shared memory of one block at ``(K, D)``: the centroids, ``|c|²``,
-    the scales, a 256-row tile and the statistics (mirrors
-    ``smem_words`` in the source)."""
-    return 4 * (K * D + K + D + 256 * (D | 1) + 3 * 256 + K * (D + 1) + 1)
+    """Shared memory of one block at ``(K, D)``."""
+    return layout(K, D)["smem"]
+
+
+def max_blocks(L: int, R: int, K: int, D: int, sms: int) -> int:
+    """Blocks a lane may take: about ``BLOCKS_PER_SM`` blocks an SM over
+    all lanes, and no more than its tiles."""
+    return max(1, min(-(-R // layout(K, D)["tile"]),
+                      -(-BLOCKS_PER_SM * sms // L)))
 
 
 def _check(x, centroids, w, x_scale):
@@ -96,6 +133,20 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, w: torch.Tensor,
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"K={K} x D={D} needs {smem} B of shared memory "
                          f"per block, above the {MAX_SMEM_BYTES} B limit")
+    out = _launch(build.load("kmeans_assign", _SIGNATURES), x, centroids, w,
+                  x_scale, return_assign)
+    kmeans_assign.launches += 1
+    return out
+
+
+def _launch(lib, x, centroids, w, x_scale, return_assign: bool):
+    """One launch of ``lib``, a build of ``csrc/kmeans_assign.cu``, on
+    tensors that passed the wrapper's checks.  Counts nothing:
+    :func:`kmeans_assign` counts its own calls, and ``tools/kernel_ab.py``
+    times other versions of the source with it (the scratch is sized for
+    this one, which needs more than the parent's)."""
+    L, R, D = x.shape
+    K = centroids.shape[-2]
     if centroids.dim() == 3 and centroids.stride(0) == 0:
         centroids = centroids[0]                 # an expanded shared copy
     c = centroids.contiguous()
@@ -107,23 +158,21 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, w: torch.Tensor,
     assign = (torch.empty((L, R), dtype=torch.int32, device=dev)
               if return_assign else None)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    max_blocks = max(1, min(-(-R // 256), -(-BLOCKS_PER_SM * sms // L)))
-    part = torch.empty((L, max_blocks, K * (D + 1) + 1), dtype=torch.float32,
-                       device=dev)
+    blocks = max_blocks(L, R, K, D, sms)
+    part = torch.empty((L, blocks, layout(K, D)["cells"]),
+                       dtype=torch.float32, device=dev)
     scale = (x_scale.reshape(-1).contiguous() if x_scale is not None
              else None)
-    lib = build.load("kmeans_assign", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.kmeans_assign_launch(
             x.data_ptr(), _X_DTYPES[x.dtype], x.stride(0), x.stride(1),
             c.data_ptr(), c_lane, w.data_ptr(), w.stride(0), w.stride(1),
             scale.data_ptr() if scale is not None else None, L, R, D, K,
-            max_blocks, part.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+            blocks, part.data_ptr(), sums.data_ptr(), counts.data_ptr(),
             sse.data_ptr(), assign.data_ptr() if return_assign else None,
             R, stream)
     build.check(lib, "kmeans_assign", err)
-    kmeans_assign.launches += 1
     return (sums, counts, sse) + ((assign,) if return_assign else ())
 
 

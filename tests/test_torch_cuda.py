@@ -102,18 +102,11 @@ def _mass(xf, assign, w, K):
     return onehot.transpose(-1, -2) @ xf.abs().double()
 
 
-# (L, R, D, K): the path's per-lane widths, ragged rows and odd D, a wide
-# D with many clusters
-@pytest.mark.parametrize("L,R,D,K", [(4, 65536, 16, 8), (3, 1001, 5, 3),
-                                     (2, 777, 33, 17)])
-@pytest.mark.parametrize("per_lane", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int16, torch.int8])
-def test_kmeans_kernel_equals_plain(L, R, D, K, per_lane, dtype):
-    """Assignments and counts bit-equal to the plain version, sums and sse
-    within 1e-5 of their mass (another summation order), and a second
-    launch bit-equal to the first."""
-    dev = require_cuda()
-    g = torch.Generator(device=dev).manual_seed(L * R + D)
+def _km_inputs(dev, L, R, D, K, per_lane, dtype, *, seed):
+    """Rows (float32, or int16/int8 with per-feature scales), centroids
+    drawn from the rows (shared, or per lane), a 0/1 mask, and the rows
+    in float32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     xf = torch.randn((L, R, D), generator=g, device=dev) * 2
     scale = None
     if dtype == torch.float32:
@@ -128,6 +121,14 @@ def test_kmeans_kernel_equals_plain(L, R, D, K, per_lane, dtype):
     if per_lane:
         c = c + 0.1 * torch.randn((L, K, D), generator=g, device=dev)
     w = (torch.rand((L, R), generator=g, device=dev) < 0.9).float()
+    return x, c, w, scale, xf
+
+
+def _assert_km_equals_plain(x, c, w, scale, xf):
+    """Assignments and counts bit-equal to the plain version, sums and sse
+    within 1e-5 of their mass (another summation order), and a second
+    launch bit-equal to the first; returns the assignments."""
+    K = c.shape[-2]
     before = kmeans_assign.launches
     got = kmeans_assign(x, c, w, scale, return_assign=True)
     assert kmeans_assign.launches == before + 1
@@ -142,6 +143,57 @@ def test_kmeans_kernel_equals_plain(L, R, D, K, per_lane, dtype):
     again = kmeans_assign(x, c, w, scale, return_assign=True)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+    return got[3]
+
+
+# (L, R, D, K): the path's per-lane widths, ragged rows and odd D, a wide
+# D with many clusters; one cluster and 64 at D = 16 (one statistics
+# group a warp), the shared-memory rows (D = 64) with R a multiple of no
+# round of the block, rows of more than 32 quads, and the path's 256 lanes
+@pytest.mark.parametrize("L,R,D,K", [(4, 65536, 16, 8), (3, 1001, 5, 3),
+                                     (2, 777, 33, 17), (3, 5000, 16, 1),
+                                     (2, 4099, 16, 64), (3, 1237, 64, 8),
+                                     (2, 300, 130, 3), (256, 2000, 16, 8)])
+@pytest.mark.parametrize("per_lane", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16, torch.int8])
+def test_kmeans_kernel_equals_plain(L, R, D, K, per_lane, dtype):
+    """Assignments and counts bit-equal to the plain version, sums and sse
+    within 1e-5 of their mass (another summation order), and a second
+    launch bit-equal to the first."""
+    dev = require_cuda()
+    _assert_km_equals_plain(*_km_inputs(dev, L, R, D, K, per_lane, dtype,
+                                        seed=L * R + D))
+
+
+def test_kmeans_kernel_one_cluster_int8():
+    """Every row of a lane in one cluster, int8 rows of one sign: the
+    longest chain of additions into one cell, of values that repeat
+    thousands of times."""
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(11)
+    L, R, D, K = 4, 65536, 16, 8
+    x = torch.randint(0, 128, (L, R, D), generator=g, device=dev
+                      ).to(torch.int8)
+    scale = torch.rand(D, generator=g, device=dev) / 127 + 1e-4
+    xf = x.float() * scale
+    c = xf.mean(1, keepdim=True) + torch.zeros((L, K, D), device=dev)
+    c[:, 1:] += 1e3
+    w = torch.ones((L, R), device=dev)
+    assign = _assert_km_equals_plain(x, c, w, scale, xf)
+    assert bool((assign == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16, torch.int8])
+def test_kmeans_kernel_unaligned_rows(dtype):
+    """Rows 17 elements apart and a base off the 16-byte grid take the
+    element-by-element loads, with the assignments returned."""
+    dev = require_cuda()
+    x, c, w, scale, xf = _km_inputs(dev, 3, 3001, 17, 6, False, dtype,
+                                    seed=17)
+    assert x[..., 1:].data_ptr() % 16 and x.stride(1) == 17
+    _assert_km_equals_plain(
+        x[..., 1:], c[:, 1:].contiguous(), w,
+        scale[1:].contiguous() if scale is not None else None, xf[..., 1:])
 
 
 def test_kmeans_kernel_takes_an_expanded_centroid_view():

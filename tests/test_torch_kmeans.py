@@ -11,6 +11,9 @@ more than rounding apart (the data here keep that gap above 1e-4) and
 float sums agree to their summation order.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +30,7 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.core import datasets, make_cpu_grid  # noqa: E402
 from repro_torch.core.mlalgos import KMeans, api, train_kmeans  # noqa: E402
 from repro_torch.kernels import dispatch, ref  # noqa: E402
+from repro_torch.kernels import kmeans_assign as km_mod  # noqa: E402
 from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
 from torch_parity import (assert_bits_equal, blobs, rng,  # noqa: E402
                           to_numpy, to_torch)
@@ -216,6 +220,51 @@ def test_wrapper_contract_on_the_cpu():
         kmeans_assign(x, c, w, torch.ones(3))             # float rows
     with pytest.raises(ValueError):
         kmeans_assign(x.to(torch.int8), c, w, torch.ones(2))
+
+
+# (L, R, K, D): configs/pim_ml.py's K-means at chip_smoke.py's 2^24 rows,
+# then the shapes of the card tests and of chip_smoke.py's comparisons
+@pytest.mark.parametrize("L,R,K,D", [
+    (256, 65536, 8, 16), (4, 65536, 8, 16), (3, 1001, 3, 5),
+    (2, 777, 17, 33), (5, 300, 1, 16), (3, 5000, 1, 16), (2, 4099, 64, 16),
+    (3, 1237, 8, 64), (256, 2000, 8, 16), (3, 3001, 6, 16), (5, 300, 3, 4),
+    (2, 300, 3, 130)])
+def test_kernel_layout_fits_the_card(L, R, K, D):
+    """The kernel's block at every shape the port runs it: shared memory
+    within a block's limit (and four blocks an SM at the path's shape),
+    each warp's statistics groups within its 32 threads, a grid within
+    its limits and a scratch of a few MiB."""
+    lay = km_mod.layout(K, D)
+    q = -(-D // 4) + 1
+    assert lay["smem"] <= km_mod.MAX_SMEM_BYTES
+    assert 1 <= lay["groups"] <= km_mod.WARP_ROWS // min(q, km_mod.WARP_ROWS)
+    assert lay["tile"] == km_mod.WARP_ROWS * lay["warps"] <= km_mod.THREADS
+    if (K, D) == (8, 16):
+        assert lay["smem"] <= km_mod.TARGET_SMEM_BYTES
+    blocks = km_mod.max_blocks(L, R, K, D, sms=132)
+    rows = -(-R // blocks)
+    rows = -(-rows // lay["tile"]) * lay["tile"]
+    assert 1 <= -(-R // rows) <= blocks and L <= 65535
+    assert L * blocks * lay["cells"] * 4 <= 64 * 2 ** 20
+
+
+def test_kernel_layout_mirrors_the_source():
+    """``layout``'s constants are the CUDA source's."""
+    src = (Path(km_mod.__file__).parent / "csrc" / "kmeans_assign.cu"
+           ).read_text()
+
+    def const(name):
+        expr = re.search(rf"constexpr \w+(?: \w+)? {name} = ([0-9 /]+);",
+                         src).group(1)
+        first, *divisors = (int(t) for t in expr.split("/"))
+        for d in divisors:
+            first //= d
+        return first
+
+    assert const("kThreads") == km_mod.THREADS
+    assert const("kWarpRows") == km_mod.WARP_ROWS
+    assert const("kTargetWords") * 4 == km_mod.TARGET_SMEM_BYTES
+    assert const("kMaxWords") * 4 == km_mod.MAX_SMEM_BYTES
 
 
 def test_blobs_on_a_generator():

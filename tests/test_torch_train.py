@@ -74,8 +74,22 @@ def test_one_local_step(name):
     bit-exact on the quantized paths (every step there is an exact
     integer product or an IEEE op in the same order); the fp32 paths'
     ``g`` within 1e-6 of the largest entry (a matmul sums each lane's
-    rows in another order); the exact-log loss within rtol 1e-6; the merged
-    ``g`` (a lane sum in another order) within rtol 1e-6."""
+    rows in another order); the exact-log loss within rtol 1e-6; the
+    merged ``g`` (a lane sum in another order) within 1e-6 of its
+    summands' magnitude, Σ_lanes |g| per column: a column's lane sums
+    cancel (one sums to -2.19 from terms of total 35), so a relative
+    bar on the sum asks more than float32 summation order promises.
+
+    The fp32 paths are also held against the same step in float64
+    (``X @ w``, the sigmoid, ``(p - y0)·mask``, ``Xᵀ r``): per lane
+    within γ_{R+D+4} · Σ_r |x_rj| (|r_r| + Σ_j' |x_rj' w_j'| + 1), the
+    worst-case float32 bound of a D-term dot product, a rounded
+    sigmoid and subtraction and an R-term sum (γ_n = n·u / (1 - n·u),
+    u = 2^-24), and the merged ``g`` within γ_{R+D+4+L} of the lanes'
+    summed magnitudes.  Measured for the logreg case: the port 3.3e-6
+    per lane and 9.9e-6 merged, JAX 1.6e-6 and 7.7e-6, against bounds
+    of 1.3e-3 and more: a wrong row, sign or mask moves ``g`` by far
+    more."""
     jw, pw, X, y = _pair(name)
     w = (np.random.default_rng(5).standard_normal(D) * 0.3
          ).astype(np.float32)
@@ -109,8 +123,35 @@ def test_one_local_step(name):
         assert_bits_equal(z, jz)
     np.testing.assert_allclose(parts["loss"].numpy(),
                                np.asarray(jparts["loss"]), rtol=1e-6)
-    np.testing.assert_allclose(parts["g"].sum(0).numpy(), jg.sum(0),
-                               rtol=1e-6)
+    merged_gap = np.abs(parts["g"].sum(0).numpy() - jg.sum(0))
+    assert (merged_gap <= 1e-6 * np.abs(jg).sum(0)).all(), merged_gap
+    if "fp32" in name:
+        _assert_within_float32_bound(name, parts["g"].numpy(), pdata, w)
+
+
+def _assert_within_float32_bound(name, g, pdata, w):
+    """``g`` (per lane, and merged) against the fp32 local step evaluated
+    in float64, within the worst-case float32 bound of the docstring of
+    :func:`test_one_local_step`."""
+    X = pdata["X"].double().numpy()                      # (L, R, D)
+    y0 = pdata["y0"].double().numpy()
+    mask = pdata["w"].double().numpy()
+    w64 = w.astype(np.float64)
+    z = X @ w64
+    p = 1.0 / (1.0 + np.exp(-z)) if name.startswith("logreg") else z
+    r = (p - y0) * mask
+    g64 = np.einsum("lrd,lr->ld", X, r)
+    L, R, D = X.shape
+    u = 2.0 ** -24
+
+    def gamma(n):
+        return n * u / (1 - n * u)
+
+    mag = np.einsum("lrd,lr->ld", np.abs(X),
+                    (np.abs(r) + np.abs(X) @ np.abs(w64) + 1) * mask)
+    assert (np.abs(g - g64) <= gamma(R + D + 4) * mag).all()
+    assert (np.abs(g.sum(0) - g64.sum(0))
+            <= gamma(R + D + 4 + L) * mag.sum(0)).all()
 
 
 # -- whole trajectories ------------------------------------------------------
