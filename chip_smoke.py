@@ -19,17 +19,20 @@ Phases, each printed as one JSON line:
                 >= 99 % of bf16 outputs bit-equal) at qwen2-0.5b's
                 prefill shape (4 x 14 heads, 2 KV heads, S = 4096, D =
                 64), ragged S, D = 32, D = 128 and a packed view, two
-                launches bit-equal; then their median times (CUDA
-                events) and bounds;
+                launches bit-equal; then their times (the median over
+                runs of launches enqueued back to back, CUDA events;
+                the single-call reading beside it) and bounds,
+                split_hist at the tree's uint8 bins and at int32;
   4. train    — ``api.fit`` on 256 vDPUs x 2^24 rows made on the card
                 from --seed: LogReg(int8, LUT sigmoid) at d=64, 50 steps
                 at cadence 1 and 48 at cadence 8, against fp32 + exact
                 sigmoid, then LinReg int8 for 20 steps; KMeans k=8 d=16
                 for 10 iterations at fp32 and int16 (cadence 1 and 8);
-                DecisionTree depth 6, 32 bins, 4 classes, d=16, against
-                its ``use_kernels(False)`` twin.  The launch counters are
-                set to 0 before each run and must show the launches the
-                design implies; small fits must equal (K-means: within
+                DecisionTree depth 6, 32 bins, 4 classes, d=16 (uint8
+                resident bins), against its ``use_kernels(False)`` twin,
+                with profiles of a tree and of its binning.  The launch
+                counters are set to 0 before each run and must show the
+                launches the design implies; small fits must equal (K-means: within
                 atol 1e-4, rtol 1e-5) their ``use_kernels(False)`` twins;
   5. predict  — each trained workload answers requests of 1, 7 and 512
                 rows through ``Workload.predict``, equal to the plain
@@ -76,7 +79,10 @@ from repro_torch.core import lut as lut_mod  # noqa: E402
 from repro_torch.core import quantize as qz  # noqa: E402
 from repro_torch.core.mlalgos import (DecisionTree, KMeans,  # noqa: E402
                                       LinReg, LogReg, accuracy, api)
+from repro_torch.core.mlalgos.dtree import (bin_dtype,  # noqa: E402
+                                            bin_features)
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
+from repro_torch.kernels import split_hist as split_hist_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  route)
 from repro_torch.kernels.fxp_matmul import fxp_matmul  # noqa: E402
@@ -90,10 +96,11 @@ from repro_torch.models.transformer import padded_vocab  # noqa: E402
 # PimMLConfig's workloads at a size the card holds for real (its reg_rows,
 # km_rows and dt_rows were cut to fit the JAX package's CPU container):
 # 2^24 rows, a 1 GiB int8 regression set at d=64, a 512 MiB int16 K-means
-# set and 1 GiB of int32 tree bins at d=16
+# set and 256 MiB of uint8 tree bins at d=16
 FULL_ROWS = 2 ** 24
 LINREG_STEPS = 20
 TIMING_ITERS = 20
+TIMING_RUNS = 5
 KM_RATE_FITS = 5
 DT_TIMED_TREES = 3
 # kmeans_assign's sums and sse against the plain version's: another
@@ -162,7 +169,8 @@ PER = {
     "kmeans_assign": "one Lloyd iteration: int16 rows (L,R,16), shared "
                      "centroids (8,16)",
     "split_hist": "one depth-6 tree: the six level passes and the leaf pass "
-                  "(1, 2, ..., 64 nodes), (L,R,16) int32 bins, 32 bins, "
+                  "(1, 2, ..., 64 nodes), (L,R,16) uint8 bins (the tree's "
+                  "resident bins; int32_bins: the same at int32), 32 bins, "
                   "4 classes",
     "flash_attention": "one layer's causal self-attention in qwen2-0.5b's "
                        "prefill: q (4, 14, 4096, 64), k and v (4, 2, 4096, "
@@ -209,9 +217,39 @@ def sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def median_ms(fn, dev: torch.device, iters: int) -> float:
-    """Median time of one ``fn()`` call after two warm-up calls: CUDA
-    events on the card, the host clock on the CPU."""
+def median_ms(fn, dev: torch.device, iters: int,
+              runs: int = TIMING_RUNS) -> float:
+    """Median over ``runs`` runs of the time one ``fn()`` takes in a run
+    of ``iters`` calls enqueued back to back, after two warm-up calls:
+    CUDA events around the run, divided by ``iters``, on the card (so a
+    short kernel is not charged its wrapper's host latency); the host
+    clock on the CPU."""
+    fn()
+    fn()
+    sync(dev)
+    times = []
+    for _ in range(runs):
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / iters)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / iters)
+    return statistics.median(times)
+
+
+def single_call_ms(fn, dev: torch.device, iters: int) -> float:
+    """Median time of one ``fn()`` call, each between its own pair of
+    events (the earlier reading, which adds the wrapper's host latency to
+    a short kernel), after two warm-up calls."""
     fn()
     fn()
     sync(dev)
@@ -358,17 +396,19 @@ def time_kernels(gen, lanes: int, rows: int, d: int, iters: int) -> dict:
     plain_iters = max(1, iters // 5)
     parts = {
         "forward": {"ms": median_ms(fwd, dev, iters),
+                    "single_call_ms": single_call_ms(fwd, dev, iters),
                     "plain_ms": median_ms(fwd_ref, dev, plain_iters),
                     "bytes": nbytes(X, bw, of),
                     "ops": 2 * X.numel() * bw.shape[-1]},
         "gradient": {"ms": median_ms(grad, dev, iters),
+                     "single_call_ms": single_call_ms(grad, dev, iters),
                      "plain_ms": median_ms(grad_ref, dev, plain_iters),
                      "bytes": nbytes(X, br, og),
                      "ops": 2 * X.numel() * br.shape[-1]},
     }
     del of, og
     fxp = {k: sum(p[k] for p in parts.values())
-           for k in ("ms", "plain_ms", "bytes", "ops")}
+           for k in ("ms", "single_call_ms", "plain_ms", "bytes", "ops")}
     fxp["bound_ms"], fxp["bound_by"] = bound(fxp["bytes"], fxp["ops"],
                                              INT8_OPS_PER_S)
     fxp["parts"] = parts
@@ -385,6 +425,7 @@ def time_kernels(gen, lanes: int, rows: int, d: int, iters: int) -> dict:
     require(lut_err == 0.0, f"lut_activation != plain at full size "
             f"({lut_err})")
     lut = {"ms": median_ms(lut_fn, dev, iters),
+           "single_call_ms": single_call_ms(lut_fn, dev, iters),
            "plain_ms": median_ms(lut_ref, dev, iters),
            "bytes": 2 * nbytes(z) + nbytes(table.table),
            "ops": 4 * z.numel(),            # subtract, divide, round, clamp
@@ -486,10 +527,10 @@ def compare_km(gen, lanes: int, rows: int, d: int, k: int) -> list:
 
 
 def sh_inputs(gen, lanes: int, rows: int, F: int, nodes: int, bins: int,
-              classes: int) -> tuple:
+              classes: int, dtype=torch.int32) -> tuple:
     dev = gen.device
     node = rand_int(gen, (lanes, rows), 0, nodes, torch.int32)
-    xbin = rand_int(gen, (lanes, rows, F), 0, bins, torch.int32)
+    xbin = rand_int(gen, (lanes, rows, F), 0, bins, dtype)
     y = rand_int(gen, (lanes, rows), 0, classes, torch.int32)
     w = (torch.arange(rows, device=dev) % 10 != 9).float().expand(
         lanes, rows).contiguous()
@@ -498,24 +539,62 @@ def sh_inputs(gen, lanes: int, rows: int, F: int, nodes: int, bins: int,
 
 def compare_sh(gen, lanes: int, rows: int, F: int, bins: int,
                classes: int) -> list:
-    """Bit-equal at depth 0 and at the full tree's final pass (1 and 64
-    nodes, every lane), with int16/uint8 bins and a lane-strided view,
-    out-of-range indices, and on ragged shapes; two launches equal."""
+    """Bit-equal at depth 0 (every row in one node: the contended pass)
+    and at the full tree's final pass (64 nodes), every lane, with the
+    path's uint8 bins and with int32; a histogram larger than one block,
+    out-of-range indices, int16 bins on a lane-strided view, F = 1, 7 and
+    17, uint8 rows off the 16-byte grid, rows narrower than the one
+    16-byte load that reads them (views of 7 of 16 uint8 columns and of 5
+    of 8 int16 columns, int16 rows of 8 bins), rows not a multiple of a
+    block's, few lanes (rows cut into chunks) and weights other than 0/1
+    (the float path; dyadic, so any order of the adds is exact); two
+    launches equal.  Each case says whether its rows took the 16-byte
+    load (``row_vectors``)."""
     cases = []
     for nodes in (1, 64):
-        cases.append((f"path, {nodes} node(s)", sh_inputs(
-            gen, lanes, rows, F, nodes, bins, classes), nodes, bins,
-            classes))
+        for dtype in (torch.uint8, torch.int32):
+            cases.append((f"path, {nodes} node(s), {dtype}", sh_inputs(
+                gen, lanes, rows, F, nodes, bins, classes, dtype), nodes,
+                bins, classes))
     node, xbin, y, w = sh_inputs(gen, 6, 5000, 40, 96, 16, 3)
     node[0, :3], xbin[1, :3, 0], y[2, 3:6] = 96, 16, -1
-    cases.append(("ragged, out-of-range indices", (node, xbin, y, w), 96,
-                  16, 3))
+    cases.append(("ragged, larger than a block, out-of-range indices",
+                  (node, xbin, y, w), 96, 16, 3))
     cases.append(("int16 bins, lane stride 2",
                   (node[::2], xbin[::2].to(torch.int16), y[::2], w[::2]),
                   96, 16, 3))
+    for f in (40, 200):
+        cases.append((f"{f} features of uint8 bins, 96 nodes, every lane "
+                      f"one block a tile (4 and 19 tiles)", sh_inputs(
+                          gen, 160, 3001, f, 96, 16, 3, torch.uint8), 96, 16,
+                      3))
     node, xbin, y, w = sh_inputs(gen, 3, 1001, 7, 3, 9, 5)
     cases.append(("uint8 bins, 7 features",
                   (node, xbin.to(torch.uint8), y, w), 3, 9, 5))
+    for f in (1, 17):
+        cases.append((f"uint8 bins, F = {f}", sh_inputs(
+            gen, 160, 3001, f, 8, bins, classes, torch.uint8), 8, bins,
+            classes))
+    node, xbin, y, w = sh_inputs(gen, 160, 3001, F + 1, 4, bins, classes,
+                                 torch.uint8)
+    cases.append(("uint8 rows off the 16-byte grid ([..., 1:])",
+                  (node, xbin[..., 1:], y, w), 4, bins, classes))
+    for f, width, dtype in ((7, 16, torch.uint8), (5, 8, torch.int16),
+                            (8, 8, torch.int16)):
+        node, xbin, y, w = sh_inputs(gen, 160, 3001, width, 8, bins + 2,
+                                     classes, dtype)
+        cases.append((f"{dtype} rows of {f} of {width} columns (bins up to "
+                      f"{bins + 1}), one 16-byte load",
+                      (node, xbin[..., :f], y, w), 8, bins, classes))
+    cases.append(("few lanes, R not a multiple of a block's rows",
+                  sh_inputs(gen, 3, 100003, F, 16, bins, classes,
+                            torch.uint8), 16, bins, classes))
+    node, xbin, y, w = sh_inputs(gen, lanes, 3001, F, 2, bins, classes,
+                                 torch.uint8)
+    scale = torch.tensor([0.0, 0.5, 1.0, 2.0], device=gen.device)
+    w = scale[rand_int(gen, w.shape, 0, 4, torch.int64)]
+    cases.append(("weights 0, 0.5, 1, 2 (the float path)",
+                  (node, xbin, y, w), 2, bins, classes))
     out = []
     for name, args, nodes, nb, nc in cases:
         kw = {"n_nodes": nodes, "n_bins": nb, "n_classes": nc}
@@ -523,6 +602,7 @@ def compare_sh(gen, lanes: int, rows: int, F: int, bins: int,
         equal = bool(torch.equal(got, ref.split_hist_ref(*args, **kw)))
         again = bool(torch.equal(got, split_hist(*args, **kw)))
         out.append({"case": name, "xbin": list(args[1].shape),
+                    "row_vectors": split_hist_mod.row_vectors(args[1]),
                     "nodes": nodes, "equal": equal, "deterministic": again})
         require(equal and again, f"split_hist != plain version: {name}")
     return out
@@ -540,6 +620,7 @@ def time_km(gen, lanes: int, rows: int, d: int, k: int, iters: int) -> dict:
     outs = kmeans_assign(x, c, w, scale)
     n = lanes * rows
     t = {"ms": median_ms(fn, gen.device, iters),
+         "single_call_ms": single_call_ms(fn, gen.device, iters),
          "plain_ms": median_ms(plain, gen.device, max(1, iters // 5)),
          "bytes": nbytes(x, c, w, scale, *outs),
          "ops": n * (2 * k * d + 2 * k + 5 * d + 2),
@@ -554,19 +635,23 @@ def time_km(gen, lanes: int, rows: int, d: int, k: int, iters: int) -> dict:
 def time_sh(gen, lanes: int, rows: int, F: int, depth: int, bins: int,
             classes: int, iters: int) -> dict:
     """The histograms of one depth-``depth`` tree: one pass per level and
-    the leaf pass (1, 2, ..., 2^depth nodes).  ops = one add per (row,
-    feature) element of weight 1."""
+    the leaf pass (1, 2, ..., 2^depth nodes), at the path's uint8 bins
+    and, under ``int32_bins``, at int32 bins (what the tree kept resident
+    before its bins became uint8).  Bytes: what each reading reads and
+    writes; ops = one add per (row, feature) element of weight 1."""
     dev = gen.device
-    parts = {}
+    parts, wide = {}, {}
     for level in range(depth + 1):
         nodes = 2 ** level
         node, xbin, y, w = sh_inputs(gen, lanes, rows, F, nodes, bins,
                                      classes)
+        x8 = xbin.to(torch.uint8)
         kw = {"n_nodes": nodes, "n_bins": bins, "n_classes": classes}
-        fn = lambda: split_hist(node, xbin, y, w, **kw)         # noqa: E731
-        plain = lambda: ref.split_hist_ref(node, xbin, y, w, **kw)  # noqa
-        H = fn()
-        err = max_abs_err(H, plain())
+        fn = lambda: split_hist(node, x8, y, w, **kw)           # noqa: E731
+        fn32 = lambda: split_hist(node, xbin, y, w, **kw)       # noqa: E731
+        plain = lambda: ref.split_hist_ref(node, x8, y, w, **kw)  # noqa
+        H, want = fn(), plain()
+        err = max(max_abs_err(H, want), max_abs_err(fn32(), want))
         require(err == 0.0, f"split_hist != plain at {nodes} nodes ({err})")
         size = H.numel()
         lane = torch.arange(lanes, device=dev)[:, None, None]
@@ -578,19 +663,31 @@ def time_sh(gen, lanes: int, rows: int, F: int, depth: int, bins: int,
                                      minlength=size)
         require(bool(torch.equal(lib().float(), H.reshape(-1))),
                 f"bincount != split_hist at {nodes} nodes")
+        ops = int(w.sum()) * F
         parts[f"{nodes} nodes"] = {
             "ms": median_ms(fn, dev, iters),
+            "single_call_ms": single_call_ms(fn, dev, iters),
             "plain_ms": median_ms(plain, dev, max(1, iters // 5)),
             "library_ms": median_ms(lib, dev, max(1, iters // 5)),
-            "bytes": nbytes(node, xbin, y, w, H),
-            "ops": int(w.sum()) * F, "max_abs_err": err}
-        del flat, wf, node, xbin, y, w, H
+            "bytes": nbytes(node, x8, y, w, H), "ops": ops,
+            "max_abs_err": err}
+        wide[f"{nodes} nodes"] = {
+            "ms": median_ms(fn32, dev, iters),
+            "single_call_ms": single_call_ms(fn32, dev, iters),
+            "bytes": nbytes(node, xbin, y, w, H), "ops": ops}
+        del flat, wf, node, xbin, x8, y, w, H, want
     t = {key: sum(p[key] for p in parts.values())
-         for key in ("ms", "plain_ms", "library_ms", "bytes", "ops",
-                     "max_abs_err")}
+         for key in ("ms", "single_call_ms", "plain_ms", "library_ms",
+                     "bytes", "ops", "max_abs_err")}
     t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
                                          FP32_OPS_PER_S)
     t["parts"] = parts
+    t32 = {key: sum(p[key] for p in wide.values())
+           for key in ("ms", "single_call_ms", "bytes", "ops")}
+    t32["bound_ms"], t32["bound_by"] = bound(t32["bytes"], t32["ops"],
+                                             FP32_OPS_PER_S)
+    t32["parts"] = {k: p["ms"] for k, p in wide.items()}
+    t["int32_bins"] = t32
     return t
 
 
@@ -907,6 +1004,14 @@ def train_tree(args, dev, card: str) -> tuple:
         times.append(time.perf_counter() - t1)
     emit("profile", workload="dtree", **profile_call(
         lambda: api.fit(wl, grid, X, y, steps=wl.max_depth), dev, trees=1))
+    # the binning alone (DecisionTree.prepare: the column sort of the
+    # percentile edges, then the chunked searchsorted into uint8 bins),
+    # and its bins alone
+    emit("profile", workload="dtree binning", **profile_call(
+        lambda: wl.prepare(grid, X, y), dev, prepares=1))
+    edges = wl.prepare(grid, X, y)[2]["_edges"]
+    emit("profile", workload="dtree binning, bins only", **profile_call(
+        lambda: bin_features(X, edges, bin_dtype(wl.n_bins)), dev))
     requests = X[:512].clone()
     emit("train", workload="dtree", card=card, lanes=args.lanes,
          rows=args.rows, features=args.dt_features, depth=wl.max_depth,
@@ -1024,6 +1129,8 @@ def time_flash(gen, seq: int, iters: int) -> dict:
     qf, kf, vf = (x.float() for x in (q, k, v))
     lib_err = max_abs_err(sdpa(qf, kf, vf), o)
     t = {"ms": median_ms(lambda: flash_attention(q, k, v), dev, iters),
+         "single_call_ms": single_call_ms(lambda: flash_attention(q, k, v),
+                                          dev, iters),
          "plain_ms": median_ms(lambda: ref.flash_attention_ref(q, k, v),
                                dev, max(1, iters // 5)),
          "library_ms": median_ms(lambda: sdpa(qf, kf, vf), dev, iters),
@@ -1289,7 +1396,8 @@ def main(argv=None) -> int:
                  "bound_by": t["bound_by"],
                  "library_ms": t.get("library_ms"),
                  "library_note": LIBRARY_NOTES[name], "per": PER[name]}
-        for extra in ("parts", "float32_ms", "library_bf16_ms",
+        for extra in ("single_call_ms", "parts", "int32_bins",
+                      "float32_ms", "library_bf16_ms",
                       "library_max_abs_err", "bit_equal_share"):
             if extra in t:
                 entry[extra] = t[extra]

@@ -8,10 +8,12 @@ per level for every lane), the host merges them and commits the best
 split per node, and the rows re-route to their children.  Only
 histograms cross to the host, never rows (insight I4).
 
-Features are quantile-binned once (``quantize_features``) into int32
-bins; the bin edges are computed on the device with numpy's
-``percentile`` rule, so they equal the JAX package's bit for bit without
-a host round trip of the dataset.
+Features are quantile-binned once (``quantize_features``) into resident
+bins of the narrowest type that holds them (uint8 at the paper's 32
+bins; the JAX package keeps int32 with the same values); the bin edges
+are computed on the device with numpy's ``percentile`` rule, so they
+equal the JAX package's bit for bit without a host round trip of the
+dataset.
 
 The tree is stored level-wise in fixed-size arrays (node ``i``'s
 children are ``2i+1`` and ``2i+2``).  Its update is a discrete argmax,
@@ -76,24 +78,45 @@ def _percentile_edges(X: torch.Tensor, n_bins: int) -> torch.Tensor:
     return edges.to(torch.float32).T.contiguous()         # (d, B-1)
 
 
-def bin_features(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
-    """int32 bins ``(n, d)``: ``searchsorted(edges[j], X[:, j],
-    side="right")`` per feature, as numpy bins."""
-    binned = torch.empty(X.shape, dtype=torch.int32, device=X.device)
-    for j in range(X.shape[1]):
-        binned[:, j] = torch.searchsorted(edges[j], X[:, j].contiguous(),
-                                          right=True, out_int32=True)
+BIN_CHUNK_ROWS = 2 ** 18      # rows binned at a time: the chunk's float32
+                              # transpose and int32 bins (16 MiB each at
+                              # d = 16) stay in a GPU's L2
+
+
+def bin_dtype(n_bins: int) -> torch.dtype:
+    """The narrowest type the split kernel reads that holds bins ``0 ..
+    n_bins - 1``: uint8 up to 256 bins, int16 up to 32768, else int32."""
+    return (torch.uint8 if n_bins <= 256 else
+            torch.int16 if n_bins <= 32768 else torch.int32)
+
+
+def bin_features(X: torch.Tensor, edges: torch.Tensor,
+                 dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Bins ``(n, d)`` of ``dtype``, row-major: ``searchsorted(edges[j],
+    X[:, j], side="right")`` per feature, as numpy bins.  The rows go
+    ``BIN_CHUNK_ROWS`` at a time through one batched ``searchsorted``
+    over the chunk's transpose, whose int32 result is written into the
+    chunk's rows as ``dtype``: no pass over a whole column, and none over
+    a whole int32 copy."""
+    n, d = X.shape
+    edges = edges.contiguous()
+    binned = torch.empty((n, d), dtype=dtype, device=X.device)
+    for r0 in range(0, n, BIN_CHUNK_ROWS):
+        xt = X[r0:r0 + BIN_CHUNK_ROWS].T.contiguous()     # (d, rows)
+        binned[r0:r0 + BIN_CHUNK_ROWS] = torch.searchsorted(
+            edges, xt, right=True, out_int32=True).T
     return binned
 
 
-def quantize_features(X, n_bins: int = 32
+def quantize_features(X, n_bins: int = 32, dtype: torch.dtype = torch.int32
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Quantile-bin the features: ``(binned (n, d) int32 in [0, n_bins),
-    edges (d, n_bins - 1) float32)``, equal to the JAX package's bit for
-    bit, on ``X``'s device (a numpy ``X`` bins on the CPU)."""
+    """Quantile-bin the features: ``(binned (n, d) in [0, n_bins) as
+    dtype, edges (d, n_bins - 1) float32)``, equal to the JAX package's bit
+    for bit (int32 by default, as there), on ``X``'s device (a numpy
+    ``X`` bins on the CPU)."""
     X = torch.as_tensor(X, dtype=torch.float32)
     edges = _percentile_edges(X, n_bins)
-    return bin_features(X, edges), edges
+    return bin_features(X, edges, dtype), edges
 
 
 def _best_splits(H: torch.Tensor):
@@ -144,7 +167,10 @@ class DecisionTree(api.Workload):
     predict_device = False
 
     def prepare(self, grid: PimGrid, X, y=None):
-        Xbin, edges = quantize_features(as_f32(X, grid.device), self.n_bins)
+        """The resident bins are the narrowest type that holds them
+        (:func:`bin_dtype`: uint8 at the paper's 32 bins)."""
+        Xbin, edges = quantize_features(as_f32(X, grid.device), self.n_bins,
+                                        bin_dtype(self.n_bins))
         y = torch.as_tensor(y, device=grid.device).to(torch.int32)
         data, n = grid.shard_rows(Xbin, y)
         return data, n, {"n": n, "_edges": edges}
@@ -283,7 +309,8 @@ def train_dtree(grid: PimGrid, X, y, *, max_depth: int = 5,
 
 def dtree_predict(tree: DTree, X) -> torch.Tensor:
     """Root-to-leaf descent on the binned request rows (int32 classes)."""
-    Xb = bin_features(as_f32(X, tree.bin_edges.device), tree.bin_edges)
+    Xb = bin_features(as_f32(X, tree.bin_edges.device), tree.bin_edges,
+                      bin_dtype(tree.bin_edges.shape[1] + 1))
     node = torch.zeros(Xb.shape[0], dtype=torch.long, device=Xb.device)
     for _ in range(tree.max_depth):
         f = tree.feature[node].long()

@@ -11,6 +11,7 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,6 +26,16 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_void_p]),
     "lut_activation_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    return build.load("lut_activation", _SIGNATURES)
 
 
 def lut_activation(x: torch.Tensor, table: torch.Tensor, *, x_min: float,
@@ -54,8 +65,9 @@ def lut_activation(x: torch.Tensor, table: torch.Tensor, *, x_min: float,
         n_entries = int(table.shape[0])
         # rounded from the double to float32 once, here (ctypes.c_float)
         step = (x_max - x_min) / (n_entries - 1)
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        lib = build.load("lut_activation", _SIGNATURES)
+        sms = _sm_count(x.device.index if x.device.index is not None
+                        else torch.cuda.current_device())
+        lib = _library()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.lut_activation_launch(

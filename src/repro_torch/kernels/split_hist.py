@@ -11,15 +11,18 @@ the kernel or raises.  ``split_hist.launches`` counts the launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-MAX_SMEM_BYTES = 227 * 1024    # what a block may take on Hopper
-TILE_SMEM_BYTES = 48 * 1024    # feature tiles are cut to this when they can
-MAX_ROWS = 2 ** 24             # every partial stays an exact float
-BLOCKS_PER_SM = 32             # a few waves: the last leaves few SMs idle
+THREADS = 1024                 # threads a block (kThreads in the source)
+MAX_SMEM_BYTES = 232448        # what a block may take on Hopper (227 KB)
+MAX_ROWS = 2 ** 24             # every count stays an exact float
+WAVE_SHARE = 0.85              # one block a (lane, tile) when its waves
+                               # fill this share of the card; else rows
+CHUNK_WAVES = 4                # are cut into chunks for ~4 waves
 MIN_ROWS_PER_BLOCK = 1024
 _XBIN_DTYPES = {torch.int32: 0, torch.int16: 1, torch.uint8: 2}
 _SIGNATURES = {
@@ -29,8 +32,9 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p]),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]),
     "split_hist_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -60,16 +64,81 @@ def _check(node, xbin, y, w, n_nodes, n_bins, n_classes):
                          f"{xbin.device}")
 
 
-def feature_tile(n_nodes: int, n_bins: int, n_classes: int, F: int) -> int:
-    """Features per block: as many as fit in ``TILE_SMEM_BYTES`` of
-    shared memory, at least one; raises when one feature's histogram
-    exceeds what a block may take."""
-    per_feature = 4 * n_nodes * n_bins * n_classes
-    if per_feature > MAX_SMEM_BYTES:
+def _tiles(F: int, fits) -> tuple:
+    """(tiles, features a tile): the fewest tiles whose even cut of the
+    ``F`` features ``fits``."""
+    for tiles in range(1, F + 1):
+        nf = -(-F // tiles)
+        if -(-F // nf) == tiles and fits(nf):
+            return tiles, nf
+    raise AssertionError("one feature always fits once checked")
+
+
+@functools.lru_cache(maxsize=None)
+def layout(L: int, R: int, F: int, n_nodes: int, n_bins: int,
+           n_classes: int, sms: int) -> dict:
+    """How a launch cuts the work (mirrors the source's ``Level``): the
+    features a block holds (``nf``, in ``tiles`` tiles), the row chunks a
+    lane is cut into (``chunks``), the shared strides of cell (node,
+    feature, bin, class), ``s0 + node*sN + f*sF + (bin*classes +
+    class)*sC``, and the block's shared bytes (``smem``).
+
+    One block a (lane, tile) when those blocks fill the card's waves to
+    ``WAVE_SHARE``: it stores its cells (``bulk`` False), features
+    fastest at an odd stride ``sC`` so a warp's reads spread over the
+    banks.  Otherwise the rows are cut into chunks for ~``CHUNK_WAVES``
+    waves, and each block adds its tile into a zeroed H by bulk
+    reduce-adds (``bulk`` True), in H's own order with each node's run
+    ``sN`` words apart (congruent to H's mod 4, so both runs share their
+    16-byte phase; ``s0`` < 4 sets it)."""
+    bc = n_bins * n_classes
+    one = 4 * (3 + n_nodes * (bc + 3))      # one feature, either layout
+    if one > MAX_SMEM_BYTES:
         raise ValueError(f"{n_nodes} nodes x {n_bins} bins x {n_classes} "
-                         f"classes need {per_feature} B of shared memory per "
+                         f"classes need {one} B of shared memory per "
                          f"feature, above the {MAX_SMEM_BYTES} B limit")
-    return max(1, min(F, TILE_SMEM_BYTES // per_feature))
+    tiles, nf = _tiles(F, lambda nf: 4 * n_nodes * bc * (nf | 1)
+                       <= MAX_SMEM_BYTES)
+    blocks = L * tiles
+    waves = -(-blocks // sms)
+    if blocks >= WAVE_SHARE * waves * sms or R <= MIN_ROWS_PER_BLOCK:
+        sc = nf | 1
+        return {"tiles": tiles, "nf": nf, "chunks": 1, "bulk": False,
+                "sN": bc * sc, "sF": 1, "sC": sc,
+                "smem": 4 * n_nodes * bc * sc}
+
+    def node_words(nf):
+        return nf * bc + (F - nf) * bc % 4
+
+    tiles, nf = _tiles(F, lambda nf: 4 * (3 + n_nodes * node_words(nf))
+                       <= MAX_SMEM_BYTES)
+    chunks = max(2, min(-(-CHUNK_WAVES * sms // (L * tiles)),
+                        -(-R // MIN_ROWS_PER_BLOCK), 65535))
+    return {"tiles": tiles, "nf": nf, "chunks": chunks, "bulk": True,
+            "sN": node_words(nf), "sF": bc, "sC": 1,
+            "smem": 4 * (3 + n_nodes * node_words(nf))}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    return build.load("split_hist", _SIGNATURES)
+
+
+def row_vectors(xbin: torch.Tensor) -> int:
+    """1 where one aligned 16-byte load reads a row's bins: its ``F``
+    bins fit 16 bytes (the tree's uint8 bins at F <= 16, int16 at F <= 8)
+    and the base and both strides are multiples of 16 bytes, so the
+    granule read starts at the row and stays in its pages; else 0, one
+    load an element."""
+    size = xbin.element_size()
+    return int(xbin.shape[2] * size <= 16 and xbin.data_ptr() % 16 == 0
+               and xbin.stride(0) * size % 16 == 0
+               and xbin.stride(1) * size % 16 == 0)
 
 
 def split_hist(node: torch.Tensor, xbin: torch.Tensor, y: torch.Tensor,
@@ -83,7 +152,7 @@ def split_hist(node: torch.Tensor, xbin: torch.Tensor, y: torch.Tensor,
     bin or class is out of range add nothing.  Returns float32 ``(L,
     n_nodes, F, n_bins, n_classes)``; with 0/1 weights and ``R <= 2^24``
     every count is exact, so the result does not depend on the order of
-    the additions.
+    the additions (other weights are added in float, in any order).
     """
     _check(node, xbin, y, w, n_nodes, n_bins, n_classes)
     if xbin.device.type == "cpu":
@@ -91,27 +160,38 @@ def split_hist(node: torch.Tensor, xbin: torch.Tensor, y: torch.Tensor,
                                   n_bins=n_bins, n_classes=n_classes)
     if xbin.stride(-1) != 1:
         raise ValueError("xbin must have unit stride along F")
+    if xbin.shape[0] > 65535:
+        raise ValueError(f"at most 65535 lanes, got {xbin.shape[0]}")
+    H = _launch(_library(), node, xbin, y, w, n_nodes, n_bins, n_classes)
+    split_hist.launches += 1
+    return H
+
+
+def _launch(lib, node, xbin, y, w, n_nodes: int, n_bins: int,
+            n_classes: int) -> torch.Tensor:
+    """One launch of ``lib``, a build of ``csrc/split_hist.cu``, on
+    tensors that passed the wrapper's checks, cut as :func:`layout`
+    says.  Counts nothing: :func:`split_hist` counts its own calls, and
+    ``tools/kernel_ab.py`` times other builds with it."""
     L, R, F = xbin.shape
-    if L > 65535:
-        raise ValueError(f"at most 65535 lanes, got {L}")
-    ft = feature_tile(n_nodes, n_bins, n_classes, F)
-    tiles = -(-F // ft)
-    sms = torch.cuda.get_device_properties(xbin.device).multi_processor_count
-    chunks = max(1, min(-(-BLOCKS_PER_SM * sms // (tiles * L)),
-                        -(-R // MIN_ROWS_PER_BLOCK), 65535))
-    H = torch.zeros((L, n_nodes, F, n_bins, n_classes), dtype=torch.float32,
-                    device=xbin.device)
-    lib = build.load("split_hist", _SIGNATURES)
-    with torch.cuda.device(xbin.device):
+    dev = xbin.device
+    lay = layout(L, R, F, n_nodes, n_bins, n_classes,
+                 _sm_count(dev.index if dev.index is not None
+                           else torch.cuda.current_device()))
+    shape = (L, n_nodes, F, n_bins, n_classes)
+    H = (torch.zeros if lay["bulk"] else torch.empty)(
+        shape, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.split_hist_launch(
             node.data_ptr(), node.stride(0), node.stride(1), xbin.data_ptr(),
             _XBIN_DTYPES[xbin.dtype], xbin.stride(0), xbin.stride(1),
             y.data_ptr(), y.stride(0), y.stride(1), w.data_ptr(),
             w.stride(0), w.stride(1), L, R, F, n_nodes, n_bins, n_classes,
-            ft, chunks, H.data_ptr(), stream)
+            lay["nf"], lay["chunks"], lay["sN"], lay["sF"], lay["sC"],
+            lay["smem"], int(lay["bulk"]), row_vectors(xbin),
+            H.data_ptr(), stream)
     build.check(lib, "split_hist", err)
-    split_hist.launches += 1
     return H
 
 

@@ -19,6 +19,7 @@ from repro_torch.core.mlalgos import (DecisionTree, KMeans,  # noqa: E402
                                       LinReg, LogReg, api)
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import dispatch, ref  # noqa: E402
+from repro_torch.kernels import split_hist as split_hist_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  route)
 from repro_torch.kernels.fxp_matmul import fxp_matmul  # noqa: E402
@@ -207,29 +208,51 @@ def test_kmeans_kernel_takes_an_expanded_centroid_view():
         assert torch.equal(u, v)
 
 
-# (L, R, F, n_nodes, n_bins, n_classes): depth 0 and the final pass of the
-# full tree (one feature per block), and a ragged case with several tiles
-@pytest.mark.parametrize("L,R,F,nodes,bins,classes", [
-    (4, 65536, 16, 1, 32, 4), (4, 65536, 16, 64, 32, 4),
-    (3, 1001, 7, 3, 9, 5), (2, 5000, 40, 96, 16, 3)])
+# (L, R, F, n_nodes, n_bins, n_classes, W): the bins are the first F of W
+# columns.  Depth 0 and the final pass of the full tree with few lanes
+# (rows cut into chunks, bulk reduce-adds) and at full lane width (every
+# lane one block a tile: the contended 1-node pass, three tiles at 64
+# nodes), a ragged case, histograms larger than a block (chunked; and
+# stored, F = 40 and F = 200), F = 1 and F = 17, rows not a multiple of a
+# block's, and rows read as one 16-byte load though narrower than it:
+# views of 7 of 16 columns (uint8 and int16) and of 5 of 8 (int16), and
+# int16 rows of 8 bins
+@pytest.mark.parametrize("L,R,F,nodes,bins,classes,W", [
+    (4, 65536, 16, 1, 32, 4, 16), (4, 65536, 16, 64, 32, 4, 16),
+    (256, 65536, 16, 1, 32, 4, 16), (256, 65536, 16, 64, 32, 4, 16),
+    (3, 1001, 7, 3, 9, 5, 7), (2, 5000, 40, 96, 16, 3, 40),
+    (160, 3001, 40, 96, 16, 3, 40), (160, 3001, 200, 96, 16, 3, 200),
+    (160, 3001, 1, 8, 32, 4, 1), (160, 3001, 17, 8, 32, 4, 17),
+    (3, 100003, 16, 16, 32, 4, 16), (160, 3001, 7, 8, 32, 4, 16),
+    (3, 100003, 7, 8, 32, 4, 16), (160, 3001, 5, 8, 32, 4, 8),
+    (160, 3001, 8, 8, 32, 4, 8)])
 @pytest.mark.parametrize("lane_step", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int16, torch.uint8])
-def test_split_hist_kernel_equals_plain(L, R, F, nodes, bins, classes,
+def test_split_hist_kernel_equals_plain(L, R, F, nodes, bins, classes, W,
                                         lane_step, dtype):
-    """Bit-equal to the plain version, on lane-strided views too, with
-    out-of-range indices and masked rows; a second launch bit-equal."""
+    """Bit-equal to the plain version, on lane-strided views and views of
+    the first F of W columns too, with out-of-range indices (also in the
+    columns left out) and masked rows; a second launch bit-equal."""
     dev = require_cuda()
     g = torch.Generator(device=dev).manual_seed(R + F + nodes)
     Lx = L * lane_step
     node = torch.randint(0, nodes, (Lx, R), generator=g, device=dev,
                          dtype=torch.int32)
-    xbin = torch.randint(0, bins, (Lx, R, F), generator=g, device=dev,
-                         dtype=torch.int32)
+    xbin = torch.randint(0, bins + 2 * (W > F), (Lx, R, W), generator=g,
+                         device=dev, dtype=torch.int32)
+    xbin[..., :F].clamp_(max=bins - 1)
     y = torch.randint(0, classes, (Lx, R), generator=g, device=dev,
                       dtype=torch.int32)
     w = (torch.rand((Lx, R), generator=g, device=dev) < 0.9).float()
     node[0, :3], xbin[-1, :3, 0], y[0, 3:6] = nodes, bins, -1
-    args = [t[::lane_step] for t in (node, xbin.to(dtype), y, w)]
+    args = [t[::lane_step] for t in (node, xbin.to(dtype)[..., :F], y, w)]
+    size = args[1].element_size()
+    assert split_hist_mod.row_vectors(args[1]) == int(
+        F * size <= 16 and W * size % 16 == 0)
+    _assert_sh_equals_plain(args, nodes, bins, classes)
+
+
+def _assert_sh_equals_plain(args, nodes, bins, classes):
     before = split_hist.launches
     got = split_hist(*args, n_nodes=nodes, n_bins=bins, n_classes=classes)
     assert split_hist.launches == before + 1
@@ -238,6 +261,42 @@ def test_split_hist_kernel_equals_plain(L, R, F, nodes, bins, classes,
     assert torch.equal(got, want)
     assert torch.equal(got, split_hist(*args, n_nodes=nodes, n_bins=bins,
                                        n_classes=classes))
+
+
+@pytest.mark.parametrize("L,nodes", [(4, 16), (160, 4)])
+def test_split_hist_kernel_uint8_rows_off_the_16_byte_grid(L, nodes):
+    """A ``[..., 1:]`` view of uint8 bins (each row starts one byte past
+    the 16-byte grid) takes element loads and counts the same."""
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(L)
+    R = 3001
+    node = torch.randint(0, nodes, (L, R), generator=g, device=dev,
+                         dtype=torch.int32)
+    xbin = torch.randint(0, 32, (L, R, 17), generator=g, device=dev,
+                         dtype=torch.int32).to(torch.uint8)[..., 1:]
+    y = torch.randint(0, 4, (L, R), generator=g, device=dev,
+                      dtype=torch.int32)
+    w = (torch.rand((L, R), generator=g, device=dev) < 0.9).float()
+    _assert_sh_equals_plain([node, xbin, y, w], nodes, 32, 4)
+
+
+@pytest.mark.parametrize("L", [4, 256])
+def test_split_hist_kernel_other_weights(L):
+    """Weights other than 0/1 take the float path; dyadic weights keep
+    every sum exact whatever the order of the adds, so it is bit-equal
+    too."""
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(L + 1)
+    R = 5000
+    node = torch.randint(0, 4, (L, R), generator=g, device=dev,
+                         dtype=torch.int32)
+    xbin = torch.randint(0, 32, (L, R, 16), generator=g, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    y = torch.randint(0, 4, (L, R), generator=g, device=dev,
+                      dtype=torch.int32)
+    scale = torch.tensor([0.0, 0.5, 1.0, 2.0], device=dev)
+    w = scale[torch.randint(0, 4, (L, R), generator=g, device=dev)]
+    _assert_sh_equals_plain([node, xbin, y, w], 4, 32, 4)
 
 
 @pytest.mark.parametrize("k", [1, 4])

@@ -7,6 +7,8 @@ Every histogram entry is an integer-valued float below 2^24, so the
 histograms, and with them the trees, are compared bit for bit.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +24,9 @@ from repro_torch.core import datasets, make_cpu_grid  # noqa: E402
 from repro_torch.core.mlalgos import (DecisionTree, api,  # noqa: E402
                                       dtree_predict, quantize_features,
                                       train_dtree)
-from repro_torch.kernels import dispatch, ref  # noqa: E402
+from repro_torch.core.mlalgos import dtree as tdtree  # noqa: E402
+from repro_torch.kernels import build, dispatch, ref  # noqa: E402
+from repro_torch.kernels import split_hist as sh_mod  # noqa: E402
 from repro_torch.kernels.split_hist import split_hist  # noqa: E402
 from torch_parity import (assert_bits_equal, mixture, rng,  # noqa: E402
                           to_numpy, to_torch)
@@ -86,6 +90,106 @@ def test_quantize_features_equals_numpy(n, dup):
     b, e = quantize_features(X, 16)
     assert_bits_equal(e, je)
     assert_bits_equal(b, jb)
+
+
+@pytest.mark.parametrize("n_bins,dtype", [(32, torch.uint8),
+                                          (256, torch.uint8),
+                                          (300, torch.int16)])
+def test_resident_bins_are_narrow_and_equal_jax(n_bins, dtype):
+    """``DecisionTree.prepare`` keeps the bins in the narrowest type the
+    split kernel reads (uint8 at the paper's 32 bins, int16 above 256),
+    with the values of ``repro``'s int32 ``quantize_features`` bins, and
+    the edges bit-equal to numpy's."""
+    n = 2003
+    X = (rng(n_bins).standard_normal((n, D)) * 3).astype(np.float32)
+    y = rng(n_bins + 1).integers(0, C, n).astype(np.int32)
+    wl = DecisionTree(max_depth=3, n_bins=n_bins, n_classes=C)
+    data, _, consts = wl.prepare(make_cpu_grid(LANES), X, y)
+    assert data["X"].dtype == dtype == tdtree.bin_dtype(n_bins)
+    jb, je = jdtree.quantize_features(jnp.asarray(X), n_bins)
+    assert_bits_equal(data["X"].reshape(-1, D)[:n].to(torch.int32), jb)
+    assert_bits_equal(consts["_edges"], je)
+
+
+def test_bin_features_in_chunks(monkeypatch):
+    """Rows binned a chunk at a time (the last one ragged) equal
+    ``searchsorted`` column by column, in every bin type."""
+    monkeypatch.setattr(tdtree, "BIN_CHUNK_ROWS", 100)
+    X = torch.as_tensor(rng(3).standard_normal((1001, 5)).astype(
+        np.float32))
+    edges = torch.sort(torch.as_tensor(rng(4).standard_normal(
+        (5, 31)).astype(np.float32)), dim=1).values
+    want = np.stack([np.searchsorted(edges[j].numpy(), X[:, j].numpy(),
+                                     side="right") for j in range(5)], 1)
+    for dtype in (torch.int32, torch.int16, torch.uint8):
+        got = tdtree.bin_features(X, edges, dtype)
+        assert got.dtype == dtype and got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_split_hist_layout_mirrors_the_source():
+    """The wrapper's threads and shared-memory limit are the source's."""
+    src = (build.CSRC / "split_hist.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)
+                   .group(1))
+
+    assert const("kThreads") == sh_mod.THREADS
+    assert const("kMaxSmemBytes") == sh_mod.MAX_SMEM_BYTES
+
+
+def test_split_hist_layout_on_the_tree_path():
+    """At the tree's passes (256 lanes x 65,536 rows, F = 16, 32 bins, 4
+    classes, 132 SMs) one block holds a lane's whole tile up to 16 nodes,
+    two at 32 and three at 64, every lane's rows read by one block a tile
+    (no chunks, so H is stored, not added), within 227 KB."""
+    tiles = []
+    for level in range(7):
+        lay = sh_mod.layout(256, 65536, 16, 2 ** level, 32, 4, 132)
+        assert lay["chunks"] == 1 and not lay["bulk"]
+        assert lay["smem"] <= sh_mod.MAX_SMEM_BYTES
+        assert lay["sC"] % 2 == 1 and lay["sC"] >= lay["nf"]
+        tiles.append(lay["tiles"])
+    assert tiles == [1, 1, 1, 1, 1, 2, 3]
+
+
+@pytest.mark.parametrize("L,R,F,nodes,bins,classes", [
+    (4, 65536, 16, 1, 32, 4), (6, 5000, 40, 96, 16, 3),
+    (3, 100003, 16, 16, 32, 4), (2, 4000, 7, 3, 9, 5)])
+def test_split_hist_bulk_layout_keeps_runs_in_phase(L, R, F, nodes, bins,
+                                                    classes):
+    """With few lanes the rows are cut into chunks, and each node's run
+    of a tile sits as many words from the last, mod 4, as in H, so one
+    16-byte phase serves the whole tile; every tile fits."""
+    lay = sh_mod.layout(L, R, F, nodes, bins, classes, 132)
+    bc = bins * classes
+    assert lay["bulk"] and lay["chunks"] > 1 and lay["sC"] == 1
+    assert lay["sF"] == bc and lay["sN"] >= lay["nf"] * bc
+    assert (lay["sN"] - F * bc) % 4 == 0
+    assert lay["smem"] == 4 * (3 + nodes * lay["sN"]) <= sh_mod.MAX_SMEM_BYTES
+    assert -(-F // lay["nf"]) == lay["tiles"]
+
+
+def test_split_hist_row_vectors():
+    """Rows whose bins fit 16 bytes on the 16-byte grid are one load:
+    uint8 rows of 16 bins, and narrower uint8 and int16 rows of a view
+    whose row stride is 16 bytes; rows off the grid, or wider than 16
+    bytes (int32 rows of 16 bins), load by element."""
+    u8 = torch.zeros((2, 8, 17), dtype=torch.uint8)
+    u16 = torch.zeros((2, 8, 16), dtype=torch.uint8)
+    i16 = torch.zeros((2, 8, 8), dtype=torch.int16)
+    i32 = torch.zeros((2, 8, 16), dtype=torch.int32)
+    assert sh_mod.row_vectors(u8[..., :16].contiguous()) == 1
+    assert sh_mod.row_vectors(u16[..., :7]) == 1
+    assert sh_mod.row_vectors(i16) == 1
+    assert sh_mod.row_vectors(i16[..., :5]) == 1
+    assert sh_mod.row_vectors(i32) == 0
+    assert sh_mod.row_vectors(u8) == 0
+    assert sh_mod.row_vectors(u8[..., 1:]) == 0
+    assert sh_mod.row_vectors(u16[:, 1:, :7]) == 1
+    assert sh_mod.row_vectors(u16[..., 1:8]) == 0
+    assert sh_mod.row_vectors(i32[..., :8]) == 0
 
 
 def _jax_tree(X, y, **kw):

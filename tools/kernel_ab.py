@@ -6,11 +6,14 @@
     python3 tools/kernel_ab.py --against old/flash_attention.cu
     python3 tools/kernel_ab.py --kernel kmeans_assign \\
         --against old/kmeans_assign.cu --rounds 3
+    python3 tools/kernel_ab.py --kernel split_hist --variants noflush \\
+        --against old/split_hist.cu --bins uint8,int32
 
 The cases run in turns, the list forward and then backward (A B B A),
-``--rounds`` times, each reading a median of ``--iters`` launches (CUDA
-events), in one process on one card.  Each line also says how the
-reading's outputs compare with the plain version's.
+``--rounds`` times, each reading the median over five runs of
+``--iters`` launches enqueued back to back (CUDA events around a run,
+divided by its launches), in one process on one card.  Each line also
+says how the reading's outputs compare with the plain version's.
 
 The cases: ``route``, the checkout's library as the wrapper launches it;
 each variant, an edit of the kernel's source built beside it; each
@@ -48,12 +51,31 @@ Its variants:
            stay in L2 (not the kernel's function: it shows what the
            rows' trip from device memory costs).
 
+``split_hist`` runs at ``chip_smoke.time_sh``'s inputs: the seven
+passes of a depth-6 tree (1, 2, ..., 64 nodes) over 256 lanes x 65,536
+rows, F = 16, 32 bins, 4 classes, every tenth row masked, with the bins
+as uint8 (the tree's resident bins) and as int32 (``--bins``); a reading
+is the sum of the seven passes' times, and says whether every H is
+bit-equal to the plain version's.  A source with the parent's interface
+(before the redesign: ``ft`` features a block, ``n_chunks`` chunks, a
+zeroed H) is launched as its wrapper launched it.  Its variants:
+
+  noflush   no write of H (not the kernel's function: it shows what the
+            flush costs);
+  l2rows    every block reads the first 4,096 rows of its lane, which
+            stay in L2 (not the kernel's function: it shows what the
+            rows' trip from device memory costs);
+  atomsadd  the unit count added as a value the compiler cannot see is
+            1 (ATOMS.ADD, not ATOMS.POPC.INC);
+  u1, u3    one or three rows a thread a step, not two.
+
 Prints one JSON line per reading, after the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import sys
@@ -69,6 +91,7 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kmeans_assign as km  # noqa: E402
+from repro_torch.kernels import split_hist as sh  # noqa: E402
 
 # kernel: {variant: (edits of the source, the kernel launched)}
 VARIANTS = {
@@ -105,8 +128,36 @@ VARIANTS = {
                     ("wv = here ? wl[r * swr] : 0.0f;",
                      "wv = here ? wl[(r & 4095) * swr] : 0.0f;")], None),
     },
+    "split_hist": {
+        "noflush": ([("  if (a.bulk)\n    flush_bulk(",
+                      "  if (a.bulk < 0)\n    flush_bulk("),
+                     ("  else\n    flush_store(",
+                      "  else if (a.bulk < 0)\n    flush_store(")], None),
+        "l2rows": ([("    const long long rr = r;\n    x.w",
+                     "    long long rr = r;\n    x.w"),
+                    ("    x.w = k.wl[rr * k.swr];",
+                     "    rr &= 4095;\n    x.w = k.wl[rr * k.swr];")], None),
+        "atomsadd": ([("    atomicAdd(cell, 1u);",
+                       "    atomicAdd(cell, static_cast<unsigned>(wv));")],
+                     None),
+        "u1": ([("constexpr int kU = 2;", "constexpr int kU = 1;")], None),
+        "u3": ([("constexpr int kU = 2;", "constexpr int kU = 3;")], None),
+    },
 }
-WRAPPERS = {"flash_attention": fa, "kmeans_assign": km}
+WRAPPERS = {"flash_attention": fa, "kmeans_assign": km, "split_hist": sh}
+# the interface of the source before its redesign for whole-SM tiles
+PARENT_SH_MARK = "int ft, int n_chunks, void* H, void* stream"
+PARENT_SH_SIGNATURES = {
+    "split_hist_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]),
+    "split_hist_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
 
 
 def flash_readings(libs, kernels, cases, args, dev):
@@ -146,8 +197,59 @@ def kmeans_readings(libs, kernels, cases, args, dev):
                     / mass).max())}
 
 
+def parent_sh_launch(lib, node, xbin, y, w, nodes, bins, classes):
+    """The parent's wrapper: features cut to 48 KB tiles, ~32 blocks an
+    SM, a zeroed H that every block adds its non-zero cells into."""
+    L, R, F = xbin.shape
+    ft = max(1, min(F, 48 * 1024 // (4 * nodes * bins * classes)))
+    tiles = -(-F // ft)
+    sms = torch.cuda.get_device_properties(xbin.device).multi_processor_count
+    chunks = max(1, min(-(-32 * sms // (tiles * L)), -(-R // 1024), 65535))
+    H = torch.zeros((L, nodes, F, bins, classes), dtype=torch.float32,
+                    device=xbin.device)
+    err = lib.split_hist_launch(
+        node.data_ptr(), node.stride(0), node.stride(1), xbin.data_ptr(),
+        sh._XBIN_DTYPES[xbin.dtype], xbin.stride(0), xbin.stride(1),
+        y.data_ptr(), y.stride(0), y.stride(1), w.data_ptr(), w.stride(0),
+        w.stride(1), L, R, F, nodes, bins, classes, ft, chunks, H.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    build.check(lib, "split_hist", err)
+    return H
+
+
+def split_hist_readings(libs, kernels, cases, args, dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kw = {"bins": cs.CONFIG.dt_bins, "classes": cs.CONFIG.dt_classes}
+    passes = []
+    for level in range(cs.CONFIG.dt_depth + 1):
+        nodes = 2 ** level
+        node, xbin, y, w = cs.sh_inputs(gen, 256, cs.FULL_ROWS // 256,
+                                        cs.CONFIG.dt_features, nodes,
+                                        kw["bins"], kw["classes"])
+        want = ref.split_hist_ref(node, xbin, y, w, n_nodes=nodes,
+                                  n_bins=kw["bins"], n_classes=kw["classes"])
+        bins = {"int32": xbin, "uint8": xbin.to(torch.uint8)}
+        passes.append((nodes, node, {b: bins[b] for b in args.bins}, y, w,
+                       want))
+    pairs = [(c, b) for c in cases for b in args.bins]
+    for case, bins in (pairs + pairs[::-1]) * args.rounds:
+        lib = libs[case]
+        launch = (parent_sh_launch if kernels[case] == "parent"
+                  else sh._launch)
+        times, equal = {}, True
+        for nodes, node, xb, y, w, want in passes:
+            def run():
+                return launch(lib, node, xb[bins], y, w, nodes, kw["bins"],
+                              kw["classes"])
+            equal &= bool(torch.equal(run(), want))
+            times[nodes] = cs.median_ms(run, dev, args.iters)
+        yield {"case": case, "bins": bins, "ms": sum(times.values()),
+               "bit_equal": equal, "passes": times}
+
+
 READINGS = {"flash_attention": flash_readings,
-            "kmeans_assign": kmeans_readings}
+            "kmeans_assign": kmeans_readings,
+            "split_hist": split_hist_readings}
 
 
 def main(argv=None) -> int:
@@ -161,9 +263,12 @@ def main(argv=None) -> int:
     p.add_argument("--against", action="append", default=[],
                    help="another version of the kernel's source to time "
                         "(repeatable)")
+    p.add_argument("--bins", default="uint8,int32",
+                   help="split_hist: the bin types to read (uint8, int32)")
     p.add_argument("--rounds", type=int, default=1)
     p.add_argument("--iters", type=int, default=20)
     args = p.parse_args(argv)
+    args.bins = args.bins.split(",")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -188,10 +293,16 @@ def main(argv=None) -> int:
     for i, path in enumerate(args.against):
         label = f"against{i}"
         sources[label], kernels[label] = Path(path), "wgmma"
+        if name == "split_hist" and PARENT_SH_MARK in Path(path).read_text():
+            kernels[label] = "parent"
         print(json.dumps({"case": label, "source": path}), flush=True)
-    build.build_all(list(sources), sources)
+    for label, log in build.build_all(list(sources), sources).items():
+        print(json.dumps({"case": label, "ptxas": cs.ptxas_summary(log)}),
+              flush=True)
     libs = {label: build.bind(build.library_path(label, path),
-                              wrapper._SIGNATURES)
+                              PARENT_SH_SIGNATURES
+                              if kernels[label] == "parent"
+                              else wrapper._SIGNATURES)
             for label, path in sources.items()}
     libs["route"] = build.load(name, wrapper._SIGNATURES)
     kernels["route"] = "wgmma"
