@@ -15,6 +15,10 @@ Phases, each printed as one JSON line:
                 lut_activation and split_hist bit for bit; kmeans_assign's
                 assignments and counts bit for bit, its sums and sse
                 within 1e-5 of their mass, and two launches bit-equal;
+                hybrid_matmul past one launch's 8 limb columns (int16
+                b of 5 to 16 columns, int8 b of 9 and 16, int16 a,
+                per-lane b) and the exp table through lut_activation bit
+                for bit;
                 flash_attention within float32 2e-5 / bf16 1e-2 (and
                 >= 99 % of bf16 outputs bit-equal) at qwen2-0.5b's
                 prefill shape (4 x 14 heads, 2 KV heads, S = 4096, D =
@@ -46,8 +50,20 @@ Phases, each printed as one JSON line:
                 steps; in float32 at full width, the
                 prefill against its twin (1e-4 x max|logit|) and against
                 the replay through ``decode_step`` (1e-3 x max|logit|);
-  7. the ``kernels`` line, the nvidia-smi line, and last
-     ``{"ok": true, "device": {...}}``.
+  7. train_more — the slice's other workloads at 256 vDPUs x 2^24 rows,
+                d=64, each run with its launches, accuracy and steps/s
+                (median of 5 fits): LinearSVM int8 against fp32 (accuracy
+                within 0.02); MultinomialLogReg(int8, LUT softmax) against
+                (fp32, exact) at C = 4 and 10 (within 0.03; C = 10 takes
+                hybrid_matmul's column groups); minibatch fits on 1,024
+                rows a lane a step of LogReg(int8, LUT) at cadence 1 and
+                8 (within 0.02 of fp32 full batch) and KMeans(int16)
+                (SSE at most 1.05 x fp32 full batch); the default
+                minibatch permutation drawn on the card and on the CPU,
+                bit-equal;
+  8. the ``kernels`` line (fxp_matmul's entry also times the
+     multinomial's launches at C = 4 and 10, with their byte bound), the
+     nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any mismatch, missing launch or exception ends the run with a non-zero
 exit code and without the ``ok`` line.  Without CUDA (and without
@@ -76,9 +92,12 @@ from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.pim_ml import CONFIG  # noqa: E402
 from repro_torch.core import datasets, make_grid  # noqa: E402
 from repro_torch.core import lut as lut_mod  # noqa: E402
+from repro_torch.core import minibatch as mb  # noqa: E402
 from repro_torch.core import quantize as qz  # noqa: E402
 from repro_torch.core.mlalgos import (DecisionTree, KMeans,  # noqa: E402
-                                      LinReg, LogReg, accuracy, api)
+                                      LinearSVM, LinReg, LogReg,
+                                      MultinomialLogReg, accuracy, api,
+                                      multinomial_accuracy, svm_accuracy)
 from repro_torch.core.mlalgos.dtree import (bin_dtype,  # noqa: E402
                                             bin_features)
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
@@ -102,6 +121,15 @@ LINREG_STEPS = 20
 TIMING_ITERS = 20
 TIMING_RUNS = 5
 KM_RATE_FITS = 5
+# the slice's other workloads: the multinomial's class counts (the
+# config's 4, and 10 as MNIST-style data has, which takes column groups),
+# the minibatch as 1/64 of a lane's rows, the int-vs-fp32 accuracy bars
+# of the JAX package's tests (SVM 0.02, multinomial 0.03) and the
+# minibatch bar (0.02 of the full-batch fit)
+MN_CLASSES = (4, 10)
+MB_FRACTION = 64
+SVM_ACC_TOL, MN_ACC_TOL, MB_ACC_TOL = 0.02, 0.03, 0.02
+PERM_CASES = ((0, 0), (0, 7), (5, 3), (2 ** 40 + 1, 12))
 DT_TIMED_TREES = 3
 # kmeans_assign's sums and sse against the plain version's: another
 # summation order, so each may differ by 1e-5 of its mass (Σ w·|x| of the
@@ -375,6 +403,120 @@ def compare_lut(gen, lanes: int, rows: int) -> dict:
         out[name] = equal
         require(equal, f"lut_activation != plain version: {name}")
     require(ties > 0, "the LUT probe holds no exact tie")
+    return out
+
+
+def compare_hybrid(gen, lanes: int, rows: int, d: int) -> list:
+    """``hybrid_matmul`` with kernels on against ``use_kernels(False)``
+    (``hybrid_dot``), bit-equal, past the 8 limb columns one launch
+    takes: int16 b of 5, 8, 10 and 16 columns, int8 b of 9 and 16, an
+    int16 a (two a-limbs) and a per-lane ``(L, K, N)`` b, as the forward
+    and as the gradient's transposed view; each with the launches
+    ``dispatch.hybrid_launches`` names."""
+    few = min(lanes, 4)
+    X8 = rand_int(gen, (few, rows, d), -128, 128, torch.int8)
+    X16 = rand_int(gen, (few, rows, d), -32768, 32768, torch.int16)
+    lo = {torch.int8: -128, torch.int16: -32768}
+
+    def b_of(shape, dtype):
+        return rand_int(gen, shape, lo[dtype], -lo[dtype], dtype)
+
+    cases = []
+    for X, bdt, widths in ((X8, torch.int16, (5, 8, 10, 16)),
+                           (X8, torch.int8, (9, 16)),
+                           (X16, torch.int16, (10,))):
+        for n in widths:
+            what = f"{str(X.dtype)[6:]} a, {str(bdt)[6:]} b, N={n}"
+            cases.append((f"forward, {what}", X, b_of((d, n), bdt)))
+            cases.append((f"gradient, {what}", X.transpose(-1, -2),
+                          b_of((few, rows, n), bdt)))
+    cases.append(("forward, per-lane (L, K, N) b, N=10", X8,
+                  b_of((few, d, 10), torch.int16)))
+    out = []
+    for name, a, b in cases:
+        before = fxp_matmul.launches
+        got = dispatch.hybrid_matmul(a, b)
+        launches = fxp_matmul.launches - before
+        with dispatch.use_kernels(False):
+            want = dispatch.hybrid_matmul(a, b)
+        n_launch = dispatch.hybrid_launches(a.dtype, b.dtype, b.shape[-1])
+        equal = bool(torch.equal(got, want))
+        out.append({"case": name, "a": list(a.shape), "b": list(b.shape),
+                    "launches": launches, "expected_launches": n_launch,
+                    "equal": equal})
+        require(equal, f"hybrid_matmul != hybrid_dot: {name}")
+        if a.device.type == "cuda":
+            require(launches == n_launch, f"hybrid_matmul {name}: "
+                    f"{launches} launches, expected {n_launch}")
+    return out
+
+
+def compare_exp_lut(gen, lanes: int, rows: int) -> dict:
+    """The multinomial's one-sided exp table on [-16, 0] through
+    ``lut_activation``: the probe (midpoints, -16, 0, values below -16
+    and above 0, NaN) and shifted logits of the path's (L, R, C) shape,
+    bit-equal to the plain version."""
+    table = lut_mod.exp_lut(device=gen.device)
+    probe = lut_probe(table, gen.device)
+    require(bool((probe == -16).any() and (probe == 0).any()
+                 and (probe < -16).any() and probe.isnan().any()),
+            "the exp probe lacks -16, 0, a value below -16 or NaN")
+    z = torch.randn((min(lanes, 4), rows, max(MN_CLASSES)), generator=gen,
+                    device=gen.device) * 6
+    out = {}
+    for name, x in (("probe", probe),
+                    ("shifted logits, few lanes", z - z.amax(-1, True))):
+        got = lut_activation(x, table.table, x_min=table.x_min,
+                             x_max=table.x_max)
+        equal = bool(torch.equal(
+            got, ref.lut_activation_ref(x, table.table, table.x_min,
+                                        table.x_max)))
+        out[name] = equal
+        require(equal, f"lut_activation (exp table) != plain: {name}")
+    return out
+
+
+def time_fxp_multinomial(gen, lanes: int, rows: int, d: int, C: int,
+                         iters: int) -> dict:
+    """``fxp_matmul``'s launches in one multinomial step at C classes: the
+    forward X·W and the gradient Xᵀ·R, int16 W and R, in the groups of at
+    most 8 limb columns ``dispatch.limb_groups`` makes (C = 4: one launch
+    each, 8 columns on the scalar kernel; C = 10: 8, 8 and 4).  The bound
+    counts X once a dot:
+    each input read once, each output written once."""
+    dev = gen.device
+    X = rand_int(gen, (lanes, rows, d), -128, 128, torch.int8)
+    W = rand_int(gen, (d, C), -32768, 32768, torch.int16)
+    R = rand_int(gen, (lanes, rows, C), -32768, 32768, torch.int16)
+    Xt = X.transpose(-1, -2)
+    out = {"launches_per_step": 2 * dispatch.hybrid_launches(
+        torch.int8, torch.int16, C)}
+    err = 0.0
+    total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+    for part, a, b in (("forward", X, W), ("gradient", Xt, R)):
+        _, groups = dispatch.limb_groups(b)
+        run = lambda: [fxp_matmul(a, g) for g in groups]      # noqa: E731
+        plain = lambda: [ref.fxp_matmul_ref(a, g, k_chunk=4096)  # noqa
+                         for g in groups]
+        got, want = run(), plain()
+        err = max([err] + [max_abs_err(u, v) for u, v in zip(got, want)])
+        cols = sum(g.shape[-1] for g in groups)
+        p = {"limb_columns": [g.shape[-1] for g in groups],
+             "ms": median_ms(run, dev, iters),
+             "plain_ms": median_ms(plain, dev, max(1, iters // 5)),
+             "bytes": nbytes(a, *groups, *got),
+             "ops": 2 * a.numel() * cols}
+        p["bound_ms"], p["bound_by"] = bound(p["bytes"], p["ops"],
+                                             INT8_OPS_PER_S)
+        out[part] = p
+        for key in total:
+            total[key] += p[key]
+        del got, want
+    require(err == 0.0, f"fxp_matmul != plain at the multinomial's shape "
+            f"(C={C}, {err})")
+    out.update(total, max_abs_err=err)
+    out["bound_ms"], out["bound_by"] = bound(total["bytes"], total["ops"],
+                                             INT8_OPS_PER_S)
     return out
 
 
@@ -751,12 +893,12 @@ def step_rate(workload, grid, X, y, steps, reps=5, **kw) -> dict:
             "max": max(rates), "fits": reps}
 
 
-def profile_steps(workload, grid, X, y, steps: int) -> dict:
+def profile_steps(workload, grid, X, y, steps: int, **kw) -> dict:
     """Where a main-path step's time goes: ``torch.profiler`` over
     ``steps`` warm steps of ``Program.fit``."""
     program = workload.bind(grid, X, y)
-    program.fit(steps=2)
-    return profile_call(lambda: program.fit(steps=steps), grid.device,
+    program.fit(steps=2, **kw)
+    return profile_call(lambda: program.fit(steps=steps, **kw), grid.device,
                         steps=steps)
 
 
@@ -1026,6 +1168,134 @@ def train_tree(args, dev, card: str) -> tuple:
                                      "trees": len(times)}}],
          seconds=time.perf_counter() - t0)
     return wl, res.state, requests, seen
+
+
+def rated_run(name, wl, grid, X, y, steps, expect, check, acc_fn,
+              **kw) -> tuple:
+    """:func:`fit_run` (:func:`km_run` for K-means), the run's accuracy
+    (``acc_fn(state)``) and its steps/s (median of 5 fits, as the train
+    phase times them)."""
+    if isinstance(wl, KMeans):
+        res, s = km_run(name, wl, grid, X, steps, check, **kw)
+    else:
+        res, s = fit_run(name, wl, grid, X, y, steps, expect, check, **kw)
+        s["accuracy"] = acc_fn(res.state)
+    s["steps_per_s"] = step_rate(wl, grid, X, y, steps,
+                                 reps=KM_RATE_FITS, **kw)
+    return res, s
+
+
+def permutation_on_card_and_cpu(dev, per: int) -> list:
+    """The default minibatch permutation drawn on the card and on the CPU
+    for a few (seed, epoch): bit-equal, and a permutation."""
+    out = []
+    for seed, epoch in PERM_CASES:
+        here = mb.hashed_permutation(seed, torch.tensor(epoch, device=dev),
+                                     per)
+        host = mb.hashed_permutation(seed, torch.tensor(epoch), per)
+        equal = bool(torch.equal(here.cpu(), host))
+        is_perm = bool(torch.equal(torch.sort(host).values,
+                                   torch.arange(per)))
+        out.append({"seed": seed, "epoch": epoch, "slots": per,
+                    "device": here.device.type, "equal": equal,
+                    "permutation": is_perm, "first": host[:4].tolist()})
+        require(equal and is_perm, f"default permutation (seed {seed}, "
+                f"epoch {epoch}): card != CPU or not a permutation")
+    return out
+
+
+def train_more(args, dev, card: str) -> None:
+    """The slice's other workloads at the path's full size, each run with
+    its launches checked, its accuracy and steps/s: LinearSVM int8 against
+    fp32 (within SVM_ACC_TOL); MultinomialLogReg(int8, LUT softmax)
+    against (fp32, exact) at C = 4 and 10 (within MN_ACC_TOL); minibatch
+    fits of LogReg(int8, LUT) at cadence 1 and the config's 8 (within
+    MB_ACC_TOL of fp32 full batch) and of KMeans(int16) (SSE at most
+    1.05 x fp32 full batch), on batch_size = rows a lane / 64; and the
+    default permutation drawn on the card and on the CPU."""
+    grid = make_grid(args.lanes, device=dev)
+    check = not args.rehearse
+    steps, cfg = args.steps, CONFIG
+    batch = args.rows // args.lanes // MB_FRACTION
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 40)
+    X, y, _ = datasets.binary_classification(gen, args.rows, args.features)
+
+    def svm_acc(w):
+        return svm_accuracy(w, X, y)
+
+    runs = []
+    _, ref_s = rated_run("svm fp32", LinearSVM(lr=0.1, l2=cfg.svm_l2), grid,
+                         X, y, steps, expected(), check, svm_acc)
+    _, s = rated_run("svm int8", LinearSVM(lr=0.1, l2=cfg.svm_l2,
+                                           precision="int8"), grid, X, y,
+                     steps, expected(fxp_matmul=2 * steps), check, svm_acc)
+    require(abs(s["accuracy"] - ref_s["accuracy"]) <= SVM_ACC_TOL,
+            f"svm int8 accuracy {s['accuracy']} not within {SVM_ACC_TOL} of "
+            f"fp32 {ref_s['accuracy']}")
+    runs += [ref_s, s]
+
+    def lr_acc(w):
+        return accuracy(w, X, y)
+
+    _, full_s = rated_run("logreg fp32 exact, full batch", LogReg(lr=0.5),
+                          grid, X, y, steps, expected(), check, lr_acc)
+    runs.append(full_s)
+    wl = LogReg(lr=0.5, precision="int8", sigmoid="lut")
+    emit("profile", workload=f"logreg minibatch {batch}", **profile_steps(
+        wl, grid, X, y, 5, batch_size=batch))
+    for k, n in ((1, steps), (args.cadence, args.cadence_steps)):
+        _, s = rated_run(f"logreg int8 lut, batch_size {batch}, cadence {k}",
+                         wl, grid, X, y, n,
+                         expected(fxp_matmul=2 * n, lut_activation=n), check,
+                         lr_acc, merge_every=k, batch_size=batch)
+        require(s["accuracy"] >= full_s["accuracy"] - MB_ACC_TOL,
+                f"{s['run']}: accuracy {s['accuracy']} more than "
+                f"{MB_ACC_TOL} below full batch {full_s['accuracy']}")
+        runs.append(s)
+    del X, y
+
+    for C in MN_CLASSES:
+        X, y = datasets.mixture_classification(gen, args.rows,
+                                               args.features, C)
+
+        def mn_acc(W):
+            return multinomial_accuracy(W, X, y)
+
+        _, ref_s = rated_run(f"multinomial fp32 exact, C={C}",
+                             MultinomialLogReg(n_classes=C), grid, X, y,
+                             steps, expected(), check, mn_acc)
+        n_fxp = 2 * dispatch.hybrid_launches(torch.int8, torch.int16, C)
+        wl = MultinomialLogReg(n_classes=C, precision="int8", softmax="lut")
+        _, s = rated_run(f"multinomial int8 lut, C={C}", wl, grid, X, y,
+                         steps, expected(fxp_matmul=n_fxp * steps,
+                                         lut_activation=steps), check, mn_acc)
+        emit("profile", workload=f"multinomial C={C}", **profile_steps(
+            wl, grid, X, y, 5))
+        require(abs(s["accuracy"] - ref_s["accuracy"]) <= MN_ACC_TOL,
+                f"{s['run']}: accuracy {s['accuracy']} not within "
+                f"{MN_ACC_TOL} of fp32 {ref_s['accuracy']}")
+        runs += [ref_s, s]
+        del X, y
+
+    X, _, _ = datasets.blobs(gen, args.rows, args.km_features,
+                             args.km_clusters)
+    k, iters = args.km_clusters, args.km_iters
+    _, ref_s = rated_run("kmeans fp32, full batch", KMeans(k=k), grid, X,
+                         None, iters, None, check, None)
+    _, s = rated_run(f"kmeans int16, batch_size {batch}",
+                     KMeans(k=k, precision="int16"), grid, X, None, iters,
+                     None, check, None, batch_size=batch)
+    require(s["eval_sse"] <= 1.05 * ref_s["eval_sse"], f"{s['run']}: SSE "
+            f"{s['eval_sse']} above 1.05 x fp32 full batch "
+            f"{ref_s['eval_sse']}")
+    runs += [ref_s, s]
+    del X
+    emit("train_more", card=card, lanes=args.lanes, rows=args.rows,
+         features=args.features, batch_size=batch, runs=runs,
+         permutation=permutation_on_card_and_cpu(
+             dev, args.rows // args.lanes),
+         seconds=time.perf_counter() - t0)
 
 
 def predict(name, wl, state, requests, launches: dict,
@@ -1351,6 +1621,9 @@ def main(argv=None) -> int:
     emit("compare", fxp_matmul=compare_fxp(gen, args.lanes, per_lane,
                                            args.features),
          lut_activation=compare_lut(gen, args.lanes, per_lane))
+    emit("compare", hybrid_matmul=compare_hybrid(gen, args.lanes, per_lane,
+                                                 args.features),
+         lut_activation_exp=compare_exp_lut(gen, args.lanes, per_lane))
     emit("compare", kmeans_assign=compare_km(
         gen, args.lanes, per_lane, args.km_features, args.km_clusters),
          split_hist=compare_sh(gen, args.lanes, per_lane, args.dt_features,
@@ -1358,6 +1631,10 @@ def main(argv=None) -> int:
     emit("compare", flash_attention=compare_flash(gen, args.lm_seq))
     times = time_kernels(gen, args.lanes, per_lane, args.features,
                          args.iters)
+    times["fxp_matmul"]["multinomial"] = {
+        f"C={C}": time_fxp_multinomial(gen, args.lanes, per_lane,
+                                       args.features, C, args.iters)
+        for C in MN_CLASSES}
     times["kmeans_assign"] = time_km(gen, args.lanes, per_lane,
                                      args.km_features, args.km_clusters,
                                      args.iters)
@@ -1385,6 +1662,8 @@ def main(argv=None) -> int:
     del wl, state, requests
     main_counts["flash_attention"] = serve_lm(args, dev, smi)[
         "flash_attention"]
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    train_more(args, dev, smi)
 
     kernels = []
     for name, t in times.items():
@@ -1396,7 +1675,7 @@ def main(argv=None) -> int:
                  "bound_by": t["bound_by"],
                  "library_ms": t.get("library_ms"),
                  "library_note": LIBRARY_NOTES[name], "per": PER[name]}
-        for extra in ("single_call_ms", "parts", "int32_bins",
+        for extra in ("single_call_ms", "parts", "multinomial", "int32_bins",
                       "float32_ms", "library_bf16_ms",
                       "library_max_abs_err", "bit_equal_share"):
             if extra in t:

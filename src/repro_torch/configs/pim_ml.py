@@ -14,6 +14,13 @@ class PimMLConfig:
     n_vdpus: int = 256
     # local update steps per host merge (1 = the paper's merge-per-step)
     merge_every: int = 8
+    # which workload the config-driven entry points train, and the
+    # minibatch axis (core.minibatch): rows sampled per vDPU per local
+    # step, 0 = full batch
+    workload: str = "logreg"
+    batch_size: int = 0
+    svm_l2: float = 1e-3
+    mn_classes: int = 4
     reg_rows: int = 65536
     reg_features: int = 64
     reg_steps: int = 50

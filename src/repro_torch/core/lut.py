@@ -74,10 +74,47 @@ def _np_sigmoid(x):
     return 1.0 / (1.0 + np.exp(-x))
 
 
+def _np_gelu(x):
+    return 0.5 * x * (1.0 + np.tanh(np.sqrt(2.0 / np.pi)
+                                    * (x + 0.044715 * x ** 3)))
+
+
+def _np_silu(x):
+    return x * _np_sigmoid(x)
+
+
 def sigmoid_lut(n_entries: int = 1024, bound: float = 8.0,
                 device="cpu") -> LutTable:
     """The paper's sigmoid table on [-8, 8]."""
     return build_lut(_np_sigmoid, -bound, bound, n_entries, device)
+
+
+def gelu_lut(n_entries: int = 2048, bound: float = 8.0,
+             device="cpu") -> LutTable:
+    """GELU (tanh form) on [-8, 8]."""
+    return build_lut(_np_gelu, -bound, bound, n_entries, device)
+
+
+def silu_lut(n_entries: int = 2048, bound: float = 8.0,
+             device="cpu") -> LutTable:
+    """SiLU on [-8, 8]."""
+    return build_lut(_np_silu, -bound, bound, n_entries, device)
+
+
+def tanh_lut(n_entries: int = 1024, bound: float = 6.0,
+             device="cpu") -> LutTable:
+    """tanh on [-6, 6]."""
+    return build_lut(np.tanh, -bound, bound, n_entries, device)
+
+
+def exp_lut(n_entries: int = 1024, bound: float = 16.0,
+            device="cpu") -> LutTable:
+    """exp on [-16, 0], one-sided: the LUT softmax feeds shifted logits
+    ``z - max(z) <= 0``; below -16 exp is under 1.2e-7 and the clamp to
+    the end entry is exact enough for training.  ``lut_activation``
+    serves it unchanged (it clamps to the end entries and sends NaN to
+    entry 0)."""
+    return build_lut(np.exp, -bound, 0.0, n_entries, device)
 
 
 def taylor_sigmoid(x: torch.Tensor, order: int = 7) -> torch.Tensor:
@@ -89,3 +126,15 @@ def taylor_sigmoid(x: torch.Tensor, order: int = 7) -> torch.Tensor:
     for c in reversed(coeffs[: order + 1]):
         acc = acc * xf + c
     return acc.to(x.dtype)
+
+
+def lut_max_error(lut: LutTable, fn: Callable, n_probe: int = 100_000,
+                  interp: bool = False) -> float:
+    """Max abs error of the table against the exact ``fn`` (given float64
+    numpy values) on ``n_probe`` float32 points spanning its domain."""
+    xs = np.linspace(lut.x_min, lut.x_max, n_probe, dtype=np.float32)
+    exact = np.asarray(fn(xs.astype(np.float64)))
+    ev = lut_lookup_interp if interp else lut_lookup
+    host = LutTable(lut.table.cpu(), lut.x_min, lut.x_max)
+    approx = ev(host, torch.from_numpy(xs)).numpy().astype(np.float64)
+    return float(np.max(np.abs(exact - approx)))

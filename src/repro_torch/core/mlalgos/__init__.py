@@ -1,8 +1,8 @@
 """ML training workloads on the PimGrid engine (port of
-``repro.core.mlalgos``): the Workload API and the paper's four
-workloads — linear and logistic regression, K-means and the decision
-tree.  SVM and multinomial regression come with their slice (ROADMAP
-queue A, item 8)."""
+``repro.core.mlalgos``): the Workload API, the paper's four workloads —
+linear and logistic regression, K-means and the decision tree — and
+PIM-Opt's linear SVM and the multinomial generalisation of logistic
+regression."""
 
 from repro_torch.core.mlalgos import api  # noqa: F401
 from repro_torch.core.mlalgos.api import (FitResult, MergeCaps,  # noqa: F401
@@ -17,3 +17,9 @@ from repro_torch.core.mlalgos.kmeans import (KMeans,  # noqa: F401
 from repro_torch.core.mlalgos.linreg import LinReg, linreg_predict  # noqa: F401
 from repro_torch.core.mlalgos.logreg import (LogReg, accuracy,  # noqa: F401
                                              logreg_predict)
+from repro_torch.core.mlalgos.multinomial import (  # noqa: F401
+    MultinomialLogReg, MultinomialResult, multinomial_accuracy,
+    multinomial_predict, train_multinomial)
+from repro_torch.core.mlalgos.svm import (LinearSVM, SVMResult,  # noqa: F401
+                                          svm_accuracy, svm_predict,
+                                          train_svm)

@@ -20,9 +20,14 @@ one per lane (leading ``n_vdpus`` dim) inside a cadence-k round.
 ``fit`` is the one entry point: it applies the workload's
 ``merge_caps`` and hands over to ``Workload.run`` — bind and the
 ``PimGrid.fit`` loop by default, an algorithm-owned loop where training
-is not that loop (the tree's levels).  Minibatch sampling
-(``batch_size``), streaming sources and the non-default merge plans are
-not ported yet (ROADMAP queue A) and raise ``NotImplementedError``.
+is not that loop (the tree's levels).
+
+``batch_size=b`` samples ``b`` of each vDPU's resident rows every local
+step, on the device (``core.minibatch``): the engine triple is wrapped
+so the state carries a step counter, ``(state, counter)``, and the
+caller gets the state back.  ``batch_size=None`` is the full-batch path.
+Streaming sources and the non-default merge plans are not ported yet
+(ROADMAP queue A) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import dataclasses
 import warnings
 from typing import Any, Callable, Optional
 
+from repro_torch.core import minibatch as mb
 from repro_torch.core.pim import PimGrid
 from repro_torch.distributed import merge_plan as mp
 
@@ -110,14 +116,19 @@ class Workload:
         return Program.assemble(self, grid, data, n, consts)
 
     def run(self, grid: PimGrid, X, y=None, *, steps: int,
-            plan: mp.MergePlan, engine: str, scan_chunk: int,
-            callback: Optional[Callable]) -> "FitResult":
-        """Train from raw arrays, ``plan`` already constrained by
-        :func:`fit`.  The default is bind and the ``PimGrid.fit`` loop;
-        a workload whose training is not that loop overrides it."""
+            plan: mp.MergePlan, batch_size: Optional[int], engine: str,
+            scan_chunk: int, callback: Optional[Callable],
+            sample_seed: int = 0,
+            sample_permutation: Optional[mb.Permutation] = None
+            ) -> "FitResult":
+        """Train from raw arrays, ``plan`` and ``batch_size`` already
+        constrained by :func:`fit`.  The default is bind and the
+        ``PimGrid.fit`` loop; a workload whose training is not that loop
+        overrides it."""
         return self.bind(grid, X, y).fit(
-            steps=steps, engine=engine, scan_chunk=scan_chunk,
-            merge_plan=plan, callback=callback)
+            steps=steps, batch_size=batch_size, engine=engine,
+            scan_chunk=scan_chunk, merge_plan=plan, callback=callback,
+            sample_seed=sample_seed, sample_permutation=sample_permutation)
 
 
 @dataclasses.dataclass
@@ -145,6 +156,7 @@ class Program:
     local_fn: Callable
     update_fn: Callable
     state0: Any
+    _mb_cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
     def assemble(cls, workload: Workload, grid: PimGrid, data: dict, n: int,
@@ -159,18 +171,49 @@ class Program:
                    consts=consts, local_fn=local_fn, update_fn=update_fn,
                    state0=workload.init_state(consts))
 
-    def fit(self, *, steps: int, engine: str = "scan", scan_chunk: int = 32,
+    @property
+    def rows_per_vdpu(self) -> int:
+        return int(self.data["w"].shape[1])
+
+    def _triple(self, batch_size: Optional[int], sample_seed: int,
+                permutation: Optional[mb.Permutation] = None):
+        """The engine triple and an ``unwrap`` of its state (None at full
+        batch), minibatch-wrapped when asked; wrapped triples are kept
+        per ``(batch_size, seed, permutation)``."""
+        if batch_size is None:
+            return self.local_fn, self.update_fn, self.state0, None
+        key = (batch_size, sample_seed, permutation)
+        if key not in self._mb_cache:
+            self._mb_cache[key] = mb.minibatch_fns(
+                self.local_fn, self.update_fn, self.state0,
+                rows_per_vdpu=self.rows_per_vdpu, batch_size=batch_size,
+                seed=sample_seed, permutation=permutation)
+        return self._mb_cache[key]
+
+    def fit(self, *, steps: int, batch_size: Optional[int] = None,
+            engine: str = "scan", scan_chunk: int = 32,
             merge_every: int = 1, merge_plan=None,
-            callback: Optional[Callable] = None) -> FitResult:
-        """Train on the bound dataset at the exact default plan."""
+            callback: Optional[Callable] = None, sample_seed: int = 0,
+            sample_permutation: Optional[mb.Permutation] = None
+            ) -> FitResult:
+        """Train on the bound dataset at the exact default plan, full
+        batch or (``batch_size``) on sampled batches; a callback sees the
+        caller's state, never the sampler's counter."""
         plan = mp.MergePlan.resolve(merge_plan, merge_every=merge_every)
-        plan, _ = self.workload.merge_caps.constrain(self.workload.name,
-                                                     plan, None)
+        plan, batch_size = self.workload.merge_caps.constrain(
+            self.workload.name, plan, batch_size)
+        local_fn, update_fn, state0, unwrap = self._triple(
+            batch_size, sample_seed, sample_permutation)
+        cb = callback
+        if unwrap is not None and callback is not None:
+            def cb(step, state, metrics):
+                return callback(step, unwrap(state), metrics)
         state, history = self.grid.fit(
-            init_state=self.state0, local_fn=self.local_fn,
-            update_fn=self.update_fn, data=self.data, steps=steps,
-            engine=engine, scan_chunk=scan_chunk, merge_plan=plan,
-            callback=callback)
+            init_state=state0, local_fn=local_fn, update_fn=update_fn,
+            data=self.data, steps=steps, engine=engine,
+            scan_chunk=scan_chunk, merge_plan=plan, callback=cb)
+        if unwrap is not None:
+            state = unwrap(state)
         return FitResult(state=state, history=history,
                          workload=self.workload)
 
@@ -179,9 +222,14 @@ def fit(workload: Workload, grid: PimGrid, X, y=None, *, steps: int,
         batch_size: Optional[int] = None, engine: str = "scan",
         scan_chunk: int = 32, merge_every: int = 1,
         overlap_merge: bool = False, merge_compression=None,
-        merge_plan=None, callback: Optional[Callable] = None) -> FitResult:
+        merge_plan=None, callback: Optional[Callable] = None,
+        sample_seed: int = 0,
+        sample_permutation: Optional[mb.Permutation] = None) -> FitResult:
     """Train any workload on the grid — the entry point every layer above
-    the algorithms goes through.
+    the algorithms goes through.  ``batch_size``: rows sampled per vDPU
+    per local step (None: full batch), on the schedule of
+    ``sample_seed`` and, when given, ``sample_permutation(seed, epoch,
+    rows_per_vdpu)`` (default: ``minibatch.hashed_permutation``).
 
     >>> import numpy as np
     >>> from repro_torch.core import make_cpu_grid
@@ -199,13 +247,12 @@ def fit(workload: Workload, grid: PimGrid, X, y=None, *, steps: int,
         merge_compression=merge_compression)
     plan, batch_size = workload.merge_caps.constrain(workload.name, plan,
                                                      batch_size)
-    if batch_size is not None:
-        raise NotImplementedError(
-            "batch_size (on-device minibatch sampling) is not ported to "
-            "repro_torch yet (ROADMAP queue A, item 9)")
     if getattr(X, "is_streaming_source", False):
         raise NotImplementedError(
             "streaming sources are not ported to repro_torch yet (ROADMAP "
             "queue A, item 14)")
-    return workload.run(grid, X, y, steps=steps, plan=plan, engine=engine,
-                        scan_chunk=scan_chunk, callback=callback)
+    return workload.run(grid, X, y, steps=steps, plan=plan,
+                        batch_size=batch_size, engine=engine,
+                        scan_chunk=scan_chunk, callback=callback,
+                        sample_seed=sample_seed,
+                        sample_permutation=sample_permutation)

@@ -208,10 +208,12 @@ class DecisionTree(api.Workload):
         return dtree_predict(state, X)
 
     def run(self, grid: PimGrid, X, y=None, *, steps=None, plan=None,
-            engine="scan", scan_chunk=32, callback=None) -> api.FitResult:
+            batch_size=None, engine="scan", scan_chunk=32, callback=None,
+            sample_seed=0, sample_permutation=None) -> api.FitResult:
         """Train the tree to ``max_depth`` (``steps`` is ignored: the
-        unit of work is a level).  ``plan`` arrives already degraded to
-        the exact default by ``merge_caps``."""
+        unit of work is a level).  ``plan`` and ``batch_size`` arrive
+        already degraded to the exact default and full batch by
+        ``merge_caps``."""
         data, _, consts = self.prepare(grid, X, y)
         max_depth = self.max_depth
         dev = grid.device

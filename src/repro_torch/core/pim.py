@@ -85,7 +85,7 @@ class PimGrid:
         """
         return {k: v.sum(dim=0) for k, v in local_fn(model, data).items()}
 
-    def fit(self, *, init_state: torch.Tensor, local_fn: Callable,
+    def fit(self, *, init_state, local_fn: Callable,
             update_fn: Callable, data: dict, steps: int,
             callback: Callable | None = None, scan_chunk: int = 32,
             engine: str = "scan", merge_every: int = 1,
@@ -93,7 +93,9 @@ class PimGrid:
             merge_plan=None):
         """Run the loop: local partials -> merge -> update.
 
-        ``update_fn(state, merged) -> (state, metrics)``.  Returns
+        ``update_fn(state, merged) -> (state, metrics)``; ``state`` is a
+        tensor or a tuple of tensors (the minibatch sampler's ``(state,
+        counter)``).  Returns
         ``(state, history)`` with one metrics dict (0-dim CPU tensors) per
         local step, whatever the cadence.  At cadence ``k > 1`` a round is
         ``k`` local steps per vDPU and one state merge

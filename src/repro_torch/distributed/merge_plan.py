@@ -14,7 +14,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-import torch
 
 _NOT_PORTED = ("is not ported to repro_torch yet (ROADMAP queue A, item 10: "
                "overlap, compression, SlowMo, Nesterov, adaptive cadence "
@@ -61,29 +60,39 @@ class MergePlan:
         return True
 
 
+def tree_map(fn: Callable, state):
+    """``fn`` on every tensor of a state: a tensor, or a tuple of states
+    (the minibatch sampler carries ``(state, counter)``)."""
+    if isinstance(state, tuple):
+        return tuple(tree_map(fn, s) for s in state)
+    return fn(state)
+
+
 def cadence_round(grid, local_fn: Callable, update_fn: Callable, k: int,
-                  state: torch.Tensor, data: dict):
+                  state, data: dict):
     """One exact merge round at cadence ``k``: every vDPU runs ``k`` local
     update steps on its own copy of ``state``, then the per-vDPU states
     and per-step metrics are averaged.
 
     Lanes are the leading batch dimension: ``local_fn`` gets the
-    ``(L, ...)`` state and returns per-lane partials, which are
-    pre-scaled by ``n_vdpus`` so ``update_fn``'s global normalisation
-    sees shard statistics at dataset magnitude (the local-SGD view), and
-    the average is ``sum(dim=0) * (1.0 / n_vdpus)`` as in
+    ``(L, ...)`` state (each tensor of a tuple state expanded alike) and
+    returns per-lane partials, which are pre-scaled by ``n_vdpus`` so
+    ``update_fn``'s global normalisation sees shard statistics at
+    dataset magnitude (the local-SGD view), and the average is
+    ``sum(dim=0) * (1.0 / n_vdpus)`` as in
     ``repro.distributed.merge_plan.cadence_round``.
 
     Returns ``(avg_state, [metrics of each local step])``.
     """
     scale = float(grid.n_vdpus)
-    lanes = state.expand((grid.n_vdpus,) + tuple(state.shape))
+    lanes = tree_map(lambda s: s.expand((grid.n_vdpus,) + tuple(s.shape)),
+                     state)
     per_step = []
     for _ in range(k):
         part = {key: v * scale for key, v in local_fn(lanes, data).items()}
         lanes, metrics = update_fn(lanes, part)
         per_step.append(metrics)
     inv = 1.0 / scale
-    return (lanes.sum(dim=0) * inv,
+    return (tree_map(lambda s: s.sum(dim=0) * inv, lanes),
             [{key: v.sum(dim=0) * inv for key, v in m.items()}
              for m in per_step])

@@ -22,9 +22,14 @@ from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
 
 
-def state_from_numpy(w, device=None) -> torch.Tensor:
-    """A trained state vector (``FitResult.state``) as float32.  Every
-    function here copies, so the tensors own their memory."""
+def state_from_numpy(w, device=None):
+    """A trained state (``FitResult.state``: a weight vector, the
+    multinomial's ``(d, C)`` matrix, K-means centroids) as float32; a
+    tuple, such as a minibatch fit's ``(state, counter)`` carry, as a
+    tuple of them.  Every function here copies, so the tensors own their
+    memory."""
+    if isinstance(w, tuple):
+        return tuple(state_from_numpy(s, device) for s in w)
     return torch.tensor(np.asarray(w, dtype=np.float32),
                         device=resolve_device(device))
 

@@ -5,9 +5,13 @@ Port of ``repro.kernels.dispatch``:
   ====================  ===================  ============================
   dispatch fn           kernel               used by
   ====================  ===================  ============================
-  ``hybrid_matmul``     ``fxp_matmul``       linreg/logreg int8/int16
+  ``hybrid_matmul``     ``fxp_matmul``       linreg/logreg/svm/
+                                             multinomial int8/int16
                                              forward and gradient dots
-  ``lut_apply``         ``lut_activation``   logreg LUT sigmoid
+                                             (any N: a launch per group
+                                             of b's columns)
+  ``lut_apply``         ``lut_activation``   logreg LUT sigmoid,
+                                             multinomial LUT exp
   ``kmeans_partials``   ``kmeans_assign``    kmeans Lloyd iteration
   ``level_histogram``   ``split_hist``       dtree level statistics
   ``flash_attention``   ``flash_attention``  LM causal self-attention
@@ -71,37 +75,71 @@ def use_kernels(enabled: bool):
         _ENABLED[0] = prev
 
 
+def hybrid_launches(a_dtype: torch.dtype, b_dtype: torch.dtype,
+                    n_cols: int) -> int:
+    """``fxp_matmul`` launches of one :func:`hybrid_matmul` of an
+    ``a_dtype`` ``a`` by an ``n_cols``-column ``b_dtype`` ``b``: per limb
+    of ``a``, ``ceil(limb columns / MAX_N)``, where ``b`` has one limb
+    column per column at int8 and two at int16.
+
+    >>> import torch
+    >>> hybrid_launches(torch.int8, torch.int16, 10)     # 20 limb columns
+    3
+    >>> hybrid_launches(torch.int16, torch.int8, 9)      # two a-limbs
+    4
+    """
+    b_limbs = 1 if b_dtype in (torch.int8, torch.uint8) else 2
+    return len(_A_LIMBS[a_dtype]) * -(-b_limbs * n_cols // _fxp.MAX_N)
+
+
+def limb_groups(b: torch.Tensor):
+    """``b``'s int8 limbs as the ``b`` operands of :func:`hybrid_matmul`'s
+    ``fxp_matmul`` launches: ``(limb weights, groups)``, the columns in
+    groups of at most ``MAX_N`` limb columns, each group's limbs side by
+    side (all of the group's first limb, then all of its second)."""
+    b_limbs = qz.int8_limbs(b)
+    width = _fxp.MAX_N // len(b_limbs)          # b columns a launch takes
+    return ([wb for wb, _ in b_limbs],
+            [torch.cat([lb[..., j:j + width] for _, lb in b_limbs], dim=-1)
+             for j in range(0, b.shape[-1], width)])
+
+
 def hybrid_matmul(a: torch.Tensor, b: torch.Tensor, *,
                   k_chunk: int = 4096) -> torch.Tensor:
     """Drop-in for ``quantize.hybrid_dot``: ``(..., M, K)`` int8/int16 x
-    ``(..., K, N)`` int8/int16 -> float32 ``(..., M, N)``.
+    ``(..., K, N)`` int8/int16 -> float32 ``(..., M, N)``, for any N.
 
-    ``b``'s limbs ride as the columns of one ``fxp_matmul`` launch per
-    limb of ``a`` (one launch for an int8 ``a``), which returns the
-    int32 partial of every ``k_chunk`` chunk; the partials convert to
-    float32 and combine in the order ``hybrid_dot`` uses (limb of a,
-    limb of b, chunk), so the two paths agree bit for bit.
+    ``b``'s columns go in groups whose limb columns fit one
+    ``fxp_matmul`` launch (``MAX_N``: 8 int8 columns, or 4 int16
+    columns of two limbs each), a launch per group and limb of ``a``
+    (:func:`hybrid_launches`).  Each launch returns the int32 partial of
+    every ``k_chunk`` chunk; the partials convert to float32 and combine
+    in the order ``hybrid_dot`` uses (limb of a, limb of b, chunk).  An
+    output column's float operations are its own, so grouping the
+    columns leaves every bit as ``hybrid_dot`` gives it.
     """
     if not kernels_enabled():
         return qz.hybrid_dot(a, b, k_chunk=k_chunk)
     if a.dtype not in _A_LIMBS:
         raise TypeError(f"hybrid_matmul takes an int8 or int16 a, got "
                         f"{a.dtype}")
-    b_limbs = qz.int8_limbs(b)
-    N = b.shape[-1]
-    bcat = torch.cat([lb for _, lb in b_limbs], dim=-1)
-    out = None
-    for wa, limb in _A_LIMBS[a.dtype]:
-        parts = _fxp.fxp_matmul(a, bcat, k_chunk=k_chunk, limb=limb)
-        for j, (wb, _) in enumerate(b_limbs):
-            pj = parts[..., j * N:(j + 1) * N]
-            acc = None
-            for c in range(parts.shape[-3]):
-                part = pj[..., c, :, :].float()
-                acc = part if acc is None else acc + part
-            term = acc * (wa * wb)
-            out = term if out is None else out + term
-    return out
+    weights, groups = limb_groups(b)
+    outs = []
+    for bcat in groups:
+        n = bcat.shape[-1] // len(weights)
+        out = None
+        for wa, limb in _A_LIMBS[a.dtype]:
+            parts = _fxp.fxp_matmul(a, bcat, k_chunk=k_chunk, limb=limb)
+            for j, wb in enumerate(weights):
+                pj = parts[..., j * n:(j + 1) * n]
+                acc = None
+                for c in range(parts.shape[-3]):
+                    part = pj[..., c, :, :].float()
+                    acc = part if acc is None else acc + part
+                term = acc * (wa * wb)
+                out = term if out is None else out + term
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
 def lut_apply(table: lut_mod.LutTable, x: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import datasets, lut, make_grid  # noqa: E402
+from repro_torch.core import minibatch as mb  # noqa: E402
 from repro_torch.core.mlalgos import (DecisionTree, KMeans,  # noqa: E402
-                                      LinReg, LogReg, api)
+                                      LinearSVM, LinReg, LogReg,
+                                      MultinomialLogReg, api)
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import dispatch, ref  # noqa: E402
 from repro_torch.kernels import split_hist as split_hist_mod  # noqa: E402
@@ -480,3 +482,111 @@ def test_small_prefill_near_its_plain_twin(dtype, tol):
         want = model.prefill(params, {"tokens": toks}).float()
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+# (a dtype, b dtype, N, per-lane b): int16 b past 4 columns and int8 b
+# past 8 (a launch per group of 8 limb columns), two a-limbs
+@pytest.mark.parametrize("adt,bdt,N,per_lane", [
+    (torch.int8, torch.int16, 5, False), (torch.int8, torch.int16, 8, True),
+    (torch.int8, torch.int16, 10, False), (torch.int8, torch.int16, 16, True),
+    (torch.int8, torch.int16, 20, False), (torch.int8, torch.int8, 9, False),
+    (torch.int8, torch.int8, 16, True), (torch.int16, torch.int16, 10, True),
+    (torch.int16, torch.int8, 9, False)])
+def test_wide_hybrid_matmul_equals_plain(adt, bdt, N, per_lane):
+    """Bit-equal to ``use_kernels(False)`` (``hybrid_dot``), forward and
+    the gradient's transposed view, with ``hybrid_launches`` launches."""
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(N)
+
+    def ints(shape, dtype):
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max + 1, shape, generator=g,
+                             device=dev).to(dtype)
+
+    L, R, d = 3, 5000, 64
+    X = ints((L, R, d), adt)
+    W = ints((L, d, N) if per_lane else (d, N), bdt)
+    Rs = ints((L, R, N), bdt)
+    for a, b in ((X, W), (X.transpose(-1, -2), Rs)):
+        before = fxp_matmul.launches
+        got = dispatch.hybrid_matmul(a, b)
+        assert fxp_matmul.launches - before == dispatch.hybrid_launches(
+            adt, bdt, N)
+        with dispatch.use_kernels(False):
+            assert torch.equal(got, dispatch.hybrid_matmul(a, b))
+
+
+def test_lut_kernel_exp_table():
+    """The one-sided exp table: -16, 0, midpoints, values below -16 and
+    above 0 (the end entries), NaN (entry 0), bit-equal to plain."""
+    dev = require_cuda()
+    t = lut.exp_lut(device=dev)
+    step = torch.tensor(t.step, dtype=torch.float32)
+    mids = (torch.arange(1023, dtype=torch.float32) + 0.5) * step + t.x_min
+    edge = torch.tensor([-16.0, 0.0, -16.5, -1e30, -float("inf"), 0.5,
+                         float("inf"), float("nan")])
+    x = torch.cat([mids, edge]).to(dev)
+    x = torch.cat([x, -torch.rand(1_000_003, device=dev) * 20])
+    got = lut_activation(x, t.table, x_min=t.x_min, x_max=t.x_max)
+    assert torch.equal(got, ref.lut_activation_ref(x, t.table, t.x_min,
+                                                   t.x_max))
+
+
+@pytest.mark.parametrize("seed,epoch", [(0, 0), (0, 7), (5, 3),
+                                        (2 ** 40 + 1, 12)])
+def test_default_permutation_same_on_card_and_cpu(seed, epoch):
+    dev = require_cuda()
+    per = 65536
+    on_card = mb.hashed_permutation(seed, torch.tensor(epoch, device=dev),
+                                    per)
+    on_cpu = mb.hashed_permutation(seed, torch.tensor(epoch), per)
+    assert on_card.device.type == "cuda"
+    assert torch.equal(on_card.cpu(), on_cpu)
+    assert torch.equal(torch.sort(on_cpu).values, torch.arange(per))
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("workload,batch_size", [
+    (LinearSVM(lr=0.1, precision="int8"), None),
+    (LinearSVM(lr=0.1, precision="int16"), 128),
+    (MultinomialLogReg(n_classes=4, precision="int8", softmax="lut"), None),
+    (MultinomialLogReg(n_classes=10, precision="int8", softmax="lut"), None),
+    (MultinomialLogReg(n_classes=10, precision="int16", softmax="lut"), 128),
+    (LogReg(lr=0.5, precision="int8", sigmoid="lut"), 128)])
+def test_small_new_fit_equals_its_plain_twin(workload, batch_size, k):
+    """The SVM, the multinomial (C = 4 and 10) and minibatch fits with
+    kernels on, bit-equal to their ``use_kernels(False)`` twins."""
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    if isinstance(workload, MultinomialLogReg):
+        X, y = datasets.mixture_classification(gen, 8 * 512 + 3, 32,
+                                               workload.n_classes)
+    else:
+        X, y, _ = datasets.binary_classification(gen, 8 * 512 + 3, 32)
+    grid = make_grid(8)
+    a = api.fit(workload, grid, X, y, steps=6, merge_every=k,
+                batch_size=batch_size)
+    with dispatch.use_kernels(False):
+        b = api.fit(workload, grid, X, y, steps=6, merge_every=k,
+                    batch_size=batch_size)
+    assert torch.equal(a.state, b.state)
+    for m, n in zip(a.history, b.history):
+        assert torch.equal(m["loss"], n["loss"])
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_small_minibatch_kmeans_near_its_plain_twin(k):
+    """K-means on 128 sampled rows a lane: within atol 1e-4, rtol 1e-5 of
+    its plain twin (the full-batch bar), python engine == scan."""
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    X, _, centers = datasets.blobs(gen, 8 * 512 + 3, 16, 8)
+    program = KMeans(k=8, precision="int16").bind(make_grid(8), X)
+    program.state0 = centers + 0.1 * torch.randn(
+        centers.shape, generator=gen, device=dev)
+    a = program.fit(steps=6, merge_every=k, batch_size=128)
+    with dispatch.use_kernels(False):
+        b = program.fit(steps=6, merge_every=k, batch_size=128)
+    torch.testing.assert_close(a.state, b.state, atol=1e-4, rtol=1e-5)
+    c = program.fit(steps=6, merge_every=k, batch_size=128, engine="python")
+    assert torch.equal(a.state, c.state)

@@ -117,7 +117,8 @@ def test_port_imports_neither_jax_nor_repro():
         "          'kernels.flash_attention', 'models.common',\n"
         "          'models.attention', 'models.mlp', 'models.transformer',\n"
         "          'models.model_api', 'configs.qwen2_0_5b',\n"
-        "          'launch.serve_lm'):\n"
+        "          'launch.serve_lm', 'core.mlalgos.svm',\n"
+        "          'core.mlalgos.multinomial', 'core.minibatch'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

@@ -110,3 +110,49 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                        x_max=t.x_max)
     with pytest.raises(ValueError):
         lut_activation(x, t.table[:1], x_min=t.x_min, x_max=t.x_max)
+
+
+TABLES = {"gelu": (lut.gelu_lut, jlut.gelu_lut, jlut._np_gelu),
+          "silu": (lut.silu_lut, jlut.silu_lut, jlut._np_silu),
+          "tanh": (lut.tanh_lut, jlut.tanh_lut, np.tanh),
+          "exp": (lut.exp_lut, jlut.exp_lut, np.exp)}
+
+
+@pytest.mark.parametrize("name", sorted(TABLES))
+def test_stock_table_bytes_and_max_error_equal(name):
+    """The four stock tables the softmax and the LM activations use: the
+    same bytes, domain and step as JAX's, and ``lut_max_error`` equal to
+    JAX's for the nearest lookup (the same eager divide, round and
+    gather) and within 1e-6 for the interpolated one (XLA may fuse its
+    multiply-adds)."""
+    make, jmake, fn = TABLES[name]
+    t, jt = make(), jmake()
+    assert_bits_equal(t.table, jt.table)
+    assert (t.x_min, t.x_max, t.step) == (jt.x_min, jt.x_max, jt.step)
+    assert lut.lut_max_error(t, fn, n_probe=20_000) == \
+        jlut.lut_max_error(jt, fn, n_probe=20_000)
+    np.testing.assert_allclose(
+        lut.lut_max_error(t, fn, n_probe=20_000, interp=True),
+        jlut.lut_max_error(jt, fn, n_probe=20_000, interp=True),
+        rtol=0, atol=1e-6)
+
+
+def test_exp_table_through_the_wrapper():
+    """The one-sided exp table through ``lut_activation``'s wrapper:
+    bit-equal to JAX's lookup on -16, 0, the midpoints between entries,
+    values below -16 and above 0 (clamped to the end entries) and NaN
+    (entry 0)."""
+    t, jt = lut.exp_lut(), jlut.exp_lut()
+    step = np.float32(jt.step)
+    mids = (np.arange(1023, dtype=np.float32) + np.float32(0.5)) * step \
+        + np.float32(-16.0)
+    x = np.concatenate([mids, np.array([-16.0, 0.0, -16.5, -1e30, -np.inf,
+                                        0.5, np.inf, np.nan], np.float32),
+                        -np.abs(rng(9).standard_normal(1000) * 8
+                                ).astype(np.float32)])
+    got = lut_activation(to_torch(x), t.table, x_min=t.x_min, x_max=t.x_max)
+    assert_bits_equal(got, jlut.lut_lookup(jt, jnp.asarray(x)))
+    table = t.table.numpy()
+    assert got[1023] == table[0] and got[1024] == table[-1]
+    assert got[1025] == got[1026] == got[1027] == table[0]
+    assert got[1028] == got[1029] == table[-1] and got[1030] == table[0]

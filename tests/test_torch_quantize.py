@@ -118,3 +118,49 @@ def test_kernels_off_path_is_hybrid_dot():
     assert dispatch.kernels_enabled()
     assert torch.equal(off, dispatch.hybrid_matmul(to_torch(a),
                                                    to_torch(b)))
+
+
+# every column count up to 20, past the 8 limb columns one fxp_matmul
+# launch takes (4 int16 columns, 8 int8 columns)
+@pytest.mark.parametrize("n", range(1, 21))
+@pytest.mark.parametrize("adt,bdt", [(np.int8, np.int8), (np.int8, np.int16),
+                                     (np.int16, np.int8),
+                                     (np.int16, np.int16)])
+def test_hybrid_matmul_any_column_count(adt, bdt, n):
+    """With kernels on, ``hybrid_matmul`` splits ``b``'s columns into
+    launch-sized groups and returns the bits of JAX's
+    ``hybrid_matmul`` (its Pallas kernel in interpret mode) for a shared
+    ``b``, and of JAX's ``hybrid_dot`` under vmap for a per-lane one;
+    K = 40 in chunks of 16 covers the chunk order."""
+    r = rng(100 + n)
+    a, b = _ints(r, (3, 21, 40), adt), _ints(r, (40, n), bdt)
+    assert dispatch.kernels_enabled()
+    got = dispatch.hybrid_matmul(to_torch(a[0]), to_torch(b), k_chunk=16)
+    assert_bits_equal(got, jdispatch.hybrid_matmul(
+        jnp.asarray(a[0]), jnp.asarray(b), k_chunk=16))
+    bl = _ints(r, (3, 40, n), bdt)
+    want = jax.vmap(lambda x, y: jqz.hybrid_dot(x, y, k_chunk=16))(
+        jnp.asarray(a), jnp.asarray(bl))
+    assert_bits_equal(dispatch.hybrid_matmul(to_torch(a), to_torch(bl),
+                                             k_chunk=16), want)
+    # the gradient's layout: a transposed view of the resident rows
+    rt = _ints(r, (3, 21, n), bdt)
+    want_t = jax.vmap(lambda x, y: jqz.hybrid_dot(x.T, y, k_chunk=16))(
+        jnp.asarray(a), jnp.asarray(rt))
+    assert_bits_equal(dispatch.hybrid_matmul(
+        to_torch(a).transpose(-1, -2), to_torch(rt), k_chunk=16), want_t)
+
+
+def test_hybrid_launches_counts_column_groups():
+    """One launch per a-limb and per group of at most ``MAX_N`` = 8 limb
+    columns of b."""
+    from repro_torch.kernels.fxp_matmul import MAX_N
+    assert MAX_N == 8
+    count = dispatch.hybrid_launches
+    assert [count(torch.int8, torch.int16, n) for n in (1, 4, 5, 8, 10, 16,
+                                                        20)] == \
+        [1, 1, 2, 2, 3, 4, 5]
+    assert [count(torch.int8, torch.int8, n) for n in (1, 8, 9, 16, 17)] == \
+        [1, 1, 2, 2, 3]
+    assert count(torch.int16, torch.int16, 10) == 6
+    assert count(torch.int16, torch.int8, 9) == 4

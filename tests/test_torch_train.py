@@ -299,7 +299,7 @@ def test_jax_values_carried_across_bit_exact():
 def test_unported_options_raise():
     _, pw, X, y = _pair("linreg-fp32")
     grid = make_cpu_grid(LANES)
-    for kw in ({"batch_size": 16}, {"overlap_merge": True},
+    for kw in ({"overlap_merge": True},
                {"merge_compression": object()}, {"merge_plan": "auto"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.fit(pw, grid, X, y, steps=2, **kw)
