@@ -11,14 +11,14 @@ Phases, each printed as one JSON line:
                 src/repro_torch/kernels/csrc, in parallel;
   3. compare  — each kernel's wrapper against its plain PyTorch version
                 on the card at the training paths' shapes (256 lanes x
-                65,536 rows) and on ragged shapes: fxp_matmul,
+                65,536 rows) and on ragged shapes: fxp_matmul (the whole
+                hybrid dot, both routes, every workload layout),
                 lut_activation and split_hist bit for bit; kmeans_assign's
                 assignments and counts bit for bit, its sums and sse
                 within 1e-5 of their mass, and two launches bit-equal;
-                hybrid_matmul past one launch's 8 limb columns (int16
-                b of 5 to 16 columns, int8 b of 9 and 16, int16 a,
-                per-lane b) and the exp table through lut_activation bit
-                for bit;
+                hybrid_matmul past one launch's 16 columns (int16 and
+                int8 a and b, N up to 20, per-lane b) and the exp table
+                through lut_activation bit for bit;
                 flash_attention within float32 2e-5 / bf16 1e-2 (and
                 >= 99 % of bf16 outputs bit-equal) at qwen2-0.5b's
                 prefill shape (4 x 14 heads, 2 KV heads, S = 4096, D =
@@ -30,7 +30,8 @@ Phases, each printed as one JSON line:
   4. train    — ``api.fit`` on 256 vDPUs x 2^24 rows made on the card
                 from --seed: LogReg(int8, LUT sigmoid) at d=64, 50 steps
                 at cadence 1 and 48 at cadence 8, against fp32 + exact
-                sigmoid, then LinReg int8 for 20 steps; KMeans k=8 d=16
+                sigmoid, then LinReg int8 for 20 steps (and its steps/s);
+                KMeans k=8 d=16
                 for 10 iterations at fp32 and int16 (cadence 1 and 8);
                 DecisionTree depth 6, 32 bins, 4 classes, d=16 (uint8
                 resident bins), against its ``use_kernels(False)`` twin,
@@ -55,14 +56,14 @@ Phases, each printed as one JSON line:
                 (median of 5 fits): LinearSVM int8 against fp32 (accuracy
                 within 0.02); MultinomialLogReg(int8, LUT softmax) against
                 (fp32, exact) at C = 4 and 10 (within 0.03; C = 10 takes
-                hybrid_matmul's column groups); minibatch fits on 1,024
+                one fxp_matmul launch a dot); minibatch fits on 1,024
                 rows a lane a step of LogReg(int8, LUT) at cadence 1 and
                 8 (within 0.02 of fp32 full batch) and KMeans(int16)
                 (SSE at most 1.05 x fp32 full batch); the default
                 minibatch permutation drawn on the card and on the CPU,
                 bit-equal;
   8. the ``kernels`` line (fxp_matmul's entry also times the
-     multinomial's launches at C = 4 and 10, with their byte bound), the
+     multinomial's two dots at C = 4 and 10, with their byte bound), the
      nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any mismatch, missing launch or exception ends the run with a non-zero
@@ -105,6 +106,7 @@ from repro_torch.kernels import split_hist as split_hist_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  route)
 from repro_torch.kernels.fxp_matmul import fxp_matmul  # noqa: E402
+from repro_torch.kernels.fxp_matmul import route as fxp_route  # noqa: E402
 from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
 from repro_torch.kernels.lut_activation import lut_activation  # noqa: E402
 from repro_torch.kernels.split_hist import split_hist  # noqa: E402
@@ -127,6 +129,9 @@ KM_RATE_FITS = 5
 # of the JAX package's tests (SVM 0.02, multinomial 0.03) and the
 # minibatch bar (0.02 of the full-batch fit)
 MN_CLASSES = (4, 10)
+# fxp_matmul launches of a regression step: the forward and the gradient,
+# each a hybrid_matmul of one column
+FXP_STEP = 2 * dispatch.hybrid_launches(1)
 MB_FRACTION = 64
 SVM_ACC_TOL, MN_ACC_TOL, MB_ACC_TOL = 0.02, 0.03, 0.02
 PERM_CASES = ((0, 0), (0, 7), (5, 3), (2 ** 40 + 1, 12))
@@ -174,8 +179,9 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:73"),
 }
 LIBRARY_NOTES = {
-    "fxp_matmul": "no single PyTorch call computes int32 chunk partials of "
-                  "int8 x int16 limbs (see PERF.md)",
+    "fxp_matmul": "no one PyTorch call computes hybrid_dot: "
+                  "torch._int_mm takes int8 x int8 only, has no unsigned "
+                  "low limb, and returns no chunked sum",
     "lut_activation": "the lookup is an index computation plus a gather, "
                       "two PyTorch calls (see PERF.md)",
     "kmeans_assign": "no single PyTorch call computes the fused distance, "
@@ -191,8 +197,9 @@ LIBRARY_NOTES = {
                        "bf16",
 }
 PER = {
-    "fxp_matmul": "one training step: forward (L,R,d)x(d,2) + gradient "
-                  "(L,d,R)x(L,R,2), int32 chunk partials",
+    "fxp_matmul": "one logreg training step: forward (L,R,d)x(d,1) + "
+                  "gradient (L,d,R)x(L,R,1), int8 X, int16 w and r, float32 "
+                  "out (multinomial: the same at N = C)",
     "lut_activation": "one training step: sigmoid of z (L,R)",
     "kmeans_assign": "one Lloyd iteration: int16 rows (L,R,16), shared "
                      "centroids (8,16)",
@@ -317,59 +324,69 @@ def rand_int(gen, shape, lo, hi, dtype):
                          dtype=torch.int64).to(dtype)
 
 
-def limbs16(gen, shape):
-    """The int16-typed limbs of random int16 values, stacked as the last
-    dim: what ``hybrid_matmul`` hands ``fxp_matmul`` as ``b``."""
-    v = rand_int(gen, shape, -32768, 32768, torch.int16)
-    return torch.cat([lb for _, lb in qz.int8_limbs(v)], dim=-1)
+def int16s(gen, shape):
+    return rand_int(gen, shape, -32768, 32768, torch.int16)
 
 
 # -- phase 3 ---------------------------------------------------------------
 
 
 def compare_fxp(gen, lanes: int, rows: int, d: int) -> list:
-    """Kernel == plain on a few lanes at the path's per-lane shapes, and
-    on shapes that reach every kernel variant: the 16-byte vector kernels
-    with ragged rows, idle threads, K > 4096 and N from 1 to 4, and the
-    scalar kernels (K or M not a multiple of the vector, N > 4, an
-    unaligned view), for int8 and both int16 limbs."""
+    """Kernel == plain (``hybrid_dot``), bit for bit, on a few lanes at
+    every layout a workload gives it (each must be read in whole pieces,
+    never element by element) and on shapes that reach the rest: both
+    routes, N from 1 to 16, int8 and int16 a and b, K over several chunks
+    (the gradient's 65,536 rows), ragged M and K, an unaligned view."""
     few = min(lanes, 4)
     X = rand_int(gen, (few, rows, d), -128, 128, torch.int8)
-    Xa = rand_int(gen, (3, 1000, 48), -128, 128, torch.int8)
-    Xb = rand_int(gen, (2, 9000, 80), -128, 128, torch.int8)
+    X16 = int16s(gen, (few, 1000, d))
+    batch = X[:, :1024]
     Xr = rand_int(gen, (3, 5000, 77), -128, 128, torch.int8)
-    X16 = rand_int(gen, (2, 333, 64), -32768, 32768, torch.int16)
-    cases = [
-        ("forward, shared weight", X, limbs16(gen, (d, 1)), 0),
-        ("forward, per-lane weight", X, limbs16(gen, (few, d, 1)), 0),
-        ("gradient, transposed view", X.transpose(-1, -2),
-         limbs16(gen, (few, rows, 1)), 0),
-        ("request rows, 2-D", X[0, :7], limbs16(gen, (d, 1)), 0),
-        ("vector rows, ragged M, K=48, N=3", Xa,
-         limbs16(gen, (3, 48, 1))[..., :3].contiguous(), 0),
-        ("vector cols, M=48, N=1", Xa.transpose(-1, -2),
-         limbs16(gen, (3, 1000, 1))[..., :1].contiguous(), 0),
-        ("vector cols, M=80, K=9000, N=4", Xb.transpose(-1, -2),
-         limbs16(gen, (2, 9000, 2)), 0),
-        ("vector rows, int16 high limb", X16, limbs16(gen, (64, 1)), 1),
-        ("vector cols, int16 low limb", X16.transpose(-1, -2),
-         limbs16(gen, (2, 333, 1)), 2),
-        ("scalar rows, K=77, N=6", Xr, limbs16(gen, (3, 77, 3)), 0),
-        ("scalar cols, M=77, K=5000", Xr.transpose(-1, -2),
-         limbs16(gen, (3, 5000, 1)), 0),
-        ("scalar rows, int16 high limb, K=63", X16[..., 1:],
-         limbs16(gen, (63, 1)), 1),
-        ("scalar rows, unaligned view", X[..., 1:],
-         limbs16(gen, (d - 1, 1)), 0),
+    workload = [
+        ("logreg forward, shared w", X, int16s(gen, (d, 1))),
+        ("logreg forward, per-lane w", X, int16s(gen, (few, d, 1))),
+        ("logreg gradient, transposed view", X.transpose(-1, -2),
+         int16s(gen, (few, rows, 1))),
+        ("multinomial forward, C=4", X, int16s(gen, (d, 4))),
+        ("multinomial gradient, C=10", X.transpose(-1, -2),
+         int16s(gen, (few, rows, 10))),
+        ("multinomial per-lane W, C=10", X, int16s(gen, (few, d, 10))),
+        ("request rows, 2-D", X[0, :7], int16s(gen, (d, 10))),
+        ("minibatch forward", batch, int16s(gen, (d, 1))),
+        ("minibatch gradient", batch.transpose(-1, -2),
+         int16s(gen, (few, 1024, 4))),
+        ("int16 rows forward", X16, int16s(gen, (d, 1))),
+        ("int16 rows gradient", X16.transpose(-1, -2),
+         int16s(gen, (few, 1000, 1))),
+    ]
+    other = [
+        ("int8 b, N=16", X, rand_int(gen, (d, 16), -128, 128, torch.int8)),
+        ("int16 a, int8 b, gradient, N=8", X16.transpose(-1, -2),
+         rand_int(gen, (few, 1000, 8), -128, 128, torch.int8)),
+        ("cols, M=77 element loads, K=5000 in two chunks",
+         Xr.transpose(-1, -2), int16s(gen, (3, 5000, 16))),
+        ("rows, K=77 element loads, N=5", Xr, int16s(gen, (3, 77, 5))),
+        ("unaligned view", X[..., 1:], int16s(gen, (d - 1, 4))),
+        ("unaligned transposed view", X[..., 1:].transpose(-1, -2),
+         int16s(gen, (few, rows, 2))),
     ]
     out = []
-    for name, a, b, limb in cases:
-        got = fxp_matmul(a, b, limb=limb)
-        want = ref.fxp_matmul_ref(a, b, k_chunk=4096, limb=limb)
+    for i, (name, a, b) in enumerate(workload + other):
+        got = fxp_matmul(a, b)
+        want = ref.fxp_matmul_ref(a, b, k_chunk=4096)
         equal = bool(torch.equal(got, want))
         out.append({"case": name, "a": list(a.shape), "b": list(b.shape),
+                    "b_dtype": str(b.dtype)[6:], "route": fxp_route(a),
                     "equal": equal})
         require(equal, f"fxp_matmul != plain version: {name}")
+        if i < len(workload) and gen.device.type == "cuda":
+            require(not fxp_route(a).endswith("elements"),
+                    f"fxp_matmul {name}: a workload layout read element by "
+                    f"element ({fxp_route(a)})")
+    routes = {o["route"] for o in out}
+    require(gen.device.type != "cuda" or routes == {
+        "rows/16B", "rows/elements", "cols/8B", "cols/elements"},
+        f"fxp_matmul compare reached the routes {sorted(routes)} only")
     return out
 
 
@@ -408,10 +425,10 @@ def compare_lut(gen, lanes: int, rows: int) -> dict:
 
 def compare_hybrid(gen, lanes: int, rows: int, d: int) -> list:
     """``hybrid_matmul`` with kernels on against ``use_kernels(False)``
-    (``hybrid_dot``), bit-equal, past the 8 limb columns one launch
-    takes: int16 b of 5, 8, 10 and 16 columns, int8 b of 9 and 16, an
-    int16 a (two a-limbs) and a per-lane ``(L, K, N)`` b, as the forward
-    and as the gradient's transposed view; each with the launches
+    (``hybrid_dot``), bit-equal, up to and past the 16 columns one launch
+    takes: int16 b of 1, 4, 10, 16 and 20 columns, int8 b of 9 and 20,
+    an int16 a and a per-lane ``(L, K, N)`` b, as the forward and as the
+    gradient's transposed view; each with the launches
     ``dispatch.hybrid_launches`` names."""
     few = min(lanes, 4)
     X8 = rand_int(gen, (few, rows, d), -128, 128, torch.int8)
@@ -422,8 +439,8 @@ def compare_hybrid(gen, lanes: int, rows: int, d: int) -> list:
         return rand_int(gen, shape, lo[dtype], -lo[dtype], dtype)
 
     cases = []
-    for X, bdt, widths in ((X8, torch.int16, (5, 8, 10, 16)),
-                           (X8, torch.int8, (9, 16)),
+    for X, bdt, widths in ((X8, torch.int16, (1, 4, 10, 16, 20)),
+                           (X8, torch.int8, (9, 20)),
                            (X16, torch.int16, (10,))):
         for n in widths:
             what = f"{str(X.dtype)[6:]} a, {str(bdt)[6:]} b, N={n}"
@@ -439,7 +456,7 @@ def compare_hybrid(gen, lanes: int, rows: int, d: int) -> list:
         launches = fxp_matmul.launches - before
         with dispatch.use_kernels(False):
             want = dispatch.hybrid_matmul(a, b)
-        n_launch = dispatch.hybrid_launches(a.dtype, b.dtype, b.shape[-1])
+        n_launch = dispatch.hybrid_launches(b.shape[-1])
         equal = bool(torch.equal(got, want))
         out.append({"case": name, "a": list(a.shape), "b": list(b.shape),
                     "launches": launches, "expected_launches": n_launch,
@@ -476,87 +493,69 @@ def compare_exp_lut(gen, lanes: int, rows: int) -> dict:
     return out
 
 
+def time_fxp(a, b, dev, iters: int, single: bool = False) -> dict:
+    """One ``fxp_matmul`` launch of ``a`` by ``b`` against its plain
+    version: bit-equal, its time, the plain version's, its route and its
+    bound (each input read once, the float32 output written once; the
+    operations: a multiply-add of every limb pair)."""
+    got = fxp_matmul(a, b)
+    want = ref.fxp_matmul_ref(a, b, k_chunk=4096)
+    run = lambda: fxp_matmul(a, b)                             # noqa: E731
+    plain = lambda: ref.fxp_matmul_ref(a, b, k_chunk=4096)    # noqa: E731
+    p = {"route": fxp_route(a), "equal": bool(torch.equal(got, want)),
+         "max_abs_err": max_abs_err(got, want),
+         "ms": median_ms(run, dev, iters),
+         "plain_ms": median_ms(plain, dev, max(1, iters // 5)),
+         "bytes": nbytes(a, b, got),
+         "ops": 2 * a.numel() * b.shape[-1] * a.element_size()
+                * b.element_size()}
+    if single:
+        p["single_call_ms"] = single_call_ms(run, dev, iters)
+    p["bound_ms"], p["bound_by"] = bound(p["bytes"], p["ops"],
+                                         INT8_OPS_PER_S)
+    return p
+
+
+def time_dots(parts: dict, dev, iters: int, single: bool = False) -> dict:
+    """A training step's dots (``parts``: name -> (a, b)), each one launch,
+    timed by :func:`time_fxp` and summed; fails unless every one is
+    bit-equal to the plain version."""
+    out = {name: time_fxp(a, b, dev, iters, single)
+           for name, (a, b) in parts.items()}
+    for name, p in out.items():
+        require(p["equal"], f"fxp_matmul != plain at full size: {name}")
+    keys = ["ms", "plain_ms", "bytes", "ops"] + ["single_call_ms"] * single
+    total = {k: sum(p[k] for p in out.values()) for k in keys}
+    total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["ops"],
+                                                 INT8_OPS_PER_S)
+    total["max_abs_err"] = max(p["max_abs_err"] for p in out.values())
+    total["parts"] = out
+    return total
+
+
 def time_fxp_multinomial(gen, lanes: int, rows: int, d: int, C: int,
                          iters: int) -> dict:
-    """``fxp_matmul``'s launches in one multinomial step at C classes: the
-    forward X·W and the gradient Xᵀ·R, int16 W and R, in the groups of at
-    most 8 limb columns ``dispatch.limb_groups`` makes (C = 4: one launch
-    each, 8 columns on the scalar kernel; C = 10: 8, 8 and 4).  The bound
-    counts X once a dot:
-    each input read once, each output written once."""
-    dev = gen.device
+    """The multinomial step's two dots at C classes, one ``fxp_matmul``
+    launch each (C <= 16): the forward X·W (int16 W (d, C), float32 logits
+    (L, R, C)) and the gradient Xᵀ·R (int16 R (L, R, C), 16 K-chunks)."""
     X = rand_int(gen, (lanes, rows, d), -128, 128, torch.int8)
-    W = rand_int(gen, (d, C), -32768, 32768, torch.int16)
-    R = rand_int(gen, (lanes, rows, C), -32768, 32768, torch.int16)
-    Xt = X.transpose(-1, -2)
-    out = {"launches_per_step": 2 * dispatch.hybrid_launches(
-        torch.int8, torch.int16, C)}
-    err = 0.0
-    total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
-    for part, a, b in (("forward", X, W), ("gradient", Xt, R)):
-        _, groups = dispatch.limb_groups(b)
-        run = lambda: [fxp_matmul(a, g) for g in groups]      # noqa: E731
-        plain = lambda: [ref.fxp_matmul_ref(a, g, k_chunk=4096)  # noqa
-                         for g in groups]
-        got, want = run(), plain()
-        err = max([err] + [max_abs_err(u, v) for u, v in zip(got, want)])
-        cols = sum(g.shape[-1] for g in groups)
-        p = {"limb_columns": [g.shape[-1] for g in groups],
-             "ms": median_ms(run, dev, iters),
-             "plain_ms": median_ms(plain, dev, max(1, iters // 5)),
-             "bytes": nbytes(a, *groups, *got),
-             "ops": 2 * a.numel() * cols}
-        p["bound_ms"], p["bound_by"] = bound(p["bytes"], p["ops"],
-                                             INT8_OPS_PER_S)
-        out[part] = p
-        for key in total:
-            total[key] += p[key]
-        del got, want
-    require(err == 0.0, f"fxp_matmul != plain at the multinomial's shape "
-            f"(C={C}, {err})")
-    out.update(total, max_abs_err=err)
-    out["bound_ms"], out["bound_by"] = bound(total["bytes"], total["ops"],
-                                             INT8_OPS_PER_S)
+    W, R = int16s(gen, (d, C)), int16s(gen, (lanes, rows, C))
+    out = time_dots({"forward": (X, W), "gradient": (X.transpose(-1, -2), R)},
+                    gen.device, iters)
+    out["launches_per_step"] = 2 * dispatch.hybrid_launches(C)
     return out
 
 
 def time_kernels(gen, lanes: int, rows: int, d: int, iters: int) -> dict:
-    """Kernel, plain and bound times of one training step's work at the
-    path's full shapes (and one more exact comparison there)."""
+    """Kernel, plain and bound times of one logreg training step's work
+    at the path's full shapes (and one more exact comparison there)."""
     dev = gen.device
     X = rand_int(gen, (lanes, rows, d), -128, 128, torch.int8)
-    bw = limbs16(gen, (d, 1))                 # cadence 1: one shared weight
-    br = limbs16(gen, (lanes, rows, 1))       # per-lane residual
-    Xt = X.transpose(-1, -2)
-    fwd = lambda: fxp_matmul(X, bw)           # noqa: E731
-    grad = lambda: fxp_matmul(Xt, br)         # noqa: E731
-    fwd_ref = lambda: ref.fxp_matmul_ref(X, bw, k_chunk=4096)  # noqa: E731
-    grad_ref = lambda: ref.fxp_matmul_ref(Xt, br, k_chunk=4096)  # noqa: E731
-    of, og = fwd(), grad()
-    fxp_err = max(max_abs_err(of, fwd_ref()), max_abs_err(og, grad_ref()))
-    require(fxp_err == 0.0, f"fxp_matmul != plain at full size ({fxp_err})")
-    plain_iters = max(1, iters // 5)
-    parts = {
-        "forward": {"ms": median_ms(fwd, dev, iters),
-                    "single_call_ms": single_call_ms(fwd, dev, iters),
-                    "plain_ms": median_ms(fwd_ref, dev, plain_iters),
-                    "bytes": nbytes(X, bw, of),
-                    "ops": 2 * X.numel() * bw.shape[-1]},
-        "gradient": {"ms": median_ms(grad, dev, iters),
-                     "single_call_ms": single_call_ms(grad, dev, iters),
-                     "plain_ms": median_ms(grad_ref, dev, plain_iters),
-                     "bytes": nbytes(X, br, og),
-                     "ops": 2 * X.numel() * br.shape[-1]},
-    }
-    del of, og
-    fxp = {k: sum(p[k] for p in parts.values())
-           for k in ("ms", "single_call_ms", "plain_ms", "bytes", "ops")}
-    fxp["bound_ms"], fxp["bound_by"] = bound(fxp["bytes"], fxp["ops"],
-                                             INT8_OPS_PER_S)
-    fxp["parts"] = parts
-    fxp["max_abs_err"] = fxp_err
-    del X, Xt, br
-
+    fxp = time_dots({"forward": (X, int16s(gen, (d, 1))),   # cadence 1
+                     "gradient": (X.transpose(-1, -2),
+                                  int16s(gen, (lanes, rows, 1)))},
+                    dev, iters, single=True)
+    del X
     table = lut_mod.sigmoid_lut(device=dev)
     z = torch.randn((lanes, rows), generator=gen, device=dev) * 6
     lut_fn = lambda: lut_activation(z, table.table, x_min=table.x_min,  # noqa
@@ -977,9 +976,9 @@ def train(args, dev, card: str) -> tuple:
     wl = LogReg(lr=0.5, precision="int8", sigmoid="lut")
     # the main path: its counters are the kernels line's "launches"
     main_res, s = fit_run("logreg int8 lut, cadence 1", wl, grid, X, y,
-                          args.steps, expected(fxp_matmul=2 * args.steps,
-                                               lut_activation=args.steps),
-                          check)
+                          args.steps,
+                          expected(fxp_matmul=FXP_STEP * args.steps,
+                                   lut_activation=args.steps), check)
     main_counts = s["launches"]
     s["accuracy"] = accuracy(main_res.state, X, y)
     s["steps_per_s"] = step_rate(wl, grid, X, y, args.steps)
@@ -991,7 +990,7 @@ def train(args, dev, card: str) -> tuple:
     k = args.cadence
     cad_res, s = fit_run(f"logreg int8 lut, cadence {k}", wl, grid, X, y,
                          args.cadence_steps,
-                         expected(fxp_matmul=2 * args.cadence_steps,
+                         expected(fxp_matmul=FXP_STEP * args.cadence_steps,
                                   lut_activation=args.cadence_steps), check,
                          merge_every=k)
     s["accuracy"] = accuracy(cad_res.state, X, y)
@@ -1007,7 +1006,9 @@ def train(args, dev, card: str) -> tuple:
     lin = LinReg(lr=0.1, precision="int8")
     _, s = fit_run("linreg int8, cadence 1", lin, grid, Xr, yr,
                    args.linreg_steps,
-                   expected(fxp_matmul=2 * args.linreg_steps), check)
+                   expected(fxp_matmul=FXP_STEP * args.linreg_steps),
+                   check)
+    s["steps_per_s"] = step_rate(lin, grid, Xr, yr, args.linreg_steps)
     runs.append(s)
     del Xr, yr
     emit("train", workload="logreg/linreg", card=card, lanes=args.lanes,
@@ -1229,7 +1230,8 @@ def train_more(args, dev, card: str) -> None:
                          X, y, steps, expected(), check, svm_acc)
     _, s = rated_run("svm int8", LinearSVM(lr=0.1, l2=cfg.svm_l2,
                                            precision="int8"), grid, X, y,
-                     steps, expected(fxp_matmul=2 * steps), check, svm_acc)
+                     steps, expected(fxp_matmul=FXP_STEP * steps), check,
+                     svm_acc)
     require(abs(s["accuracy"] - ref_s["accuracy"]) <= SVM_ACC_TOL,
             f"svm int8 accuracy {s['accuracy']} not within {SVM_ACC_TOL} of "
             f"fp32 {ref_s['accuracy']}")
@@ -1247,7 +1249,8 @@ def train_more(args, dev, card: str) -> None:
     for k, n in ((1, steps), (args.cadence, args.cadence_steps)):
         _, s = rated_run(f"logreg int8 lut, batch_size {batch}, cadence {k}",
                          wl, grid, X, y, n,
-                         expected(fxp_matmul=2 * n, lut_activation=n), check,
+                         expected(fxp_matmul=FXP_STEP * n, lut_activation=n),
+                         check,
                          lr_acc, merge_every=k, batch_size=batch)
         require(s["accuracy"] >= full_s["accuracy"] - MB_ACC_TOL,
                 f"{s['run']}: accuracy {s['accuracy']} more than "
@@ -1265,7 +1268,7 @@ def train_more(args, dev, card: str) -> None:
         _, ref_s = rated_run(f"multinomial fp32 exact, C={C}",
                              MultinomialLogReg(n_classes=C), grid, X, y,
                              steps, expected(), check, mn_acc)
-        n_fxp = 2 * dispatch.hybrid_launches(torch.int8, torch.int16, C)
+        n_fxp = 2 * dispatch.hybrid_launches(C)
         wl = MultinomialLogReg(n_classes=C, precision="int8", softmax="lut")
         _, s = rated_run(f"multinomial int8 lut, C={C}", wl, grid, X, y,
                          steps, expected(fxp_matmul=n_fxp * steps,

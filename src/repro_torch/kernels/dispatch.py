@@ -8,8 +8,9 @@ Port of ``repro.kernels.dispatch``:
   ``hybrid_matmul``     ``fxp_matmul``       linreg/logreg/svm/
                                              multinomial int8/int16
                                              forward and gradient dots
-                                             (any N: a launch per group
-                                             of b's columns)
+                                             (a launch per 16 columns
+                                             of b: one for every
+                                             workload)
   ``lut_apply``         ``lut_activation``   logreg LUT sigmoid,
                                              multinomial LUT exp
   ``kmeans_partials``   ``kmeans_assign``    kmeans Lloyd iteration
@@ -54,8 +55,6 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import split_hist as _sh
 
 _ENABLED = [True]
-# the a-limbs hybrid_dot takes, as (weight, limb selector of fxp_matmul)
-_A_LIMBS = {torch.int8: [(1.0, 0)], torch.int16: [(256.0, 1), (1.0, 2)]}
 
 
 def kernels_enabled() -> bool:
@@ -75,33 +74,15 @@ def use_kernels(enabled: bool):
         _ENABLED[0] = prev
 
 
-def hybrid_launches(a_dtype: torch.dtype, b_dtype: torch.dtype,
-                    n_cols: int) -> int:
-    """``fxp_matmul`` launches of one :func:`hybrid_matmul` of an
-    ``a_dtype`` ``a`` by an ``n_cols``-column ``b_dtype`` ``b``: per limb
-    of ``a``, ``ceil(limb columns / MAX_N)``, where ``b`` has one limb
-    column per column at int8 and two at int16.
+def hybrid_launches(n_cols: int) -> int:
+    """``fxp_matmul`` launches of one :func:`hybrid_matmul` with an
+    ``n_cols``-column ``b``: one per ``MAX_N`` = 16 columns, whatever the
+    types of ``a`` and ``b`` (the kernel splits both into limbs itself).
 
-    >>> import torch
-    >>> hybrid_launches(torch.int8, torch.int16, 10)     # 20 limb columns
-    3
-    >>> hybrid_launches(torch.int16, torch.int8, 9)      # two a-limbs
-    4
+    >>> hybrid_launches(10), hybrid_launches(16), hybrid_launches(20)
+    (1, 1, 2)
     """
-    b_limbs = 1 if b_dtype in (torch.int8, torch.uint8) else 2
-    return len(_A_LIMBS[a_dtype]) * -(-b_limbs * n_cols // _fxp.MAX_N)
-
-
-def limb_groups(b: torch.Tensor):
-    """``b``'s int8 limbs as the ``b`` operands of :func:`hybrid_matmul`'s
-    ``fxp_matmul`` launches: ``(limb weights, groups)``, the columns in
-    groups of at most ``MAX_N`` limb columns, each group's limbs side by
-    side (all of the group's first limb, then all of its second)."""
-    b_limbs = qz.int8_limbs(b)
-    width = _fxp.MAX_N // len(b_limbs)          # b columns a launch takes
-    return ([wb for wb, _ in b_limbs],
-            [torch.cat([lb[..., j:j + width] for _, lb in b_limbs], dim=-1)
-             for j in range(0, b.shape[-1], width)])
+    return -(-n_cols // _fxp.MAX_N)
 
 
 def hybrid_matmul(a: torch.Tensor, b: torch.Tensor, *,
@@ -109,36 +90,17 @@ def hybrid_matmul(a: torch.Tensor, b: torch.Tensor, *,
     """Drop-in for ``quantize.hybrid_dot``: ``(..., M, K)`` int8/int16 x
     ``(..., K, N)`` int8/int16 -> float32 ``(..., M, N)``, for any N.
 
-    ``b``'s columns go in groups whose limb columns fit one
-    ``fxp_matmul`` launch (``MAX_N``: 8 int8 columns, or 4 int16
-    columns of two limbs each), a launch per group and limb of ``a``
-    (:func:`hybrid_launches`).  Each launch returns the int32 partial of
-    every ``k_chunk`` chunk; the partials convert to float32 and combine
-    in the order ``hybrid_dot`` uses (limb of a, limb of b, chunk).  An
-    output column's float operations are its own, so grouping the
-    columns leaves every bit as ``hybrid_dot`` gives it.
+    Each group of at most ``MAX_N`` = 16 columns of ``b`` is one
+    ``fxp_matmul`` launch (:func:`hybrid_launches`), which splits both
+    operands into limbs, sums each (limb pair, K-chunk) partial in int32
+    and combines them in float32 in ``hybrid_dot``'s order.  An output
+    column's float operations are its own, so grouping the columns
+    leaves every bit as ``hybrid_dot`` gives it.
     """
     if not kernels_enabled():
         return qz.hybrid_dot(a, b, k_chunk=k_chunk)
-    if a.dtype not in _A_LIMBS:
-        raise TypeError(f"hybrid_matmul takes an int8 or int16 a, got "
-                        f"{a.dtype}")
-    weights, groups = limb_groups(b)
-    outs = []
-    for bcat in groups:
-        n = bcat.shape[-1] // len(weights)
-        out = None
-        for wa, limb in _A_LIMBS[a.dtype]:
-            parts = _fxp.fxp_matmul(a, bcat, k_chunk=k_chunk, limb=limb)
-            for j, wb in enumerate(weights):
-                pj = parts[..., j * n:(j + 1) * n]
-                acc = None
-                for c in range(parts.shape[-3]):
-                    part = pj[..., c, :, :].float()
-                    acc = part if acc is None else acc + part
-                term = acc * (wa * wb)
-                out = term if out is None else out + term
-        outs.append(out)
+    outs = [_fxp.fxp_matmul(a, b[..., j:j + _fxp.MAX_N], k_chunk=k_chunk)
+            for j in range(0, b.shape[-1], _fxp.MAX_N)]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 

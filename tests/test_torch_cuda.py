@@ -25,6 +25,7 @@ from repro_torch.kernels import split_hist as split_hist_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  route)
 from repro_torch.kernels.fxp_matmul import fxp_matmul  # noqa: E402
+from repro_torch.kernels.fxp_matmul import route as fxp_route  # noqa: E402
 from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
 from repro_torch.kernels.lut_activation import lut_activation  # noqa: E402
 from repro_torch.kernels.split_hist import split_hist  # noqa: E402
@@ -34,31 +35,54 @@ from torch_parity import require_cuda  # noqa: E402
 pytestmark = pytest.mark.requires_cuda
 
 
-# (L, M, K, N, transposed, a dtype): the vector kernels (aligned, K or M a
-# multiple of the 16-byte vector, N <= 4) with ragged rows, idle threads
-# and K > 4096, and the scalar ones (K or M ragged, N > 4)
-@pytest.mark.parametrize("L,M,K,N,transposed,dtype", [
-    (3, 1000, 64, 2, False, torch.int8), (3, 1000, 48, 3, False, torch.int8),
-    (3, 80, 9000, 4, True, torch.int8), (3, 64, 9000, 2, True, torch.int8),
-    (2, 77, 5000, 3, False, torch.int8), (1, 5, 7, 1, True, torch.int8),
-    (2, 33, 64, 6, False, torch.int8), (2, 333, 64, 2, False, torch.int16),
-    (2, 64, 333, 2, True, torch.int16), (2, 77, 63, 1, False, torch.int16)])
-def test_fxp_kernel_equals_plain(L, M, K, N, transposed, dtype):
+I8, I16 = torch.int8, torch.int16
+
+
+# (L, M, K, N, transposed, a dtype, b dtype, view): both routes (rows: a
+# contiguous along k; cols: the gradient's transposed view), N from 1 to
+# 16, int8 and int16 a and b, ragged M and K, K > 4096 (chunks summed by
+# the last block), a per-lane b (odd N) or a shared one, an unaligned
+# view and 2-D request rows
+@pytest.mark.parametrize("L,M,K,N,transposed,adt,bdt,view", [
+    (3, 1000, 64, 1, False, I8, I16, None),
+    (3, 1000, 64, 4, False, I8, I16, None),
+    (3, 1000, 48, 3, False, I8, I8, None),
+    (3, 80, 9000, 10, True, I8, I16, None),
+    (3, 64, 9000, 1, True, I8, I16, None),
+    (2, 77, 5000, 8, False, I8, I16, None),
+    (1, 5, 7, 1, True, I8, I16, None),
+    (2, 33, 64, 16, False, I8, I16, None),
+    (2, 333, 64, 4, False, I16, I8, None),
+    (2, 64, 333, 10, True, I16, I16, None),
+    (2, 77, 63, 1, False, I16, I16, None),
+    (2, 100, 4500, 16, True, I16, I8, None),
+    (2, 300, 64, 8, False, I8, I16, "unaligned"),
+    (2, 64, 300, 4, True, I8, I16, "unaligned"),
+    (2, 7, 64, 10, False, I8, I16, "rows2d")])
+def test_fxp_kernel_equals_plain(L, M, K, N, transposed, adt, bdt, view):
     dev = require_cuda()
-    g = torch.Generator(device=dev).manual_seed(0)
-    info = torch.iinfo(dtype)
+    g = torch.Generator(device=dev).manual_seed(N)
+
+    def ints(shape, dtype):
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max + 1, shape, generator=g,
+                             device=dev).to(dtype)
+
     shape = (L, K, M) if transposed else (L, M, K)
-    a = torch.randint(info.min, info.max + 1, shape, generator=g,
-                      device=dev).to(dtype)
+    if view == "unaligned":
+        shape = shape[:-1] + (shape[-1] + 1,)
+    a = ints(shape, adt)
+    a = a[..., 1:] if view == "unaligned" else a
     a = a.transpose(-1, -2) if transposed else a
-    b = torch.randint(-128, 256, (L, K, N), generator=g, device=dev
-                      ).to(torch.int16)
-    for limb in ((0,) if dtype == torch.int8 else (1, 2)):
-        before = fxp_matmul.launches
-        got = fxp_matmul(a, b, limb=limb)
-        assert fxp_matmul.launches == before + 1
-        assert torch.equal(got, ref.fxp_matmul_ref(a, b, k_chunk=4096,
-                                                   limb=limb))
+    a = a[0] if view == "rows2d" else a
+    b = ints((L, K, N) if N % 2 else (K, N), bdt)
+    b = b[0] if view == "rows2d" and b.dim() == 3 else b
+    if view == "unaligned":
+        assert fxp_route(a).endswith("elements")
+    before = fxp_matmul.launches
+    got = fxp_matmul(a, b)
+    assert fxp_matmul.launches == before + 1
+    assert torch.equal(got, ref.fxp_matmul_ref(a, b, k_chunk=4096))
 
 
 def test_lut_kernel_equals_plain_on_ties_and_out_of_range():
@@ -484,14 +508,15 @@ def test_small_prefill_near_its_plain_twin(dtype, tol):
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())
 
 
-# (a dtype, b dtype, N, per-lane b): int16 b past 4 columns and int8 b
-# past 8 (a launch per group of 8 limb columns), two a-limbs
+# (a dtype, b dtype, N, per-lane b): N = 1, 4, 8, 10, 16 and 20 (a
+# launch per 16 columns), int8 and int16 a and b
 @pytest.mark.parametrize("adt,bdt,N,per_lane", [
-    (torch.int8, torch.int16, 5, False), (torch.int8, torch.int16, 8, True),
-    (torch.int8, torch.int16, 10, False), (torch.int8, torch.int16, 16, True),
-    (torch.int8, torch.int16, 20, False), (torch.int8, torch.int8, 9, False),
-    (torch.int8, torch.int8, 16, True), (torch.int16, torch.int16, 10, True),
-    (torch.int16, torch.int8, 9, False)])
+    (I8, I16, 1, False), (I8, I16, 4, True), (I8, I16, 5, False),
+    (I8, I16, 8, True), (I8, I16, 10, False), (I8, I16, 16, True),
+    (I8, I16, 20, False), (I8, I8, 1, True), (I8, I8, 9, False),
+    (I8, I8, 16, True), (I8, I8, 20, True), (I16, I16, 1, False),
+    (I16, I16, 10, True), (I16, I16, 16, False), (I16, I16, 20, True),
+    (I16, I8, 4, True), (I16, I8, 9, False)])
 def test_wide_hybrid_matmul_equals_plain(adt, bdt, N, per_lane):
     """Bit-equal to ``use_kernels(False)`` (``hybrid_dot``), forward and
     the gradient's transposed view, with ``hybrid_launches`` launches."""
@@ -510,8 +535,7 @@ def test_wide_hybrid_matmul_equals_plain(adt, bdt, N, per_lane):
     for a, b in ((X, W), (X.transpose(-1, -2), Rs)):
         before = fxp_matmul.launches
         got = dispatch.hybrid_matmul(a, b)
-        assert fxp_matmul.launches - before == dispatch.hybrid_launches(
-            adt, bdt, N)
+        assert fxp_matmul.launches - before == dispatch.hybrid_launches(N)
         with dispatch.use_kernels(False):
             assert torch.equal(got, dispatch.hybrid_matmul(a, b))
 

@@ -1,6 +1,7 @@
-"""The port's kernel wrappers: parity of ``fxp_matmul`` with the JAX Pallas
-kernel, argument checks, launch counters, and the import boundary of the
-package.  The card-only comparisons are in ``test_torch_cuda.py``."""
+"""The port's kernel wrappers: parity of ``fxp_matmul`` with the JAX
+dispatch around its Pallas kernel, argument checks, routes, launch
+counters, and the import boundary of the package.  The card-only
+comparisons are in ``test_torch_cuda.py``."""
 
 import os
 import subprocess
@@ -13,70 +14,97 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from repro.kernels.fxp_matmul import fxp_matmul as jfxp  # noqa: E402
+from repro.core import quantize as jqz  # noqa: E402
+from repro.kernels import dispatch as jdispatch  # noqa: E402
 from repro_torch.core import lut, make_grid  # noqa: E402
 from repro_torch.core import quantize as qz  # noqa: E402
-from repro_torch.kernels import dispatch, ref  # noqa: E402
-from repro_torch.kernels.fxp_matmul import fxp_matmul  # noqa: E402
+from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels.fxp_matmul import (MAX_N, fxp_matmul,  # noqa: E402
+                                            route)
 from repro_torch.kernels.lut_activation import lut_activation  # noqa: E402
 from torch_parity import assert_bits_equal, rng, to_torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _limbs(r, shape):
-    v = r.integers(-32768, 32768, shape).astype(np.int16)
-    return torch.cat([lb for _, lb in qz.int8_limbs(to_torch(v))], dim=-1)
+def _ints(r, shape, dtype):
+    info = np.iinfo(dtype)
+    return r.integers(info.min, info.max + 1, shape).astype(dtype)
 
 
 def test_chunk_partials_vs_pallas_interpret():
-    """Each K-chunk's int32 partial equals the JAX Pallas kernel (interpret
-    mode) on that chunk, for an int8 a and int16-typed limbs b."""
+    """``fxp_matmul`` on the CPU equals JAX's ``dispatch.hybrid_matmul``
+    (its Pallas ``fxp_matmul`` in interpret mode on every limb pair and
+    K-chunk, combined in float32) bit for bit, for int8 and int16 a and
+    b, a row-major a and a transposed view of the resident rows; K = 300
+    in chunks of 128 (two whole chunks and a ragged one)."""
     r = rng(8)
-    a = r.integers(-128, 128, (37, 300)).astype(np.int8)
-    b = _limbs(r, (300, 1))
-    got = fxp_matmul(to_torch(a), b, k_chunk=128)
-    assert got.shape == (3, 37, 2) and got.dtype == torch.int32
-    for c, k0 in enumerate(range(0, 300, 128)):
-        want = jfxp(jnp.asarray(a[:, k0:k0 + 128]),
-                    jnp.asarray(b.numpy()[k0:k0 + 128]), interpret=True)
-        assert_bits_equal(got[c], want)
+    for adt, bdt, N in ((np.int8, np.int16, 1), (np.int8, np.int8, 10),
+                        (np.int16, np.int16, 4), (np.int16, np.int8, 16)):
+        a, b = _ints(r, (37, 300), adt), _ints(r, (300, N), bdt)
+        got = fxp_matmul(to_torch(a), to_torch(b), k_chunk=128)
+        assert got.shape == (37, N) and got.dtype == torch.float32
+        assert_bits_equal(got, jdispatch.hybrid_matmul(
+            jnp.asarray(a), jnp.asarray(b), k_chunk=128))
+        x = _ints(r, (300, 37), adt)                   # resident (R, d) rows
+        rt = _ints(r, (300, N), bdt)
+        got_t = fxp_matmul(to_torch(x).transpose(-1, -2), to_torch(rt),
+                           k_chunk=128)
+        assert_bits_equal(got_t, jdispatch.hybrid_matmul(
+            jnp.asarray(x.T), jnp.asarray(rt), k_chunk=128))
 
 
 @pytest.mark.parametrize("limb", [1, 2])
 def test_int16_limbs_and_strided_views(limb):
-    """An int16 a read as one limb, through a transposed view, equals the
-    limb materialised and made contiguous."""
+    """An int16 a through a transposed view, with a per-lane b of ``limb``
+    limbs (int8 or int16), equals ``hybrid_dot`` on the view made
+    contiguous, per lane, and JAX's ``hybrid_dot`` on the same values."""
     r = rng(9 + limb)
-    a = to_torch(r.integers(-32768, 32768, (3, 50, 70)).astype(np.int16))
-    b = _limbs(r, (3, 50, 1))
-    view = a.transpose(-1, -2)
-    got = fxp_matmul(view, b, k_chunk=16, limb=limb)
-    dense = ref.a_limb(view, limb).contiguous().to(torch.int32)
-    want = torch.stack([
-        (dense[..., k:k + 16].double() @ b[:, k:k + 16].double()).int()
-        for k in range(0, 50, 16)], dim=1)
-    assert torch.equal(got, want)
+    bdt = np.int8 if limb == 1 else np.int16
+    x = _ints(r, (3, 50, 70), np.int16)
+    b = _ints(r, (3, 50, 9), bdt)
+    view = to_torch(x).transpose(-1, -2)
+    got = fxp_matmul(view, to_torch(b), k_chunk=16)
+    assert torch.equal(got, qz.hybrid_dot(view.contiguous(), to_torch(b),
+                                          k_chunk=16))
+    want = np.stack([np.asarray(jqz.hybrid_dot(jnp.asarray(xl.T),
+                                               jnp.asarray(bl), k_chunk=16))
+                     for xl, bl in zip(x, b)])
+    assert_bits_equal(got, want)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     a8 = torch.zeros(4, 8, dtype=torch.int8)
     b = torch.zeros(8, 2, dtype=torch.int16)
     with pytest.raises(TypeError):
-        fxp_matmul(a8.to(torch.int16), b)             # int16 needs a limb
+        fxp_matmul(a8.to(torch.int32), b)
     with pytest.raises(TypeError):
         fxp_matmul(a8, b.to(torch.int32))
     with pytest.raises(ValueError):
         fxp_matmul(a8, b[:7])                         # K mismatch
     with pytest.raises(ValueError):
-        fxp_matmul(a8, torch.zeros(8, 9, dtype=torch.int16))  # N > 8
-    with pytest.raises(ValueError):
-        fxp_matmul(a8, b, limb=3)
+        fxp_matmul(a8, torch.zeros(8, MAX_N + 1, dtype=torch.int16))
+    fxp_matmul(a8, torch.zeros(8, MAX_N, dtype=torch.int16))
     with pytest.raises(ValueError):
         fxp_matmul(a8, b, k_chunk=0)
     with pytest.raises(ValueError):
         fxp_matmul(a8[None].expand(2, 4, 8),
                    torch.zeros(3, 8, 2, dtype=torch.int16))
+
+
+def test_route_of_every_workload_layout():
+    """Every layout a workload hands the kernel is read in whole aligned
+    pieces: the forward's resident rows, the gradient's transposed view,
+    the minibatch's gathered (L, 1024, d) rows, 2-D request rows, and
+    int16 rows; only a misaligned view falls to element loads."""
+    X = torch.zeros((4, 4096, 64), dtype=torch.int8)
+    batch = X.index_select(1, torch.arange(1024))
+    X16 = torch.zeros((4, 300, 64), dtype=torch.int16)
+    assert route(X) == route(batch) == route(X[0, :7]) == route(X16) \
+        == "rows/16B"
+    assert route(X.transpose(-1, -2)) == route(batch.transpose(-1, -2)) \
+        == route(X16.transpose(-1, -2)) == "cols/8B"
+    assert route(X[..., 1:]) == "rows/elements"
 
 
 def test_cpu_tensors_never_move_the_counters():

@@ -120,8 +120,8 @@ def test_kernels_off_path_is_hybrid_dot():
                                                    to_torch(b)))
 
 
-# every column count up to 20, past the 8 limb columns one fxp_matmul
-# launch takes (4 int16 columns, 8 int8 columns)
+# every column count up to 20, past the 16 columns one fxp_matmul launch
+# takes
 @pytest.mark.parametrize("n", range(1, 21))
 @pytest.mark.parametrize("adt,bdt", [(np.int8, np.int8), (np.int8, np.int16),
                                      (np.int16, np.int8),
@@ -152,15 +152,10 @@ def test_hybrid_matmul_any_column_count(adt, bdt, n):
 
 
 def test_hybrid_launches_counts_column_groups():
-    """One launch per a-limb and per group of at most ``MAX_N`` = 8 limb
-    columns of b."""
+    """One launch per group of at most ``MAX_N`` = 16 columns of b,
+    whatever the types of a and b: the kernel splits both into limbs."""
     from repro_torch.kernels.fxp_matmul import MAX_N
-    assert MAX_N == 8
+    assert MAX_N == 16
     count = dispatch.hybrid_launches
-    assert [count(torch.int8, torch.int16, n) for n in (1, 4, 5, 8, 10, 16,
-                                                        20)] == \
-        [1, 1, 2, 2, 3, 4, 5]
-    assert [count(torch.int8, torch.int8, n) for n in (1, 8, 9, 16, 17)] == \
-        [1, 1, 2, 2, 3]
-    assert count(torch.int16, torch.int16, 10) == 6
-    assert count(torch.int16, torch.int8, 9) == 4
+    assert [count(n) for n in (1, 4, 5, 8, 10, 16, 17, 20, 32, 33)] == \
+        [1, 1, 1, 1, 1, 1, 2, 2, 2, 3]

@@ -8,6 +8,8 @@
         --against old/kmeans_assign.cu --rounds 3
     python3 tools/kernel_ab.py --kernel split_hist --variants noflush \\
         --against old/split_hist.cu --bins uint8,int32
+    python3 tools/kernel_ab.py --kernel fxp_matmul \\
+        --against old/fxp_matmul.cu --rounds 2
 
 The cases run in turns, the list forward and then backward (A B B A),
 ``--rounds`` times, each reading the median over five runs of
@@ -69,6 +71,27 @@ zeroed H) is launched as its wrapper launched it.  Its variants:
             1 (ATOMS.ADD, not ATOMS.POPC.INC);
   u1, u3    one or three rows a thread a step, not two.
 
+``fxp_matmul`` runs the whole dot of a training step (the forward X.W
+and the gradient X^T.R on the transposed view, int8 X of 256 lanes x
+65,536 rows x 64 features, int16 W and R) at logreg's shape (N = 1) and
+at the multinomial's C = 4 and 10 (``--shapes``); a reading is the sum of
+the two dots' times and says whether both are bit-equal to the plain
+version (``hybrid_dot``).  A source with the interface of before the
+whole-dot kernel (int32 chunk partials of one a-limb, b's int16 limbs as
+its columns, at most 8) is launched as its wrapper and ``hybrid_matmul``
+drove it: b's limbs in groups of 8 limb columns, a launch per group and
+a-limb, the float combination in PyTorch.  Its variants:
+
+  cw2, cw8 two or eight warps a cols block instead of four;
+  clb2     the cols kernel held to two blocks an SM (128 registers);
+  rg4      four row groups a rows block instead of eight;
+  nostage  the rows kernel stores its output from the fragments at
+           every N (the staged store is for N > 8);
+  stageall the output staged in shared memory at every N;
+  nostore  the rows kernel writes no output with one chunk (not the
+           kernel's function: it shows what the forward's float32
+           output costs).
+
 Prints one JSON line per reading, after the card's name and power limit.
 """
 
@@ -88,8 +111,10 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from repro_torch.core import quantize as qz  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import fxp_matmul as fxp  # noqa: E402
 from repro_torch.kernels import kmeans_assign as km  # noqa: E402
 from repro_torch.kernels import split_hist as sh  # noqa: E402
 
@@ -143,8 +168,38 @@ VARIANTS = {
         "u1": ([("constexpr int kU = 2;", "constexpr int kU = 1;")], None),
         "u3": ([("constexpr int kU = 2;", "constexpr int kU = 3;")], None),
     },
+    "fxp_matmul": {
+        "cw2": ([("constexpr int kColWarps = 4;",
+                  "constexpr int kColWarps = 2;")], None),
+        "cw8": ([("constexpr int kColWarps = 4;",
+                  "constexpr int kColWarps = 8;")], None),
+        "clb2": ([("__launch_bounds__(kColWarps * 32)\nfxp_cols_kernel",
+                   "__launch_bounds__(kColWarps * 32, 2)\nfxp_cols_kernel")],
+                 None),
+        "rg4": ([("constexpr int kRowGroups = 8;",
+                  "constexpr int kRowGroups = 4;")], None),
+        "nostage": ([("                if (NB > 1)\n"
+                      "                  os[warp][(m - r0) * a.N + n] = v;\n"
+                      "                else if (m < a.M)",
+                      "                if (m < a.M)"),
+                     ("      if (NB > 1 && a.n_chunks == 1 && r0 < a.M) {",
+                      "      if (false) {")], None),
+        "stageall": ([("float os[kRowWarps][NB > 1 ? 16 * MT * kMaxN : 1];",
+                       "float os[kRowWarps][16 * MT * kMaxN];"),
+                      ("                if (NB > 1)\n"
+                       "                  os[warp]",
+                       "                if (true)\n"
+                       "                  os[warp]"),
+                      ("      if (NB > 1 && a.n_chunks == 1 && r0 < a.M) {",
+                       "      if (a.n_chunks == 1 && r0 < a.M) {")], None),
+        "nostore": ([("      if (NB > 1 && a.n_chunks == 1 && r0 < a.M) {",
+                      "      if (a.N < 0) {"),
+                     ("                  *out_of(m, n) = v;",
+                      "                  ;")], None),
+    },
 }
-WRAPPERS = {"flash_attention": fa, "kmeans_assign": km, "split_hist": sh}
+WRAPPERS = {"flash_attention": fa, "kmeans_assign": km, "split_hist": sh,
+            "fxp_matmul": fxp}
 # the interface of the source before its redesign for whole-SM tiles
 PARENT_SH_MARK = "int ft, int n_chunks, void* H, void* stream"
 PARENT_SH_SIGNATURES = {
@@ -158,6 +213,93 @@ PARENT_SH_SIGNATURES = {
         ctypes.c_void_p]),
     "split_hist_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+
+
+# the interface of fxp_matmul.cu before the whole-dot kernel
+PARENT_FXP_MARK = "int cols, int param, void* stream"
+PARENT_FXP_SIGNATURES = {
+    "fxp_matmul_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        *[ctypes.c_int] * 5, *[ctypes.c_longlong] * 6, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]),
+    "fxp_matmul_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+# the shapes of --kernel fxp_matmul: b's columns (N = 1 for logreg, C for
+# the multinomial)
+FXP_SHAPES = {"logreg": 1, "multinomial C=4": 4, "multinomial C=10": 10}
+
+
+def parent_fxp_partials(lib, a, b, kc, limb):
+    """The parent's wrapper: int32 partials ``(L, n_chunks, M, N)`` of one
+    limb of ``a`` (0: int8; 1, 2: high, low limb of int16) by b's int16
+    limb columns."""
+    a3 = a if a.dim() == 3 else a.unsqueeze(0)
+    b3 = b if b.dim() == 3 else b.unsqueeze(0)
+    L, M, K = a3.shape
+    N = b3.shape[-1]
+    n_chunks = -(-K // kc)
+    out = torch.empty((L, n_chunks, M, N), dtype=torch.int32,
+                      device=a.device)
+    sAl, sAm, sAk = a3.stride()
+    _, sBk, sBn = b3.stride()
+    cols = sAm == 1 and sAk != 1
+    pow2 = 1 << max(0, (-(-kc // 8) if not cols else M) - 1).bit_length()
+    param = min(64, pow2) if cols else min(32, pow2)
+    err = lib.fxp_matmul_launch(
+        a3.data_ptr(), limb, b3.data_ptr(), out.data_ptr(), L, M, K, N, kc,
+        sAl, sAm, sAk, b3.stride(0) if b3.shape[0] > 1 else 0, sBk, sBn,
+        int(cols), param, torch.cuda.current_stream().cuda_stream)
+    build.check(lib, "fxp_matmul", err)
+    return out
+
+
+def parent_fxp_dot(lib, a, b, k_chunk=4096):
+    """The parent's ``hybrid_matmul``: b's int16-typed limbs cut into
+    groups of 8 limb columns and concatenated, a launch per group and limb
+    of ``a``, then the float32 combination of the partials in PyTorch."""
+    b_limbs = qz.int8_limbs(b)
+    weights = [wb for wb, _ in b_limbs]
+    width = 8 // len(b_limbs)
+    a_limbs = ([(1.0, 0)] if a.dtype == torch.int8
+               else [(256.0, 1), (1.0, 2)])
+    kc = min(k_chunk, a.shape[-1])
+    outs = []
+    for j in range(0, b.shape[-1], width):
+        bcat = torch.cat([lb[..., j:j + width] for _, lb in b_limbs], dim=-1)
+        n = bcat.shape[-1] // len(weights)
+        out = None
+        for wa, limb in a_limbs:
+            parts = parent_fxp_partials(lib, a, bcat, kc, limb)
+            for i, wb in enumerate(weights):
+                pj = parts[..., i * n:(i + 1) * n]
+                acc = None
+                for c in range(parts.shape[-3]):
+                    part = pj[..., c, :, :].float()
+                    acc = part if acc is None else acc + part
+                term = acc * (wa * wb)
+                out = term if out is None else out + term
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+
+
+def fxp_readings(libs, kernels, cases, args, dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lanes, rows, d = 256, cs.FULL_ROWS // 256, cs.CONFIG.reg_features
+    X = cs.rand_int(gen, (lanes, rows, d), -128, 128, torch.int8)
+    for shape in args.shapes:
+        C = FXP_SHAPES[shape]
+        dots = [(X, cs.int16s(gen, (d, C))),
+                (X.transpose(-1, -2), cs.int16s(gen, (lanes, rows, C)))]
+        wants = [ref.fxp_matmul_ref(a, b) for a, b in dots]
+        for case in (cases + cases[::-1]) * args.rounds:
+            def run():
+                if kernels[case] == "parent":
+                    return [parent_fxp_dot(libs[case], a, b) for a, b in dots]
+                return [fxp._launch(libs[case], a, b, 4096) for a, b in dots]
+            yield {"shape": shape, "case": case,
+                   "ms": cs.median_ms(run, dev, args.iters),
+                   "bit_equal": all(torch.equal(g, w)
+                                    for g, w in zip(run(), wants))}
 
 
 def flash_readings(libs, kernels, cases, args, dev):
@@ -249,7 +391,8 @@ def split_hist_readings(libs, kernels, cases, args, dev):
 
 READINGS = {"flash_attention": flash_readings,
             "kmeans_assign": kmeans_readings,
-            "split_hist": split_hist_readings}
+            "split_hist": split_hist_readings,
+            "fxp_matmul": fxp_readings}
 
 
 def main(argv=None) -> int:
@@ -265,10 +408,14 @@ def main(argv=None) -> int:
                         "(repeatable)")
     p.add_argument("--bins", default="uint8,int32",
                    help="split_hist: the bin types to read (uint8, int32)")
+    p.add_argument("--shapes", default=",".join(FXP_SHAPES),
+                   help="fxp_matmul: the shapes to read (" +
+                        ", ".join(FXP_SHAPES) + ")")
     p.add_argument("--rounds", type=int, default=1)
     p.add_argument("--iters", type=int, default=20)
     args = p.parse_args(argv)
     args.bins = args.bins.split(",")
+    args.shapes = args.shapes.split(",")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -293,14 +440,18 @@ def main(argv=None) -> int:
     for i, path in enumerate(args.against):
         label = f"against{i}"
         sources[label], kernels[label] = Path(path), "wgmma"
-        if name == "split_hist" and PARENT_SH_MARK in Path(path).read_text():
+        text = Path(path).read_text()
+        if (name == "split_hist" and PARENT_SH_MARK in text
+                or name == "fxp_matmul" and PARENT_FXP_MARK in text):
             kernels[label] = "parent"
         print(json.dumps({"case": label, "source": path}), flush=True)
     for label, log in build.build_all(list(sources), sources).items():
         print(json.dumps({"case": label, "ptxas": cs.ptxas_summary(log)}),
               flush=True)
+    parent_signatures = {"split_hist": PARENT_SH_SIGNATURES,
+                         "fxp_matmul": PARENT_FXP_SIGNATURES}.get(name)
     libs = {label: build.bind(build.library_path(label, path),
-                              PARENT_SH_SIGNATURES
+                              parent_signatures
                               if kernels[label] == "parent"
                               else wrapper._SIGNATURES)
             for label, path in sources.items()}
