@@ -41,7 +41,9 @@ Phases, each printed as one JSON line:
                 atol 1e-4, rtol 1e-5) their ``use_kernels(False)`` twins;
   5. predict  — each trained workload answers requests of 1, 7 and 512
                 rows through ``Workload.predict``, equal to the plain
-                path;
+                path; the fp32 predict of LogReg, LinReg, LinearSVM and
+                MultinomialLogReg on 7 rows equals the same rows padded
+                with zero rows to 16;
   6. serve_lm — qwen2-0.5b at its full config (24 layers, bf16, random
                 weights from --seed): ``Model.prefill`` of 4 x 4096 tokens
                 (one flash launch per layer, last logits within 3e-2 x
@@ -62,7 +64,16 @@ Phases, each printed as one JSON line:
                 (SSE at most 1.05 x fp32 full batch); the default
                 minibatch permutation drawn on the card and on the CPU,
                 bit-equal;
-  8. the ``kernels`` line (fxp_matmul's entry also times the
+  8. train_plans — the main path (LogReg int8 + LUT, 256 vDPUs x 2^24
+                rows, d=64, 48 steps) under merge plans: the default at
+                cadence 1 and 8, SlowMo at 1 and 8, Nesterov at 8, each
+                with its launches (the commit launches no kernel of the
+                port) and accuracy (an outer plan within 0.01 of the
+                default at its cadence), steps/s the median of 5 fits
+                timed in turns; SlowMo(beta=0, outer_lr=1) within 1e-5 x
+                max|w| of the default at cadence 8, and fit(24) + fit(24)
+                with one merge_state equal to fit(48) bit for bit;
+  9. the ``kernels`` line (fxp_matmul's entry also times the
      multinomial's two dots at C = 4 and 10, with their byte bound), the
      nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -101,6 +112,8 @@ from repro_torch.core.mlalgos import (DecisionTree, KMeans,  # noqa: E402
                                       multinomial_accuracy, svm_accuracy)
 from repro_torch.core.mlalgos.dtree import (bin_dtype,  # noqa: E402
                                             bin_features)
+from repro_torch.distributed.merge_plan import (MergePlan,  # noqa: E402
+                                                Nesterov, SlowMo)
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
 from repro_torch.kernels import split_hist as split_hist_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
@@ -136,6 +149,14 @@ MB_FRACTION = 64
 SVM_ACC_TOL, MN_ACC_TOL, MB_ACC_TOL = 0.02, 0.03, 0.02
 PERM_CASES = ((0, 0), (0, 7), (5, 3), (2 ** 40 + 1, 12))
 DT_TIMED_TREES = 3
+# train_plans: 48 steps (a multiple of the config's cadence 8); an outer
+# optimizer's accuracy at most 0.01 below the default plan's at its
+# cadence (the card's form of the JAX package's "SlowMo converges no
+# worse than the average"); SlowMo(beta=0, outer_lr=1) within 1e-5 of
+# max|w| of the default plan (float association only)
+PLAN_STEPS = 48
+PLAN_ACC_TOL = 0.01
+PLAN_BETA0_TOL = 1e-5
 # kmeans_assign's sums and sse against the plain version's: another
 # summation order, so each may differ by 1e-5 of its mass (Σ w·|x| of the
 # cell; |sse| + 1 for the sse)
@@ -1301,6 +1322,105 @@ def train_more(args, dev, card: str) -> None:
          seconds=time.perf_counter() - t0)
 
 
+def rates_in_turns(program, plans: dict, steps: int, fits: int) -> dict:
+    """Steps/s of ``Program.fit`` under each plan: the median, lowest and
+    highest of ``fits`` fits, taken in turns (the plans in order, then in
+    reverse, ...) so that a drift of the card's rate between calls falls
+    on every plan alike."""
+    dev = program.grid.device
+    for plan in plans.values():
+        program.fit(steps=2, merge_plan=plan)
+    sync(dev)
+    rates: dict = {name: [] for name in plans}
+    order = list(plans)
+    for i in range(fits):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            program.fit(steps=steps, merge_plan=plans[name])
+            sync(dev)
+            rates[name].append(steps / (time.perf_counter() - t0))
+    return {name: {"median": statistics.median(r), "min": min(r),
+                   "max": max(r), "fits": fits}
+            for name, r in rates.items()}
+
+
+def train_plans(args, dev, card: str) -> None:
+    """The main path under the merge plans at its full size: the default
+    plan at cadence 1 and the config's 8, SlowMo at 1 and 8 and Nesterov
+    at 8, each run with its launches and accuracy, their steps/s in
+    turns; SlowMo(beta=0, outer_lr=1) against the default at cadence 8;
+    the momentum carried across two fits against one; a profile of SlowMo
+    at cadence 1 (the commit every step)."""
+    grid = make_grid(args.lanes, device=dev)
+    check = not args.rehearse
+    steps, k = PLAN_STEPS, args.cadence
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 60)
+    X, y, _ = datasets.binary_classification(gen, args.rows, args.features)
+    wl = LogReg(lr=0.5, precision="int8", sigmoid="lut")
+    expect = expected(fxp_matmul=FXP_STEP * steps, lut_activation=steps)
+    plans = {"default, cadence 1": MergePlan(),
+             "SlowMo, cadence 1": MergePlan(outer=SlowMo()),
+             f"default, cadence {k}": MergePlan(cadence=k),
+             f"SlowMo, cadence {k}": MergePlan(cadence=k, outer=SlowMo()),
+             f"Nesterov, cadence {k}": MergePlan(cadence=k,
+                                                 outer=Nesterov()),
+             f"SlowMo(beta=0, outer_lr=1), cadence {k}": MergePlan(
+                 cadence=k, outer=SlowMo(beta=0.0, outer_lr=1.0))}
+    runs, states = [], {}
+    for name, plan in plans.items():
+        res, s = fit_run(f"logreg int8 lut, {name}", wl, grid, X, y, steps,
+                         expect, check, merge_plan=plan)
+        s["accuracy"] = accuracy(res.state, X, y)
+        runs.append(s)
+        states[name] = res.state
+        default = f"default, cadence {plan.cadence}"
+        if name.startswith(("SlowMo,", "Nesterov,")):
+            acc = runs[list(plans).index(default)]["accuracy"]
+            require(s["accuracy"] >= acc - PLAN_ACC_TOL,
+                    f"{s['run']}: accuracy {s['accuracy']} more than "
+                    f"{PLAN_ACC_TOL} below the default plan's {acc}")
+    w0 = states[f"default, cadence {k}"]
+    gap = float((states[f"SlowMo(beta=0, outer_lr=1), cadence {k}"]
+                 - w0).abs().max())
+    beta0 = {"max_abs_dw": gap, "max_abs_w": float(w0.abs().max()),
+             "bound": PLAN_BETA0_TOL * float(w0.abs().max())}
+    require(gap <= beta0["bound"], f"SlowMo(beta=0, outer_lr=1) at cadence "
+            f"{k}: max|dw| {gap} above {beta0['bound']}")
+
+    program = wl.bind(grid, X, y)
+    plan = plans[f"SlowMo, cadence {k}"]
+
+    def fit(state, n, holder=None):
+        return program.grid.fit(init_state=state, local_fn=program.local_fn,
+                                update_fn=program.update_fn,
+                                data=program.data, steps=n, merge_plan=plan,
+                                merge_state=holder)[0]
+
+    holder: dict = {}
+    one = fit(program.state0, steps)
+    two = fit(fit(program.state0, steps // 2, holder), steps // 2, holder)
+    carried = {"steps": [steps // 2, steps // 2], "plan": plan.describe(),
+               "bit_equal": bool(torch.equal(one, two)),
+               "commits": int(holder["momentum"].step)}
+    require(carried["bit_equal"], "SlowMo: fit(24) + fit(24) with one "
+            "merge_state != fit(48)")
+    timed = {name: plans[name] for name in list(plans)[:5]}
+    rates = rates_in_turns(program, timed, steps, KM_RATE_FITS)
+    program.fit(steps=2, merge_plan=plans["SlowMo, cadence 1"])
+    emit("profile", workload="logreg SlowMo, cadence 1", **profile_call(
+        lambda: program.fit(steps=5, merge_plan=plans["SlowMo, cadence 1"]),
+        dev, steps=5))
+    for s in runs:
+        name = s["run"].split(", ", 1)[1]
+        if name in rates:
+            s["steps_per_s"] = rates[name]
+    del X, y, program
+    emit("train_plans", card=card, lanes=args.lanes, rows=args.rows,
+         features=args.features, steps=steps, runs=runs, beta0=beta0,
+         momentum_carried=carried, seconds=time.perf_counter() - t0)
+
+
 def predict(name, wl, state, requests, launches: dict,
             check_counts: bool) -> None:
     """Requests of 1, 7 and 512 rows through ``Workload.predict``, equal
@@ -1323,6 +1443,28 @@ def predict(name, wl, state, requests, launches: dict,
                 "non-finite")
         require(equal, f"{name} predict({n}) != its plain twin")
     emit("predict", workload=name, requests=results)
+
+
+def pad_invariance(state: torch.Tensor, requests: torch.Tensor) -> list:
+    """The fp32 predicts of 7 request rows, alone and padded with 9 zero
+    rows, bit for bit on the card (cuBLAS chooses its kernel by shape;
+    the fp32 predict sums each row on its own)."""
+    rows = requests[:7]
+    padded = torch.cat([rows, rows.new_zeros((9, rows.shape[1]))])
+    W = torch.stack([state, -state, 0.5 * state, state.flip(0)], dim=1)
+    out = []
+    for name, wl, st in (("logreg", LogReg(lr=0.5), state),
+                         ("svm", LinearSVM(), state),
+                         ("linreg", LinReg(), state),
+                         ("multinomial C=4", MultinomialLogReg(n_classes=4),
+                          W)):
+        got, pad = wl.predict(st, rows), wl.predict(st, padded)[:7]
+        equal = bool(torch.equal(got, pad))
+        out.append({"workload": f"{name} fp32", "rows": 7, "padded_to": 16,
+                    "equal": equal})
+        require(equal, f"{name} fp32 predict of 7 rows moved when padded "
+                "to 16")
+    return out
 
 
 # -- phase 6: the serving path ----------------------------------------------
@@ -1654,6 +1796,7 @@ def main(argv=None) -> int:
                        lut_activation=seen["lut_activation"])
     predict("logreg", wl, state, requests,
             expected(fxp_matmul=1, lut_activation=1), on_card)
+    emit("predict", pad_invariance=pad_invariance(state, requests))
     del state, requests
     wl, state, requests, seen = train_kmeans(args, dev, smi)
     main_counts["kmeans_assign"] = seen["kmeans_assign"]
@@ -1667,6 +1810,8 @@ def main(argv=None) -> int:
         "flash_attention"]
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     train_more(args, dev, smi)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    train_plans(args, dev, smi)
 
     kernels = []
     for name, t in times.items():

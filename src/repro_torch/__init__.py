@@ -19,11 +19,15 @@ dense decoder LM serving):
   * ``core.pim``       — single-device ``PimGrid`` (shard, map-reduce, fit)
   * ``core.datasets``  — regression, classification, blobs, mixture sets
   * ``core.mlalgos``   — Workload API, ``LinReg``, ``LogReg``, ``KMeans``,
-                         ``DecisionTree``
+                         ``DecisionTree``, ``LinearSVM``,
+                         ``MultinomialLogReg``
   * ``kernels``        — ``fxp_matmul``, ``lut_activation``,
                          ``kmeans_assign``, ``split_hist``,
                          ``flash_attention`` + dispatch
-  * ``distributed.merge_plan`` — the exact default merge plan
+  * ``distributed.merge_plan`` — merge plans: the cadence and the SlowMo
+                         and Nesterov outer optimizers (``run_fit``)
+  * ``optim``          — sgd, momentum, Nesterov, slow momentum, AdamW
+  * ``tree``           — ``tree_map`` / ``tree_leaves`` over tensor trees
   * ``models``         — dense decoder LMs: norms, RoPE, GQA attention
                          with a KV cache, SwiGLU/GELU MLP, prefill and
                          decode behind ``Model``

@@ -1,7 +1,7 @@
 """The paper's four workloads as a configuration.
 
-Port of the fields of ``repro.configs.pim_ml.PimMLConfig`` that the
-ported slices read.  The row counts (65,536 and 32,768) are the sizes the
+Port of ``repro.configs.pim_ml.PimMLConfig``'s workload and merge-plan
+fields.  The row counts (65,536 and 32,768) are the sizes the
 JAX package scaled down to for its CPU container; ``chip_smoke.py`` runs
 the same configuration at 2^24 rows, which the card holds for real.
 """
@@ -14,6 +14,19 @@ class PimMLConfig:
     n_vdpus: int = 256
     # local update steps per host merge (1 = the paper's merge-per-step)
     merge_every: int = 8
+    # the merge pipeline: overlap and compressed (0 bits = exact) or top-k
+    # sparsified (0.0 = dense) merges; not ported yet (ROADMAP queue A,
+    # item 10b), so merge_plan() raises unless they keep these defaults
+    overlap_merge: bool = False
+    merge_compression_bits: int = 0
+    merge_top_k_frac: float = 0.0
+    # outer optimizer at the merge boundary: "avg" (the plain average),
+    # "slowmo" (slow momentum), "nesterov" (its lookahead variant, with
+    # the slowmo hyperparameters); "adaptive" and "auto" (the cadence
+    # and plan controllers, item 16a) raise in merge_plan()
+    merge_outer: str = "avg"
+    slowmo_beta: float = 0.5
+    slowmo_outer_lr: float = 1.0
     # which workload the config-driven entry points train, and the
     # minibatch axis (core.minibatch): rows sampled per vDPU per local
     # step, 0 = full batch
@@ -35,6 +48,33 @@ class PimMLConfig:
     dt_classes: int = 4
     dt_depth: int = 6
     dt_bins: int = 32
+
+    def merge_plan(self):
+        """The config's merge fields as a
+        ``distributed.merge_plan.MergePlan``."""
+        from repro_torch.distributed.merge_plan import (
+            AverageCommit, MergePlan, Nesterov, SlowMo, not_ported)
+
+        if self.overlap_merge:
+            raise NotImplementedError(not_ported("overlap_merge", "10b"))
+        if self.merge_compression_bits or self.merge_top_k_frac:
+            raise NotImplementedError(not_ported(
+                "merge_compression_bits / merge_top_k_frac", "10b"))
+        if self.merge_outer in ("adaptive", "auto"):
+            raise NotImplementedError(not_ported(
+                f"merge_outer={self.merge_outer!r}", "16a"))
+        outers = {"avg": AverageCommit(),
+                  "slowmo": SlowMo(beta=self.slowmo_beta,
+                                   outer_lr=self.slowmo_outer_lr),
+                  "nesterov": Nesterov(beta=self.slowmo_beta,
+                                       outer_lr=self.slowmo_outer_lr)}
+        if self.merge_outer not in outers:
+            raise ValueError(
+                f"merge_outer must be one of "
+                f"{sorted(outers) + ['adaptive', 'auto']}, got "
+                f"{self.merge_outer!r}")
+        return MergePlan(cadence=self.merge_every,
+                         outer=outers[self.merge_outer])
 
 
 CONFIG = PimMLConfig()

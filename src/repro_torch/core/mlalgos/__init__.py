@@ -14,9 +14,13 @@ from repro_torch.core.mlalgos.kmeans import (KMeans,  # noqa: F401
                                              KMeansResult,
                                              kmeans_assign_points,
                                              train_kmeans)
-from repro_torch.core.mlalgos.linreg import LinReg, linreg_predict  # noqa: F401
-from repro_torch.core.mlalgos.logreg import (LogReg, accuracy,  # noqa: F401
-                                             logreg_predict)
+from repro_torch.core.mlalgos.linreg import (LinReg,  # noqa: F401
+                                             LinRegResult, closed_form,
+                                             linreg_predict,
+                                             make_linreg_step, train_linreg)
+from repro_torch.core.mlalgos.logreg import (LogReg,  # noqa: F401
+                                             LogRegResult, accuracy,
+                                             logreg_predict, train_logreg)
 from repro_torch.core.mlalgos.multinomial import (  # noqa: F401
     MultinomialLogReg, MultinomialResult, multinomial_accuracy,
     multinomial_predict, train_multinomial)

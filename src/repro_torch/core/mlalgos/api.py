@@ -26,14 +26,16 @@ is not that loop (the tree's levels).
 step, on the device (``core.minibatch``): the engine triple is wrapped
 so the state carries a step counter, ``(state, counter)``, and the
 caller gets the state back.  ``batch_size=None`` is the full-batch path.
-Streaming sources and the non-default merge plans are not ported yet
-(ROADMAP queue A) and raise ``NotImplementedError``.
+Stateful outer optimizers (SlowMo, Nesterov) are refused with
+``batch_size``: their momentum would integrate the sampler's counter.
+Streaming sources, the overlapped and compressed merges, adaptive
+cadence and ``"auto"`` are not ported yet (ROADMAP queue A) and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Any, Callable, Optional
 
 from repro_torch.core import minibatch as mb
@@ -41,17 +43,21 @@ from repro_torch.core.pim import PimGrid
 from repro_torch.distributed import merge_plan as mp
 
 
-class MergeFallbackWarning(UserWarning):
-    """A fit asked for a merge axis its workload cannot honour and was
-    run at the exact default instead."""
+MergeFallbackWarning = mp.MergeFallbackWarning
 
 
 @dataclasses.dataclass(frozen=True)
 class MergeCaps:
-    """Which merge axes a workload can honour; :meth:`constrain` degrades
-    an unsupported request to the exact default and warns."""
+    """Which merge-plan and sampling axes a workload can honour;
+    :meth:`constrain` degrades an unsupported request to the exact
+    default and warns (``merge_plan.MergeFallbackWarning``) with the
+    workload's ``reason``.  The default is everything: gradient-style
+    estimators whose state is an averageable float tensor."""
 
     cadence: bool = True
+    overlap: bool = True
+    compression: bool = True
+    outer: bool = True
     minibatch: bool = True
     reason: str = ""
 
@@ -59,21 +65,33 @@ class MergeCaps:
     def exact_only(cls, reason: str) -> "MergeCaps":
         """Merge every step, full batch only (the tree's discrete
         commits)."""
-        return cls(cadence=False, minibatch=False, reason=reason)
+        return cls(cadence=False, overlap=False, compression=False,
+                   outer=False, minibatch=False, reason=reason)
 
     def constrain(self, name: str, plan: mp.MergePlan,
                   batch_size: Optional[int]):
+        """Degrade ``(plan, batch_size)`` to what the workload supports;
+        one warning lists everything dropped."""
         dropped = []
+        changes: dict = {}
         if plan.cadence > 1 and not self.cadence:
             dropped.append(f"merge_every={plan.cadence}")
-            plan = mp.MergePlan()
+            changes["cadence"] = 1
+        if plan.overlap and not self.overlap:
+            dropped.append("overlap_merge")
+            changes["overlap"] = False
+        if plan.compression is not None and not self.compression:
+            dropped.append("merge_compression")
+            changes["compression"] = None
+        if type(plan.outer) is not mp.AverageCommit and not self.outer:
+            dropped.append(f"outer={type(plan.outer).__name__}")
+            changes["outer"] = mp.AverageCommit()
         if batch_size is not None and not self.minibatch:
             dropped.append(f"batch_size={batch_size}")
             batch_size = None
         if dropped:
-            warnings.warn(f"{name}: {' + '.join(dropped)} dropped "
-                          f"({self.reason})", MergeFallbackWarning,
-                          stacklevel=3)
+            mp.warn_fallback(name, " + ".join(dropped), self.reason)
+            plan = dataclasses.replace(plan, **changes)
         return plan, batch_size
 
 
@@ -118,7 +136,7 @@ class Workload:
     def run(self, grid: PimGrid, X, y=None, *, steps: int,
             plan: mp.MergePlan, batch_size: Optional[int], engine: str,
             scan_chunk: int, callback: Optional[Callable],
-            sample_seed: int = 0,
+            merge_state: Optional[dict] = None, sample_seed: int = 0,
             sample_permutation: Optional[mb.Permutation] = None
             ) -> "FitResult":
         """Train from raw arrays, ``plan`` and ``batch_size`` already
@@ -127,8 +145,9 @@ class Workload:
         overrides it."""
         return self.bind(grid, X, y).fit(
             steps=steps, batch_size=batch_size, engine=engine,
-            scan_chunk=scan_chunk, merge_plan=plan, callback=callback,
-            sample_seed=sample_seed, sample_permutation=sample_permutation)
+            scan_chunk=scan_chunk, merge_plan=plan, merge_state=merge_state,
+            callback=callback, sample_seed=sample_seed,
+            sample_permutation=sample_permutation)
 
 
 @dataclasses.dataclass
@@ -193,15 +212,24 @@ class Program:
     def fit(self, *, steps: int, batch_size: Optional[int] = None,
             engine: str = "scan", scan_chunk: int = 32,
             merge_every: int = 1, merge_plan=None,
+            merge_state: Optional[dict] = None,
             callback: Optional[Callable] = None, sample_seed: int = 0,
             sample_permutation: Optional[mb.Permutation] = None
             ) -> FitResult:
-        """Train on the bound dataset at the exact default plan, full
-        batch or (``batch_size``) on sampled batches; a callback sees the
-        caller's state, never the sampler's counter."""
+        """Train on the bound dataset under a merge plan (``merge_state``
+        carries its outer momentum across fits), full batch or
+        (``batch_size``) on sampled batches; a callback sees the caller's
+        state, never the sampler's counter."""
         plan = mp.MergePlan.resolve(merge_plan, merge_every=merge_every)
         plan, batch_size = self.workload.merge_caps.constrain(
             self.workload.name, plan, batch_size)
+        if batch_size is not None and not plan.outer.plain_commit:
+            raise ValueError(
+                f"batch_size={batch_size} cannot compose with the "
+                f"{type(plan.outer).__name__} outer optimizer: the "
+                f"sampler's step counter rides in the merged state and "
+                f"a stateful outer commit would integrate it into its "
+                f"momentum, breaking the epoch schedule")
         local_fn, update_fn, state0, unwrap = self._triple(
             batch_size, sample_seed, sample_permutation)
         cb = callback
@@ -211,7 +239,8 @@ class Program:
         state, history = self.grid.fit(
             init_state=state0, local_fn=local_fn, update_fn=update_fn,
             data=self.data, steps=steps, engine=engine,
-            scan_chunk=scan_chunk, merge_plan=plan, callback=cb)
+            scan_chunk=scan_chunk, merge_plan=plan, merge_state=merge_state,
+            callback=cb)
         if unwrap is not None:
             state = unwrap(state)
         return FitResult(state=state, history=history,
@@ -222,14 +251,19 @@ def fit(workload: Workload, grid: PimGrid, X, y=None, *, steps: int,
         batch_size: Optional[int] = None, engine: str = "scan",
         scan_chunk: int = 32, merge_every: int = 1,
         overlap_merge: bool = False, merge_compression=None,
-        merge_plan=None, callback: Optional[Callable] = None,
-        sample_seed: int = 0,
+        merge_plan=None, merge_state: Optional[dict] = None,
+        callback: Optional[Callable] = None, sample_seed: int = 0,
         sample_permutation: Optional[mb.Permutation] = None) -> FitResult:
     """Train any workload on the grid — the entry point every layer above
-    the algorithms goes through.  ``batch_size``: rows sampled per vDPU
-    per local step (None: full batch), on the schedule of
+    the algorithms goes through.  ``merge_plan``: a
+    ``merge_plan.MergePlan`` (``None``: the exact default), e.g.
+    ``MergePlan(cadence=8, outer=SlowMo())``; unsupported axes degrade
+    with a ``MergeFallbackWarning``, and ``merge_state`` (a dict) carries
+    the outer momentum across fits.  ``batch_size``: rows sampled per
+    vDPU per local step (None: full batch), on the schedule of
     ``sample_seed`` and, when given, ``sample_permutation(seed, epoch,
-    rows_per_vdpu)`` (default: ``minibatch.hashed_permutation``).
+    rows_per_vdpu)`` (default: ``minibatch.hashed_permutation``); it
+    cannot compose with a stateful outer optimizer.
 
     >>> import numpy as np
     >>> from repro_torch.core import make_cpu_grid
@@ -254,5 +288,5 @@ def fit(workload: Workload, grid: PimGrid, X, y=None, *, steps: int,
     return workload.run(grid, X, y, steps=steps, plan=plan,
                         batch_size=batch_size, engine=engine,
                         scan_chunk=scan_chunk, callback=callback,
-                        sample_seed=sample_seed,
+                        merge_state=merge_state, sample_seed=sample_seed,
                         sample_permutation=sample_permutation)

@@ -209,7 +209,8 @@ class DecisionTree(api.Workload):
 
     def run(self, grid: PimGrid, X, y=None, *, steps=None, plan=None,
             batch_size=None, engine="scan", scan_chunk=32, callback=None,
-            sample_seed=0, sample_permutation=None) -> api.FitResult:
+            merge_state=None, sample_seed=0,
+            sample_permutation=None) -> api.FitResult:
         """Train the tree to ``max_depth`` (``steps`` is ignored: the
         unit of work is a level).  ``plan`` and ``batch_size`` arrive
         already degraded to the exact default and full batch by

@@ -102,13 +102,16 @@ class KMeans(api.Workload):
 def train_kmeans(grid: PimGrid, X, k: int, *, iters: int = 20,
                  precision: Precision = "fp32", seed: int = 0,
                  engine: str = "scan", merge_every: int = 1,
-                 merge_plan=None) -> KMeansResult:
+                 merge_plan=None,
+                 merge_state: dict | None = None) -> KMeansResult:
     """``merge_every=m`` runs ``m`` vDPU-local Lloyd iterations between
     centroid merges (each vDPU updates its own copy; the merge averages
-    the copies); ``m=1`` is the paper's exact merge per iteration."""
+    the copies); ``m=1`` is the paper's exact merge per iteration.  An
+    outer optimizer in ``merge_plan`` commits the centroids' merge delta
+    (``merge_state`` carries its momentum)."""
     res = api.fit(KMeans(k=k, precision=precision, seed=seed), grid, X,
                   steps=iters, engine=engine, merge_every=merge_every,
-                  merge_plan=merge_plan)
+                  merge_plan=merge_plan, merge_state=merge_state)
     return KMeansResult(centroids=res.state, history=res.history,
                         precision=precision)
 

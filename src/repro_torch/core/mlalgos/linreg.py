@@ -14,7 +14,7 @@ merges the partials and applies the GD step.  Three numeric paths:
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal
+from typing import Literal, Optional
 
 import torch
 
@@ -25,6 +25,13 @@ from repro_torch.kernels import dispatch
 
 Precision = Literal["fp32", "int16", "int8"]
 BITS = {"int16": 16, "int8": 8}
+
+
+@dataclasses.dataclass
+class LinRegResult:
+    w: torch.Tensor
+    history: list             # per-step {"loss": ...}
+    precision: str
 
 
 def as_f32(x, device) -> torch.Tensor:
@@ -44,6 +51,18 @@ def rmatvec(X: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """``Xᵀ @ r`` per lane: ``(L, R, d)``, ``(L, R)`` -> ``(L, d)``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.matmul(X.transpose(-1, -2), r.unsqueeze(-1)).squeeze(-1)
+
+
+def rowdot(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``X @ w`` for a request: ``(n, d)`` rows against a ``(d,)`` weight
+    -> ``(n,)`` (``(n, 1, d)`` against ``(C, d)`` -> ``(n, C)``), each
+    row's sum over the features taken on its own, so a row's result does
+    not depend on how many rows the request holds.  A BLAS or cuBLAS
+    product picks its blocking by the row count, and then the last bits
+    of a row move when a request is padded.  Training keeps
+    :func:`matvec`: the product here is materialised, which over the
+    resident set would cost a copy of it every step."""
+    return (X * w).sum(-1)
 
 
 def quantize_weight(w: torch.Tensor, x_scale: torch.Tensor) -> qz.Quantized:
@@ -122,15 +141,51 @@ class LinReg(api.Workload):
         return out
 
     def predict(self, state, X):
-        """fp32: ``X @ w``.  Quantized: ``local_step``'s forward recipe on
-        the request's own per-feature scales (pad-invariant: zero rows
-        never move an absmax)."""
+        """fp32: ``X @ w`` row by row (:func:`rowdot`).  Quantized:
+        ``local_step``'s forward recipe on the request's own per-feature
+        scales.  Pad-invariant: zero rows never move an absmax, nor
+        another row's sum."""
         X = as_f32(X, state.device)
         if self.precision == "fp32":
-            return linreg_predict(state, X)
+            return rowdot(X, state)
         Xq = qz.quantize_symmetric(X, bits=BITS[self.precision], axis=0)
         return int_forward(Xq.values, quantize_weight(state, Xq.scale))
 
 
+def make_linreg_step(grid: PimGrid, X, y, *, lr: float = 0.1,
+                     precision: Precision = "fp32", l2: float = 0.0):
+    """The bound :class:`LinReg` program's pieces for ``grid.fit``:
+    ``(data, n, local_fn, update_fn, w0)``."""
+    program = LinReg(lr=lr, precision=precision, l2=l2).bind(grid, X, y)
+    return (program.data, program.n, program.local_fn,
+            program.update_fn, program.state0)
+
+
+def train_linreg(grid: PimGrid, X, y, *, lr: float = 0.1, steps: int = 100,
+                 precision: Precision = "fp32", l2: float = 0.0,
+                 engine: str = "scan", merge_every: int = 1,
+                 merge_plan=None, merge_state: Optional[dict] = None,
+                 batch_size: Optional[int] = None,
+                 sample_seed: int = 0) -> LinRegResult:
+    """``api.fit`` of a :class:`LinReg`: ``merge_every=k`` runs k
+    vDPU-local GD steps between merges, ``merge_plan`` composes the
+    cadence with an outer optimizer (``distributed.merge_plan``), and
+    ``merge_state`` carries its momentum across calls."""
+    res = api.fit(LinReg(lr=lr, precision=precision, l2=l2), grid, X, y,
+                  steps=steps, engine=engine, merge_every=merge_every,
+                  merge_plan=merge_plan, merge_state=merge_state,
+                  batch_size=batch_size, sample_seed=sample_seed)
+    return LinRegResult(w=res.state, history=res.history,
+                        precision=precision)
+
+
 def linreg_predict(w: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return matvec(X, w)
+
+
+def closed_form(X, y, l2: float = 0.0) -> torch.Tensor:
+    """The normal-equation solution (a test oracle), in float32."""
+    X, y = torch.as_tensor(X).float(), torch.as_tensor(y).float()
+    d = X.shape[1]
+    A = X.T @ X + l2 * X.shape[0] * torch.eye(d, device=X.device)
+    return torch.linalg.solve(A, X.T @ y)

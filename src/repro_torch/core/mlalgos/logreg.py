@@ -13,7 +13,7 @@ plus the sigmoid, which the paper evaluates three ways (insight I2):
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal
+from typing import Literal, Optional
 
 import torch
 
@@ -22,12 +22,21 @@ from repro_torch.core import quantize as qz
 from repro_torch.core.mlalgos import api
 from repro_torch.core.mlalgos.linreg import (BITS, as_f32, int_forward,
                                              int_gradient, matvec,
-                                             quantize_weight, rmatvec)
+                                             quantize_weight, rmatvec,
+                                             rowdot)
 from repro_torch.core.pim import PimGrid
 from repro_torch.kernels import dispatch
 
 Sigmoid = Literal["exact", "lut", "lut_interp", "taylor"]
 Precision = Literal["fp32", "int16", "int8"]
+
+
+@dataclasses.dataclass
+class LogRegResult:
+    w: torch.Tensor
+    history: list             # per-step {"loss": mean BCE}
+    precision: str
+    sigmoid: str
 
 
 def make_sigmoid(kind: Sigmoid, n_entries: int = 1024, device="cpu"):
@@ -106,13 +115,33 @@ class LogReg(api.Workload):
     def predict(self, state, X):
         """Probabilities through the configured sigmoid; quantized
         logits run ``local_step``'s integer forward on ``fxp_matmul``
-        with the request's own per-feature scales."""
+        with the request's own per-feature scales; fp32 logits are
+        :func:`~repro_torch.core.mlalgos.linreg.rowdot`'s (pad-invariant)."""
         X = as_f32(X, state.device)
         sig = make_sigmoid(self.sigmoid, self.lut_entries, state.device)
         if self.precision == "fp32":
-            return sig(matvec(X, state))
+            return sig(rowdot(X, state))
         Xq = qz.quantize_symmetric(X, bits=BITS[self.precision], axis=0)
         return sig(int_forward(Xq.values, quantize_weight(state, Xq.scale)))
+
+
+def train_logreg(grid: PimGrid, X, y, *, lr: float = 0.5, steps: int = 100,
+                 precision: Precision = "fp32", sigmoid: Sigmoid = "exact",
+                 lut_entries: int = 1024, l2: float = 0.0,
+                 engine: str = "scan", merge_every: int = 1,
+                 merge_plan=None, merge_state: Optional[dict] = None,
+                 batch_size: Optional[int] = None,
+                 sample_seed: int = 0) -> LogRegResult:
+    """``api.fit`` of a :class:`LogReg` (cadence, merge plan and its
+    ``merge_state``, minibatching as for every gradient workload)."""
+    res = api.fit(
+        LogReg(lr=lr, precision=precision, sigmoid=sigmoid,
+               lut_entries=lut_entries, l2=l2),
+        grid, X, y, steps=steps, engine=engine, merge_every=merge_every,
+        merge_plan=merge_plan, merge_state=merge_state,
+        batch_size=batch_size, sample_seed=sample_seed)
+    return LogRegResult(w=res.state, history=res.history,
+                        precision=precision, sigmoid=sigmoid)
 
 
 def logreg_predict(w: torch.Tensor, X: torch.Tensor) -> torch.Tensor:

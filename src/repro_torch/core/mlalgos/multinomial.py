@@ -26,7 +26,7 @@ import torch
 from repro_torch.core import lut as lut_mod
 from repro_torch.core import quantize as qz
 from repro_torch.core.mlalgos import api
-from repro_torch.core.mlalgos.linreg import BITS, as_f32
+from repro_torch.core.mlalgos.linreg import BITS, as_f32, rowdot
 from repro_torch.core.pim import PimGrid
 from repro_torch.kernels import dispatch
 
@@ -153,11 +153,13 @@ class MultinomialLogReg(api.Workload):
     def predict(self, state, X):
         """Class probabilities ``(n, C)`` through the configured softmax;
         quantized logits run ``local_step``'s integer product on
-        ``fxp_matmul`` with the request's own per-feature scales."""
+        ``fxp_matmul`` with the request's own per-feature scales; fp32
+        logits are :func:`~repro_torch.core.mlalgos.linreg.rowdot`'s, one
+        row and class at a time (pad-invariant)."""
         X = as_f32(X, state.device)
         sm = make_softmax(self.softmax, self.lut_entries, state.device)
         if self.precision == "fp32":
-            return sm(matmul(X, state))
+            return sm(rowdot(X.unsqueeze(-2), state.transpose(0, 1)))
         Xq = qz.quantize_symmetric(X, bits=BITS[self.precision], axis=0)
         return sm(int_logits(Xq.values, state, Xq.scale))
 
@@ -168,6 +170,7 @@ def train_multinomial(grid: PimGrid, X, y, *, n_classes: int,
                       softmax: Softmax = "exact", lut_entries: int = 1024,
                       l2: float = 0.0, engine: str = "scan",
                       merge_every: int = 1, merge_plan=None,
+                      merge_state: Optional[dict] = None,
                       batch_size: Optional[int] = None,
                       sample_seed: int = 0) -> MultinomialResult:
     """``api.fit`` of a :class:`MultinomialLogReg`."""
@@ -175,8 +178,8 @@ def train_multinomial(grid: PimGrid, X, y, *, n_classes: int,
         MultinomialLogReg(n_classes=n_classes, lr=lr, precision=precision,
                           softmax=softmax, lut_entries=lut_entries, l2=l2),
         grid, X, y, steps=steps, engine=engine, merge_every=merge_every,
-        merge_plan=merge_plan, batch_size=batch_size,
-        sample_seed=sample_seed)
+        merge_plan=merge_plan, merge_state=merge_state,
+        batch_size=batch_size, sample_seed=sample_seed)
     return MultinomialResult(W=res.state, history=res.history,
                              precision=precision, softmax=softmax)
 

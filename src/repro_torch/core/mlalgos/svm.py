@@ -24,7 +24,8 @@ from repro_torch.core import quantize as qz
 from repro_torch.core.mlalgos import api
 from repro_torch.core.mlalgos.linreg import (BITS, as_f32, int_forward,
                                              int_gradient, matvec,
-                                             quantize_weight, rmatvec)
+                                             quantize_weight, rmatvec,
+                                             rowdot)
 from repro_torch.core.pim import PimGrid
 
 Precision = Literal["fp32", "int16", "int8"]
@@ -99,10 +100,11 @@ class LinearSVM(api.Workload):
     def predict(self, state, X):
         """Decision values (sign = class); quantized margins run
         ``local_step``'s integer forward on ``fxp_matmul`` with the
-        request's own per-feature scales."""
+        request's own per-feature scales; fp32 margins are
+        :func:`~repro_torch.core.mlalgos.linreg.rowdot`'s (pad-invariant)."""
         X = as_f32(X, state.device)
         if self.precision == "fp32":
-            return svm_predict(state, X)
+            return rowdot(X, state)
         Xq = qz.quantize_symmetric(X, bits=BITS[self.precision], axis=0)
         return int_forward(Xq.values, quantize_weight(state, Xq.scale))
 
@@ -110,15 +112,16 @@ class LinearSVM(api.Workload):
 def train_svm(grid: PimGrid, X, y, *, lr: float = 0.1, steps: int = 100,
               l2: float = 1e-3, precision: Precision = "fp32",
               engine: str = "scan", merge_every: int = 1, merge_plan=None,
+              merge_state: Optional[dict] = None,
               batch_size: Optional[int] = None,
               sample_seed: int = 0) -> SVMResult:
-    """``api.fit`` of a :class:`LinearSVM`: cadence and minibatching as
-    for every gradient workload (PIM-Opt trains the SVM as minibatch SGD
-    with a local update cadence)."""
+    """``api.fit`` of a :class:`LinearSVM`: cadence, merge plans and
+    minibatching as for every gradient workload (PIM-Opt trains the SVM
+    as minibatch SGD with a local update cadence)."""
     res = api.fit(LinearSVM(lr=lr, l2=l2, precision=precision), grid, X, y,
                   steps=steps, engine=engine, merge_every=merge_every,
-                  merge_plan=merge_plan, batch_size=batch_size,
-                  sample_seed=sample_seed)
+                  merge_plan=merge_plan, merge_state=merge_state,
+                  batch_size=batch_size, sample_seed=sample_seed)
     return SVMResult(w=res.state, history=res.history, precision=precision)
 
 

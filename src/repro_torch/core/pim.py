@@ -90,7 +90,7 @@ class PimGrid:
             callback: Callable | None = None, scan_chunk: int = 32,
             engine: str = "scan", merge_every: int = 1,
             overlap_merge: bool = False, merge_compression=None,
-            merge_plan=None):
+            merge_plan=None, merge_state: dict | None = None):
         """Run the loop: local partials -> merge -> update.
 
         ``update_fn(state, merged) -> (state, metrics)``; ``state`` is a
@@ -102,6 +102,13 @@ class PimGrid:
         (``merge_plan.cadence_round``); a trailing ``steps % k`` runs as
         one short round, and a round of one step is a merge-per-step
         step, as in the JAX engine.  ``scan_chunk`` counts rounds.
+
+        Every other plan (SlowMo or Nesterov outer momentum, a custom
+        ``OuterOptimizer``) is driven by ``distributed.merge_plan.run_fit``
+        (see that module's DESIGN notes).  When a ``merge_state`` dict is
+        passed, its outer-momentum buffer is read from it at entry
+        (``"momentum"``) and written back at exit, so it continues across
+        ``fit`` calls.
         """
         if engine not in ("python", "scan"):
             raise ValueError(f"unknown engine {engine!r}")
@@ -110,42 +117,24 @@ class PimGrid:
         plan = mp.MergePlan.resolve(
             merge_plan, merge_every=merge_every,
             overlap_merge=overlap_merge, merge_compression=merge_compression)
-        k = plan.cadence
-        per_sync = 1 if engine == "python" else scan_chunk
+        if not plan.is_exact_default:
+            return mp.run_fit(
+                self, plan, init_state=init_state, local_fn=local_fn,
+                update_fn=update_fn, data=data, steps=steps,
+                callback=callback, scan_chunk=scan_chunk, engine=engine,
+                merge_state=merge_state)
 
-        history: list = []
-        state = init_state
-        done, rounds, pending = 0, 0, []
-        while done < steps:
-            kk = min(k, steps - done)
+        def round_fn(state, kk):
             if kk == 1:
                 merged = self.map_reduce(local_fn, state, data)
                 state, metrics = update_fn(state, merged)
-                pending.append(metrics)
-            else:
-                state, round_metrics = mp.cadence_round(
-                    self, local_fn, update_fn, kk, state, data)
-                pending.extend(round_metrics)
-            done += kk
-            rounds += 1
-            if rounds == per_sync or done >= steps:
-                _flush(pending, history, state, callback)
-                rounds, pending = 0, []
-        return state, history
+                return state, [metrics]
+            return mp.cadence_round(self, local_fn, update_fn, kk, state,
+                                    data)
 
-
-def _flush(pending: list, history: list, state, callback) -> None:
-    """Bring the pending steps' metrics to the host in one transfer per
-    key and append them to ``history``."""
-    if not pending:
-        return
-    host = {key: torch.stack([m[key] for m in pending]).cpu()
-            for key in pending[0]}
-    for i in range(len(pending)):
-        metrics = {key: v[i] for key, v in host.items()}
-        history.append(metrics)
-        if callback is not None:
-            callback(len(history) - 1, state, metrics)
+        return mp.run_rounds(steps, plan.cadence, round_fn, init_state,
+                             engine=engine, scan_chunk=scan_chunk,
+                             callback=callback)
 
 
 def make_grid(n_vdpus: int = 64, device=None) -> PimGrid:

@@ -1,1 +1,2 @@
-"""Merge side of the engine (``merge_plan``: the exact default plan)."""
+"""Merge side of the engine (``merge_plan``: cadence and the outer
+optimizers)."""

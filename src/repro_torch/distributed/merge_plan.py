@@ -1,89 +1,336 @@
-"""MergePlan — the exact default merge plan.
+"""MergePlan — the merge side of the PIM engine as a composable object.
 
-Port of the default path of ``repro.distributed.merge_plan``: a plan is
-a merge cadence ``k`` (local update steps per vDPU between merges).
-``k = 1`` is the paper's merge-per-step loop; ``k > 1`` runs
-:func:`cadence_round`.  The rest of the JAX module — the overlapped and
-compressed merge pipeline, SlowMo and Nesterov outer optimizers,
-adaptive cadence and ``"auto"`` — is not ported yet (ROADMAP queue A,
-item 10) and raises ``NotImplementedError``.
+Port of ``repro.distributed.merge_plan`` without a mesh.  A plan
+composes four choices:
+
+    MergePlan(cadence     = vDPU-local steps between merges,
+              overlap     = the merge behind the next round's compute,
+              compression = what the host hop carries (None = exact),
+              outer       = what happens at the merge boundary
+                            (an OuterOptimizer))
+
+``PimGrid.fit(merge_plan=...)`` is the entry point; ``merge_every=``,
+``overlap_merge=`` and ``merge_compression=`` are thin constructors for
+the same plan (:meth:`MergePlan.resolve`).  The exact default plan (any
+cadence, the plain average) runs ``PimGrid.fit``'s own loop; every other
+plan runs :func:`run_fit`.
+
+Ported: the cadence and the outer optimizers.  ``overlap`` and
+``compression`` (ROADMAP queue A, item 10b), ``AdaptiveCadence`` and
+``"auto"`` (item 16a) construct, so that ``MergeCaps.constrain`` can
+degrade them for a workload that cannot honour them, and raise
+``NotImplementedError`` when a fit would run them.
+
+DESIGN — outer optimizers (the merge-boundary commit)
+-----------------------------------------------------
+
+Every merge round produces a proposed delta: ``avg(lane states) − phase
+start`` at cadence k, ``update_fn(state, merged) − state`` at cadence 1.
+The ``OuterOptimizer`` decides how that delta commits:
+
+* ``AverageCommit`` — ``state += delta``; the default plan, which never
+  reaches :func:`run_fit`.
+* ``SlowMo`` — slow momentum at merge boundaries (arXiv 1910.00643, the
+  PIM-Opt outer loop): the negated delta is a pseudo-gradient for a
+  momentum step, ``m ← β·m − delta``, ``state ← state − α·m``.
+  ``β=0, α=1`` recovers the average up to float association.
+* ``Nesterov`` — the lookahead variant: ``m ← β·m + g``, ``state ←
+  state − α·(g + β·m)`` with ``g = −delta``.
+
+The momentum buffer (an ``optim.OptState``, whose step counts commits)
+rides in the round's carry ``(state, ef, mom)`` (``ef`` is the error
+feedback of item 10b, ``None`` until then) and continues across ``fit``
+calls through ``merge_state["momentum"]``.  A round is three pieces
+(:func:`pipeline_fns`): ``compute_fn`` (the lanes' local work),
+``merge_fn`` (the lane sum) and ``commit_fn(state, merged, mom) ->
+(state', mom', metrics)``.
+
+Example — a SlowMo plan at cadence 4 converges on the problem the default
+plan solves:
+
+>>> import torch
+>>> from repro_torch.core.pim import make_cpu_grid
+>>> from repro_torch.distributed.merge_plan import MergePlan, SlowMo
+>>> grid = make_cpu_grid(4)
+>>> data, n = grid.shard_rows(torch.arange(8.0)[:, None])
+>>> def local_fn(w, sl):
+...     return {"g": ((w[..., None, :] - sl["X"])
+...                   * sl["w"][..., None]).sum(-2)}
+>>> def update_fn(w, merged):
+...     return w - 0.1 * merged["g"] / n, {"g0": merged["g"][..., 0]}
+>>> plan = MergePlan(cadence=4, outer=SlowMo(beta=0.5))
+>>> w, hist = grid.fit(init_state=torch.zeros(1), local_fn=local_fn,
+...                    update_fn=update_fn, data=data, steps=40,
+...                    merge_plan=plan)
+>>> len(hist)
+40
+>>> bool(abs(w[0] - 3.5) < 0.2)
+True
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import warnings
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.optim.optimizers import nesterov, slow_momentum
+from repro_torch.tree import tree_map
 
 
-_NOT_PORTED = ("is not ported to repro_torch yet (ROADMAP queue A, item 10: "
-               "overlap, compression, SlowMo, Nesterov, adaptive cadence "
-               "and 'auto'); only the exact default plan runs")
+class MergeFallbackWarning(UserWarning):
+    """A workload was asked for a merge-plan axis it cannot honour and
+    ran at the exact default instead (the tree's discrete split commits
+    cannot be averaged at cadence > 1)."""
+
+
+def warn_fallback(algo: str, knobs: str, reason: str) -> None:
+    """The structured fallback warning, once per ``fit`` call."""
+    warnings.warn(
+        f"{algo}: {knobs} requested but not honoured — {reason}; "
+        f"running exact merge-per-step semantics instead",
+        MergeFallbackWarning, stacklevel=3)
+
+
+def not_ported(what: str, item: str) -> str:
+    topic = {"10b": "EF compression and the overlapped merge",
+             "16a": "AdaptiveCadence and 'auto'"}[item]
+    return (f"{what} is not ported to repro_torch yet (ROADMAP queue A, "
+            f"item {item}: {topic})")
+
+
+# -- outer optimizers --------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class OuterOptimizer:
+    """What happens at a merge boundary: ``commit`` folds the merged
+    delta into the anchor state, optionally through a buffer that rides
+    in the round's carry (``init`` builds it; ``()`` means stateless).
+
+    ``plain_commit`` marks optimizers whose commit is exactly ``anchor +
+    delta`` with no buffer: :func:`run_fit` keeps the engine's own commit
+    expressions for those and never calls ``commit``.  A subclass that
+    overrides ``commit`` is marked ``plain_commit = False`` unless it
+    says otherwise, so a custom commit cannot be skipped unnoticed.
+    """
+
+    plain_commit = True
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        if "commit" in cls.__dict__ and "plain_commit" not in cls.__dict__:
+            cls.plain_commit = False
+
+    def init(self, state: Any) -> Any:
+        return ()
+
+    def commit(self, anchor: Any, delta: Any, buf: Any):
+        return tree_map(lambda a, d: a + d, anchor, delta), buf
+
+
+@dataclasses.dataclass(frozen=True)
+class AverageCommit(OuterOptimizer):
+    """Commit the averaged (cadence k) or updated (cadence 1) state as it
+    is: the exact default plan."""
+
+
+@dataclasses.dataclass(frozen=True)
+class SlowMo(OuterOptimizer):
+    """Slow momentum at merge boundaries (SlowMo, arXiv 1910.00643): the
+    merge delta is the negated pseudo-gradient of a momentum step with
+    slow learning rate ``outer_lr`` and momentum ``beta``
+    (``optim.slow_momentum``).  The buffer is float32, shaped like the
+    state, and steps once per merge round."""
+
+    beta: float = 0.5
+    outer_lr: float = 1.0
+
+    plain_commit = False
+
+    def init(self, state: Any) -> Any:
+        return slow_momentum(self.outer_lr, beta=self.beta).init(state)
+
+    def commit(self, anchor: Any, delta: Any, buf: Any):
+        pseudo_grad = tree_map(torch.neg, delta)
+        return slow_momentum(self.outer_lr, beta=self.beta).update(
+            pseudo_grad, buf, anchor)
+
+
+@dataclasses.dataclass(frozen=True)
+class Nesterov(OuterOptimizer):
+    """Nesterov momentum at merge boundaries, the lookahead variant of
+    :class:`SlowMo` (``optim.nesterov`` fed ``g = −delta``):
+
+        m ← β·m + g,   state ← state − α·(g + β·m)
+
+    ``β=0, α=1`` recovers the plain average."""
+
+    beta: float = 0.5
+    outer_lr: float = 1.0
+
+    plain_commit = False
+
+    def init(self, state: Any) -> Any:
+        return nesterov(self.outer_lr, beta=self.beta).init(state)
+
+    def commit(self, anchor: Any, delta: Any, buf: Any):
+        pseudo_grad = tree_map(torch.neg, delta)
+        return nesterov(self.outer_lr, beta=self.beta).update(
+            pseudo_grad, buf, anchor)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveCadence(OuterOptimizer):
+    """A host-side controller that grows the cadence once successive
+    merged deltas stabilise (the JAX package's preset over
+    ``repro.tuning.PlanController``).  It constructs, with the JAX
+    package's checks, so a workload can drop it; running it raises
+    (ROADMAP queue A, item 16a)."""
+
+    k_max: int = 16
+    growth: int = 2
+    stable_ratio: float = 0.5
+    patience: int = 2
+    shrink: bool = False
+    spike_ratio: float = 4.0
+    k_min: int = 1
+
+    def __post_init__(self):
+        if self.k_max < 1 or self.growth < 2:
+            raise ValueError(
+                f"AdaptiveCadence needs k_max >= 1 and growth >= 2, got "
+                f"k_max={self.k_max} growth={self.growth}")
+        if not 1 <= self.k_min <= self.k_max:
+            raise ValueError(
+                f"AdaptiveCadence needs 1 <= k_min <= k_max, got "
+                f"k_min={self.k_min} k_max={self.k_max}")
+        if self.spike_ratio <= 1.0:
+            raise ValueError(
+                f"AdaptiveCadence.spike_ratio must be > 1, got "
+                f"{self.spike_ratio}")
+
+
+# -- the plan ----------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class MergePlan:
-    """``cadence``: local update steps per vDPU between merges."""
+    """cadence × overlap × compression × outer (see the module
+    docstring).  Hashable."""
 
     cadence: int = 1
+    overlap: bool = False
+    compression: Optional[Any] = None
+    outer: OuterOptimizer = AverageCommit()
 
     def __post_init__(self):
         if self.cadence < 1:
             raise ValueError(
                 f"MergePlan.cadence must be >= 1, got {self.cadence}")
+        if not isinstance(self.outer, OuterOptimizer):
+            raise ValueError(
+                f"MergePlan.outer must be an OuterOptimizer, got "
+                f"{self.outer!r}")
+        if self.adaptive and self.overlap:
+            raise ValueError(
+                "controller-driven plans (AdaptiveCadence) "
+                "cannot be combined with overlap=True: the controller "
+                "re-decides k per round on the host, the overlap "
+                "pipeline's pending buffer is shaped per-k")
+
+    @classmethod
+    def from_legacy(cls, *, merge_every: int = 1,
+                    overlap_merge: bool = False,
+                    merge_compression=None) -> "MergePlan":
+        """The legacy ``fit`` kwargs as a plan."""
+        return cls(cadence=merge_every, overlap=bool(overlap_merge),
+                   compression=merge_compression)
 
     @classmethod
     def resolve(cls, merge_plan=None, *, merge_every: int = 1,
                 overlap_merge: bool = False,
                 merge_compression=None) -> "MergePlan":
-        """The ``fit`` spellings as a plan: a given plan wins but must not
-        be mixed with a non-default ``merge_every``."""
+        """The one rule for the ``fit`` spellings: a given plan wins but
+        must not be mixed with non-default legacy kwargs; otherwise the
+        kwargs build the plan."""
         if isinstance(merge_plan, str):
-            raise NotImplementedError(f"merge_plan={merge_plan!r} "
-                                      + _NOT_PORTED)
-        if overlap_merge:
-            raise NotImplementedError("overlap_merge " + _NOT_PORTED)
-        if merge_compression is not None:
-            raise NotImplementedError("merge_compression " + _NOT_PORTED)
+            if merge_plan != "auto":
+                raise ValueError(
+                    f"unknown merge_plan spelling {merge_plan!r}: the "
+                    f"only string form is 'auto' (or pass a MergePlan)")
+            raise NotImplementedError(not_ported("merge_plan='auto'",
+                                                  "16a"))
         if merge_plan is not None:
-            if not isinstance(merge_plan, cls):
-                raise NotImplementedError(f"merge_plan={merge_plan!r} "
-                                          + _NOT_PORTED)
-            if merge_every != 1:
-                raise ValueError("pass either merge_plan= or merge_every=, "
-                                 "not both")
+            if merge_every != 1 or overlap_merge or \
+                    merge_compression is not None:
+                raise ValueError(
+                    "pass either merge_plan= or the legacy kwargs "
+                    "(merge_every / overlap_merge / merge_compression), "
+                    "not both")
             return merge_plan
-        return cls(cadence=merge_every)
+        return cls.from_legacy(merge_every=merge_every,
+                               overlap_merge=overlap_merge,
+                               merge_compression=merge_compression)
+
+    @property
+    def adaptive(self) -> bool:
+        return isinstance(self.outer, AdaptiveCadence)
 
     @property
     def is_exact_default(self) -> bool:
-        """Every plan the port has is the exact default."""
-        return True
+        """Plans served by ``PimGrid.fit``'s own loop: any cadence, no
+        overlap, no compression, the plain average."""
+        return (not self.overlap and self.compression is None
+                and type(self.outer) is AverageCommit)
+
+    def describe(self) -> str:
+        parts = [f"cadence={self.cadence}"]
+        if self.overlap:
+            parts.append("overlap")
+        if self.compression is not None:
+            parts.append(f"compression={self.compression!r}")
+        if type(self.outer) is not AverageCommit:
+            parts.append(f"outer={self.outer!r}")
+        return "MergePlan(" + ", ".join(parts) + ")"
+
+    def require_ported(self) -> None:
+        """Raise ``NotImplementedError`` naming the ROADMAP item of each
+        axis the port does not run yet."""
+        if self.overlap:
+            raise NotImplementedError(not_ported("overlap=True", "10b"))
+        if self.compression is not None:
+            raise NotImplementedError(not_ported(
+                f"compression={self.compression!r}", "10b"))
+        if self.adaptive:
+            raise NotImplementedError(not_ported(
+                f"outer={self.outer!r}", "16a"))
 
 
-def tree_map(fn: Callable, state):
-    """``fn`` on every tensor of a state: a tensor, or a tuple of states
-    (the minibatch sampler carries ``(state, counter)``)."""
-    if isinstance(state, tuple):
-        return tuple(tree_map(fn, s) for s in state)
-    return fn(state)
+# -- rounds --------------------------------------------------------------
 
 
-def cadence_round(grid, local_fn: Callable, update_fn: Callable, k: int,
-                  state, data: dict):
-    """One exact merge round at cadence ``k``: every vDPU runs ``k`` local
-    update steps on its own copy of ``state``, then the per-vDPU states
-    and per-step metrics are averaged.
+def lane_sum(tree, *, scale: float | None = None):
+    """Sum each leaf over its leading lane dim, with ``scale`` folded into
+    the summands (the JAX package folds it into a ones vector and
+    contracts on the MXU; here it is ``sum(dim=0)``)."""
+    return tree_map(
+        lambda x: (x if scale is None else x * scale).sum(dim=0), tree)
+
+
+def local_phase(grid, local_fn: Callable, update_fn: Callable, k: int,
+                state, data: dict):
+    """``k`` local update steps per vDPU, each on its own copy of
+    ``state``: returns the per-lane end states and each step's per-lane
+    metrics.
 
     Lanes are the leading batch dimension: ``local_fn`` gets the
     ``(L, ...)`` state (each tensor of a tuple state expanded alike) and
     returns per-lane partials, which are pre-scaled by ``n_vdpus`` so
     ``update_fn``'s global normalisation sees shard statistics at
-    dataset magnitude (the local-SGD view), and the average is
-    ``sum(dim=0) * (1.0 / n_vdpus)`` as in
-    ``repro.distributed.merge_plan.cadence_round``.
-
-    Returns ``(avg_state, [metrics of each local step])``.
-    """
+    dataset magnitude (the local-SGD view)."""
     scale = float(grid.n_vdpus)
     lanes = tree_map(lambda s: s.expand((grid.n_vdpus,) + tuple(s.shape)),
                      state)
@@ -92,7 +339,162 @@ def cadence_round(grid, local_fn: Callable, update_fn: Callable, k: int,
         part = {key: v * scale for key, v in local_fn(lanes, data).items()}
         lanes, metrics = update_fn(lanes, part)
         per_step.append(metrics)
-    inv = 1.0 / scale
+    return lanes, per_step
+
+
+def cadence_round(grid, local_fn: Callable, update_fn: Callable, k: int,
+                  state, data: dict):
+    """One exact merge round at cadence ``k`` (the default plan):
+    :func:`local_phase`, then the lane states and per-step metrics
+    averaged as ``sum(dim=0) * (1.0 / n_vdpus)``, as in
+    ``repro.distributed.merge_plan.cadence_round``.
+
+    Returns ``(avg_state, [metrics of each local step])``.
+    """
+    lanes, per_step = local_phase(grid, local_fn, update_fn, k, state, data)
+    inv = 1.0 / float(grid.n_vdpus)
     return (tree_map(lambda s: s.sum(dim=0) * inv, lanes),
             [{key: v.sum(dim=0) * inv for key, v in m.items()}
              for m in per_step])
+
+
+def pipeline_fns(grid, local_fn: Callable, update_fn: Callable, *,
+                 merge_every: int, state_wire: bool,
+                 outer: OuterOptimizer):
+    """The pieces :func:`run_fit` assembles a round from:
+    ``(merge_fn, compute_fn, commit_fn)``.
+
+    * partials wire (cadence 1, ``state_wire=False``): ``compute_fn`` is
+      the lanes' ``local_fn``, ``merge_fn`` their sum, and the commit
+      applies ``update_fn`` (metrics come from the merged partials) and
+      threads the proposed delta through ``outer``.
+    * state wire (cadence k, and a cadence-k plan's trailing round of
+      any length): ``compute_fn`` runs a ``merge_every``-step
+      :func:`local_phase` and averages each step's metrics over the
+      lanes; the wire carries ``(lane end states, phase start)``, the
+      merge averages the end states, and the commit folds ``avg −
+      start`` into the anchor through ``outer``.
+
+    ``merge_fn(pending, ef) -> (merged, ef)`` and ``commit_fn(state,
+    merged, mom) -> (state', mom', metrics)``.
+    """
+    if not state_wire:
+        def compute_fn(state, data):
+            return local_fn(state, data), None
+
+        def merge_fn(pending, ef):
+            return lane_sum(pending), ef
+
+        def commit_fn(state, merged, mom):
+            proposed, metrics = update_fn(state, merged)
+            if outer.plain_commit:
+                return proposed, mom, metrics
+            delta = tree_map(torch.sub, proposed, state)
+            new, mom = outer.commit(state, delta, mom)
+            return new, mom, metrics
+
+        return merge_fn, compute_fn, commit_fn
+
+    inv = 1.0 / float(grid.n_vdpus)
+
+    def compute_fn(state, data):
+        lanes, per_step = local_phase(grid, local_fn, update_fn,
+                                      merge_every, state, data)
+        return (lanes, state), [lane_sum(m, scale=inv) for m in per_step]
+
+    def merge_fn(pending, ef):
+        lanes, start = pending
+        return (lane_sum(lanes, scale=inv), start), ef
+
+    def commit_fn(state, merged, mom):
+        avg, start = merged
+        if outer.plain_commit:
+            new = tree_map(lambda s, a, st: s + (a - st), state, avg, start)
+            return new, mom, None
+        delta = tree_map(torch.sub, avg, start)
+        new, mom = outer.commit(state, delta, mom)
+        return new, mom, None
+
+    return merge_fn, compute_fn, commit_fn
+
+
+def run_rounds(steps: int, k: int, round_fn: Callable, state, *,
+               engine: str, scan_chunk: int, callback: Optional[Callable]):
+    """Drive ``steps`` local steps as rounds of ``k`` and a trailing round
+    of ``steps % k``: ``round_fn(state, kk) -> (state, [metrics of each of
+    its kk steps])``.  Metrics reach the host after every round
+    (``engine="python"``) or every ``scan_chunk`` rounds (``"scan"``), one
+    transfer per key; a callback sees the state at that point.  Returns
+    ``(state, history)``."""
+    per_sync = 1 if engine == "python" else scan_chunk
+    history: list = []
+    done, rounds, pending = 0, 0, []
+    while done < steps:
+        kk = min(k, steps - done)
+        state, metrics = round_fn(state, kk)
+        pending.extend(metrics)
+        done += kk
+        rounds += 1
+        if rounds == per_sync or done >= steps:
+            _flush(pending, history, state, callback)
+            rounds, pending = 0, []
+    return state, history
+
+
+def _flush(pending: list, history: list, state, callback) -> None:
+    """Bring the pending steps' metrics to the host in one transfer per
+    key and append them to ``history``."""
+    if not pending:
+        return
+    host = {key: torch.stack([m[key] for m in pending]).cpu()
+            for key in pending[0]}
+    for i in range(len(pending)):
+        metrics = {key: v[i] for key, v in host.items()}
+        history.append(metrics)
+        if callback is not None:
+            callback(len(history) - 1, state, metrics)
+
+
+def run_fit(grid, plan: MergePlan, *, init_state, local_fn: Callable,
+            update_fn: Callable, data: dict, steps: int,
+            callback: Optional[Callable], scan_chunk: int, engine: str,
+            merge_state: Optional[dict]):
+    """``PimGrid.fit``'s loop for every plan that is not the exact
+    default.  Returns ``(state, history)`` with one entry per local step;
+    reads ``merge_state["momentum"]`` at entry and writes it at exit.
+
+    A cadence-k plan's trailing round runs on the state wire through the
+    outer optimizer whatever its length, one step included, as in the
+    JAX package (the default plan runs a one-step round as a
+    merge-per-step step).
+    """
+    plan.require_ported()
+    outer = plan.outer
+    mom: Any = ()
+    if not outer.plain_commit:
+        mom = merge_state.get("momentum") if merge_state else None
+        if mom is None:
+            mom = outer.init(init_state)
+    ef = None
+    pieces: dict = {}
+
+    def round_fn(state, kk):
+        nonlocal ef, mom
+        if kk not in pieces:
+            pieces[kk] = pipeline_fns(grid, local_fn, update_fn,
+                                      merge_every=kk,
+                                      state_wire=plan.cadence > 1,
+                                      outer=outer)
+        merge_fn, compute_fn, commit_fn = pieces[kk]
+        fresh, compute_metrics = compute_fn(state, data)
+        merged, ef = merge_fn(fresh, ef)
+        state, mom, commit_metrics = commit_fn(state, merged, mom)
+        return state, (compute_metrics if compute_metrics is not None
+                       else [commit_metrics])
+
+    state, history = run_rounds(steps, plan.cadence, round_fn, init_state,
+                                engine=engine, scan_chunk=scan_chunk,
+                                callback=callback)
+    if merge_state is not None and not outer.plain_commit:
+        merge_state["momentum"] = mom
+    return state, history

@@ -5,9 +5,11 @@ arrays (``np.asarray(jax_array)``), and returns the port's tensors on
 ``device`` (``None`` means the card).  With them a JAX-trained state
 predicts in the port (``Workload.predict``; K-means centroids cross as a
 state, a tree with :func:`dtree_from_numpy`), a JAX state resumes
-training in the port (``PimGrid.fit(init_state=...)``), a JAX
-resident placement feeds the port's step functions, and a JAX LM's
-parameters serve in the port (:func:`lm_params_from_numpy`).
+training in the port (``PimGrid.fit(init_state=...)``) and, under an
+outer optimizer, with its momentum (:func:`momentum_from_numpy` into
+``merge_state``), a JAX resident placement feeds the port's step
+functions, and a JAX LM's parameters serve in the port
+(:func:`lm_params_from_numpy`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from repro_torch.core.mlalgos.dtree import DTree
 from repro_torch.core.quantize import Quantized
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
+from repro_torch.optim.optimizers import OptState
+from repro_torch.tree import tree_map
 
 
 def state_from_numpy(w, device=None):
@@ -87,6 +91,19 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
         bits = torch.tensor(np.ascontiguousarray(a).view(np.int16))
         return bits.view(torch.bfloat16).to(dev)
     return torch.tensor(a, device=dev)
+
+
+def momentum_from_numpy(mom, device=None) -> OptState:
+    """A JAX fit's ``merge_state["momentum"]``, an ``OptState(step,
+    inner)`` with numpy leaves (``jax.tree.map(np.asarray, ...)``), as the
+    port's ``OptState``: a 0-dim int32 step and the same tree of tensors,
+    dtypes and bits kept.  Put it in the ``merge_state`` of the fit that
+    resumes the JAX fit's state."""
+    step, inner = mom
+    dev = resolve_device(device)
+    return OptState(
+        torch.tensor(np.asarray(step, dtype=np.int32), device=dev),
+        tree_map(lambda a: tensor_from_numpy(a, dev), inner))
 
 
 def _tree_from_numpy(tree, dev, index=None):

@@ -146,7 +146,8 @@ def test_port_imports_neither_jax_nor_repro():
         "          'models.attention', 'models.mlp', 'models.transformer',\n"
         "          'models.model_api', 'configs.qwen2_0_5b',\n"
         "          'launch.serve_lm', 'core.mlalgos.svm',\n"
-        "          'core.mlalgos.multinomial', 'core.minibatch'):\n"
+        "          'core.mlalgos.multinomial', 'core.minibatch',\n"
+        "          'optim.optimizers', 'tree', 'distributed.merge_plan'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

@@ -33,7 +33,7 @@ from repro_torch.kernels import dispatch, ref  # noqa: E402
 from repro_torch.kernels import kmeans_assign as km_mod  # noqa: E402
 from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
 from torch_parity import (assert_bits_equal, blobs, rng,  # noqa: E402
-                          to_numpy, to_torch)
+                          to_numpy, to_torch, top_two_gap)
 
 LANES, ROWS, D, K = 8, 603, 6, 4       # 603 rows: the last lane is padded
 BITS = {"int16": 16, "int8": 8}
@@ -48,13 +48,6 @@ def _lanes_of(X, lanes):
     w = np.concatenate([np.ones(X.shape[0], np.float32),
                         np.zeros(pad, np.float32)])
     return Xp.reshape(lanes, per, *X.shape[1:]), w.reshape(lanes, per)
-
-
-def _top_two_gap(xf, c):
-    d = ((xf[..., None, :].astype(np.float64) - c[..., None, :, :]) ** 2
-         ).sum(-1)
-    d.sort(axis=-1)
-    return d[..., 1] - d[..., 0]
 
 
 @pytest.mark.parametrize("per_lane", [False, True])
@@ -80,7 +73,7 @@ def test_partials_per_lane_vs_pallas_interpret(precision, per_lane):
         scale = np.asarray(q.scale)
         xf = xin.astype(np.float32) * scale
     cl = c if per_lane else np.broadcast_to(c, (LANES, K, D))
-    near_tie = _top_two_gap(xf, cl) <= 1e-4       # weight 0: no vote
+    near_tie = top_two_gap(xf, cl) <= 1e-4       # weight 0: no vote
     assert near_tie.sum() <= 2
     w = np.where(near_tie, np.float32(0), w)
     sums, counts, sse = dispatch.kmeans_partials(

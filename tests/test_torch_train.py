@@ -22,7 +22,10 @@ torch = pytest.importorskip("torch")
 
 from repro.core import make_cpu_grid as jax_grid  # noqa: E402
 from repro.core.mlalgos import LinReg as JLinReg  # noqa: E402
+from repro.core.mlalgos import LinearSVM as JLinearSVM  # noqa: E402
 from repro.core.mlalgos import LogReg as JLogReg  # noqa: E402
+from repro.core.mlalgos import \
+    MultinomialLogReg as JMultinomialLogReg  # noqa: E402
 from repro.core.mlalgos import api as japi  # noqa: E402
 from repro.kernels import dispatch as jdispatch  # noqa: E402
 import repro_torch.core.pim  # noqa: E402
@@ -30,10 +33,11 @@ import repro_torch.core.mlalgos.api  # noqa: E402
 import repro_torch.kernels.dispatch  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import lut, make_cpu_grid  # noqa: E402
-from repro_torch.core.mlalgos import LinReg, LogReg, api  # noqa: E402
+from repro_torch.core.mlalgos import (LinearSVM, LinReg,  # noqa: E402
+                                      LogReg, MultinomialLogReg, api)
 from repro_torch.distributed.merge_plan import MergePlan  # noqa: E402
 from torch_parity import (assert_bits_equal, classification,  # noqa: E402
-                          regression, to_numpy, to_torch)
+                          mixture, regression, to_numpy, to_torch)
 
 LANES, ROWS, D = 8, 603, 16          # 603 rows: the last lane is padded
 
@@ -42,6 +46,7 @@ def _pair(name):
     """(JAX workload, port workload, X, y) for a slice configuration."""
     Xc, yc = classification(0, ROWS, D)
     Xr, yr = regression(1, ROWS, D)
+    Xm, ym = mixture(2, ROWS, D, 4)
     table = {
         "logreg-int8-lut": (JLogReg(lr=0.5, precision="int8", sigmoid="lut"),
                             LogReg(lr=0.5, precision="int8", sigmoid="lut"),
@@ -55,6 +60,9 @@ def _pair(name):
         "linreg-int16": (JLinReg(lr=0.1, precision="int16"),
                          LinReg(lr=0.1, precision="int16"), Xr, yr),
         "linreg-fp32": (JLinReg(lr=0.1), LinReg(lr=0.1), Xr, yr),
+        "svm-fp32": (JLinearSVM(lr=0.1), LinearSVM(lr=0.1), Xc, yc),
+        "mn4-fp32-exact": (JMultinomialLogReg(n_classes=4),
+                           MultinomialLogReg(n_classes=4), Xm, ym),
     }
     return table[name]
 
@@ -233,12 +241,17 @@ def test_jax_trained_state_predicts_in_the_port(name):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("name", ["logreg-int8-lut", "linreg-int16"])
+@pytest.mark.parametrize("name", ["logreg-int8-lut", "linreg-int16",
+                                  "linreg-fp32", "logreg-fp32-exact",
+                                  "svm-fp32", "mn4-fp32-exact"])
 def test_predict_is_pad_invariant(name):
     """Zero rows appended to a request never change the real rows'
-    predictions (a serving runner pads requests up to bucket sizes)."""
+    predictions (a serving runner pads requests up to bucket sizes): the
+    quantized paths' absmax ignores zero rows, and the fp32 paths sum
+    each row on its own, whatever the row count."""
     _, pw, X, _ = _pair(name)
-    state = torch.linspace(-0.5, 0.5, D)
+    shape = (D, 4) if name.startswith("mn4") else (D,)
+    state = torch.linspace(-0.5, 0.5, int(np.prod(shape))).reshape(shape)
     got = pw.predict(state, X[:7])
     padded = pw.predict(state, np.concatenate([X[:7], np.zeros((9, D),
                                                                 np.float32)]))

@@ -80,3 +80,13 @@ def mixture(seed: int, n: int, d: int, n_classes: int,
     comp = r.integers(0, k, n)
     X = centers[comp] + spread * r.standard_normal((n, d))
     return X.astype(np.float32), (comp % n_classes).astype(np.int32)
+
+
+def top_two_gap(xf, c):
+    """Per row, the gap between its two nearest centroids' squared
+    distances, in float64: a row whose gap is within rounding may go to
+    either centroid in another summation order."""
+    d = ((xf[..., None, :].astype(np.float64) - c[..., None, :, :]) ** 2
+         ).sum(-1)
+    d.sort(axis=-1)
+    return d[..., 1] - d[..., 0]
