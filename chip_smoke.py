@@ -73,7 +73,20 @@ Phases, each printed as one JSON line:
                 timed in turns; SlowMo(beta=0, outer_lr=1) within 1e-5 x
                 max|w| of the default at cadence 8, and fit(24) + fit(24)
                 with one merge_state equal to fit(48) bit for bit;
-  9. the ``kernels`` line (fxp_matmul's entry also times the
+  9. train_wire — the main path (48 steps, as train_plans) under the
+                compressed and overlapped merges: int8 EF at cadence 1 and
+                8, int8 without EF at 1 (printed only), top-k 0.25 at int8
+                at 8 (the delta wire), overlap at 1 and 8, overlap + int8
+                EF + SlowMo at 8, each with its launches (the overlap's
+                prologue is one more phase: 49 and 56 local steps),
+                accuracy within 0.01 of the default plan at its cadence
+                and wire bytes against the exact wire; steps/s in turns;
+                fit(24) + fit(24) = fit(48) under int8 EF at 8 and python
+                = scan under overlap + int8 EF at 1 and 8, bit for bit; a
+                profile of int8 EF at cadence 1; KMeans(int16) under
+                overlap + int8 EF at cadence 1 (its last SSE at most 1.2 x
+                the default's + 1e-3);
+ 10. the ``kernels`` line (fxp_matmul's entry also times the
      multinomial's two dots at C = 4 and 10, with their byte bound), the
      nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -112,6 +125,8 @@ from repro_torch.core.mlalgos import (DecisionTree, KMeans,  # noqa: E402
                                       multinomial_accuracy, svm_accuracy)
 from repro_torch.core.mlalgos.dtree import (bin_dtype,  # noqa: E402
                                             bin_features)
+from repro_torch.distributed.compression import (  # noqa: E402
+    CompressionConfig, wire_bytes)
 from repro_torch.distributed.merge_plan import (MergePlan,  # noqa: E402
                                                 Nesterov, SlowMo)
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
@@ -126,6 +141,7 @@ from repro_torch.kernels.split_hist import split_hist  # noqa: E402
 from repro_torch.launch.serve_lm import generate  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models.transformer import padded_vocab  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 # PimMLConfig's workloads at a size the card holds for real (its reg_rows,
 # km_rows and dt_rows were cut to fit the JAX package's CPU container):
@@ -157,6 +173,11 @@ DT_TIMED_TREES = 3
 PLAN_STEPS = 48
 PLAN_ACC_TOL = 0.01
 PLAN_BETA0_TOL = 1e-5
+# train_wire: the top-k fraction of the delta wire, and K-means under
+# overlap + int8 EF held to JAX's test_overlap_kmeans_converges bar (last
+# SSE at most 1.2 x the default's + 1e-3)
+WIRE_TOP_K = 0.25
+KM_WIRE_SSE = 1.2
 # kmeans_assign's sums and sse against the plain version's: another
 # summation order, so each may differ by 1e-5 of its mass (Σ w·|x| of the
 # cell; |sse| + 1 for the sse)
@@ -1039,13 +1060,13 @@ def train(args, dev, card: str) -> tuple:
     return wl, main_res.state, requests, main_counts
 
 
-def km_run(name, wl, grid, X, iters, check, **kw) -> tuple:
-    """One K-means fit: one ``kmeans_assign`` launch per iteration, a
-    finite state, and (at cadence 1, where Lloyd's SSE cannot rise) the
-    last SSE at most the first."""
+def km_run(name, wl, grid, X, iters, check, launches=None, **kw) -> tuple:
+    """One K-means fit: one ``kmeans_assign`` launch per iteration (or
+    ``launches``), a finite state, and (at cadence 1, where Lloyd's SSE
+    cannot rise) the last SSE at most the first."""
     res, seen, stats = counted_fit(wl, grid, X, None, iters, **kw)
     sse = [float(m["sse"]) for m in res.history]
-    want = expected(kmeans_assign=iters)
+    want = expected(kmeans_assign=iters if launches is None else launches)
     summary = {"run": name, "iterations": iters, "launches": seen,
                "expected_launches": want, **stats,
                "sse_first": sse[0], "sse_last": sse[-1],
@@ -1419,6 +1440,143 @@ def train_plans(args, dev, card: str) -> None:
     emit("train_plans", card=card, lanes=args.lanes, rows=args.rows,
          features=args.features, steps=steps, runs=runs, beta0=beta0,
          momentum_carried=carried, seconds=time.perf_counter() - t0)
+
+
+def wire_summary(holder: dict, cfg) -> dict:
+    """What crosses the host hop in one merge round, from the error
+    buffer the fit left in ``holder`` (the wire's shapes and dtypes with
+    a leading hop axis): its bytes exact and under ``cfg``."""
+    wire = tree_map(lambda e: e[0], holder["error"])
+    return {"shapes": {k: list(v.shape) for k, v in wire.items()}
+            if isinstance(wire, dict) else list(wire.shape),
+            "exact_bytes": wire_bytes(wire, None),
+            "bytes": wire_bytes(wire, cfg)}
+
+
+def train_wire(args, dev, card: str) -> None:
+    """The main path under the compressed and overlapped merges at its
+    full size: int8 EF at cadence 1 and 8, int8 without EF at cadence 1
+    (printed, not held), top-k 0.25 at int8 on the delta wire at cadence
+    8, overlap at 1 and 8, overlap + int8 EF + SlowMo at 8, each with its
+    launches (the overlap's prologue adds one phase), its accuracy
+    against the default plan at its cadence and its wire bytes; steps/s
+    in turns; fit(24) + fit(24) against fit(48) under int8 EF at cadence
+    8 and python against scan under overlap + int8 EF at 1 and 8, bit for
+    bit; a profile of int8 EF at cadence 1; and KMeans(int16) under
+    overlap + int8 EF at cadence 1 against the default."""
+    grid = make_grid(args.lanes, device=dev)
+    check = not args.rehearse
+    steps, k, d = PLAN_STEPS, args.cadence, args.features
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 80)
+    X, y, _ = datasets.binary_classification(gen, args.rows, d)
+    wl = LogReg(lr=0.5, precision="int8", sigmoid="lut")
+    int8, topk = CompressionConfig(bits=8), CompressionConfig(
+        bits=8, top_k_frac=WIRE_TOP_K)
+    # local steps of each run: the overlap's prologue is one more phase
+    # (1 step at cadence 1, k at cadence k) whose metrics are not reported
+    plans = {
+        "default, cadence 1": (MergePlan(), steps),
+        "int8 EF, cadence 1": (MergePlan(compression=int8), steps),
+        "int8 no EF, cadence 1": (MergePlan(compression=CompressionConfig(
+            bits=8, error_feedback=False)), steps),
+        "overlap, cadence 1": (MergePlan(overlap=True), steps + 1),
+        f"default, cadence {k}": (MergePlan(cadence=k), steps),
+        f"int8 EF, cadence {k}": (MergePlan(cadence=k, compression=int8),
+                                  steps),
+        f"top-k {WIRE_TOP_K} int8, cadence {k}": (
+            MergePlan(cadence=k, compression=topk), steps),
+        f"overlap, cadence {k}": (MergePlan(cadence=k, overlap=True),
+                                  steps + k),
+        f"overlap + int8 EF + SlowMo, cadence {k}": (MergePlan(
+            cadence=k, overlap=True, compression=int8, outer=SlowMo()),
+            steps + k),
+    }
+    # the wire of one round: the partials {g: (d,), loss: ()} at cadence
+    # 1, the state (d,) at cadence k, all float32
+    want_wire = {1: (4 * d + 4, {int8: (d + 4) + (1 + 4)}),
+                 k: (4 * d, {int8: d + 4,
+                             topk: int(d * WIRE_TOP_K) * (1 + 4) + 4})}
+    runs, wires = [], {}
+    for name, (plan, local) in plans.items():
+        holder: dict = {}
+        res, s = fit_run(f"logreg int8 lut, {name}", wl, grid, X, y, steps,
+                         expected(fxp_matmul=FXP_STEP * local,
+                                  lut_activation=local), check,
+                         merge_plan=plan, merge_state=holder)
+        s["local_steps"] = local
+        s["accuracy"] = accuracy(res.state, X, y)
+        if plan.compression is not None:
+            w = wire_summary(holder, plan.compression)
+            exact, per_cfg = want_wire[plan.cadence]
+            w["expected"] = [exact, per_cfg.get(plan.compression)]
+            s["wire"] = wires[name] = w
+            if plan.compression in per_cfg:
+                require([w["exact_bytes"], w["bytes"]] == w["expected"],
+                        f"{s['run']}: wire {w}")
+        runs.append(s)
+        if not name.startswith(("default", "int8 no EF")):
+            acc = runs[list(plans).index(
+                f"default, cadence {plan.cadence}")]["accuracy"]
+            require(s["accuracy"] >= acc - PLAN_ACC_TOL,
+                    f"{s['run']}: accuracy {s['accuracy']} more than "
+                    f"{PLAN_ACC_TOL} below the default plan's {acc}")
+
+    program = wl.bind(grid, X, y)
+    ef8 = plans[f"int8 EF, cadence {k}"][0]
+
+    def fit(state, n, holder):
+        return program.grid.fit(init_state=state, local_fn=program.local_fn,
+                                update_fn=program.update_fn,
+                                data=program.data, steps=n, merge_plan=ef8,
+                                merge_state=holder)[0]
+
+    one = fit(program.state0, steps, None)
+    holder = {}
+    two = fit(fit(program.state0, steps // 2, holder), steps // 2, holder)
+    split = {"steps": [steps // 2, steps // 2], "plan": ef8.describe(),
+             "bit_equal": bool(torch.equal(one, two))}
+    require(split["bit_equal"], f"{ef8.describe()}: fit(24) + fit(24) with "
+            "one merge_state != fit(48)")
+    engines = []
+    for plan in (MergePlan(overlap=True, compression=int8),
+                 MergePlan(cadence=k, overlap=True, compression=int8)):
+        a = program.fit(steps=steps, engine="python", merge_plan=plan)
+        b = program.fit(steps=steps, engine="scan", merge_plan=plan)
+        equal = bool(torch.equal(a.state, b.state)) and all(
+            bool(torch.equal(m["loss"], n["loss"]))
+            for m, n in zip(a.history, b.history, strict=True))
+        engines.append({"plan": plan.describe(), "bit_equal": equal})
+        require(equal, f"{plan.describe()}: python != scan")
+    timed = {name: plan for name, (plan, _) in plans.items()
+             if not name.startswith("int8 no EF")}
+    rates = rates_in_turns(program, timed, steps, KM_RATE_FITS)
+    for s in runs:
+        name = s["run"].split(", ", 1)[1]
+        if name in rates:
+            s["steps_per_s"] = rates[name]
+    prof_plan = plans["int8 EF, cadence 1"][0]
+    program.fit(steps=2, merge_plan=prof_plan)
+    emit("profile", workload="logreg int8 EF, cadence 1", **profile_call(
+        lambda: program.fit(steps=5, merge_plan=prof_plan), dev, steps=5))
+    del X, y, program
+
+    X, _, _ = datasets.blobs(gen, args.rows, args.km_features,
+                             args.km_clusters)
+    km, iters = KMeans(k=args.km_clusters, precision="int16"), args.km_iters
+    _, ref_s = km_run("kmeans int16, default, cadence 1", km, grid, X, iters,
+                      check)
+    _, s = km_run("kmeans int16, overlap + int8 EF, cadence 1", km, grid, X,
+                  iters, check, launches=iters + 1, merge_plan=MergePlan(
+                      overlap=True, compression=int8))
+    require(s["sse_last"] <= KM_WIRE_SSE * ref_s["sse_last"] + 1e-3,
+            f"{s['run']}: last SSE {s['sse_last']} above {KM_WIRE_SSE} x "
+            f"the default's {ref_s['sse_last']} + 1e-3")
+    del X
+    emit("train_wire", card=card, lanes=args.lanes, rows=args.rows,
+         features=d, steps=steps, runs=runs, split_fits=split,
+         engines=engines, kmeans=[ref_s, s],
+         seconds=time.perf_counter() - t0)
 
 
 def predict(name, wl, state, requests, launches: dict,
@@ -1812,6 +1970,8 @@ def main(argv=None) -> int:
     train_more(args, dev, smi)
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     train_plans(args, dev, smi)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    train_wire(args, dev, smi)
 
     kernels = []
     for name, t in times.items():

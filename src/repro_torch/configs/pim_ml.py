@@ -14,9 +14,11 @@ class PimMLConfig:
     n_vdpus: int = 256
     # local update steps per host merge (1 = the paper's merge-per-step)
     merge_every: int = 8
-    # the merge pipeline: overlap and compressed (0 bits = exact) or top-k
-    # sparsified (0.0 = dense) merges; not ported yet (ROADMAP queue A,
-    # item 10b), so merge_plan() raises unless they keep these defaults
+    # the merge pipeline: the merge overlapped with the next round's
+    # compute (one round of staleness), float leaves quantized to
+    # merge_compression_bits with error feedback (0 = exact), and top-k
+    # sparsified merges keeping this fraction of each float leaf (0.0 =
+    # dense; values at merge_compression_bits, or raw at 0 bits)
     overlap_merge: bool = False
     merge_compression_bits: int = 0
     merge_top_k_frac: float = 0.0
@@ -52,14 +54,15 @@ class PimMLConfig:
     def merge_plan(self):
         """The config's merge fields as a
         ``distributed.merge_plan.MergePlan``."""
+        from repro_torch.distributed.compression import CompressionConfig
         from repro_torch.distributed.merge_plan import (
             AverageCommit, MergePlan, Nesterov, SlowMo, not_ported)
 
-        if self.overlap_merge:
-            raise NotImplementedError(not_ported("overlap_merge", "10b"))
+        compression = None
         if self.merge_compression_bits or self.merge_top_k_frac:
-            raise NotImplementedError(not_ported(
-                "merge_compression_bits / merge_top_k_frac", "10b"))
+            compression = CompressionConfig(
+                bits=self.merge_compression_bits or None,
+                top_k_frac=self.merge_top_k_frac or None)
         if self.merge_outer in ("adaptive", "auto"):
             raise NotImplementedError(not_ported(
                 f"merge_outer={self.merge_outer!r}", "16a"))
@@ -74,6 +77,7 @@ class PimMLConfig:
                 f"{sorted(outers) + ['adaptive', 'auto']}, got "
                 f"{self.merge_outer!r}")
         return MergePlan(cadence=self.merge_every,
+                         overlap=self.overlap_merge, compression=compression,
                          outer=outers[self.merge_outer])
 
 

@@ -28,9 +28,11 @@ so the state carries a step counter, ``(state, counter)``, and the
 caller gets the state back.  ``batch_size=None`` is the full-batch path.
 Stateful outer optimizers (SlowMo, Nesterov) are refused with
 ``batch_size``: their momentum would integrate the sampler's counter.
-Streaming sources, the overlapped and compressed merges, adaptive
-cadence and ``"auto"`` are not ported yet (ROADMAP queue A) and raise
-``NotImplementedError``.
+The overlapped and compressed merges compose with it: the float32
+counter crosses the wire like the state (quantized under compression,
+as in the JAX package) and is rounded where it is read.  Streaming
+sources, adaptive cadence and ``"auto"`` are not ported yet (ROADMAP
+queue A) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -259,7 +261,7 @@ def fit(workload: Workload, grid: PimGrid, X, y=None, *, steps: int,
     ``merge_plan.MergePlan`` (``None``: the exact default), e.g.
     ``MergePlan(cadence=8, outer=SlowMo())``; unsupported axes degrade
     with a ``MergeFallbackWarning``, and ``merge_state`` (a dict) carries
-    the outer momentum across fits.  ``batch_size``: rows sampled per
+    the error-feedback buffer and the outer momentum across fits.  ``batch_size``: rows sampled per
     vDPU per local step (None: full batch), on the schedule of
     ``sample_seed`` and, when given, ``sample_permutation(seed, epoch,
     rows_per_vdpu)`` (default: ``minibatch.hashed_permutation``); it

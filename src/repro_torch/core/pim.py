@@ -103,12 +103,14 @@ class PimGrid:
         one short round, and a round of one step is a merge-per-step
         step, as in the JAX engine.  ``scan_chunk`` counts rounds.
 
-        Every other plan (SlowMo or Nesterov outer momentum, a custom
-        ``OuterOptimizer``) is driven by ``distributed.merge_plan.run_fit``
-        (see that module's DESIGN notes).  When a ``merge_state`` dict is
-        passed, its outer-momentum buffer is read from it at entry
-        (``"momentum"``) and written back at exit, so it continues across
-        ``fit`` calls.
+        Every other plan (``overlap_merge``, ``merge_compression`` (a
+        ``distributed.compression.CompressionConfig``), SlowMo or Nesterov
+        outer momentum, a custom ``OuterOptimizer``) is driven by
+        ``distributed.merge_plan.run_fit`` (see that module's DESIGN
+        notes).  When a ``merge_state`` dict is passed, the error-feedback
+        buffer (``"error"``) and the outer momentum (``"momentum"``) are
+        read from it at entry and written back at exit, so they continue
+        across ``fit`` calls.
         """
         if engine not in ("python", "scan"):
             raise ValueError(f"unknown engine {engine!r}")

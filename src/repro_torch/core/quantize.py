@@ -1,9 +1,11 @@
 """Fixed-point / quantized arithmetic (the paper's insight I1).
 
-Port of ``repro.core.quantize``: dynamic symmetric quantization with
-per-tensor or per-axis scales, the int8-limb split of wider integers,
-and the overflow-safe hybrid-precision dot the mlalgos' quantized paths
-run.  Integer outputs equal the JAX package's bit for bit:
+Port of ``repro.core.quantize``: Qm.n fixed point (:class:`QFormat`),
+dynamic symmetric quantization with per-tensor or per-axis scales, the
+int8-limb split of wider integers, the overflow-safe hybrid-precision
+dot the mlalgos' quantized paths run, and the error-feedback and top-k
+helpers of the compressed merge (``distributed.compression``).  Integer
+outputs equal the JAX package's bit for bit:
 
 * the scale divides (``x / scale``), it is never a multiply by its
   reciprocal;
@@ -21,6 +23,74 @@ import torch
 
 _INT_DTYPES = {8: torch.int8, 16: torch.int16, 32: torch.int32,
                64: torch.int64}
+
+
+@dataclasses.dataclass(frozen=True)
+class QFormat:
+    """Qm.n fixed point stored in a ``total_bits`` signed integer:
+    ``value = stored_int * 2**-frac_bits``; ``int_bits`` excludes the
+    sign bit.  Casts saturate.  (The JAX package's stochastic rounding
+    draws from a JAX key and is not ported.)"""
+
+    int_bits: int
+    frac_bits: int
+
+    def __post_init__(self):
+        if self.total_bits not in _INT_DTYPES:
+            raise ValueError(f"unsupported total bits {self.total_bits}")
+
+    @property
+    def total_bits(self) -> int:
+        return 1 + self.int_bits + self.frac_bits
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _INT_DTYPES[self.total_bits]
+
+    @property
+    def scale(self) -> float:
+        return float(2 ** self.frac_bits)
+
+    @property
+    def max_value(self) -> float:
+        return (2 ** (self.total_bits - 1) - 1) / self.scale
+
+    @property
+    def min_value(self) -> float:
+        return -(2 ** (self.total_bits - 1)) / self.scale
+
+    def quantize(self, x) -> torch.Tensor:
+        """Float -> Qm.n integer, rounded half to even and saturated.
+        The clamp runs in float64, so a float32 value at or past 2^31
+        saturates as XLA's float-to-int conversion does."""
+        q = torch.round(torch.as_tensor(x, dtype=torch.float32) * self.scale)
+        return self._saturate(q.double())
+
+    def dequantize(self, q: torch.Tensor, dtype=torch.float32
+                   ) -> torch.Tensor:
+        return div_scalar(q.to(dtype), self.scale)
+
+    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self._saturate(a.to(torch.int32) + b.to(torch.int32))
+
+    def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Qm.n * Qm.n -> Qm.n through an int32 product (2n fractional
+        bits), shifted back down with rounding."""
+        wide = a.to(torch.int32) * b.to(torch.int32)
+        return self._saturate(_rounding_rshift(wide, self.frac_bits))
+
+    def _saturate(self, wide: torch.Tensor) -> torch.Tensor:
+        lo = -(2 ** (self.total_bits - 1))
+        hi = 2 ** (self.total_bits - 1) - 1
+        return torch.clamp(wide, lo, hi).to(self.dtype)
+
+
+def _rounding_rshift(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Arithmetic right shift rounding to nearest (half an ulp added
+    before the shift, as DPU fixed point does)."""
+    if bits == 0:
+        return x
+    return (x + (1 << (bits - 1))) >> bits
 
 
 def div_scalar(x: torch.Tensor, s: float) -> torch.Tensor:
@@ -66,6 +136,40 @@ def quantize_symmetric(x: torch.Tensor, bits: int = 8,
     q = torch.round(x / scale)
     dtype = _INT_DTYPES.get(bits, torch.int32)
     return Quantized(torch.clamp(q, -qmax - 1, qmax).to(dtype), scale)
+
+
+def ef_quantize(grad: torch.Tensor, error: torch.Tensor, bits: int = 8):
+    """Quantize ``grad + error``: returns ``(Quantized, new_error)`` with
+    ``new_error = target − dequantized`` (error feedback keeps compressed
+    SGD within O(1) of the exact iterates)."""
+    target = grad + error
+    q = quantize_symmetric(target, bits=bits)
+    return q, target - q.dequantize(grad.dtype)
+
+
+def quantize_dequantize(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """The quantization round trip, in ``x``'s dtype."""
+    return quantize_symmetric(x, bits=bits).dequantize(x.dtype)
+
+
+def topk_indices(x: torch.Tensor, frac: float) -> torch.Tensor:
+    """The flat indices of the ``max(1, floor(size*frac))`` largest-|.|
+    entries of ``x``, largest first and, among equal magnitudes, the
+    lower index first, as ``jax.lax.top_k`` orders them: the head of a
+    stable descending sort (``torch.topk`` promises no order among
+    ties)."""
+    flat = x.reshape(-1)
+    k = max(1, int(flat.numel() * frac))
+    return torch.sort(flat.abs(), descending=True, stable=True).indices[:k]
+
+
+def topk_keep(x: torch.Tensor, frac: float) -> torch.Tensor:
+    """Zero all but the entries :func:`topk_indices` picks: exactly k
+    survive whatever the ties.  Dropped entries are multiplied by 0, so
+    a negative one becomes −0.0, as in the JAX package."""
+    flat = x.reshape(-1)
+    mask = torch.zeros_like(flat).index_fill_(0, topk_indices(x, frac), 1)
+    return (flat * mask).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------

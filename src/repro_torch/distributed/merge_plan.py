@@ -15,11 +15,11 @@ the same plan (:meth:`MergePlan.resolve`).  The exact default plan (any
 cadence, the plain average) runs ``PimGrid.fit``'s own loop; every other
 plan runs :func:`run_fit`.
 
-Ported: the cadence and the outer optimizers.  ``overlap`` and
-``compression`` (ROADMAP queue A, item 10b), ``AdaptiveCadence`` and
-``"auto"`` (item 16a) construct, so that ``MergeCaps.constrain`` can
-degrade them for a workload that cannot honour them, and raise
-``NotImplementedError`` when a fit would run them.
+Ported: the cadence, overlap, compression and the outer optimizers.
+``AdaptiveCadence`` and ``"auto"`` (ROADMAP queue A, item 16a)
+construct, so that ``MergeCaps.constrain`` can degrade them for a
+workload that cannot honour them, and raise ``NotImplementedError``
+when a fit would run them.
 
 DESIGN — outer optimizers (the merge-boundary commit)
 -----------------------------------------------------
@@ -38,12 +38,45 @@ The ``OuterOptimizer`` decides how that delta commits:
   state − α·(g + β·m)`` with ``g = −delta``.
 
 The momentum buffer (an ``optim.OptState``, whose step counts commits)
-rides in the round's carry ``(state, ef, mom)`` (``ef`` is the error
-feedback of item 10b, ``None`` until then) and continues across ``fit``
-calls through ``merge_state["momentum"]``.  A round is three pieces
+rides in the round's carry and continues across ``fit`` calls through
+``merge_state["momentum"]``.  A round is three pieces
 (:func:`pipeline_fns`): ``compute_fn`` (the lanes' local work),
-``merge_fn`` (the lane sum) and ``commit_fn(state, merged, mom) ->
-(state', mom', metrics)``.
+``merge_fn`` (the lane sum, compressed or not) and ``commit_fn(state,
+merged, mom) -> (state', mom', metrics)``.
+
+DESIGN — the overlapped and compressed merge
+--------------------------------------------
+
+Cadence amortises the merge, overlap hides it, compression shrinks it
+(the paper's I5 and I1).
+
+* ``overlap=True`` — the round carries a second buffer, the previous
+  round's un-reduced partials (``overlap.double_buffered_body``): a
+  round merges round *i*'s pending buffer and computes round *i+1*'s
+  partials from the state, which do not depend on each other.  The
+  price is one round of staleness.  A prologue (one real, uncommitted
+  phase) primes the pending buffer.  At cadence 1 the first update is
+  exact and the last fresh partials are dropped; at cadence k the
+  commit is a delayed delta, ``anchor += avg(lanes) − start`` through
+  the outer optimizer (a replacement commit would split the run into
+  two half-rate chains), and a drain commits the last pending phase.
+  A trailing ``steps % k`` round runs after the drain, not overlapped.
+  Here the merge and the compute run in order on one stream.
+* ``compression=CompressionConfig(...)`` — the lane-summed tree crosses
+  the emulated host hop through ``compression.ef_compress_tree``: float
+  leaves quantized with error feedback, top-k sparsified when asked,
+  integer leaves exact.  On the state wire top-k carries per-lane
+  ``end − start`` (the delta wire), since a state's large entries are
+  its large weights.  The error buffer has the JAX package's leading
+  hop axis, ``(1, ...)`` a leaf, so a JAX ``merge_state["error"]``
+  carries over (``interop.error_from_numpy``); the port sizes it at the
+  first merge from the lane-summed tree (the partials at cadence 1, the
+  state at cadence k), where JAX sizes it with ``jax.eval_shape``.  It
+  continues across fits through ``merge_state["error"]``.
+
+Carries: ``(state, ef, mom)``, and ``(state, pending, ef, mom)`` under
+overlap; ``mom`` is ``()`` for plain commits, ``ef`` ``None`` without
+compression.
 
 Example — a SlowMo plan at cadence 4 converges on the problem the default
 plan solves:
@@ -76,6 +109,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.distributed import compression as comp
+from repro_torch.distributed.overlap import double_buffered_body
 from repro_torch.optim.optimizers import nesterov, slow_momentum
 from repro_torch.tree import tree_map
 
@@ -95,7 +130,7 @@ def warn_fallback(algo: str, knobs: str, reason: str) -> None:
 
 
 def not_ported(what: str, item: str) -> str:
-    topic = {"10b": "EF compression and the overlapped merge",
+    topic = {"11": "collectives and the mesh",
              "16a": "AdaptiveCadence and 'auto'"}[item]
     return (f"{what} is not ported to repro_torch yet (ROADMAP queue A, "
             f"item {item}: {topic})")
@@ -223,7 +258,7 @@ class MergePlan:
 
     cadence: int = 1
     overlap: bool = False
-    compression: Optional[Any] = None
+    compression: Optional[comp.CompressionConfig] = None
     outer: OuterOptimizer = AverageCommit()
 
     def __post_init__(self):
@@ -297,13 +332,8 @@ class MergePlan:
         return "MergePlan(" + ", ".join(parts) + ")"
 
     def require_ported(self) -> None:
-        """Raise ``NotImplementedError`` naming the ROADMAP item of each
+        """Raise ``NotImplementedError`` naming the ROADMAP item of an
         axis the port does not run yet."""
-        if self.overlap:
-            raise NotImplementedError(not_ported("overlap=True", "10b"))
-        if self.compression is not None:
-            raise NotImplementedError(not_ported(
-                f"compression={self.compression!r}", "10b"))
         if self.adaptive:
             raise NotImplementedError(not_ported(
                 f"outer={self.outer!r}", "16a"))
@@ -358,32 +388,71 @@ def cadence_round(grid, local_fn: Callable, update_fn: Callable, k: int,
              for m in per_step])
 
 
+# -- the wire and the round pieces ---------------------------------------
+
+
+def hop_size(grid) -> int:
+    """Participants on the compressible slow hop: 1 without a mesh.  The
+    error buffer carries one slice a participant on its leading axis."""
+    return 1
+
+
+def init_merge_error(grid, wire: Any) -> Any:
+    """A zero error buffer for a wire tree (tensors whose shapes and
+    dtypes cross the hop): ``(hop_size, ...)`` a leaf, in the leaf's
+    dtype, as the JAX package lays it out."""
+    hop = hop_size(grid)
+    return tree_map(lambda x: torch.zeros((hop,) + tuple(x.shape),
+                                          dtype=x.dtype, device=x.device),
+                    wire)
+
+
+def merge_pending(grid, pending: Any, ef: Any, compression,
+                  scale: float | None):
+    """Reduce a per-lane tree: the lane sum (``scale`` folded in), then,
+    with ``compression``, the emulated host hop
+    (``compression.ef_compress_tree`` on the buffer's one hop slice).
+    ``ef`` of ``None`` is sized here from the lane-summed tree.  Returns
+    ``(merged, ef')``."""
+    part = lane_sum(pending, scale=scale)
+    if compression is None:
+        return part, ef
+    if ef is None:
+        ef = init_merge_error(grid, part)
+    merged, new = comp.ef_compress_tree(
+        part, tree_map(lambda e: e[0], ef), compression)
+    return merged, tree_map(lambda e: e[None], new)
+
+
 def pipeline_fns(grid, local_fn: Callable, update_fn: Callable, *,
-                 merge_every: int, state_wire: bool,
+                 merge_every: int, compression, state_wire: bool,
                  outer: OuterOptimizer):
     """The pieces :func:`run_fit` assembles a round from:
-    ``(merge_fn, compute_fn, commit_fn)``.
+    ``(merge_fn, compute_fn, commit_fn, prologue)``.
 
     * partials wire (cadence 1, ``state_wire=False``): ``compute_fn`` is
-      the lanes' ``local_fn``, ``merge_fn`` their sum, and the commit
-      applies ``update_fn`` (metrics come from the merged partials) and
-      threads the proposed delta through ``outer``.
+      the lanes' ``local_fn``, ``merge_fn`` their (compressed) sum, and
+      the commit applies ``update_fn`` (metrics come from the merged
+      partials) and threads the proposed delta through ``outer``.
     * state wire (cadence k, and a cadence-k plan's trailing round of
       any length): ``compute_fn`` runs a ``merge_every``-step
       :func:`local_phase` and averages each step's metrics over the
-      lanes; the wire carries ``(lane end states, phase start)``, the
-      merge averages the end states, and the commit folds ``avg −
-      start`` into the anchor through ``outer``.
+      lanes exactly; the wire carries ``(lane end states, phase start)``,
+      the merge averages the end states (on the delta wire under top-k:
+      ``start + avg(end − start)``), and the commit folds ``avg −
+      start`` into the anchor through ``outer``, the delayed-delta commit
+      the overlap needs.
 
-    ``merge_fn(pending, ef) -> (merged, ef)`` and ``commit_fn(state,
-    merged, mom) -> (state', mom', metrics)``.
+    ``merge_fn(pending, ef) -> (merged, ef)``, ``commit_fn(state, merged,
+    mom) -> (state', mom', metrics)``, and ``prologue(state, data)`` the
+    overlap's first, uncommitted compute.
     """
     if not state_wire:
         def compute_fn(state, data):
             return local_fn(state, data), None
 
         def merge_fn(pending, ef):
-            return lane_sum(pending), ef
+            return merge_pending(grid, pending, ef, compression, None)
 
         def commit_fn(state, merged, mom):
             proposed, metrics = update_fn(state, merged)
@@ -393,7 +462,7 @@ def pipeline_fns(grid, local_fn: Callable, update_fn: Callable, *,
             new, mom = outer.commit(state, delta, mom)
             return new, mom, metrics
 
-        return merge_fn, compute_fn, commit_fn
+        return merge_fn, compute_fn, commit_fn, compute_fn
 
     inv = 1.0 / float(grid.n_vdpus)
 
@@ -402,9 +471,20 @@ def pipeline_fns(grid, local_fn: Callable, update_fn: Callable, *,
                                       merge_every, state, data)
         return (lanes, state), [lane_sum(m, scale=inv) for m in per_step]
 
+    # top-k of a state zeroes most of the model every merge; a local
+    # phase's delta is what sparsified local SGD sends.  The error buffer
+    # stays state-shaped (deltas are congruent with states).
+    delta_wire = (compression is not None
+                  and compression.top_k_frac is not None)
+
     def merge_fn(pending, ef):
         lanes, start = pending
-        return (lane_sum(lanes, scale=inv), start), ef
+        if delta_wire:
+            lanes = tree_map(torch.sub, lanes, start)
+        avg, ef = merge_pending(grid, lanes, ef, compression, inv)
+        if delta_wire:
+            avg = tree_map(torch.add, start, avg)
+        return (avg, start), ef
 
     def commit_fn(state, merged, mom):
         avg, start = merged
@@ -415,7 +495,7 @@ def pipeline_fns(grid, local_fn: Callable, update_fn: Callable, *,
         new, mom = outer.commit(state, delta, mom)
         return new, mom, None
 
-    return merge_fn, compute_fn, commit_fn
+    return merge_fn, compute_fn, commit_fn, compute_fn
 
 
 def run_rounds(steps: int, k: int, round_fn: Callable, state, *,
@@ -461,40 +541,86 @@ def run_fit(grid, plan: MergePlan, *, init_state, local_fn: Callable,
             merge_state: Optional[dict]):
     """``PimGrid.fit``'s loop for every plan that is not the exact
     default.  Returns ``(state, history)`` with one entry per local step;
-    reads ``merge_state["momentum"]`` at entry and writes it at exit.
+    reads ``merge_state["error"]`` and ``["momentum"]`` at entry and
+    writes them at exit.
 
     A cadence-k plan's trailing round runs on the state wire through the
-    outer optimizer whatever its length, one step included, as in the
-    JAX package (the default plan runs a one-step round as a
-    merge-per-step step).
+    outer optimizer whatever its length, one step included, and after
+    the overlap's drain, as in the JAX package (the default plan runs a
+    one-step round as a merge-per-step step).  Under overlap the
+    prologue adds one phase of local steps (``cadence`` of them) whose
+    metrics are not reported.
     """
     plan.require_ported()
-    outer = plan.outer
+    outer, compression, k = plan.outer, plan.compression, plan.cadence
+    state_wire = k > 1
+    held = merge_state or {}
+    ef = held.get("error") if compression is not None else None
     mom: Any = ()
     if not outer.plain_commit:
-        mom = merge_state.get("momentum") if merge_state else None
+        mom = held.get("momentum")
         if mom is None:
             mom = outer.init(init_state)
-    ef = None
     pieces: dict = {}
 
-    def round_fn(state, kk):
-        nonlocal ef, mom
+    def fns(kk):
         if kk not in pieces:
             pieces[kk] = pipeline_fns(grid, local_fn, update_fn,
                                       merge_every=kk,
-                                      state_wire=plan.cadence > 1,
-                                      outer=outer)
-        merge_fn, compute_fn, commit_fn = pieces[kk]
+                                      compression=compression,
+                                      state_wire=state_wire, outer=outer)
+        return pieces[kk]
+
+    def plain_round(state, ef, mom, kk):
+        merge_fn, compute_fn, commit_fn, _ = fns(kk)
         fresh, compute_metrics = compute_fn(state, data)
         merged, ef = merge_fn(fresh, ef)
         state, mom, commit_metrics = commit_fn(state, merged, mom)
-        return state, (compute_metrics if compute_metrics is not None
-                       else [commit_metrics])
+        return (state, ef, mom), (compute_metrics if state_wire
+                                  else [commit_metrics])
 
-    state, history = run_rounds(steps, plan.cadence, round_fn, init_state,
-                                engine=engine, scan_chunk=scan_chunk,
-                                callback=callback)
-    if merge_state is not None and not outer.plain_commit:
-        merge_state["momentum"] = mom
+    def drain(carry):
+        """Commit the last pending phase (cadence k); at cadence 1 the
+        last fresh partials are dropped."""
+        state, pending, ef, mom = carry
+        if state_wire and pending is not None:
+            merge_fn, _, commit_fn, _ = fns(k)
+            merged, ef = merge_fn(pending, ef)
+            state, mom, _ = commit_fn(state, merged, mom)
+        return state, ef, mom
+
+    if plan.overlap:
+        merge_fn, compute_fn, commit_fn, prologue = fns(k)
+        body = double_buffered_body(merge_fn,
+                                    lambda st: compute_fn(st, data),
+                                    commit_fn)
+
+        def round_fn(carry, kk):
+            if kk == k:
+                carry, metrics = body(carry)
+                return carry, (metrics if state_wire else [metrics])
+            carry, metrics = plain_round(*drain(carry), kk)
+            return (carry[0], None) + carry[1:], metrics
+
+        pending = prologue(init_state, data)[0] if steps >= k else None
+        carry = (init_state, pending, ef, mom)
+    else:
+        def round_fn(carry, kk):
+            return plain_round(*carry, kk)
+
+        carry = (init_state, ef, mom)
+
+    cb = None
+    if callback is not None:
+        def cb(step, carry, metrics):
+            return callback(step, carry[0], metrics)
+
+    carry, history = run_rounds(steps, k, round_fn, carry, engine=engine,
+                                scan_chunk=scan_chunk, callback=cb)
+    state, ef, mom = drain(carry) if plan.overlap else carry
+    if merge_state is not None:
+        if ef is not None:
+            merge_state["error"] = ef
+        if not outer.plain_commit:
+            merge_state["momentum"] = mom
     return state, history

@@ -6,10 +6,11 @@ arrays (``np.asarray(jax_array)``), and returns the port's tensors on
 predicts in the port (``Workload.predict``; K-means centroids cross as a
 state, a tree with :func:`dtree_from_numpy`), a JAX state resumes
 training in the port (``PimGrid.fit(init_state=...)``) and, under an
-outer optimizer, with its momentum (:func:`momentum_from_numpy` into
-``merge_state``), a JAX resident placement feeds the port's step
-functions, and a JAX LM's parameters serve in the port
-(:func:`lm_params_from_numpy`).
+outer optimizer or a compressed merge, with its momentum
+(:func:`momentum_from_numpy`) and error-feedback buffer
+(:func:`error_from_numpy`) in ``merge_state``, a JAX resident
+placement feeds the port's step functions, and a JAX LM's parameters
+serve in the port (:func:`lm_params_from_numpy`).
 """
 
 from __future__ import annotations
@@ -104,6 +105,16 @@ def momentum_from_numpy(mom, device=None) -> OptState:
     return OptState(
         torch.tensor(np.asarray(step, dtype=np.int32), device=dev),
         tree_map(lambda a: tensor_from_numpy(a, dev), inner))
+
+
+def error_from_numpy(error, device=None):
+    """A JAX fit's ``merge_state["error"]``, a tree (dict or tuple) of
+    numpy arrays with the leading hop axis (``(1, ...)`` a leaf without a
+    mesh), as the port's tree of tensors, dtypes and bits kept.  Put it
+    in the ``merge_state`` of the fit that resumes the JAX fit's state
+    under the same compression."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: tensor_from_numpy(a, dev), error)
 
 
 def _tree_from_numpy(tree, dev, index=None):

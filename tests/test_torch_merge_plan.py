@@ -26,6 +26,7 @@ from repro.core import make_cpu_grid as jax_grid  # noqa: E402
 from repro.core.mlalgos import KMeans as JKMeans  # noqa: E402
 from repro.core.mlalgos import LinReg as JLinReg  # noqa: E402
 from repro.core.mlalgos import LogReg as JLogReg  # noqa: E402
+from repro.configs.pim_ml import PimMLConfig as JPimMLConfig  # noqa: E402
 from repro.core.mlalgos import api as japi  # noqa: E402
 from repro.distributed import merge_plan as jmp  # noqa: E402
 from repro.kernels import dispatch as jdispatch  # noqa: E402
@@ -401,10 +402,6 @@ def test_mixed_spellings_raise():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"overlap_merge": True}, "10b"),
-    ({"merge_compression": object()}, "10b"),
-    ({"merge_plan": MergePlan(cadence=4, overlap=True, outer=SlowMo())},
-     "10b"),
     ({"merge_plan": "auto"}, "16a"),
     ({"merge_plan": MergePlan(outer=AdaptiveCadence())}, "16a"),
 ])
@@ -412,6 +409,24 @@ def test_unported_plans_name_their_item(kw, item):
     X, y = regression(8, 100, 4)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         api.fit(LinReg(), make_cpu_grid(4), X, y, steps=2, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"overlap_merge": True},
+    {"merge_compression": object()},
+    {"merge_plan": MergePlan(cadence=4, overlap=True, outer=SlowMo())},
+])
+def test_plans_of_item_10b_train(kw):
+    """The plans that raised until item 10b was ported now train.  A
+    compression that is not a ``CompressionConfig`` fails at its first
+    attribute, as in the JAX package, which does not check the type."""
+    X, y = regression(8, 100, 4)
+    if kw.get("merge_compression") is not None:
+        with pytest.raises(AttributeError, match="top_k_frac"):
+            api.fit(LinReg(), make_cpu_grid(4), X, y, steps=2, **kw)
+        return
+    res = api.fit(LinReg(), make_cpu_grid(4), X, y, steps=6, **kw)
+    assert len(res.history) == 6 and bool(torch.isfinite(res.state).all())
 
 
 def test_plan_validation():
@@ -486,12 +501,23 @@ def test_config_builds_the_merge_plan():
     with pytest.raises(ValueError, match="merge_outer"):
         PimMLConfig(merge_outer="slow_mo").merge_plan()
     for cfg, item in ((PimMLConfig(merge_outer="auto"), "16a"),
-                      (PimMLConfig(merge_outer="adaptive"), "16a"),
-                      (PimMLConfig(merge_compression_bits=8), "10b"),
-                      (PimMLConfig(merge_top_k_frac=0.25), "10b"),
-                      (PimMLConfig(overlap_merge=True), "10b")):
+                      (PimMLConfig(merge_outer="adaptive"), "16a")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             cfg.merge_plan()
+    # the merge pipeline's fields build the plan the JAX config builds
+    X, y = regression(8, 100, 4)
+    for kw in ({"merge_compression_bits": 8}, {"merge_top_k_frac": 0.25},
+               {"overlap_merge": True},
+               {"merge_compression_bits": 4, "merge_top_k_frac": 0.5,
+                "overlap_merge": True, "merge_outer": "slowmo"}):
+        plan = PimMLConfig(**kw).merge_plan()
+        theirs = JPimMLConfig(**kw).merge_plan()
+        assert plan.describe() == theirs.describe()
+        assert plan.overlap == theirs.overlap == kw.get("overlap_merge",
+                                                        False)
+        res = api.fit(LinReg(), make_cpu_grid(4), X, y, steps=9,
+                      merge_plan=plan)
+        assert len(res.history) == 9
 
 
 def test_doc_examples():

@@ -310,12 +310,17 @@ def test_jax_values_carried_across_bit_exact():
 
 
 def test_unported_options_raise():
+    """``"auto"`` is not ported (ROADMAP item 16a); the overlapped merge
+    trains, and a compression that is not a ``CompressionConfig`` fails
+    at its first attribute, as in the JAX package."""
     _, pw, X, y = _pair("linreg-fp32")
     grid = make_cpu_grid(LANES)
-    for kw in ({"overlap_merge": True},
-               {"merge_compression": object()}, {"merge_plan": "auto"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.fit(pw, grid, X, y, steps=2, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.fit(pw, grid, X, y, steps=2, merge_plan="auto")
+    assert len(api.fit(pw, grid, X, y, steps=2,
+                       overlap_merge=True).history) == 2
+    with pytest.raises(AttributeError, match="top_k_frac"):
+        api.fit(pw, grid, X, y, steps=2, merge_compression=object())
     with pytest.raises(ValueError):
         MergePlan(cadence=0)
     with pytest.raises(ValueError):
