@@ -86,7 +86,20 @@ Phases, each printed as one JSON line:
                 profile of int8 EF at cadence 1; KMeans(int16) under
                 overlap + int8 EF at cadence 1 (its last SSE at most 1.2 x
                 the default's + 1e-3);
- 10. the ``kernels`` line (fxp_matmul's entry also times the
+ 10. train_auto — the main path (as train_plans) under the plan
+                controller: "auto" at 48 steps (the prior keeps the exact
+                wire), AutoTune() at its 96 min_steps_to_explore (every
+                candidate probed) and AdaptiveCadence(k_max=8) at 48 (the
+                cadence trace replayed through a fresh PlanController),
+                each with its launches as its trace implies (the cost
+                model's counted round is one more local step), accuracy
+                within 0.01 of the default plan's fit of as many steps
+                and every measured round at or above its prior (the H100
+                roofline of the counted round), printed per candidate;
+                steps/s of auto and AdaptiveCadence in turns with the
+                default at cadence 1 and 8; a second auto fit of one
+                program counts no round;
+ 11. the ``kernels`` line (fxp_matmul's entry also times the
      multinomial's two dots at C = 4 and 10, with their byte bound), the
      nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -127,8 +140,8 @@ from repro_torch.core.mlalgos.dtree import (bin_dtype,  # noqa: E402
                                             bin_features)
 from repro_torch.distributed.compression import (  # noqa: E402
     CompressionConfig, wire_bytes)
-from repro_torch.distributed.merge_plan import (MergePlan,  # noqa: E402
-                                                Nesterov, SlowMo)
+from repro_torch.distributed.merge_plan import (  # noqa: E402
+    AdaptiveCadence, MergePlan, Nesterov, SlowMo)
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
 from repro_torch.kernels import split_hist as split_hist_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
@@ -141,7 +154,9 @@ from repro_torch.kernels.split_hist import split_hist  # noqa: E402
 from repro_torch.launch.serve_lm import generate  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models.transformer import padded_vocab  # noqa: E402
+from repro_torch.roofline import hw  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.tuning import AutoTune, PlanController  # noqa: E402
 
 # PimMLConfig's workloads at a size the card holds for real (its reg_rows,
 # km_rows and dt_rows were cut to fit the JAX package's CPU container):
@@ -182,12 +197,12 @@ KM_WIRE_SSE = 1.2
 # summation order, so each may differ by 1e-5 of its mass (Σ w·|x| of the
 # cell; |sse| + 1 for the sse)
 KM_REL_TOL = 1e-5
-# NVIDIA H100 SXM data sheet (dense): HBM3 rate, int8 tensor-core rate,
-# float32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+# train_auto: the plan controller on the main path.  "auto" at 48 steps
+# (short: the prior picks, the exact wire by the prior margin), AutoTune()
+# at its min_steps_to_explore (96: it probes every candidate), and
+# AdaptiveCadence up to cadence 8; accuracy within PLAN_ACC_TOL of the
+# default plan's fit of as many steps
+AUTO_ADAPTIVE_K_MAX = 8
 # the serving path: qwen2-0.5b at its published widths and depth
 LM_ARCH = "qwen2-0.5b"
 LM_BATCH, LM_SEQ = 4, 4096            # prefill: 4 x 4096 tokens
@@ -356,7 +371,9 @@ def nbytes(*ts) -> int:
 
 
 def bound(n_bytes: int, n_ops: int, ops_per_s: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+    """The least time (ms) for ``n_bytes`` and ``n_ops`` at the card's
+    data-sheet rates (``roofline.hw``), and which of the two bounds it."""
+    t_bytes, t_ops = n_bytes / hw.HBM_BW, n_ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -554,7 +571,7 @@ def time_fxp(a, b, dev, iters: int, single: bool = False) -> dict:
     if single:
         p["single_call_ms"] = single_call_ms(run, dev, iters)
     p["bound_ms"], p["bound_by"] = bound(p["bytes"], p["ops"],
-                                         INT8_OPS_PER_S)
+                                         hw.PEAK_OPS_INT8)
     return p
 
 
@@ -569,7 +586,7 @@ def time_dots(parts: dict, dev, iters: int, single: bool = False) -> dict:
     keys = ["ms", "plain_ms", "bytes", "ops"] + ["single_call_ms"] * single
     total = {k: sum(p[k] for p in out.values()) for k in keys}
     total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["ops"],
-                                                 INT8_OPS_PER_S)
+                                                 hw.PEAK_OPS_INT8)
     total["max_abs_err"] = max(p["max_abs_err"] for p in out.values())
     total["parts"] = out
     return total
@@ -614,7 +631,7 @@ def time_kernels(gen, lanes: int, rows: int, d: int, iters: int) -> dict:
            "ops": 4 * z.numel(),            # subtract, divide, round, clamp
            "max_abs_err": lut_err}
     lut["bound_ms"], lut["bound_by"] = bound(lut["bytes"], lut["ops"],
-                                             FP32_OPS_PER_S)
+                                             hw.PEAK_FLOPS_FP32)
     return {"fxp_matmul": fxp, "lut_activation": lut}
 
 
@@ -811,7 +828,7 @@ def time_km(gen, lanes: int, rows: int, d: int, k: int, iters: int) -> dict:
          "sse_max_abs_err": check["sse_max_abs_err"],
          "library_ms": None}
     t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
-                                         FP32_OPS_PER_S)
+                                         hw.PEAK_FLOPS_FP32)
     return t
 
 
@@ -863,12 +880,12 @@ def time_sh(gen, lanes: int, rows: int, F: int, depth: int, bins: int,
          for key in ("ms", "single_call_ms", "plain_ms", "library_ms",
                      "bytes", "ops", "max_abs_err")}
     t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
-                                         FP32_OPS_PER_S)
+                                         hw.PEAK_FLOPS_FP32)
     t["parts"] = parts
     t32 = {key: sum(p[key] for p in wide.values())
            for key in ("ms", "single_call_ms", "bytes", "ops")}
     t32["bound_ms"], t32["bound_by"] = bound(t32["bytes"], t32["ops"],
-                                             FP32_OPS_PER_S)
+                                             hw.PEAK_FLOPS_FP32)
     t32["parts"] = {k: p["ms"] for k, p in wide.items()}
     t["int32_bins"] = t32
     return t
@@ -1579,6 +1596,175 @@ def train_wire(args, dev, card: str) -> None:
          seconds=time.perf_counter() - t0)
 
 
+def trace_local_steps(trace: dict) -> int:
+    """Local steps a controlled fit ran, from its decisions: each
+    dispatch's rounds times its cadence, and for an overlap dispatch one
+    more phase (its prologue) of cadence steps."""
+    return sum(d["rounds_in_dispatch"] * d["cadence"]
+               + d["cadence"] * d["overlap"] for d in trace["decisions"])
+
+
+def prior_against_measured(trace: dict, name: str) -> dict:
+    """Per candidate, the prior's us/step (the H100 roofline of the
+    counted round) against the best measured one, and their ratio; fails
+    unless every non-warmup decision measured at least its prior (a
+    roofline is a lower bound, so a prior above a measured time means the
+    count is wrong)."""
+    for d in trace["decisions"]:
+        if not d["warmup"] and d["predicted_us_per_step"] is not None:
+            require(d["us_per_step"] >= d["predicted_us_per_step"],
+                    f"{name}: round {d['round']} ({d['compression']}, "
+                    f"cadence {d['cadence']}) measured {d['us_per_step']} "
+                    f"us/step, below its prior "
+                    f"{d['predicted_us_per_step']}")
+    prior, measured = trace["prior_us_per_step"], \
+        trace["measured_us_per_step"]
+    return {tag: {"prior_us_per_step": prior.get(tag),
+                  "measured_us_per_step": measured.get(tag),
+                  "prior_over_measured":
+                      prior[tag] / measured[tag]
+                      if tag in prior and tag in measured else None}
+            for tag in trace["choices"]}
+
+
+def controlled_run(name, wl, grid, X, y, steps, plan, check,
+                   counted_round: bool) -> tuple:
+    """A controlled fit through :func:`counted_fit`: its launches against
+    what its trace implies (2 ``fxp_matmul`` and 1 ``lut_activation`` a
+    local step, and one more local step when the cost model counts its
+    round), its accuracy, and its decisions.  Returns (result, summary,
+    merge_state)."""
+    holder: dict = {}
+    res, seen, stats = counted_fit(wl, grid, X, y, steps, merge_plan=plan,
+                                   merge_state=holder)
+    trace = holder["tuning_trace"]
+    local = trace_local_steps(trace) + int(counted_round)
+    expect = expected(fxp_matmul=FXP_STEP * local, lut_activation=local)
+    require(len(res.history) == steps, f"{name}: {len(res.history)} "
+            "history entries")
+    require(trace["decisions"][-1]["steps_done"] == steps,
+            f"{name}: the last decision is not at step {steps}")
+    if check:
+        require(seen == expect, f"{name}: launches {seen}, the trace "
+                f"implies {expect}")
+    summary = {"run": name, "steps": steps, "launches": seen,
+               "expected_launches": expect, "local_steps": local, **stats,
+               "accuracy": accuracy(res.state, X, y),
+               "chosen": trace["chosen"],
+               "cadence_trace": holder["cadence_trace"],
+               "decisions": [{k: d[k] for k in (
+                   "cadence", "rounds_in_dispatch", "compression",
+                   "warmup", "us_per_step", "predicted_us_per_step")}
+                   for d in trace["decisions"]]}
+    return res, summary, holder
+
+
+def train_auto(args, dev, card: str) -> None:
+    """The main path under the plan controller at its full size: (a)
+    ``merge_plan="auto"`` for 48 steps, which trusts the prior and keeps
+    the exact wire; (b) ``AutoTune()`` for its ``min_steps_to_explore``
+    steps, which probes every candidate and exploits the measured winner;
+    (c) ``AdaptiveCadence(k_max=8)`` for 48 steps, whose cadence trace
+    replays through a fresh controller; each with its launches as its
+    trace implies (the counted round adds one local step the first time
+    a program's functions meet the cost model), its accuracy against the
+    default plan's fit of as many steps, and every measured round at or
+    above its prior; (d) steps/s of (a) and (c) in turns with the default
+    plan at cadence 1 and 8, and a second auto fit of one program, which
+    counts no round."""
+    grid = make_grid(args.lanes, device=dev)
+    check = not args.rehearse
+    steps, k = PLAN_STEPS, args.cadence
+    explore_steps = AutoTune().min_steps_to_explore
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 100)
+    X, y, _ = datasets.binary_classification(gen, args.rows, args.features)
+    wl = LogReg(lr=0.5, precision="int8", sigmoid="lut")
+    runs, base = [], {}
+    for n in (steps, explore_steps):
+        res, s = fit_run(f"logreg int8 lut, default, cadence 1, {n} steps",
+                         wl, grid, X, y, n,
+                         expected(fxp_matmul=FXP_STEP * n,
+                                  lut_activation=n), check)
+        s["accuracy"] = base[n] = accuracy(res.state, X, y)
+        runs.append(s)
+
+    def near_default(s, n):
+        require(abs(s["accuracy"] - base[n]) <= PLAN_ACC_TOL,
+                f"{s['run']}: accuracy {s['accuracy']} not within "
+                f"{PLAN_ACC_TOL} of the default plan's {base[n]}")
+
+    # (a) the short auto fit: no exploration, the exact wire throughout
+    _, s, holder = controlled_run("logreg int8 lut, auto", wl, grid, X, y,
+                                  steps, "auto", check, True)
+    trace = holder["tuning_trace"]
+    require(trace["chosen"]["compression"] == "exact"
+            and all(d["compression"] == "exact"
+                    for d in trace["decisions"]),
+            f"{s['run']}: left the exact wire: {trace['chosen']}")
+    s["prior"] = prior_against_measured(trace, s["run"])
+    near_default(s, steps)
+    runs.append(s)
+
+    # (b) the exploring fit: every candidate probed, then the winner
+    _, s, holder = controlled_run("logreg int8 lut, AutoTune()", wl, grid,
+                                  X, y, explore_steps,
+                                  MergePlan(outer=AutoTune()), check, True)
+    trace = holder["tuning_trace"]
+    require(set(trace["measured_us_per_step"]) == set(trace["choices"]),
+            f"{s['run']}: measured {sorted(trace['measured_us_per_step'])}"
+            f" of {trace['choices']}")
+    s["prior"] = prior_against_measured(trace, s["run"])
+    s["cost_table_rows"] = len(trace["cost_table"])
+    near_default(s, explore_steps)
+    runs.append(s)
+
+    # (c) the cadence controller, replayed offline
+    plan_c = MergePlan(outer=AdaptiveCadence(k_max=AUTO_ADAPTIVE_K_MAX))
+    _, s, holder = controlled_run(
+        f"logreg int8 lut, AdaptiveCadence(k_max={AUTO_ADAPTIVE_K_MAX})",
+        wl, grid, X, y, steps, plan_c, check, False)
+    cadences = holder["cadence_trace"]
+    preset = plan_c.outer
+    replay = PlanController(k0=1, k_max=preset.k_max, growth=preset.growth,
+                            stable_ratio=preset.stable_ratio,
+                            patience=preset.patience)
+    for d in holder["tuning_trace"]["decisions"]:
+        replay.observe(d["delta_norm"])
+    require(all(b >= a for a, b in zip(cadences, cadences[1:])),
+            f"{s['run']}: cadence trace {cadences} falls")
+    require(replay.cadence_trace == cadences,
+            f"{s['run']}: replay {replay.cadence_trace} != {cadences}")
+    require(holder["tuning_trace"]["choices"] == ["exact"],
+            f"{s['run']}: choices {holder['tuning_trace']['choices']}")
+    near_default(s, steps)
+    runs.append(s)
+
+    # (d) steps/s in turns, then a second auto fit of one program
+    program = wl.bind(grid, X, y)
+    timed = {"default, cadence 1": MergePlan(),
+             f"default, cadence {k}": MergePlan(cadence=k), "auto": "auto",
+             f"AdaptiveCadence(k_max={AUTO_ADAPTIVE_K_MAX})": plan_c}
+    rates = rates_in_turns(program, timed, steps, KM_RATE_FITS)
+    sync(dev)
+    reset_counts()
+    again = program.fit(steps=steps, merge_plan="auto")
+    sync(dev)
+    cached = {"launches": counts(), "expected_launches": expected(
+        fxp_matmul=FXP_STEP * steps, lut_activation=steps),
+        "history": len(again.history)}
+    if check:
+        require(cached["launches"] == cached["expected_launches"],
+                f"a second auto fit of one program: launches "
+                f"{cached['launches']}, expected "
+                f"{cached['expected_launches']} (no counted round)")
+    del X, y, program
+    emit("train_auto", card=card, lanes=args.lanes, rows=args.rows,
+         features=args.features, steps=steps, explore_steps=explore_steps,
+         runs=runs, steps_per_s=rates, cached_second_fit=cached,
+         seconds=time.perf_counter() - t0)
+
+
 def predict(name, wl, state, requests, launches: dict,
             check_counts: bool) -> None:
     """Requests of 1, 7 and 512 rows through ``Workload.predict``, equal
@@ -1714,7 +1900,7 @@ def time_flash(gen, seq: int, iters: int) -> dict:
          "max_abs_err": check["max_abs_err"],
          "bit_equal_share": check["bit_equal_share"]}
     t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
-                                         BF16_OPS_PER_S)
+                                         hw.PEAK_FLOPS_BF16)
     t["float32_ms"] = median_ms(lambda: flash_attention(qf, kf, vf), dev,
                                 max(1, iters // 5))
     return t
@@ -1972,6 +2158,8 @@ def main(argv=None) -> int:
     train_plans(args, dev, smi)
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     train_wire(args, dev, smi)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    train_auto(args, dev, smi)
 
     kernels = []
     for name, t in times.items():

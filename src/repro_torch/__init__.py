@@ -24,8 +24,13 @@ dense decoder LM serving):
   * ``kernels``        — ``fxp_matmul``, ``lut_activation``,
                          ``kmeans_assign``, ``split_hist``,
                          ``flash_attention`` + dispatch
-  * ``distributed.merge_plan`` — merge plans: the cadence and the SlowMo
-                         and Nesterov outer optimizers (``run_fit``)
+  * ``distributed``    — merge plans: the cadence, the SlowMo and
+                         Nesterov outer optimizers, the EF and top-k
+                         wire and the overlapped merge (``run_fit``)
+  * ``tuning``         — the plan controller behind ``merge_plan="auto"``
+                         and ``AdaptiveCadence``, and its cost model
+  * ``roofline``       — the H100's constants, the round counter and the
+                         per-round prediction the cost model reads
   * ``optim``          — sgd, momentum, Nesterov, slow momentum, AdamW
   * ``tree``           — ``tree_map`` / ``tree_leaves`` over tensor trees
   * ``models``         — dense decoder LMs: norms, RoPE, GQA attention

@@ -24,11 +24,14 @@ class PimMLConfig:
     merge_top_k_frac: float = 0.0
     # outer optimizer at the merge boundary: "avg" (the plain average),
     # "slowmo" (slow momentum), "nesterov" (its lookahead variant, with
-    # the slowmo hyperparameters); "adaptive" and "auto" (the cadence
-    # and plan controllers, item 16a) raise in merge_plan()
+    # the slowmo hyperparameters), "adaptive" (the cadence controller,
+    # growing the cadence up to adaptive_k_max as merged deltas
+    # stabilise) or "auto" (the plan controller: cadence and wire format
+    # from the cost model's prior and measured round times)
     merge_outer: str = "avg"
     slowmo_beta: float = 0.5
     slowmo_outer_lr: float = 1.0
+    adaptive_k_max: int = 16
     # which workload the config-driven entry points train, and the
     # minibatch axis (core.minibatch): rows sampled per vDPU per local
     # step, 0 = full batch
@@ -56,25 +59,24 @@ class PimMLConfig:
         ``distributed.merge_plan.MergePlan``."""
         from repro_torch.distributed.compression import CompressionConfig
         from repro_torch.distributed.merge_plan import (
-            AverageCommit, MergePlan, Nesterov, SlowMo, not_ported)
+            AdaptiveCadence, AverageCommit, MergePlan, Nesterov, SlowMo)
+        from repro_torch.tuning import AutoTune
 
         compression = None
         if self.merge_compression_bits or self.merge_top_k_frac:
             compression = CompressionConfig(
                 bits=self.merge_compression_bits or None,
                 top_k_frac=self.merge_top_k_frac or None)
-        if self.merge_outer in ("adaptive", "auto"):
-            raise NotImplementedError(not_ported(
-                f"merge_outer={self.merge_outer!r}", "16a"))
         outers = {"avg": AverageCommit(),
                   "slowmo": SlowMo(beta=self.slowmo_beta,
                                    outer_lr=self.slowmo_outer_lr),
                   "nesterov": Nesterov(beta=self.slowmo_beta,
-                                       outer_lr=self.slowmo_outer_lr)}
+                                       outer_lr=self.slowmo_outer_lr),
+                  "adaptive": AdaptiveCadence(k_max=self.adaptive_k_max),
+                  "auto": AutoTune(k_max=self.adaptive_k_max)}
         if self.merge_outer not in outers:
             raise ValueError(
-                f"merge_outer must be one of "
-                f"{sorted(outers) + ['adaptive', 'auto']}, got "
+                f"merge_outer must be one of {sorted(outers)}, got "
                 f"{self.merge_outer!r}")
         return MergePlan(cadence=self.merge_every,
                          overlap=self.overlap_merge, compression=compression,

@@ -30,9 +30,10 @@ Stateful outer optimizers (SlowMo, Nesterov) are refused with
 ``batch_size``: their momentum would integrate the sampler's counter.
 The overlapped and compressed merges compose with it: the float32
 counter crosses the wire like the state (quantized under compression,
-as in the JAX package) and is rounded where it is read.  Streaming
-sources, adaptive cadence and ``"auto"`` are not ported yet (ROADMAP
-queue A) and raise ``NotImplementedError``.
+as in the JAX package) and is rounded where it is read.  Adaptive
+cadence and ``"auto"`` run under the plan controller
+(``repro_torch.tuning``); streaming sources are not ported yet (ROADMAP
+queue A, item 14) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

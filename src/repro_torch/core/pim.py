@@ -12,8 +12,10 @@ lane of a leading ``n_vdpus`` batch dimension:
 
 The JAX engine compiles the loop (``lax.scan`` over chunks, a compile
 cache, donated carries).  PyTorch runs eagerly, so the port has no
-compile cache or donation; its two engines run the same arithmetic and
-differ only in when per-step metrics reach the host:
+compile cache or donation (a grid keeps one small cache, of the plan
+controller's cost model, ``merge_plan.cache_get``); its two engines run
+the same arithmetic and differ only in when per-step metrics reach the
+host:
 
   * ``engine="python"`` — metrics come back after every step (or round),
     and callbacks see every step's state;
@@ -41,6 +43,9 @@ class PimGrid:
             raise ValueError(f"n_vdpus must be >= 1, got {n_vdpus}")
         self.n_vdpus = int(n_vdpus)
         self.device = resolve_device(device)
+        # the plan controller's cost model and setup, keyed by the step
+        # functions (merge_plan.cache_get / cache_put)
+        self._tuning_cache: dict = {}
 
     def shard_rows(self, X, *extras):
         """Partition rows across vDPUs (the one-time resident placement).

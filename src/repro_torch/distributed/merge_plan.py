@@ -15,11 +15,12 @@ the same plan (:meth:`MergePlan.resolve`).  The exact default plan (any
 cadence, the plain average) runs ``PimGrid.fit``'s own loop; every other
 plan runs :func:`run_fit`.
 
-Ported: the cadence, overlap, compression and the outer optimizers.
-``AdaptiveCadence`` and ``"auto"`` (ROADMAP queue A, item 16a)
-construct, so that ``MergeCaps.constrain`` can degrade them for a
-workload that cannot honour them, and raise ``NotImplementedError``
-when a fit would run them.
+Ported: the cadence, overlap, compression, the outer optimizers, and
+the controller-driven plans: ``AdaptiveCadence`` and ``"auto"``
+(``tuning.AutoTune``) run under ``tuning.controller.run_controlled_fit``,
+which picks the cadence (and, under auto, the wire format and the
+overlap) round by round on the host and records its decisions in
+``merge_state["cadence_trace"]`` and ``["tuning_trace"]``.
 
 DESIGN — outer optimizers (the merge-boundary commit)
 -----------------------------------------------------
@@ -130,10 +131,74 @@ def warn_fallback(algo: str, knobs: str, reason: str) -> None:
 
 
 def not_ported(what: str, item: str) -> str:
-    topic = {"11": "collectives and the mesh",
-             "16a": "AdaptiveCadence and 'auto'"}[item]
+    topic = {"11": "collectives and the mesh"}[item]
     return (f"{what} is not ported to repro_torch yet (ROADMAP queue A, "
             f"item {item}: {topic})")
+
+
+# -- the grid's cache ----------------------------------------------------
+
+_CACHE_MAX = 32
+
+
+def fn_signature(fn) -> tuple:
+    """Cache key of a step function: its code and its closure's contents
+    (primitives, tuples, string-keyed dicts and hashable frozen
+    dataclasses by value, anything else by identity), as in the JAX
+    package.  ``train_*`` re-creates its closures on every call; two with
+    the same code and captured values share a key.  The cache keeps the
+    functions beside the entry, so an identity in a key is not reused
+    while the entry lives."""
+    code = getattr(fn, "__code__", None)
+    if code is None:
+        return (fn,)
+
+    def value_key(v):
+        if isinstance(v, (int, float, bool, str, bytes, type(None))):
+            return v
+        if isinstance(v, tuple):
+            return tuple(value_key(x) for x in v)
+        if isinstance(v, dict):
+            try:
+                items = sorted(v.items(), key=lambda kv: kv[0])
+            except TypeError:
+                return id(v)
+            return ("dict",) + tuple((k, value_key(x)) for k, x in items)
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            try:
+                hash(v)
+            except TypeError:
+                return id(v)
+            return v
+        return id(v)
+
+    cells = ()
+    if fn.__closure__:
+        cells = tuple(value_key(c.cell_contents) for c in fn.__closure__)
+    defaults = tuple(value_key(v) for v in (fn.__defaults__ or ()))
+    kwdefaults = tuple(sorted(
+        (k, value_key(v)) for k, v in (fn.__kwdefaults__ or {}).items()))
+    return (code, cells, defaults, kwdefaults)
+
+
+def cache_get(grid, key):
+    """Look ``key`` up in the grid's cache (``PimGrid._tuning_cache``),
+    most recently used last."""
+    entry = grid._tuning_cache.get(key)
+    if entry is None:
+        return None
+    grid._tuning_cache[key] = grid._tuning_cache.pop(key)
+    return entry[0]
+
+
+def cache_put(grid, key, value, local_fn, update_fn) -> None:
+    """Insert into the grid's cache, dropping the least recently used
+    entry past ``_CACHE_MAX``; the functions ride along so the
+    identities in ``key`` stay alive."""
+    cache = grid._tuning_cache
+    while len(cache) >= _CACHE_MAX:
+        cache.pop(next(iter(cache)))
+    cache[key] = (value, local_fn, update_fn)
 
 
 # -- outer optimizers --------------------------------------------------
@@ -219,11 +284,16 @@ class Nesterov(OuterOptimizer):
 
 @dataclasses.dataclass(frozen=True)
 class AdaptiveCadence(OuterOptimizer):
-    """A host-side controller that grows the cadence once successive
-    merged deltas stabilise (the JAX package's preset over
-    ``repro.tuning.PlanController``).  It constructs, with the JAX
-    package's checks, so a workload can drop it; running it raises
-    (ROADMAP queue A, item 16a)."""
+    """Host-side cadence adaptation: start at the plan's ``cadence`` and
+    grow ``k`` by ``growth`` (up to ``k_max``) once the norms of
+    ``patience + 1`` successive merged deltas agree within
+    ``stable_ratio`` relative change; the commit is the plain average.
+
+    A preset over ``tuning.PlanController``: the wire stays the plan's
+    ``compression`` and only the cadence moves.  With ``shrink=True`` a
+    delta-norm spike past ``spike_ratio`` × the previous norm halves
+    ``k`` toward ``k_min``.  For a controller that picks the wire too,
+    use ``merge_plan="auto"`` (``tuning.AutoTune``)."""
 
     k_max: int = 16
     growth: int = 2
@@ -232,6 +302,12 @@ class AdaptiveCadence(OuterOptimizer):
     shrink: bool = False
     spike_ratio: float = 4.0
     k_min: int = 1
+
+    # the controlled-fit driver reads these; the wire is pinned, so there
+    # is nothing to explore or hold for
+    explore_rounds = 0
+    min_steps_to_explore = 0
+    hold_rounds = 1
 
     def __post_init__(self):
         if self.k_max < 1 or self.growth < 2:
@@ -269,9 +345,9 @@ class MergePlan:
             raise ValueError(
                 f"MergePlan.outer must be an OuterOptimizer, got "
                 f"{self.outer!r}")
-        if self.adaptive and self.overlap:
+        if (self.adaptive or self.auto) and self.overlap:
             raise ValueError(
-                "controller-driven plans (AdaptiveCadence) "
+                "controller-driven plans (AdaptiveCadence / auto) "
                 "cannot be combined with overlap=True: the controller "
                 "re-decides k per round on the host, the overlap "
                 "pipeline's pending buffer is shaped per-k")
@@ -290,14 +366,15 @@ class MergePlan:
                 merge_compression=None) -> "MergePlan":
         """The one rule for the ``fit`` spellings: a given plan wins but
         must not be mixed with non-default legacy kwargs; otherwise the
-        kwargs build the plan."""
+        kwargs build the plan.  The string ``"auto"`` is
+        ``tuning.auto_plan()``, the self-tuning preset."""
         if isinstance(merge_plan, str):
             if merge_plan != "auto":
                 raise ValueError(
                     f"unknown merge_plan spelling {merge_plan!r}: the "
                     f"only string form is 'auto' (or pass a MergePlan)")
-            raise NotImplementedError(not_ported("merge_plan='auto'",
-                                                  "16a"))
+            from repro_torch.tuning import auto_plan
+            merge_plan = auto_plan()
         if merge_plan is not None:
             if merge_every != 1 or overlap_merge or \
                     merge_compression is not None:
@@ -315,6 +392,12 @@ class MergePlan:
         return isinstance(self.outer, AdaptiveCadence)
 
     @property
+    def auto(self) -> bool:
+        """Whether the outer is the ``tuning.AutoTune`` preset (read off
+        the class, so this module does not import ``tuning``)."""
+        return bool(getattr(self.outer, "is_auto", False))
+
+    @property
     def is_exact_default(self) -> bool:
         """Plans served by ``PimGrid.fit``'s own loop: any cadence, no
         overlap, no compression, the plain average."""
@@ -330,13 +413,6 @@ class MergePlan:
         if type(self.outer) is not AverageCommit:
             parts.append(f"outer={self.outer!r}")
         return "MergePlan(" + ", ".join(parts) + ")"
-
-    def require_ported(self) -> None:
-        """Raise ``NotImplementedError`` naming the ROADMAP item of an
-        axis the port does not run yet."""
-        if self.adaptive:
-            raise NotImplementedError(not_ported(
-                f"outer={self.outer!r}", "16a"))
 
 
 # -- rounds --------------------------------------------------------------
@@ -498,6 +574,41 @@ def pipeline_fns(grid, local_fn: Callable, update_fn: Callable, *,
     return merge_fn, compute_fn, commit_fn, compute_fn
 
 
+def plain_round(fns: tuple, data: dict, carry, *, state_wire: bool):
+    """One round of :func:`pipeline_fns`' pieces ``fns`` over the carry
+    ``(state, ef, mom)``: compute, merge, commit.  Returns ``(carry',
+    [metrics of each local step])``."""
+    merge_fn, compute_fn, commit_fn, _ = fns
+    state, ef, mom = carry
+    fresh, compute_metrics = compute_fn(state, data)
+    merged, ef = merge_fn(fresh, ef)
+    state, mom, commit_metrics = commit_fn(state, merged, mom)
+    return (state, ef, mom), (compute_metrics if state_wire
+                              else [commit_metrics])
+
+
+def overlapped_body(fns: tuple, data: dict) -> Callable:
+    """The overlapped round of ``fns`` over the carry ``(state, pending,
+    ef, mom)`` (``overlap.double_buffered_body``); the prologue that
+    primes ``pending`` is ``fns[3](state, data)[0]``."""
+    merge_fn, compute_fn, commit_fn, _ = fns
+    return double_buffered_body(merge_fn, lambda st: compute_fn(st, data),
+                                commit_fn)
+
+
+def drain(fns: tuple, carry, *, state_wire: bool):
+    """End an overlapped carry ``(state, pending, ef, mom)``: commit the
+    last pending phase on the state wire; at cadence 1 (the partials
+    wire) the last fresh partials are dropped.  Returns ``(state, ef,
+    mom)``."""
+    state, pending, ef, mom = carry
+    if state_wire and pending is not None:
+        merge_fn, _, commit_fn, _ = fns
+        merged, ef = merge_fn(pending, ef)
+        state, mom, _ = commit_fn(state, merged, mom)
+    return state, ef, mom
+
+
 def run_rounds(steps: int, k: int, round_fn: Callable, state, *,
                engine: str, scan_chunk: int, callback: Optional[Callable]):
     """Drive ``steps`` local steps as rounds of ``k`` and a trailing round
@@ -516,12 +627,12 @@ def run_rounds(steps: int, k: int, round_fn: Callable, state, *,
         done += kk
         rounds += 1
         if rounds == per_sync or done >= steps:
-            _flush(pending, history, state, callback)
+            flush_metrics(pending, history, state, callback)
             rounds, pending = 0, []
     return state, history
 
 
-def _flush(pending: list, history: list, state, callback) -> None:
+def flush_metrics(pending: list, history: list, state, callback) -> None:
     """Bring the pending steps' metrics to the host in one transfer per
     key and append them to ``history``."""
     if not pending:
@@ -542,20 +653,37 @@ def run_fit(grid, plan: MergePlan, *, init_state, local_fn: Callable,
     """``PimGrid.fit``'s loop for every plan that is not the exact
     default.  Returns ``(state, history)`` with one entry per local step;
     reads ``merge_state["error"]`` and ``["momentum"]`` at entry and
-    writes them at exit.
+    writes them at exit, and under a controller-driven plan also writes
+    ``["cadence_trace"]`` and ``["tuning_trace"]``.
 
     A cadence-k plan's trailing round runs on the state wire through the
     outer optimizer whatever its length, one step included, and after
     the overlap's drain, as in the JAX package (the default plan runs a
     one-step round as a merge-per-step step).  Under overlap the
     prologue adds one phase of local steps (``cadence`` of them) whose
-    metrics are not reported.
+    metrics are not reported.  Adaptive and auto plans run
+    ``tuning.controller.run_controlled_fit``, one dispatch at a time
+    (``engine`` and ``scan_chunk`` do not apply).
     """
-    plan.require_ported()
     outer, compression, k = plan.outer, plan.compression, plan.cadence
     state_wire = k > 1
     held = merge_state or {}
-    ef = held.get("error") if compression is not None else None
+    # an auto plan may compress although plan.compression is None (the
+    # controller chooses), so its EF buffer continues across fits too
+    ef = held.get("error") if compression is not None or plan.auto \
+        else None
+    if plan.adaptive or plan.auto:
+        from repro_torch.tuning.controller import run_controlled_fit
+        state, history, ef, ctl = run_controlled_fit(
+            grid, plan, state=init_state, ef=ef, local_fn=local_fn,
+            update_fn=update_fn, data=data, steps=steps, callback=callback)
+        if merge_state is not None:
+            if ef is not None:
+                merge_state["error"] = ef
+            merge_state["cadence_trace"] = list(ctl.cadence_trace)
+            merge_state["tuning_trace"] = ctl.trace_dict()
+        return state, history
+
     mom: Any = ()
     if not outer.plain_commit:
         mom = held.get("momentum")
@@ -571,42 +699,23 @@ def run_fit(grid, plan: MergePlan, *, init_state, local_fn: Callable,
                                       state_wire=state_wire, outer=outer)
         return pieces[kk]
 
-    def plain_round(state, ef, mom, kk):
-        merge_fn, compute_fn, commit_fn, _ = fns(kk)
-        fresh, compute_metrics = compute_fn(state, data)
-        merged, ef = merge_fn(fresh, ef)
-        state, mom, commit_metrics = commit_fn(state, merged, mom)
-        return (state, ef, mom), (compute_metrics if state_wire
-                                  else [commit_metrics])
-
-    def drain(carry):
-        """Commit the last pending phase (cadence k); at cadence 1 the
-        last fresh partials are dropped."""
-        state, pending, ef, mom = carry
-        if state_wire and pending is not None:
-            merge_fn, _, commit_fn, _ = fns(k)
-            merged, ef = merge_fn(pending, ef)
-            state, mom, _ = commit_fn(state, merged, mom)
-        return state, ef, mom
-
     if plan.overlap:
-        merge_fn, compute_fn, commit_fn, prologue = fns(k)
-        body = double_buffered_body(merge_fn,
-                                    lambda st: compute_fn(st, data),
-                                    commit_fn)
+        body = overlapped_body(fns(k), data)
 
         def round_fn(carry, kk):
             if kk == k:
                 carry, metrics = body(carry)
                 return carry, (metrics if state_wire else [metrics])
-            carry, metrics = plain_round(*drain(carry), kk)
+            carry, metrics = plain_round(
+                fns(kk), data, drain(fns(k), carry, state_wire=state_wire),
+                state_wire=state_wire)
             return (carry[0], None) + carry[1:], metrics
 
-        pending = prologue(init_state, data)[0] if steps >= k else None
+        pending = fns(k)[3](init_state, data)[0] if steps >= k else None
         carry = (init_state, pending, ef, mom)
     else:
         def round_fn(carry, kk):
-            return plain_round(*carry, kk)
+            return plain_round(fns(kk), data, carry, state_wire=state_wire)
 
         carry = (init_state, ef, mom)
 
@@ -617,7 +726,8 @@ def run_fit(grid, plan: MergePlan, *, init_state, local_fn: Callable,
 
     carry, history = run_rounds(steps, k, round_fn, carry, engine=engine,
                                 scan_chunk=scan_chunk, callback=cb)
-    state, ef, mom = drain(carry) if plan.overlap else carry
+    state, ef, mom = drain(fns(k), carry, state_wire=state_wire) \
+        if plan.overlap else carry
     if merge_state is not None:
         if ef is not None:
             merge_state["error"] = ef

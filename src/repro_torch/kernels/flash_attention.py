@@ -6,7 +6,9 @@ Port of ``repro/kernels/flash_attention.py::flash_attention``: causal
 float32 as the TPU kernel keeps it.  A CPU tensor runs the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); a CUDA tensor
 launches one of the library's three kernels (:func:`route`) or raises.
-``flash_attention.launches`` counts the launches.
+``flash_attention.launches`` counts the launches; each launch also
+charges its bytes and operations to an active
+``roofline.analysis.RoundCounter``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import analysis
 
 HEAD_DIMS = (32, 64, 128)
 # the kernels of csrc/flash_attention.cu, by the code the launcher takes
@@ -105,6 +108,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = _launch(build.load("flash_attention", _SIGNATURES),
                 route(q.dtype, q.shape[-1]), q, k, v, causal)
     flash_attention.launches += 1
+    # q·kᵀ once and p·v (in bf16 as two products, p's hi and lo terms)
+    # per (query, key) pair, key <= query when causal
+    B, H, S, D = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    wide = q.dtype == torch.float32
+    analysis.charge(analysis.nbytes(q, k, v, o),
+                    (4 if wide else 6) * D * B * H * pairs,
+                    analysis.op_kind(q.dtype))
     return o
 
 

@@ -6,7 +6,8 @@ hybrid_matmul`` runs around it: one launch returns the float32 dot of up
 to ``MAX_N`` columns of ``b``, bit-equal to ``quantize.hybrid_dot``.  A
 CPU tensor runs the plain version (:func:`repro_torch.kernels.ref.
 fxp_matmul_ref`); a CUDA tensor launches the kernel or raises.
-``fxp_matmul.launches`` counts the launches.
+``fxp_matmul.launches`` counts the launches; each launch also charges
+its bytes and operations to an active ``roofline.analysis.RoundCounter``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import analysis
 
 MAX_N = 16                     # columns of b one launch takes
 _DTYPES = (torch.int8, torch.int16)
@@ -102,6 +104,10 @@ def fxp_matmul(a: torch.Tensor, b: torch.Tensor, *,
     out = _launch(build.load("fxp_matmul", _SIGNATURES), a, b, k_chunk)
     if a.numel():                        # a launch ran (K >= 1)
         fxp_matmul.launches += 1
+        # a multiply-add of every limb pair
+        analysis.charge(analysis.nbytes(a, b, out),
+                        2 * a.numel() * b.shape[-1] * a.element_size()
+                        * b.element_size(), "int8")
     return out
 
 

@@ -6,7 +6,8 @@ K-means partials (sums, counts, sse) straight from the resident rows,
 dequantizing int16/int8 rows in registers.  A CPU tensor runs the plain
 version (:func:`repro_torch.kernels.ref.kmeans_assign_ref`); a CUDA
 tensor launches the kernel or raises.  ``kmeans_assign.launches`` counts
-the launches.
+the launches; each launch also charges its bytes and operations to an
+active ``roofline.analysis.RoundCounter``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import analysis
 
 MAX_SMEM_BYTES = 227 * 1024    # what a block may take on Hopper
 TARGET_SMEM_BYTES = 57344      # four blocks of an SM's 228 KB, 1 KB each kept
@@ -136,6 +138,11 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, w: torch.Tensor,
     out = _launch(build.load("kmeans_assign", _SIGNATURES), x, centroids, w,
                   x_scale, return_assign)
     kmeans_assign.launches += 1
+    # a row's K distances of 2D + 2 operations, |x|^2, the dequantize and
+    # the accumulation
+    scale = [] if x_scale is None else [x_scale]
+    analysis.charge(analysis.nbytes(x, centroids, w, *scale, *out),
+                    L * R * (2 * K * D + 2 * K + 5 * D + 2), "fp32")
     return out
 
 

@@ -5,7 +5,8 @@ Port of ``repro/kernels/lut_activation.py::lut_activation``.  A CPU
 tensor runs the plain version
 (:func:`repro_torch.kernels.ref.lut_activation_ref`); a CUDA tensor
 launches the kernel or raises.  ``lut_activation.launches`` counts the
-launches.
+launches; each launch also charges its bytes and operations to an
+active ``roofline.analysis.RoundCounter``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import analysis
 
 MAX_ENTRIES = 12288            # 48 KB of shared memory
 BLOCKS_PER_SM = 8
@@ -75,6 +77,9 @@ def lut_activation(x: torch.Tensor, table: torch.Tensor, *, x_min: float,
                 n_entries, x_min, step, sms * BLOCKS_PER_SM, stream)
         build.check(lib, "lut_activation", err)
         lut_activation.launches += 1
+        # subtract, divide, round, clamp
+        analysis.charge(2 * analysis.nbytes(x) + analysis.nbytes(table),
+                        4 * x.numel(), "fp32")
     return out
 
 

@@ -5,7 +5,9 @@ Port of ``repro/kernels/split_hist.py::split_hist`` as
 histogram ``H[node, feature, bin, class]`` for one tree level.  A CPU
 tensor runs the plain version
 (:func:`repro_torch.kernels.ref.split_hist_ref`); a CUDA tensor launches
-the kernel or raises.  ``split_hist.launches`` counts the launches.
+the kernel or raises.  ``split_hist.launches`` counts the launches;
+each launch also charges its bytes to an active
+``roofline.analysis.RoundCounter``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import analysis
 
 THREADS = 1024                 # threads a block (kThreads in the source)
 MAX_SMEM_BYTES = 232448        # what a block may take on Hopper (227 KB)
@@ -164,6 +167,10 @@ def split_hist(node: torch.Tensor, xbin: torch.Tensor, y: torch.Tensor,
         raise ValueError(f"at most 65535 lanes, got {xbin.shape[0]}")
     H = _launch(_library(), node, xbin, y, w, n_nodes, n_bins, n_classes)
     split_hist.launches += 1
+    # bytes only: the adds are one a row of nonzero weight and feature,
+    # which only the weights' values tell (reading them would stop the
+    # host), and take a few percent of the bytes' time
+    analysis.charge(analysis.nbytes(node, xbin, y, w, H))
     return H
 
 

@@ -614,3 +614,59 @@ def test_small_minibatch_kmeans_near_its_plain_twin(k):
     torch.testing.assert_close(a.state, b.state, atol=1e-4, rtol=1e-5)
     c = program.fit(steps=6, merge_every=k, batch_size=128, engine="python")
     assert torch.equal(a.state, c.state)
+
+
+def test_kernel_launches_charge_the_round_counter():
+    """Each launch charges an active ``RoundCounter`` what ``PERF.md``'s
+    bound counts (inputs once, outputs once; 2·M·N·K int8 operations a
+    limb pair, 4 float32 operations an element for the LUT); the aten ops
+    around the launch are the mode's own."""
+    from repro_torch.roofline import analysis
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    a = torch.randint(-128, 128, (4, 1000, 64), generator=gen,
+                      device=dev).to(I8)
+    b = torch.randint(-2 ** 15, 2 ** 15, (64, 3), generator=gen,
+                      device=dev).to(I16)
+    t = lut.sigmoid_lut(device=dev)
+    x = torch.randn(4, 1000, device=dev)
+    with analysis.RoundCounter() as counter:
+        out = fxp_matmul(a, b)
+        assert counter.count.ops == {"int8": 2 * a.numel() * 3 * 2}
+        assert counter.count.bytes == analysis.nbytes(a, b, out)
+        lut_activation(x, t.table, x_min=t.x_min, x_max=t.x_max)
+    assert counter.count.ops["fp32"] == 4 * x.numel()
+    assert counter.count.bytes == (analysis.nbytes(a, b, out)
+                                   + 2 * analysis.nbytes(x)
+                                   + analysis.nbytes(t.table))
+
+
+@pytest.mark.parametrize("preset", ["adaptive", "auto"])
+def test_small_controlled_fit_equals_its_plain_twin(preset):
+    """``AdaptiveCadence`` and ``AutoTune`` without exploration (both
+    deterministic) with kernels on, bit-equal to their
+    ``use_kernels(False)`` twins, cadence traces equal; the counted
+    round's launches are in the auto fit's."""
+    from repro_torch.distributed.merge_plan import (AdaptiveCadence,
+                                                    MergePlan)
+    from repro_torch.tuning import AutoTune
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    X, y, _ = datasets.binary_classification(gen, 8 * 512 + 3, 32)
+    wl = LogReg(lr=0.5, precision="int8", sigmoid="lut")
+    outer = AdaptiveCadence(k_max=4) if preset == "adaptive" \
+        else AutoTune(k_max=4, min_steps_to_explore=10 ** 9)
+    plan = MergePlan(outer=outer)
+    grid = make_grid(8)
+    before = fxp_matmul.launches
+    held, twin = {}, {}
+    a = api.fit(wl, grid, X, y, steps=20, merge_plan=plan,
+                merge_state=held)
+    counted = preset == "auto"
+    assert fxp_matmul.launches - before == 2 * (20 + counted)
+    with dispatch.use_kernels(False):
+        b = api.fit(wl, grid, X, y, steps=20, merge_plan=plan,
+                    merge_state=twin)
+    assert torch.equal(a.state, b.state)
+    assert held["cadence_trace"] == twin["cadence_trace"]
+    assert max(held["cadence_trace"]) > 1

@@ -147,7 +147,9 @@ def test_port_imports_neither_jax_nor_repro():
         "          'models.model_api', 'configs.qwen2_0_5b',\n"
         "          'launch.serve_lm', 'core.mlalgos.svm',\n"
         "          'core.mlalgos.multinomial', 'core.minibatch',\n"
-        "          'optim.optimizers', 'tree', 'distributed.merge_plan'):\n"
+        "          'optim.optimizers', 'tree', 'distributed.merge_plan',\n"
+        "          'tuning.controller', 'tuning.cost', 'tuning.measurement',\n"
+        "          'roofline.hw', 'roofline.analysis'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

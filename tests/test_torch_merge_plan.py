@@ -38,6 +38,9 @@ from repro_torch.core.mlalgos import (DecisionTree, KMeans,  # noqa: E402
                                       LinReg, LogReg, api, closed_form,
                                       make_linreg_step, train_kmeans,
                                       train_linreg, train_logreg)
+from repro_torch.distributed import compression as comp  # noqa: E402
+from repro_torch.distributed.compression import (  # noqa: E402
+    CompressionConfig)
 from repro_torch.distributed.merge_plan import (  # noqa: E402
     AdaptiveCadence, AverageCommit, MergeFallbackWarning, MergePlan,
     Nesterov, OuterOptimizer, SlowMo)
@@ -404,11 +407,30 @@ def test_mixed_spellings_raise():
 @pytest.mark.parametrize("kw,item", [
     ({"merge_plan": "auto"}, "16a"),
     ({"merge_plan": MergePlan(outer=AdaptiveCadence())}, "16a"),
+    (None, "11"),
 ])
 def test_unported_plans_name_their_item(kw, item):
+    """What is not ported names its ROADMAP item: item 11's
+    ``compressed_reduce``.  Item 16a's plans, which raised until it was
+    ported, train: the config builds the plan the JAX config builds, and
+    a 2-step fit returns 2 entries and its decision trace."""
+    if item == "11":
+        with pytest.raises(NotImplementedError, match="item 11"):
+            comp.compressed_reduce({}, {}, CompressionConfig())
+        return
+    outer = "auto" if kw["merge_plan"] == "auto" else "adaptive"
+    plan = PimMLConfig(merge_outer=outer).merge_plan()
+    theirs = JPimMLConfig(merge_outer=outer).merge_plan()
+    assert type(plan.outer).__name__ == type(theirs.outer).__name__
+    assert dataclasses.asdict(plan.outer) == dataclasses.asdict(theirs.outer)
+    assert (plan.cadence, plan.overlap, plan.compression) == \
+        (theirs.cadence, theirs.overlap, theirs.compression)
     X, y = regression(8, 100, 4)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        api.fit(LinReg(), make_cpu_grid(4), X, y, steps=2, **kw)
+    holder: dict = {}
+    res = api.fit(LinReg(), make_cpu_grid(4), X, y, steps=2,
+                  merge_state=holder, **kw)
+    assert len(res.history) == 2
+    assert holder["tuning_trace"]["decisions"][-1]["steps_done"] == 2
 
 
 @pytest.mark.parametrize("kw", [
@@ -500,10 +522,12 @@ def test_config_builds_the_merge_plan():
     assert PimMLConfig().merge_plan() == MergePlan(cadence=8)
     with pytest.raises(ValueError, match="merge_outer"):
         PimMLConfig(merge_outer="slow_mo").merge_plan()
-    for cfg, item in ((PimMLConfig(merge_outer="auto"), "16a"),
-                      (PimMLConfig(merge_outer="adaptive"), "16a")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            cfg.merge_plan()
+    for outer in ("auto", "adaptive"):
+        for kw in ({}, {"adaptive_k_max": 4, "merge_every": 2}):
+            plan = PimMLConfig(merge_outer=outer, **kw).merge_plan()
+            theirs = JPimMLConfig(merge_outer=outer, **kw).merge_plan()
+            assert plan.describe() == theirs.describe()
+            assert plan.outer.k_max == kw.get("adaptive_k_max", 16)
     # the merge pipeline's fields build the plan the JAX config builds
     X, y = regression(8, 100, 4)
     for kw in ({"merge_compression_bits": 8}, {"merge_top_k_frac": 0.25},

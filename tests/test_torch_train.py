@@ -310,13 +310,13 @@ def test_jax_values_carried_across_bit_exact():
 
 
 def test_unported_options_raise():
-    """``"auto"`` is not ported (ROADMAP item 16a); the overlapped merge
-    trains, and a compression that is not a ``CompressionConfig`` fails
-    at its first attribute, as in the JAX package."""
+    """``"auto"`` (ROADMAP item 16a) and the overlapped merge train; a
+    compression that is not a ``CompressionConfig`` fails at its first
+    attribute, as in the JAX package, and malformed plans raise."""
     _, pw, X, y = _pair("linreg-fp32")
     grid = make_cpu_grid(LANES)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.fit(pw, grid, X, y, steps=2, merge_plan="auto")
+    assert len(api.fit(pw, grid, X, y, steps=2,
+                       merge_plan="auto").history) == 2
     assert len(api.fit(pw, grid, X, y, steps=2,
                        overlap_merge=True).history) == 2
     with pytest.raises(AttributeError, match="top_k_frac"):
