@@ -99,12 +99,30 @@ Phases, each printed as one JSON line:
                 steps/s of auto and AdaptiveCadence in turns with the
                 default at cadence 1 and 8; a second auto fit of one
                 program counts no round;
- 11. the ``kernels`` line (fxp_matmul's entry also times the
+ 11. train_mesh — the main path (LogReg int8 + LUT, 256 vDPUs x 2^24
+                rows, d=64) on a mesh of ranks (``make_mesh_grid``): (a)
+                a world of one process over NCCL, a (1, 1) mesh: the
+                default plan at cadence 1 (50 steps) and 8 (48), int8 EF
+                at cadence 1 (50) and "auto" (48), each bit-equal to the
+                same fit on ``make_grid`` with the same launches, steps/s
+                of the two grids in turns, a profile of 5 steps with
+                the NCCL kernels by name and a host trace of one
+                cadence-8 fit on each grid in turns (host time by op,
+                the ops that differ most); (b) two spawned ranks, pods=2
+                and data=1, sharing the card over gloo, each making the
+                same data from --seed and keeping 128 lanes: exact at
+                cadence 1 and 8, int8 EF at 1 and 8, top-k 0.25 at 8,
+                KMeans(int16) and the tree; the ranks bit-equal, exact
+                cells within 1e-5 x max|w| of (a)'s make_grid fits,
+                compressed accuracy within 0.01 of the exact cell's, the
+                tree equal to make_grid's, K-means' SSE at most 1.05 x
+                make_grid's; each cell's wire bytes, launches and steps/s;
+ 12. the ``kernels`` line (fxp_matmul's entry also times the
      multinomial's two dots at C = 4 and 10, with their byte bound), the
      nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
-Any mismatch, missing launch or exception ends the run with a non-zero
-exit code and without the ``ok`` line.  Without CUDA (and without
+Any mismatch, missing launch or exception (a rank's included) ends the
+run with a non-zero exit code and without the ``ok`` line.  Without CUDA (and without
 --rehearse) it exits 1 before doing anything.
 """
 
@@ -117,18 +135,21 @@ import math
 import os
 import re
 import statistics
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.pim_ml import CONFIG  # noqa: E402
-from repro_torch.core import datasets, make_grid  # noqa: E402
+from repro_torch.core import datasets, make_grid, make_mesh_grid  # noqa: E402
 from repro_torch.core import lut as lut_mod  # noqa: E402
 from repro_torch.core import minibatch as mb  # noqa: E402
 from repro_torch.core import quantize as qz  # noqa: E402
@@ -151,11 +172,12 @@ from repro_torch.kernels.fxp_matmul import route as fxp_route  # noqa: E402
 from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
 from repro_torch.kernels.lut_activation import lut_activation  # noqa: E402
 from repro_torch.kernels.split_hist import split_hist  # noqa: E402
+from repro_torch.launch.mesh import init_world, make_pim_mesh  # noqa: E402
 from repro_torch.launch.serve_lm import generate  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models.transformer import padded_vocab  # noqa: E402
 from repro_torch.roofline import hw  # noqa: E402
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.tuning import AutoTune, PlanController  # noqa: E402
 
 # PimMLConfig's workloads at a size the card holds for real (its reg_rows,
@@ -204,6 +226,10 @@ KM_REL_TOL = 1e-5
 # default plan's fit of as many steps
 AUTO_ADAPTIVE_K_MAX = 8
 # the serving path: qwen2-0.5b at its published widths and depth
+# train_mesh: the second part's world (pods=2, data=1, both ranks on the
+# one card over gloo) and how long a join may take
+MESH_RANKS = 2
+MESH_JOIN_S = 300.0
 LM_ARCH = "qwen2-0.5b"
 LM_BATCH, LM_SEQ = 4, 4096            # prefill: 4 x 4096 tokens
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 64, 32
@@ -960,10 +986,13 @@ def profile_steps(workload, grid, X, y, steps: int, **kw) -> dict:
                         steps=steps)
 
 
-def profile_call(run, dev, **label) -> dict:
+def profile_call(run, dev, match: str | None = None, host_ops: int = 0,
+                 **label) -> dict:
     """``torch.profiler`` over one call of ``run()`` (after a warm-up
     elsewhere): device time by kernel and the device's idle share of the
-    traced window."""
+    traced window; with ``match``, also every kernel whose name holds it
+    (any case), by name; with ``host_ops``, the host's self time of
+    every op (``host_ms``) and the ``host_ops`` largest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -974,11 +1003,22 @@ def profile_call(run, dev, **label) -> dict:
         run()
         sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = {}
+    if host_ops:
+        host = {"host_ms": {e.key: e.self_cpu_time_total / 1e3
+                            for e in events
+                            if e.device_type == DeviceType.CPU}}
+        host["top_host_ops"] = [
+            {"name": e.key, "calls": e.count,
+             "ms": e.self_cpu_time_total / 1e3}
+            for e in sorted(events, key=lambda e: -e.self_cpu_time_total)
+            if e.device_type == DeviceType.CPU][:host_ops]
     if not kernels:
-        return {**label, "device_time": "not measured (the profiler "
-                "recorded no device events)", "traced_wall_ms": wall_ms}
+        return {**label, **host, "device_time": "not measured (the "
+                "profiler recorded no device events)",
+                "traced_wall_ms": wall_ms}
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
 
@@ -990,14 +1030,20 @@ def profile_call(run, dev, **label) -> dict:
                if PORT_KERNELS.search(e.key))
     gemm = sum(e.self_device_time_total for e in kernels
                if GEMM_KERNELS.search(e.key))
-    return {**label, "traced_wall_ms": wall_ms,
-            "device_busy_ms": busy_us / 1e3,
-            "idle_share": max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
-            "port_kernels_ms": ours / 1e3,
-            "gemm_kernels_ms": gemm / 1e3,
-            "top_kernels": [{"name": name(e.key), "calls": e.count,
-                             "ms": e.self_device_time_total / 1e3}
-                            for e in top]}
+    out = {**label, "traced_wall_ms": wall_ms,
+           "device_busy_ms": busy_us / 1e3,
+           "idle_share": max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
+           "port_kernels_ms": ours / 1e3,
+           "gemm_kernels_ms": gemm / 1e3,
+           "top_kernels": [{"name": name(e.key), "calls": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in top], **host}
+    if match is not None:
+        out[f"{match}_kernels"] = [
+            {"name": e.key[:90], "calls": e.count,
+             "ms": e.self_device_time_total / 1e3}
+            for e in kernels if match.lower() in e.key.lower()]
+    return out
 
 
 def small_parity(dev, seed: int, d: int) -> dict:
@@ -1765,6 +1811,397 @@ def train_auto(args, dev, card: str) -> None:
          seconds=time.perf_counter() - t0)
 
 
+# -- phase 12: the mesh ------------------------------------------------------
+
+
+def mesh_cells(args) -> dict:
+    """The main path's cells on a mesh: name -> (steps, merge plan)."""
+    k = args.cadence
+    return {"default, cadence 1": (args.steps, MergePlan()),
+            f"default, cadence {k}": (args.cadence_steps,
+                                      MergePlan(cadence=k)),
+            "int8 EF, cadence 1": (args.steps, MergePlan(
+                compression=CompressionConfig(bits=8))),
+            "auto": (PLAN_STEPS, "auto")}
+
+
+def in_turns(programs: dict, steps: int, fits: int, **kw) -> dict:
+    """Steps/s of each bound program's fit (``kw``: its plan), in turns
+    (as :func:`rates_in_turns` takes plans)."""
+    dev = next(iter(programs.values())).grid.device
+    for program in programs.values():
+        program.fit(steps=2, **kw)
+    sync(dev)
+    rates: dict = {name: [] for name in programs}
+    order = list(programs)
+    for i in range(fits):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            programs[name].fit(steps=steps, **kw)
+            sync(dev)
+            rates[name].append(steps / (time.perf_counter() - t0))
+    return {name: {"median": statistics.median(r), "min": min(r),
+                   "max": max(r), "fits": fits}
+            for name, r in rates.items()}
+
+
+def host_trace(programs: dict, args, dev) -> dict:
+    """Where the (1, 1) mesh's host time goes: one cadence-k fit of each
+    grid traced in turns (m g g m), each op's host self time summed over
+    a grid's two traces; the traced walls, each grid's device idle share
+    and the ops whose totals differ most between the grids (mesh minus
+    make_grid, ms)."""
+    fit = {name: (lambda p=p: p.fit(steps=args.cadence_steps,
+                                    merge_every=args.cadence))
+           for name, p in programs.items()}
+    first, second = list(programs)
+    traces: dict = {name: [] for name in programs}
+    for name in (first, second, second, first):
+        traces[name].append(profile_call(fit[name], dev, host_ops=8))
+    totals = {name: {} for name in programs}
+    for name, ts in traces.items():
+        for t in ts:
+            for op, ms in t["host_ms"].items():
+                totals[name][op] = totals[name].get(op, 0.0) + ms
+    ops = set(totals[first]) | set(totals[second])
+    diff = sorted(((op, totals[first].get(op, 0.0)
+                    - totals[second].get(op, 0.0)) for op in ops),
+                  key=lambda d: -abs(d[1]))
+    return {"steps": args.cadence_steps, "cadence": args.cadence,
+            "traced_wall_ms": {n: [t["traced_wall_ms"] for t in ts]
+                               for n, ts in traces.items()},
+            "idle_share": {n: [t.get("idle_share") for t in ts]
+                           for n, ts in traces.items()},
+            "host_ms_total": {n: sum(v.values())
+                              for n, v in totals.items()},
+            "top_host_ops": {n: ts[0]["top_host_ops"]
+                             for n, ts in traces.items()},
+            "largest_differences_ms": [{"op": op, "ms": d}
+                                       for op, d in diff[:10]]}
+
+
+def mesh_hop_one(args, dev, store_dir: str) -> tuple:
+    """(a) A world of one process (NCCL on the card, gloo on the CPU) and
+    ``make_mesh_grid(lanes)``, a (1, 1) mesh: the main path's cells on
+    it and on ``make_grid`` must be bit-equal (every all-reduce has one
+    participant, the compressed hop is ``ef_quantize``), with the same
+    launches; steps/s in turns; a profile of 5 steps with the
+    collectives' device time.  Returns (summary, make_grid's states by
+    cell)."""
+    init_world("nccl" if dev.type == "cuda" else "gloo",
+               dist.FileStore(os.path.join(store_dir, "world1"), 1))
+    try:
+        mesh_grid = make_mesh_grid(args.lanes, device=dev)
+        grid = make_grid(args.lanes, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 200)
+        X, y, _ = datasets.binary_classification(gen, args.rows,
+                                                 args.features)
+        wl = LogReg(lr=0.5, precision="int8", sigmoid="lut")
+        check = not args.rehearse
+        runs, refs = [], {}
+        for name, (steps, plan) in mesh_cells(args).items():
+            counted = 1 if plan == "auto" else 0   # the cost model's round
+            want = expected(fxp_matmul=FXP_STEP * (steps + counted),
+                            lut_activation=steps + counted)
+            fits = {}
+            for g_name, g in (("mesh", mesh_grid), ("grid", grid)):
+                fits[g_name] = counted_fit(wl, g, X, y, steps,
+                                           merge_plan=plan)
+            (m, m_seen, m_stats), (r, r_seen, _) = fits["mesh"], fits["grid"]
+            equal = bool(torch.equal(m.state, r.state)) and all(
+                bool(torch.equal(a["loss"], b["loss"]))
+                for a, b in zip(m.history, r.history))
+            s = {"run": f"logreg int8 lut, {name}, (1, 1) mesh",
+                 "steps": steps, "launches": m_seen,
+                 "grid_launches": r_seen, "expected_launches": want,
+                 **m_stats, "bit_equal_to_make_grid": equal,
+                 "accuracy": accuracy(m.state, X, y)}
+            require(equal, f"{s['run']}: not bit-equal to make_grid's fit")
+            if check:
+                require(m_seen == want and r_seen == want,
+                        f"{s['run']}: launches {m_seen} (make_grid "
+                        f"{r_seen}), the design implies {want}")
+            runs.append(s)
+            refs[name] = r.state
+        programs = {"(1, 1) mesh": wl.bind(mesh_grid, X, y),
+                    "make_grid": wl.bind(grid, X, y)}
+        rates = {"cadence 1": in_turns(programs, args.steps, KM_RATE_FITS),
+                 f"cadence {args.cadence}": in_turns(
+                     programs, args.cadence_steps, KM_RATE_FITS,
+                     merge_every=args.cadence)}
+        prof = profile_call(lambda: programs["(1, 1) mesh"].fit(steps=5),
+                            dev, match="nccl", steps=5)
+        summary = {"backend": dist.get_backend(), "world": 1,
+                   "mesh": list(mesh_grid.mesh.shape), "runs": runs,
+                   "steps_per_s": rates, "profile": prof,
+                   "host_trace": host_trace(programs, args, dev)}
+        return summary, refs
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank(rank: int, world: int, store: str, out_dir: str,
+              opts: dict) -> None:
+    """(b) One rank of the hop-2 world: the same data from the seed on
+    every rank, 128 of the 256 lanes kept, the main path's cells, K-means
+    and the tree; results to ``out_dir/rank<r>.pkl``."""
+    dev = torch.device(opts["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    init_world("gloo", dist.FileStore(store, world), rank=rank,
+               world_size=world)
+    try:
+        grid = make_mesh_grid(opts["lanes"], mesh=make_pim_mesh(
+            world, 1, device_type="cpu"), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(opts["seed"] + 200)
+        X, y, _ = datasets.binary_classification(gen, opts["rows"],
+                                                 opts["features"])
+        program = LogReg(lr=0.5, precision="int8",
+                         sigmoid="lut").bind(grid, X, y)
+        k = opts["cadence"]
+        cells = {
+            "exact, cadence 1": (opts["steps"], MergePlan(), None),
+            f"exact, cadence {k}": (opts["cadence_steps"],
+                                    MergePlan(cadence=k), None),
+            "int8 EF, cadence 1": (opts["steps"], MergePlan(
+                compression=CompressionConfig(bits=8)),
+                CompressionConfig(bits=8)),
+            f"int8 EF, cadence {k}": (opts["cadence_steps"], MergePlan(
+                cadence=k, compression=CompressionConfig(bits=8)),
+                CompressionConfig(bits=8)),
+            f"top-k {WIRE_TOP_K}, cadence {k}": (
+                opts["cadence_steps"], MergePlan(
+                    cadence=k, compression=CompressionConfig(
+                        bits=8, top_k_frac=WIRE_TOP_K)),
+                CompressionConfig(bits=8, top_k_frac=WIRE_TOP_K))}
+        # the host clock's seconds are kept apart: the rest must be
+        # bit-equal across the ranks
+        out = {"pod": grid.axis_index("pod"), "lanes": grid.n_local,
+               "rows_held": int(program.data["X"].shape[0]
+                                * program.data["X"].shape[1]),
+               "cells": {}, "seconds": {}}
+        for name, (steps, plan, cfg) in cells.items():
+            program.fit(steps=steps, merge_plan=plan)      # warm
+            holder: dict = {}
+            sync(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            res = program.fit(steps=steps, merge_plan=plan,
+                              merge_state=holder)
+            sync(dev)
+            seconds = time.perf_counter() - t0
+            out["seconds"][name] = seconds
+            cell = {"steps": steps, "launches": counts(),
+                    "state": res.state.cpu().numpy(),
+                    "losses": [float(m["loss"]) for m in res.history],
+                    "accuracy": accuracy(res.state, X, y)}
+            if cfg is not None:
+                cell["wire"] = wire_summary(holder, cfg)
+                cell["error_shapes"] = [list(e.shape) for e in
+                                        tree_leaves(holder["error"])]
+            out["cells"][name] = cell
+        # where a hop-2 step's time goes: 5 warm cadence-1 steps, traced
+        # on rank 0 (rank 1 runs them alongside, untraced)
+        if rank == 0:
+            out["profile"] = profile_call(lambda: program.fit(steps=5), dev,
+                                          steps=5)
+        else:
+            program.fit(steps=5)
+        del X, y, program
+
+        gen = torch.Generator(device=dev).manual_seed(opts["seed"] + 210)
+        X, _, _ = datasets.blobs(gen, opts["rows"], opts["km_features"],
+                                 opts["km_clusters"])
+        wl = KMeans(k=opts["km_clusters"], precision="int16")
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = api.fit(wl, grid, X, steps=opts["km_iters"])
+        sync(dev)
+        out["seconds"]["kmeans"] = time.perf_counter() - t0
+        out["kmeans"] = {"launches": counts(),
+                         "state": res.state.cpu().numpy(),
+                         "sse": res.eval(X)["sse"]}
+        del X
+
+        gen = torch.Generator(device=dev).manual_seed(opts["seed"] + 220)
+        X, y = datasets.mixture_classification(
+            gen, opts["rows"], opts["dt_features"], opts["dt_classes"])
+        wl = DecisionTree(max_depth=opts["dt_depth"], n_bins=opts["dt_bins"],
+                          n_classes=opts["dt_classes"])
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = api.fit(wl, grid, X, y, steps=wl.max_depth)
+        sync(dev)
+        out["seconds"]["dtree"] = time.perf_counter() - t0
+        out["dtree"] = {"launches": counts(), "levels": len(res.history),
+                        "reached": sum(1 for h in res.history
+                                       if h["splits"] > 0),
+                        "tree": {f: getattr(res.state, f).cpu().numpy()
+                                 for f in ("feature", "threshold",
+                                           "leaf_value", "bin_edges")},
+                        "accuracy": res.eval(X, y)["accuracy"]}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_ranks(fn, world: int, store: str, out_dir: str, opts: dict) -> list:
+    """Spawn ``world`` processes of ``fn`` and join them within
+    ``MESH_JOIN_S``; a rank that fails or hangs fails the run (its
+    processes are killed).  Returns each rank's pickled results."""
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.start_processes(fn, args=(world, store, out_dir, opts),
+                              nprocs=world, join=False,
+                              start_method="spawn")
+    deadline = time.perf_counter() + MESH_JOIN_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline -
+                                       time.perf_counter())):
+            if time.perf_counter() >= deadline:
+                raise SmokeFailure(f"the {world}-rank world did not end "
+                                   f"within {MESH_JOIN_S} s")
+    except tmp.ProcessException as e:
+        raise SmokeFailure(f"a rank of the {world}-rank world failed: "
+                           f"{e}") from e
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def mesh_hop_two(args, dev, store_dir: str, refs: dict) -> dict:
+    """(b) Two spawned ranks, pods=2 and data=1, both on the one card
+    over gloo (NCCL takes one rank a device): the main path's exact,
+    int8 EF and top-k cells, K-means and the tree.  The ranks' results
+    must be bit-equal; exact cells within 1e-5 x max|w| of make_grid's
+    fit (``refs``, from part (a)), compressed cells' accuracy within
+    0.01 of the exact cell's, the tree equal to make_grid's and K-means'
+    SSE at most 1.05 x make_grid's."""
+    check = not args.rehearse
+    # make_grid's K-means and tree, on the data the ranks will make
+    grid = make_grid(args.lanes, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 210)
+    X, _, _ = datasets.blobs(gen, args.rows, args.km_features,
+                             args.km_clusters)
+    km_ref = api.fit(KMeans(k=args.km_clusters, precision="int16"), grid, X,
+                     steps=args.km_iters).eval(X)["sse"]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 220)
+    X, y = datasets.mixture_classification(gen, args.rows, args.dt_features,
+                                           args.dt_classes)
+    tree = api.fit(DecisionTree(max_depth=args.dt_depth, n_bins=args.dt_bins,
+                                n_classes=args.dt_classes), grid, X, y,
+                   steps=args.dt_depth).state
+    tree_ref = {f: getattr(tree, f).cpu().numpy()
+                for f in ("feature", "threshold", "leaf_value", "bin_edges")}
+    del X, y, tree, grid
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+
+    opts = {k: getattr(args, k) for k in (
+        "lanes", "rows", "features", "steps", "cadence", "cadence_steps",
+        "seed", "km_features", "km_clusters", "km_iters", "dt_features",
+        "dt_classes", "dt_depth", "dt_bins")}
+    opts["device"] = "cuda:0" if dev.type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, MESH_RANKS,
+                      os.path.join(store_dir, "world2"), store_dir, opts)
+    world_s = time.perf_counter() - t0
+
+    def same(a, b) -> bool:
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        if hasattr(a, "tobytes"):
+            return a.dtype == b.dtype and a.tobytes() == b.tobytes()
+        return a == b or (a != a and b != b)
+
+    for key in ("cells", "kmeans", "dtree"):
+        require(same(ranks[0][key], ranks[1][key]),
+                f"hop 2: rank 1's {key} differ from rank 0's")
+    k = args.cadence
+    cells = ranks[0]["cells"]
+    summary = []
+    for name, cell in cells.items():
+        row = {"run": f"logreg int8 lut, {name}, (2, 1) mesh",
+               "steps": cell["steps"], "launches": cell["launches"],
+               "steps_per_s": [cell["steps"] / r["seconds"][name]
+                               for r in ranks],
+               "accuracy": cell["accuracy"],
+               "loss_last": cell["losses"][-1]}
+        want = expected(fxp_matmul=FXP_STEP * cell["steps"],
+                        lut_activation=cell["steps"])
+        if check:
+            for r in ranks:
+                require(r["cells"][name]["launches"] == want,
+                        f"hop 2 {name}: launches "
+                        f"{r['cells'][name]['launches']}, expected {want}")
+        if name.startswith("exact"):
+            ref_name = ("default, cadence 1" if name.endswith(" 1")
+                        else f"default, cadence {k}")
+            want_w = refs[ref_name].cpu().numpy()
+            gap = float(abs(cell["state"] - want_w).max()
+                        / abs(want_w).max())
+            row["gap_to_make_grid"] = gap
+            require(gap <= 1e-5, f"hop 2 {name}: {gap} x max|w| from "
+                    f"make_grid's fit")
+        else:
+            exact = cells["exact, cadence 1" if name.endswith(" 1")
+                          else f"exact, cadence {k}"]
+            row["wire"] = cell["wire"]
+            row["accuracy_gap"] = abs(cell["accuracy"] - exact["accuracy"])
+            require(row["accuracy_gap"] <= PLAN_ACC_TOL,
+                    f"hop 2 {name}: accuracy {cell['accuracy']} not within "
+                    f"{PLAN_ACC_TOL} of exact {exact['accuracy']}")
+        summary.append(row)
+    km = ranks[0]["kmeans"]
+    require(km["sse"] <= 1.05 * km_ref, f"hop 2 K-means SSE {km['sse']} "
+            f"above 1.05 x make_grid's {km_ref}")
+    dt = ranks[0]["dtree"]
+    tree_equal = same(dt["tree"], tree_ref)
+    require(tree_equal, "hop 2: the tree differs from make_grid's")
+    if check:
+        require(km["launches"] == expected(kmeans_assign=args.km_iters),
+                f"hop 2 K-means launches {km['launches']}")
+        require(dt["launches"] == expected(
+            split_hist=dt["levels"] + (1 if dt["reached"] else 0)),
+            f"hop 2 tree launches {dt['launches']}")
+    return {"backend": "gloo", "world": MESH_RANKS, "mesh": [MESH_RANKS, 1],
+            "device": opts["device"], "lanes_a_rank": ranks[0]["lanes"],
+            "rows_a_rank": ranks[0]["rows_held"], "runs": summary,
+            "kmeans": {"sse": km["sse"], "make_grid_sse": km_ref,
+                       "launches": km["launches"],
+                       "seconds": [r["seconds"]["kmeans"] for r in ranks]},
+            "dtree": {"equal_to_make_grid": tree_equal,
+                      "accuracy": dt["accuracy"], "launches": dt["launches"],
+                      "seconds": [r["seconds"]["dtree"] for r in ranks]},
+            "ranks_bit_equal": True, "profile_rank0": ranks[0]["profile"],
+            "world_seconds": world_s}
+
+
+def train_mesh(args, dev, card: str) -> None:
+    """The main path on a mesh (``make_mesh_grid``): (a) a world of one
+    rank over NCCL, bit-equal to ``make_grid``; (b) two ranks on the one
+    card over gloo at hop 2."""
+    t0 = time.perf_counter()
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    a, refs = mesh_hop_one(args, dev, store_dir)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    b = mesh_hop_two(args, dev, store_dir, refs)
+    emit("train_mesh", card=card, lanes=args.lanes, rows=args.rows,
+         features=args.features, hop_one=a, hop_two=b,
+         seconds=time.perf_counter() - t0)
+
+
 def predict(name, wl, state, requests, launches: dict,
             check_counts: bool) -> None:
     """Requests of 1, 7 and 512 rows through ``Workload.predict``, equal
@@ -2160,6 +2597,8 @@ def main(argv=None) -> int:
     train_wire(args, dev, smi)
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     train_auto(args, dev, smi)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    train_mesh(args, dev, smi)
 
     kernels = []
     for name, t in times.items():

@@ -6,7 +6,7 @@ counterpart is easy to find, but it imports neither JAX nor anything of
 kernels is hand-written CUDA C++ (``kernels/csrc/``), built with
 ``nvcc`` at first use and bound through ``ctypes``.
 
-Entry points (``make_grid``, ``PimGrid``, ``api.fit``,
+Entry points (``make_grid``, ``make_mesh_grid``, ``PimGrid``, ``api.fit``,
 ``Workload.predict``, ``models.build``) run on ``cuda`` unless the caller
 passes ``device="cpu"``; on the CPU every kernel wrapper runs its plain
 PyTorch version.
@@ -16,7 +16,9 @@ dense decoder LM serving):
 
   * ``core.quantize``  — symmetric quantization, int8 limbs, hybrid dot
   * ``core.lut``       — LUT tables and lookups, Taylor sigmoid
-  * ``core.pim``       — single-device ``PimGrid`` (shard, map-reduce, fit)
+  * ``core.pim``       — ``PimGrid`` (shard, map-reduce, fit) on one
+                         device or sharded over a mesh of ranks
+                         (``make_mesh_grid``)
   * ``core.datasets``  — regression, classification, blobs, mixture sets
   * ``core.mlalgos``   — Workload API, ``LinReg``, ``LogReg``, ``KMeans``,
                          ``DecisionTree``, ``LinearSVM``,
@@ -26,7 +28,9 @@ dense decoder LM serving):
                          ``flash_attention`` + dispatch
   * ``distributed``    — merge plans: the cadence, the SlowMo and
                          Nesterov outer optimizers, the EF and top-k
-                         wire and the overlapped merge (``run_fit``)
+                         wire and the overlapped merge (``run_fit``);
+                         the hierarchical and quantized collectives on
+                         ``torch.distributed``
   * ``tuning``         — the plan controller behind ``merge_plan="auto"``
                          and ``AdaptiveCadence``, and its cost model
   * ``roofline``       — the H100's constants, the round counter and the
@@ -39,7 +43,10 @@ dense decoder LM serving):
   * ``configs``        — ``pim_ml`` (the four workloads' fields of
                          ``PimMLConfig``) and ``qwen2_0_5b``
   * ``launch.serve_lm`` — batched greedy serving
+  * ``launch.mesh``    — the process group and the ``("pod", "data")``
+                         mesh
   * ``interop``        — values carried across from the JAX package
 """
 
 from repro_torch.device import resolve_device  # noqa: F401
+from repro_torch.core.pim import make_mesh_grid  # noqa: F401

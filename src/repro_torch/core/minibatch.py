@@ -21,7 +21,8 @@ The schedule, as in the JAX package:
   ``per / n_valid``, an unbiased estimate of the full partition's, so
   ``update_fn``'s normalisation by the row count stays as it is;
 * **one schedule for every vDPU** — all lanes take the same slots; the
-  rows behind the slots differ per lane.
+  rows behind the slots differ per lane.  On a mesh every rank draws the
+  same schedule, since it depends on nothing else.
 
 The permutation.  JAX draws ``jax.random.permutation(fold_in(PRNGKey(
 seed), epoch), per)``, which torch cannot replay.  Here it is a function

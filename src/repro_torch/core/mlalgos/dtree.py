@@ -168,7 +168,8 @@ class DecisionTree(api.Workload):
 
     def prepare(self, grid: PimGrid, X, y=None):
         """The resident bins are the narrowest type that holds them
-        (:func:`bin_dtype`: uint8 at the paper's 32 bins)."""
+        (:func:`bin_dtype`: uint8 at the paper's 32 bins).  The edges come
+        from the full ``X``, so every rank of a mesh bins alike."""
         Xbin, edges = quantize_features(as_f32(X, grid.device), self.n_bins,
                                         bin_dtype(self.n_bins))
         y = torch.as_tensor(y, device=grid.device).to(torch.int32)
@@ -237,6 +238,9 @@ class DecisionTree(api.Workload):
         for depth in range(max_depth):
             n_nodes = 2 ** depth
             level_off = n_nodes - 1
+            # control flow: on a mesh the histogram is all-reduced (sums
+            # of 0/1 weights, exact in any order), so every rank makes
+            # the same splits and stops at the same depth
             bf, bthr, bgain, bclass, bcount = (
                 t.cpu().numpy() for t in _best_splits(level_hist(n_nodes)))
 

@@ -54,6 +54,8 @@ class KMeans(api.Workload):
 
     def prepare(self, grid: PimGrid, X, y=None):
         X = as_f32(X, grid.device)
+        # the initial centroids are drawn from the full X with one seeded
+        # generator, so every rank of a mesh starts from the same ones
         gen = torch.Generator(device=grid.device).manual_seed(self.seed)
         init = torch.randperm(X.shape[0], generator=gen,
                               device=grid.device)[:self.k]

@@ -1,7 +1,7 @@
-"""PimGrid — the paper's PIM execution model on one device.
+"""PimGrid — the paper's PIM execution model on a device or a mesh.
 
-Port of ``repro.core.pim`` without a mesh.  A virtual DPU (vDPU) is one
-lane of a leading ``n_vdpus`` batch dimension:
+Port of ``repro.core.pim``.  A virtual DPU (vDPU) is one lane of a
+leading ``n_vdpus`` batch dimension:
 
   1. ``shard_rows`` partitions the training set once into
      ``(n_vdpus, rows_per_vdpu, ...)`` resident tensors, padded with zero
@@ -9,6 +9,32 @@ lane of a leading ``n_vdpus`` batch dimension:
   2. ``map_reduce`` computes every lane's partial statistics in one
      batched call and merges them with ``sum(dim=0)`` (the host merge),
   3. ``fit`` runs the loop: partials -> merge -> update.
+
+DESIGN — the mesh (``make_mesh_grid``)
+--------------------------------------
+
+``mesh=None`` keeps every lane on one device.  With a mesh
+(``launch.mesh.make_pim_mesh``: axes ``("pod", "data")``, ``pod`` the
+slow host hop) the lanes are sharded over the ranks in JAX's global lane
+order, pod-major: rank ``r`` holds lanes ``[r * n_local, (r + 1) *
+n_local)``.  JAX runs one process over the mesh; here every rank runs
+the same program (multi-controller):
+
+  * every rank calls ``fit`` (or ``api.fit``) with the same full inputs
+    and keeps only its own block of lanes (``shard_rows``);
+  * a merge sums the local lanes, then all-reduces over ``data``, then
+    over ``pod`` (``distributed.collectives``, whose sums are exact or
+    in a fixed order, so every rank gets the same bits);
+  * every rank returns the same replicated state, JAX's
+    ``out_specs=P()``.
+
+A value that decides control flow must be equal on every rank before it
+is used, or the ranks would diverge or deadlock.  Each such place says
+so: the controller's round times (``tuning.controller``, agreed by an
+all-reduce MAX), its cadence and wire decisions (from agreed times and
+replicated delta norms), the tree's splits (from the all-reduced
+histogram) and K-means' initial centroids (drawn from the full ``X``
+with one seeded generator).
 
 The JAX engine compiles the loop (``lax.scan`` over chunks, a compile
 cache, donated carries).  PyTorch runs eagerly, so the port has no
@@ -26,26 +52,87 @@ host:
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import merge_plan as mp
+
+
+def mesh_device(device, mesh) -> torch.device:
+    """A rank's device: as given; else under NCCL ``cuda:LOCAL_RANK``
+    (the launcher's, or the rank modulo the cards), and under any other
+    backend the default of :func:`resolve_device` (every rank of a gloo
+    world on one card shares ``cuda:0``)."""
+    if device is not None or mesh is None or dist.get_backend() != "nccl":
+        return resolve_device(device)
+    local = int(os.environ.get(
+        "LOCAL_RANK", dist.get_rank() % max(torch.cuda.device_count(), 1)))
+    return torch.device("cuda", local)
 
 
 class PimGrid:
     """A grid of ``n_vdpus`` virtual DPUs on one device (``None`` means
-    the card; pass ``device="cpu"`` for the plain PyTorch paths)."""
+    the card; pass ``device="cpu"`` for the plain PyTorch paths), or
+    sharded over a ``("pod", "data")`` mesh of ranks (``mesh``, a
+    ``DeviceMesh``; see DESIGN — the mesh)."""
 
-    def __init__(self, n_vdpus: int, device=None):
+    def __init__(self, n_vdpus: int, device=None, mesh=None):
         if n_vdpus < 1:
             raise ValueError(f"n_vdpus must be >= 1, got {n_vdpus}")
         self.n_vdpus = int(n_vdpus)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # the mesh axes carrying the vDPU shards, slow to fast: the first
+        # is the host hop, reduced last and compressible
+        self.data_axes = (tuple(mesh.mesh_dim_names) if mesh is not None
+                          else ("data",))
+        if self.n_vdpus % self.n_shards:
+            raise ValueError(
+                f"n_vdpus={self.n_vdpus} not divisible by data shards "
+                f"{self.n_shards}")
+        self.device = mesh_device(device, mesh)
         # the plan controller's cost model and setup, keyed by the step
         # functions (merge_plan.cache_get / cache_put)
         self._tuning_cache: dict = {}
+
+    # -- layout --------------------------------------------------------
+
+    @property
+    def n_shards(self) -> int:
+        """Ranks the lanes are sharded over (1 without a mesh)."""
+        return 1 if self.mesh is None else int(self.mesh.size())
+
+    @property
+    def n_local(self) -> int:
+        """Lanes this rank holds."""
+        return self.n_vdpus // self.n_shards
+
+    @property
+    def shard_index(self) -> int:
+        """This rank's block of lanes in JAX's global order (pod-major)."""
+        idx = 0
+        if self.mesh is not None:
+            for size, ax in zip(self.mesh.shape, self.data_axes):
+                idx = idx * size + self.mesh.get_local_rank(ax)
+        return idx
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate on mesh axis ``axis``."""
+        return self.mesh.get_local_rank(axis)
+
+    def reduce(self, tree, *, slow: bool = True):
+        """Sum a tree of this rank's (lane-summed) partials over the mesh:
+        the fast axes, then with ``slow`` the host hop.  Without a mesh,
+        the tree itself."""
+        if self.mesh is None:
+            return tree
+        return coll.hierarchical_psum(
+            tree, self.mesh, self.data_axes[1:][::-1],
+            self.data_axes[0] if slow else None)
 
     def shard_rows(self, X, *extras):
         """Partition rows across vDPUs (the one-time resident placement).
@@ -54,18 +141,24 @@ class PimGrid:
         ``(data, n_rows)``: ``data`` holds ``X`` (and extras ``y0``,
         ``y1``, ...) as ``(n_vdpus, rows_per_vdpu, ...)`` plus a float32
         0/1 mask ``w`` of real rows.  Without padding the placement is a
-        view of the caller's tensor, not a copy.
+        view of the caller's tensor, not a copy.  On a mesh every rank
+        passes the full ``X`` and keeps a copy of its own ``n_local``
+        lanes; ``n_rows`` is the global count.
         """
         X = torch.as_tensor(X, device=self.device)
         n = X.shape[0]
         per = -(-n // self.n_vdpus)
         pad = per * self.n_vdpus - n
+        lo = self.shard_index * self.n_local
 
         def place(a):
             a = torch.as_tensor(a, device=self.device)
             if pad:
                 a = torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
-            return a.reshape((self.n_vdpus, per) + tuple(a.shape[1:]))
+            a = a.reshape((self.n_vdpus, per) + tuple(a.shape[1:]))
+            if self.n_shards > 1:
+                a = a[lo:lo + self.n_local].clone()
+            return a
 
         data = {"X": place(X),
                 "w": place(torch.ones(n, dtype=torch.float32,
@@ -77,7 +170,9 @@ class PimGrid:
     def map_reduce(self, local_fn: Callable[[Any, dict], dict], model: Any,
                    data: dict) -> dict:
         """``local_fn(model, data)`` returns per-lane partials with a
-        leading ``n_vdpus`` dim; returns their sum over the lanes.
+        leading lane dim; returns their sum over the lanes, on a mesh
+        then all-reduced over ``data`` and then over ``pod`` (the
+        paper's host merge: tasklet, rank, host).
 
         >>> import torch
         >>> grid = PimGrid(4, device="cpu")
@@ -88,7 +183,8 @@ class PimGrid:
         >>> float(out["s"])
         28.0
         """
-        return {k: v.sum(dim=0) for k, v in local_fn(model, data).items()}
+        return self.reduce(
+            {k: v.sum(dim=0) for k, v in local_fn(model, data).items()})
 
     def fit(self, *, init_state, local_fn: Callable,
             update_fn: Callable, data: dict, steps: int,
@@ -147,6 +243,42 @@ class PimGrid:
 def make_grid(n_vdpus: int = 64, device=None) -> PimGrid:
     """A grid on the card (or on ``device``)."""
     return PimGrid(n_vdpus, device=device)
+
+
+def make_mesh_grid(n_vdpus: int = 64, *, pods: int = 1,
+                   data: int | None = None, mesh=None,
+                   device=None) -> PimGrid:
+    """A grid whose vDPU axis is sharded over a mesh of ranks.
+
+    The mesh carries the engine's two levels as axes ``("pod",
+    "data")``: ``pod`` the slow, compressible host hop (reduced last),
+    ``data`` the fast axis.  It is built over the world by
+    ``launch.mesh.make_pim_mesh`` (which starts a world of one process
+    when none exists, over the backend of ``device``'s type: gloo for
+    the CPU, NCCL for the card) unless ``mesh`` is given.  ``n_vdpus`` must be
+    divisible by the world size: each rank runs its share of the lanes,
+    as the single-device grid runs all of them.
+
+    In a single process the mesh is ``(1, 1)`` and every collective has
+    one participant:
+
+    >>> import torch
+    >>> grid = make_mesh_grid(8, device="cpu")
+    >>> grid.data_axes, grid.n_shards
+    (('pod', 'data'), 1)
+    >>> data, n = grid.shard_rows(torch.arange(16.0)[:, None])
+    >>> out = grid.map_reduce(
+    ...     lambda m, d: {"s": (d["X"][..., 0] * d["w"]).sum(-1)},
+    ...     None, data)
+    >>> float(out["s"])
+    120.0
+    >>> torch.distributed.destroy_process_group()   # the world it started
+    """
+    if mesh is None:
+        from repro_torch.launch.mesh import make_pim_mesh
+        mesh = make_pim_mesh(pods, data, device_type=None if device is None
+                             else torch.device(device).type)
+    return PimGrid(n_vdpus, device=device, mesh=mesh)
 
 
 def make_cpu_grid(n_vdpus: int = 64) -> PimGrid:

@@ -1,11 +1,13 @@
 """The compressed host hop: fixed point with error feedback, and top-k
 sparsification.
 
-Port of ``repro.distributed.compression`` without a mesh.  A
-``mesh=None`` grid has already lane-summed its partials, so the "wire"
-is the merged tree itself: :func:`ef_compress_tree` quantizes and
-dequantizes each float leaf with error feedback, which is numerically
-the round trip a quantized reduction performs on a real slow axis.
+Port of ``repro.distributed.compression``.  On a mesh
+:func:`compressed_reduce` sums the fast axes exactly and crosses the
+slow one through the compressed collectives.  A ``mesh=None`` grid has
+already lane-summed its partials, so the "wire" is the merged tree
+itself: :func:`ef_compress_tree` quantizes and dequantizes each float
+leaf with error feedback, which is numerically the round trip a
+quantized reduction performs on a slow axis of one participant.
 The error buffer is a tree congruent with the wire; it rides in the
 merge round's carry and continues across ``fit`` calls through
 ``merge_state["error"]`` (``distributed.merge_plan``).
@@ -24,6 +26,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.core import quantize as qz
+from repro_torch.distributed import collectives as coll
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -33,9 +36,8 @@ class CompressionConfig:
     float values (None: native width, only with ``top_k_frac``).
     ``top_k_frac``: keep the largest-|.| fraction of each float leaf a
     round, the dropped entries becoming the next round's residual (None:
-    dense).  ``slow_axis`` and ``fast_axes`` name mesh axes and are
-    unused without a mesh; they are kept so that a JAX config reads the
-    same."""
+    dense).  ``slow_axis`` and ``fast_axes`` name the mesh axes of
+    :func:`compressed_reduce`."""
 
     bits: Optional[int] = 8
     error_feedback: bool = True
@@ -80,11 +82,35 @@ def init_error_state(grads: Any) -> Any:
         if _compressible(g) else torch.zeros_like(g), grads)
 
 
-def compressed_reduce(grads: Any, error: Any, cfg: CompressionConfig):
-    """The compressed reduction over bound mesh axes.  The port has no
-    mesh yet."""
-    from repro_torch.distributed.merge_plan import not_ported
-    raise NotImplementedError(not_ported("compressed_reduce", "11"))
+def compressed_reduce(grads: Any, error: Any, cfg: CompressionConfig, *,
+                      mesh) -> Tuple[Any, Any]:
+    """Reduce a tree hierarchically with a compressed slow hop: exact sums
+    over ``cfg.fast_axes``, then ``cfg.slow_axis`` through the compressed
+    collectives of ``distributed.collectives``, integer leaves exact.
+    ``error`` is congruent with ``grads`` (this participant's residual,
+    no hop axis).  Returns ``(reduced, new_error)``; with ``slow_axis``
+    None the exact fast-axis sums and ``error`` as it was.
+
+    The JAX function runs inside ``shard_map``, where the axis names are
+    bound; here every rank calls it with ``mesh`` (a ``DeviceMesh`` or a
+    dict of groups by axis name)."""
+    grads = coll.hierarchical_psum(grads, mesh, cfg.fast_axes, None)
+    if cfg.slow_axis is None:
+        return grads, error
+    group = coll.axis_group(mesh, cfg.slow_axis)
+
+    def leaf(g, e):
+        if not _compressible(g):
+            return coll.psum(g, group), e
+        if cfg.top_k_frac is not None:
+            return coll.sparse_psum_ef(g, e, group, frac=cfg.top_k_frac,
+                                       bits=cfg.bits,
+                                       error_feedback=cfg.error_feedback)
+        if cfg.error_feedback:
+            return coll.quantized_psum_ef(g, e, group, bits=cfg.bits)
+        return coll.quantized_psum(g, group, bits=cfg.bits), e
+
+    return _map_pairs(leaf, grads, error)
 
 
 def _map_pairs(fn, tree: Any, error: Any) -> Tuple[Any, Any]:

@@ -1,7 +1,7 @@
 """MergePlan — the merge side of the PIM engine as a composable object.
 
-Port of ``repro.distributed.merge_plan`` without a mesh.  A plan
-composes four choices:
+Port of ``repro.distributed.merge_plan``, on one device or on a mesh
+(``core.pim.make_mesh_grid``).  A plan composes four choices:
 
     MergePlan(cadence     = vDPU-local steps between merges,
               overlap     = the merge behind the next round's compute,
@@ -64,16 +64,23 @@ Cadence amortises the merge, overlap hides it, compression shrinks it
   A trailing ``steps % k`` round runs after the drain, not overlapped.
   Here the merge and the compute run in order on one stream.
 * ``compression=CompressionConfig(...)`` — the lane-summed tree crosses
-  the emulated host hop through ``compression.ef_compress_tree``: float
-  leaves quantized with error feedback, top-k sparsified when asked,
-  integer leaves exact.  On the state wire top-k carries per-lane
-  ``end − start`` (the delta wire), since a state's large entries are
-  its large weights.  The error buffer has the JAX package's leading
-  hop axis, ``(1, ...)`` a leaf, so a JAX ``merge_state["error"]``
-  carries over (``interop.error_from_numpy``); the port sizes it at the
-  first merge from the lane-summed tree (the partials at cadence 1, the
-  state at cadence k), where JAX sizes it with ``jax.eval_shape``.  It
-  continues across fits through ``merge_state["error"]``.
+  the host hop compressed: float leaves quantized with error feedback,
+  top-k sparsified when asked, integer leaves exact.  Without a mesh the
+  hop is emulated (``compression.ef_compress_tree``); on a mesh the
+  lane sum is all-reduced exactly over ``data`` and each pod's sum
+  crosses ``pod`` through ``collectives.quantized_psum_ef``,
+  ``sparse_psum_ef`` or ``quantized_psum``.  On the state wire top-k
+  carries per-lane ``end − start`` (the delta wire), since a state's
+  large entries are its large weights.  The error buffer has the JAX
+  package's layout, a leading hop axis of one row a pod (``(1, ...)``
+  without a mesh): every rank holds the whole ``(hop_size, ...)`` tree
+  and updates its own pod's row, and at the end of a fit the rows are
+  all-gathered over ``pod`` so the holder is the same on every rank.
+  So a JAX ``merge_state["error"]`` carries over
+  (``interop.error_from_numpy``).  The port sizes it at the first merge
+  from the lane-summed tree (the partials at cadence 1, the state at
+  cadence k), where JAX sizes it with ``jax.eval_shape``.  It continues
+  across fits through ``merge_state["error"]``.
 
 Carries: ``(state, ef, mom)``, and ``(state, pending, ef, mom)`` under
 overlap; ``mom`` is ``()`` for plain commits, ``ef`` ``None`` without
@@ -110,10 +117,11 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import compression as comp
 from repro_torch.distributed.overlap import double_buffered_body
 from repro_torch.optim.optimizers import nesterov, slow_momentum
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 class MergeFallbackWarning(UserWarning):
@@ -128,12 +136,6 @@ def warn_fallback(algo: str, knobs: str, reason: str) -> None:
         f"{algo}: {knobs} requested but not honoured — {reason}; "
         f"running exact merge-per-step semantics instead",
         MergeFallbackWarning, stacklevel=3)
-
-
-def not_ported(what: str, item: str) -> str:
-    topic = {"11": "collectives and the mesh"}[item]
-    return (f"{what} is not ported to repro_torch yet (ROADMAP queue A, "
-            f"item {item}: {topic})")
 
 
 # -- the grid's cache ----------------------------------------------------
@@ -419,11 +421,9 @@ class MergePlan:
 
 
 def lane_sum(tree, *, scale: float | None = None):
-    """Sum each leaf over its leading lane dim, with ``scale`` folded into
-    the summands (the JAX package folds it into a ones vector and
-    contracts on the MXU; here it is ``sum(dim=0)``)."""
-    return tree_map(
-        lambda x: (x if scale is None else x * scale).sum(dim=0), tree)
+    """``collectives.lane_sum``: each leaf summed over its leading lane
+    dim, ``scale`` folded into the summands."""
+    return coll.lane_sum(tree, scale=scale)
 
 
 def local_phase(grid, local_fn: Callable, update_fn: Callable, k: int,
@@ -434,11 +434,12 @@ def local_phase(grid, local_fn: Callable, update_fn: Callable, k: int,
 
     Lanes are the leading batch dimension: ``local_fn`` gets the
     ``(L, ...)`` state (each tensor of a tuple state expanded alike) and
-    returns per-lane partials, which are pre-scaled by ``n_vdpus`` so
-    ``update_fn``'s global normalisation sees shard statistics at
-    dataset magnitude (the local-SGD view)."""
+    returns per-lane partials, which are pre-scaled by the global
+    ``n_vdpus`` so ``update_fn``'s global normalisation sees shard
+    statistics at dataset magnitude (the local-SGD view).  On a mesh the
+    lanes are this rank's ``n_local``."""
     scale = float(grid.n_vdpus)
-    lanes = tree_map(lambda s: s.expand((grid.n_vdpus,) + tuple(s.shape)),
+    lanes = tree_map(lambda s: s.expand((grid.n_local,) + tuple(s.shape)),
                      state)
     per_step = []
     for _ in range(k):
@@ -451,26 +452,31 @@ def local_phase(grid, local_fn: Callable, update_fn: Callable, k: int,
 def cadence_round(grid, local_fn: Callable, update_fn: Callable, k: int,
                   state, data: dict):
     """One exact merge round at cadence ``k`` (the default plan):
-    :func:`local_phase`, then the lane states and per-step metrics
-    averaged as ``sum(dim=0) * (1.0 / n_vdpus)``, as in
+    :func:`local_phase`, then the lane states and per-step metrics summed
+    over the lanes (on a mesh then over ``data`` and ``pod``) and scaled
+    by ``1.0 / n_vdpus``, as in
     ``repro.distributed.merge_plan.cadence_round``.
 
     Returns ``(avg_state, [metrics of each local step])``.
     """
     lanes, per_step = local_phase(grid, local_fn, update_fn, k, state, data)
     inv = 1.0 / float(grid.n_vdpus)
-    return (tree_map(lambda s: s.sum(dim=0) * inv, lanes),
-            [{key: v.sum(dim=0) * inv for key, v in m.items()}
-             for m in per_step])
+    states, metrics = grid.reduce(
+        (lane_sum(lanes), tuple(lane_sum(m) for m in per_step)))
+    return (tree_map(lambda s: s * inv, states),
+            [{key: v * inv for key, v in m.items()} for m in metrics])
 
 
 # -- the wire and the round pieces ---------------------------------------
 
 
 def hop_size(grid) -> int:
-    """Participants on the compressible slow hop: 1 without a mesh.  The
-    error buffer carries one slice a participant on its leading axis."""
-    return 1
+    """Participants on the compressible slow hop: the size of the mesh's
+    first data axis (``pod``), 1 without a mesh.  The error buffer
+    carries one row a participant on its leading axis."""
+    if grid.mesh is None:
+        return 1
+    return int(grid.mesh.shape[0])
 
 
 def init_merge_error(grid, wire: Any) -> Any:
@@ -483,18 +489,63 @@ def init_merge_error(grid, wire: Any) -> Any:
                     wire)
 
 
+def gather_merge_error(grid, ef: Any) -> Any:
+    """The error buffer as every rank holds it after a fit: each pod's row
+    from that pod's ranks, all-gathered over ``pod`` (a rank updates
+    only its own pod's row during the fit).  Without a mesh, or at a hop
+    of one, the buffer itself."""
+    if ef is None or hop_size(grid) == 1:
+        return ef
+    group = coll.axis_group(grid.mesh, grid.data_axes[0])
+    pod = grid.axis_index(grid.data_axes[0])
+    return tree_map(lambda e: coll.gather_rows(e[pod], group), ef)
+
+
+def _slow_hop(grid, part: Any, ef: Any, compression) -> tuple:
+    """This pod's sum across ``pod`` through
+    ``compression.compressed_reduce`` (which owns the wire's leaf
+    policy), fed this pod's row of ``ef``; the row comes back as the
+    leaf's new error.  Returns ``(merged, ef')``."""
+    slow = grid.data_axes[0]
+    pod = grid.axis_index(slow)
+    rows = tree_map(lambda e: e[pod], ef)
+    merged, new_rows = comp.compressed_reduce(
+        part, rows, dataclasses.replace(compression, slow_axis=slow,
+                                        fast_axes=()), mesh=grid.mesh)
+
+    def put(e, row, ne):
+        if ne is row:
+            return e
+        out = e.to(ne.dtype).clone()
+        out[pod] = ne
+        return out
+
+    return merged, tree_map(put, ef, rows, new_rows)
+
+
 def merge_pending(grid, pending: Any, ef: Any, compression,
                   scale: float | None):
-    """Reduce a per-lane tree: the lane sum (``scale`` folded in), then,
-    with ``compression``, the emulated host hop
-    (``compression.ef_compress_tree`` on the buffer's one hop slice).
-    ``ef`` of ``None`` is sized here from the lane-summed tree.  Returns
+    """Reduce a per-lane tree: the lane sum (``scale`` folded in), on a
+    mesh then the exact sums over the fast axes, then the host hop: the
+    exact sum over ``pod``, or with ``compression`` the compressed one
+    (without a mesh ``compression.ef_compress_tree`` on the buffer's one
+    hop row, on a mesh the collectives of ``_slow_hop``).  ``ef`` of
+    ``None`` is sized here from the lane-summed tree.  Returns
     ``(merged, ef')``."""
     part = lane_sum(pending, scale=scale)
     if compression is None:
-        return part, ef
+        return grid.reduce(part), ef
+    part = grid.reduce(part, slow=False)
     if ef is None:
         ef = init_merge_error(grid, part)
+    hop = hop_size(grid)
+    for e in tree_leaves(ef):
+        if e.shape[0] != hop:
+            raise ValueError(
+                f"the error buffer has {e.shape[0]} hop rows, the grid's "
+                f"slow hop {hop} participants")
+    if grid.mesh is not None:
+        return _slow_hop(grid, part, ef, compression)
     merged, new = comp.ef_compress_tree(
         part, tree_map(lambda e: e[0], ef), compression)
     return merged, tree_map(lambda e: e[None], new)
@@ -545,7 +596,9 @@ def pipeline_fns(grid, local_fn: Callable, update_fn: Callable, *,
     def compute_fn(state, data):
         lanes, per_step = local_phase(grid, local_fn, update_fn,
                                       merge_every, state, data)
-        return (lanes, state), [lane_sum(m, scale=inv) for m in per_step]
+        # every step's metrics in one reduction (one collective a dtype)
+        return (lanes, state), list(grid.reduce(
+            tuple(lane_sum(m, scale=inv) for m in per_step)))
 
     # top-k of a state zeroes most of the model every merge; a local
     # phase's delta is what sparsified local SGD sends.  The error buffer
@@ -679,7 +732,7 @@ def run_fit(grid, plan: MergePlan, *, init_state, local_fn: Callable,
             update_fn=update_fn, data=data, steps=steps, callback=callback)
         if merge_state is not None:
             if ef is not None:
-                merge_state["error"] = ef
+                merge_state["error"] = gather_merge_error(grid, ef)
             merge_state["cadence_trace"] = list(ctl.cadence_trace)
             merge_state["tuning_trace"] = ctl.trace_dict()
         return state, history
@@ -730,7 +783,7 @@ def run_fit(grid, plan: MergePlan, *, init_state, local_fn: Callable,
         if plan.overlap else carry
     if merge_state is not None:
         if ef is not None:
-            merge_state["error"] = ef
+            merge_state["error"] = gather_merge_error(grid, ef)
         if not outer.plain_commit:
             merge_state["momentum"] = mom
     return state, history

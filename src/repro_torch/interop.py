@@ -110,9 +110,11 @@ def momentum_from_numpy(mom, device=None) -> OptState:
 def error_from_numpy(error, device=None):
     """A JAX fit's ``merge_state["error"]``, a tree (dict or tuple) of
     numpy arrays with the leading hop axis (``(1, ...)`` a leaf without a
-    mesh), as the port's tree of tensors, dtypes and bits kept.  Put it
-    in the ``merge_state`` of the fit that resumes the JAX fit's state
-    under the same compression."""
+    mesh, ``(hop, ...)`` from a mesh of ``hop`` pods, gathered by
+    ``np.asarray``), as the port's tree of tensors, dtypes and bits kept.
+    Put it in the ``merge_state`` of the fit that resumes the JAX fit's
+    state under the same compression, on a grid whose slow hop has as
+    many participants (every rank of a mesh takes the whole buffer)."""
     dev = resolve_device(device)
     return tree_map(lambda a: tensor_from_numpy(a, dev), error)
 

@@ -19,6 +19,14 @@ model uses:
 * :func:`predict_round`, the JAX package's formula term for term, with
   the card's constants as arguments (defaults from :mod:`.hw`).
 
+On a mesh the round's collectives (``distributed.collectives``) pass the
+dispatcher as ``c10d`` ops, which the mode lets through uncharged: the
+collectives charge their own link traffic (:func:`charge_link`), the
+fast axes' bytes into ``RoundCount.ici_bytes``.  The slow hop charges
+nothing, because :func:`predict_round` prices it from the candidate's
+wire bytes (as the JAX package takes the larger of the two, never
+both).
+
 Example — a float32 product (2·4·8·2 operations; a and b read, 192
 bytes, the product written, 32) and an add (the product read and the
 sum written, 64 bytes), counted:
@@ -56,11 +64,13 @@ _ACTIVE: list = []
 
 @dataclasses.dataclass
 class RoundCount:
-    """Operations by kind (the keys of ``hw.PEAK_OPS``) and HBM bytes of
-    one round."""
+    """Operations by kind (the keys of ``hw.PEAK_OPS``), HBM bytes and
+    the bytes a participant moves over the fast links (``ici_bytes``)
+    of one round."""
 
     ops: dict = dataclasses.field(default_factory=dict)
     bytes: float = 0.0
+    ici_bytes: float = 0.0
 
     def add(self, n_bytes: float, ops: float = 0.0,
             kind: str = "fp32") -> None:
@@ -125,7 +135,7 @@ class RoundCounter(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = func.overloadpacket.__name__
-        if name in _FREE or _is_view(func):
+        if name in _FREE or func.namespace == "c10d" or _is_view(func):
             return out
         reads = _tensors((args, {k: v for k, v in kwargs.items()
                                  if k != "out"}))
@@ -148,10 +158,17 @@ def charge(n_bytes: float, ops: float = 0.0, kind: str = "fp32") -> None:
         counter.count.add(n_bytes, ops, kind)
 
 
-def predict_round(count: RoundCount, *, cadence: int = 1,
+def charge_link(n_bytes: float) -> None:
+    """Charge a fast-axis collective's traffic (the bytes one
+    participant receives) to every active :class:`RoundCounter`."""
+    for counter in _ACTIVE:
+        counter.count.ici_bytes += float(n_bytes)
+
+
+def predict_round(count: RoundCount, *, n_chips: int = 1, cadence: int = 1,
                   wire_bytes: float = 0.0, overlap: bool = False,
                   baseline_cadence: int = 1, encode_bytes: float = 0.0,
-                  ici_s: float = 0.0, dcn_s: float = 0.0,
+                  ici_s: float | None = None, dcn_s: float = 0.0,
                   hbm_bw: float = hw.HBM_BW, peak_ops: dict = hw.PEAK_OPS,
                   wire_bw: float | None = None) -> dict:
     """Per-round time of a candidate merge plan, from the count of ONE
@@ -162,10 +179,11 @@ def predict_round(count: RoundCount, *, cadence: int = 1,
       baseline_cadence``: compute is each kind's operations over its
       peak, memory the bytes over ``hbm_bw``;
     * ``t_merge_s`` — ``ici_s + encode_bytes / hbm_bw + max(dcn_s,
-      wire_bytes / wire_bw)``: the fast hop's collectives, the
-      compressed wire's encode passes and the slow hop.  One card has
-      no collectives (``ici_s = dcn_s = 0``) and its slow hop moves at
-      ``hbm_bw`` (``wire_bw=None``);
+      wire_bytes / wire_bw)``: the fast hop's collectives (by default
+      ``count.ici_bytes`` over NVLink's rate), the compressed wire's
+      encode passes and the slow hop.  ``wire_bw=None`` prices the slow
+      hop at the NIC's rate when ``n_chips > 1`` and at ``hbm_bw`` on
+      one card, whose hop is an in-memory reduction;
     * a round costs ``cadence · t_local + t_merge``; with ``overlap``
       only the merge time ``cadence`` local steps cannot hide.
 
@@ -177,7 +195,11 @@ def predict_round(count: RoundCount, *, cadence: int = 1,
     base = max(int(baseline_cadence), 1)
     t_local = max(compute_s, memory_s) / base
     t_encode = float(encode_bytes) / hbm_bw
-    bw = hbm_bw if wire_bw is None else float(wire_bw)
+    if ici_s is None:
+        ici_s = count.ici_bytes / hw.NVLINK_BW
+    if wire_bw is None:
+        wire_bw = hw.NIC_BW_PER_GPU if n_chips > 1 else hbm_bw
+    bw = float(wire_bw)
     t_merge = ici_s + t_encode + max(dcn_s, float(wire_bytes) / bw)
     k = max(int(cadence), 1)
     exposed = max(0.0, t_merge - k * t_local) if overlap else t_merge

@@ -32,3 +32,20 @@ def tree_leaves(tree) -> list[Any]:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(tree, leaves) -> Any:
+    """A tree of ``tree``'s structure holding ``leaves``, given in
+    :func:`tree_leaves`' order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, tuple):
+            out = [build(x) for x in t]
+            return type(t)(*out) if hasattr(t, "_fields") else tuple(out)
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        return next(it)
+
+    return build(tree)

@@ -15,7 +15,15 @@ Python, a copy of the JAX package's:
 * **overlap** — every wire format is offered with and without the
   deferred-commit pipeline (:class:`PlanChoice`); the prior never
   predicts an overlap win on one card, so only a measured probe can
-  promote it.
+  promote it there (on a mesh the prior lets the overlap hide the
+  merge).
+
+On a mesh every rank runs the controller.  Its decisions read two
+host numbers: the delta norm, of the replicated state and so equal on
+every rank, and the round's seconds, which each rank times on its own
+clock and which are agreed (the maximum over the mesh) before the
+controller sees them.  So every rank decides the same cadence, wire and
+hold, and the ranks stay in step.
 
 ``run_controlled_fit`` drives a fit: one merge round a dispatch while
 the controller is deciding, always on the state wire (so the error
@@ -37,6 +45,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import compression as comp
 from repro_torch.distributed import merge_plan as mp
 from repro_torch.distributed.compression import CompressionConfig
@@ -445,6 +454,12 @@ def run_controlled_fit(grid, plan, *, state, ef, local_fn, update_fn,
             state, ef, _ = carry
         dn = float(torch.sqrt(delta_sq_norm(state, prev)))
         dt = time.perf_counter() - t0
+        if grid.mesh is not None:
+            # control flow: each rank timed the round on its own host
+            # clock, and the ranks must decide alike.  A synchronous round
+            # costs its slowest rank, so they agree on the maximum.  (The
+            # delta norm is of the replicated state, equal on every rank.)
+            dt = coll.mesh_max(grid.mesh, grid.data_axes, dt, grid.device)
         mp.flush_metrics(metrics, history, state, callback)
         done += hold * k
         meas = Measurement(

@@ -72,6 +72,8 @@ class CostModel:
 
     count: ra.RoundCount
     wire: Any
+    # the world size of the grid's mesh (1 without a mesh)
+    n_chips: int = 1
 
     # encode/decode passes a compressed wire costs over the dense tree
     # (quantize + dequantize + error-feedback update)
@@ -92,7 +94,8 @@ class CostModel:
         model = cls(
             count=count_round(grid, local_fn, update_fn, state, data),
             wire=tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
-                                                device="meta"), state))
+                                                device="meta"), state),
+            n_chips=grid.n_shards)
         mp.cache_put(grid, key, model, local_fn, update_fn)
         return model
 
@@ -106,15 +109,21 @@ class CostModel:
 
         One card's slow hop is an in-memory reduction priced at HBM
         bandwidth, so compression never wins on modeled time (one dense
-        pass beats ENCODE_PASSES of them plus the compressed wire).  Nor
-        is there a second execution stream to hide the merge in: an
-        ``overlap`` candidate is priced as its twin (and tagged as
-        itself), so only a measured probe can promote it."""
+        pass beats ENCODE_PASSES of them plus the compressed wire).
+        Across a mesh (``n_chips > 1``) the wire is priced at the NIC's
+        rate, where fewer bytes are a real saving.  The port's overlap
+        runs its merge and the next round's steps in order on one stream
+        (blocking collectives), so nothing hides the merge on one card or
+        on a mesh: an ``overlap`` candidate is priced as its twin (and
+        tagged as itself), and only a measured probe can promote it.
+        (JAX's prior lets the overlap hide the merge on a mesh, where XLA
+        schedules the collective beside the compute; ROADMAP item 11b.)"""
         encode = 0 if compression is None \
             else self.ENCODE_PASSES * _dense_float_bytes(self.wire)
         row = ra.predict_round(
-            self.count, cadence=cadence,
-            wire_bytes=self.wire_bytes(compression), encode_bytes=encode)
+            self.count, n_chips=self.n_chips, cadence=cadence,
+            wire_bytes=self.wire_bytes(compression), overlap=False,
+            encode_bytes=encode)
         row["compression"] = compression_tag(compression)
         row["overlap"] = bool(overlap)
         return row

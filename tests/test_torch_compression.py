@@ -31,8 +31,8 @@ from repro_torch.distributed import compression as comp  # noqa: E402
 from repro_torch.distributed import overlap  # noqa: E402
 from repro_torch.distributed.compression import CompressionConfig  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
-from torch_parity import (assert_bits_equal, rng, to_numpy,  # noqa: E402
-                          to_torch)
+from torch_parity import (assert_bits_equal, rng,  # noqa: E402
+                          single_process_world, to_numpy, to_torch)
 
 
 def _same(port, ref) -> None:
@@ -251,8 +251,20 @@ def test_leaf_policy_and_the_mesh_reduction():
     assert comp._compressible(1.5)
     assert not comp._compressible(torch.zeros(2, dtype=torch.int32))
     assert not comp._compressible(3)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        comp.compressed_reduce({}, {}, CompressionConfig())
+    # the mesh reduction at one participant is the emulation, integer
+    # leaves exact (ROADMAP item 11; ``test_torch_collectives.py`` holds
+    # it against JAX's at hop 2 and 4)
+    from repro_torch.launch.mesh import make_pim_mesh
+
+    g = torch.tensor([0.5, -1.25, 3.0, 0.0])
+    tree = {"g": g, "n": torch.tensor([3, 4], dtype=torch.int32)}
+    err = comp.init_error_state(tree)
+    with single_process_world():
+        got, new = comp.compressed_reduce(tree, err, CompressionConfig(),
+                                          mesh=make_pim_mesh(1, 1))
+    want, want_new = comp.ef_compress_tree(tree, err, CompressionConfig())
+    for a, b in zip(tree_leaves((got, new)), tree_leaves((want, want_new))):
+        assert torch.equal(a, b)
 
 
 def test_doc_examples():

@@ -30,7 +30,8 @@ from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
 from repro_torch.kernels.lut_activation import lut_activation  # noqa: E402
 from repro_torch.kernels.split_hist import split_hist  # noqa: E402
 from repro_torch.models import build  # noqa: E402
-from torch_parity import require_cuda  # noqa: E402
+import torch_mesh_ref as mesh_ref  # noqa: E402
+from torch_parity import require_cuda, single_process_world  # noqa: E402
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -670,3 +671,72 @@ def test_small_controlled_fit_equals_its_plain_twin(preset):
     assert torch.equal(a.state, b.state)
     assert held["cadence_trace"] == twin["cadence_trace"]
     assert max(held["cadence_trace"]) > 1
+
+
+# -- the mesh on the card ------------------------------------------------------
+
+
+@pytest.mark.parametrize("cell", sorted(mesh_ref.CARD_CELLS))
+def test_mesh_at_hop_one_is_the_grid_on_the_card(cell):
+    """A world of one process over NCCL: the (1, 1) mesh's fit equals
+    ``make_grid``'s bit for bit (every collective has one participant,
+    the compressed hop is ``ef_quantize``)."""
+    from repro_torch.core import make_mesh_grid
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import merge_plan as mp
+
+    dev = require_cuda()
+    X, y = mesh_ref.card_case()
+    wl = LogReg(lr=0.5, precision="int8", sigmoid="lut")
+    plan = mesh_ref.card_plan(mp, comp, cell)
+    with single_process_world("nccl"):
+        a = api.fit(wl, make_mesh_grid(8, device=dev), X, y, steps=16,
+                    merge_plan=plan)
+    b = api.fit(wl, make_grid(8, device=dev), X, y, steps=16,
+                merge_plan=plan)
+    assert torch.equal(a.state, b.state)
+    assert all(torch.equal(m["loss"], n["loss"])
+               for m, n in zip(a.history, b.history))
+
+
+def test_cpu_mesh_grid_beside_a_card_reduces():
+    """Asked for the CPU on a machine with a card, ``make_mesh_grid``
+    starts a gloo world and a CPU mesh, and its reduction runs."""
+    import torch.distributed as dist
+
+    from repro_torch.core import make_mesh_grid
+
+    require_cuda()
+    assert not dist.is_initialized()
+    try:
+        grid = make_mesh_grid(8, device="cpu")
+        assert dist.get_backend() == "gloo"
+        data, _ = grid.shard_rows(torch.arange(16.0)[:, None])
+        out = grid.map_reduce(
+            lambda _, sl: {"s": (sl["X"][..., 0] * sl["w"]).sum(-1)},
+            None, data)
+        assert float(out["s"]) == 120.0
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_ranks_share_the_card_over_gloo(tmp_path):
+    """Two ranks on the one card (gloo carries the CUDA tensors): the
+    replicas are bit-equal, and the exact cells lie within 1e-5 x max|w|
+    of ``make_grid``'s fit."""
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import merge_plan as mp
+
+    dev = require_cuda()
+    ranks = mesh_ref.run_world("card_mesh_scenario", 2, str(tmp_path),
+                               timeout=240.0)
+    X, y = mesh_ref.card_case()
+    wl = LogReg(lr=0.5, precision="int8", sigmoid="lut")
+    for cell, got in ranks[0].items():
+        assert got.tobytes() == ranks[1][cell].tobytes(), cell
+        if "int8" in cell:
+            continue
+        want = api.fit(wl, make_grid(8, device=dev), X, y, steps=16,
+                       merge_plan=mesh_ref.card_plan(mp, comp, cell)
+                       ).state.cpu().numpy()
+        assert abs(got - want).max() <= 1e-5 * abs(want).max(), cell

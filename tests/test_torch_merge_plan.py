@@ -46,7 +46,8 @@ from repro_torch.distributed.merge_plan import (  # noqa: E402
     Nesterov, OuterOptimizer, SlowMo)
 from repro_torch.optim import OptState  # noqa: E402
 from torch_parity import (blobs, classification, mixture,  # noqa: E402
-                          regression, rng, top_two_gap)
+                          regression, rng, single_process_world,
+                          top_two_gap)
 
 LANES, ROWS, D = 8, 603, 16          # 603 rows: the last lane is padded
 OUTERS = {"slowmo": (SlowMo, jmp.SlowMo), "nesterov": (Nesterov,
@@ -410,13 +411,21 @@ def test_mixed_spellings_raise():
     (None, "11"),
 ])
 def test_unported_plans_name_their_item(kw, item):
-    """What is not ported names its ROADMAP item: item 11's
-    ``compressed_reduce``.  Item 16a's plans, which raised until it was
-    ported, train: the config builds the plan the JAX config builds, and
-    a 2-step fit returns 2 entries and its decision trace."""
+    """What raised until its ROADMAP item was ported now runs.  Item 11's
+    ``compressed_reduce`` reduces over a mesh (here the (1, 1) mesh of
+    this process, where it is the emulated hop).  Item 16a's plans
+    train: the config builds the plan the JAX config builds, and a
+    2-step fit returns 2 entries and its decision trace."""
     if item == "11":
-        with pytest.raises(NotImplementedError, match="item 11"):
-            comp.compressed_reduce({}, {}, CompressionConfig())
+        from repro_torch.launch.mesh import make_pim_mesh
+
+        tree = {"g": torch.tensor([1.0, -2.0, 0.25])}
+        err = comp.init_error_state(tree)
+        with single_process_world():
+            got, _ = comp.compressed_reduce(tree, err, CompressionConfig(),
+                                            mesh=make_pim_mesh(1, 1))
+        want, _ = comp.ef_compress_tree(tree, err, CompressionConfig())
+        assert torch.equal(got["g"], want["g"])
         return
     outer = "auto" if kw["merge_plan"] == "auto" else "adaptive"
     plan = PimMLConfig(merge_outer=outer).merge_plan()

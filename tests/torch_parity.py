@@ -4,6 +4,8 @@ Inputs are made with numpy from a fixed seed and handed to both
 packages; JAX stays on the CPU and values cross as numpy arrays.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -90,3 +92,20 @@ def top_two_gap(xf, c):
          ).sum(-1)
     d.sort(axis=-1)
     return d[..., 1] - d[..., 0]
+
+
+@contextlib.contextmanager
+def single_process_world(backend: str = "gloo"):
+    """A world of this one process for the duration (the one that exists
+    is kept, and one started here is ended after)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world
+
+    started = not dist.is_initialized()
+    init_world(backend)
+    try:
+        yield
+    finally:
+        if started:
+            dist.destroy_process_group()
