@@ -117,7 +117,26 @@ Phases, each printed as one JSON line:
                 compressed accuracy within 0.01 of the exact cell's, the
                 tree equal to make_grid's, K-means' SSE at most 1.05 x
                 make_grid's; each cell's wire bytes, launches and steps/s;
- 12. the ``kernels`` line (fxp_matmul's entry also times the
+ 12. train_ckpt — the main path (LogReg int8 + LUT, 256 vDPUs x 2^24
+                rows, d=64) through the fault-tolerant
+                ``Trainer.for_program``: (a) at cadence 1 (50 steps,
+                checkpoints every 10) and 8 (48, every 16), each bit-equal
+                to ``Program.fit`` of as many steps with its launches
+                (100 / 50, 96 / 48), no restart, every checkpoint on a
+                merge boundary; (b) the cadence-1 run with a NaN loss at
+                step 23, in line, with ``async_metrics`` and under
+                ``RecoveryPolicy(backoff_base_s=0.0)``: one restart from
+                the step-20 checkpoint, 50 history entries in order, the
+                end bit-equal to (a); (c) a child process (this script
+                with ``--ckpt-child DIR``) at cadence 8 on 1,024 rows a
+                lane a step, its holder seeded by 8 steps of int8 EF +
+                SlowMo at cadence 2, SIGKILLed inside its third round and
+                resumed here bit-equal to an uninterrupted run (state,
+                counter, EF buffer, momentum, history); (d) steps/s of the
+                trainer (also with ``async_metrics``) against
+                ``Program.fit`` at cadence 1 and 8 in turns, and one
+                save's synchronous and background ms;
+ 13. the ``kernels`` line (fxp_matmul's entry also times the
      multinomial's two dots at C = 4 and 10, with their byte bound), the
      nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -176,8 +195,12 @@ from repro_torch.launch.mesh import init_world, make_pim_mesh  # noqa: E402
 from repro_torch.launch.serve_lm import generate  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models.transformer import padded_vocab  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.resilience import RecoveryPolicy  # noqa: E402
 from repro_torch.roofline import hw  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.runtime import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.tree import (tree_flatten_with_names,  # noqa: E402
+                              tree_leaves, tree_map)
 from repro_torch.tuning import AutoTune, PlanController  # noqa: E402
 
 # PimMLConfig's workloads at a size the card holds for real (its reg_rows,
@@ -230,6 +253,19 @@ AUTO_ADAPTIVE_K_MAX = 8
 # one card over gloo) and how long a join may take
 MESH_RANKS = 2
 MESH_JOIN_S = 300.0
+# train_ckpt: the main path through Trainer.for_program.  (a) checkpoints
+# every 10 steps at cadence 1 and every 16 at the config's cadence, logs
+# every 10; (b) a NaN loss at step 23 of the cadence-1 run, which the
+# boundary rule rolls back to the step-20 checkpoint; (c) the holder
+# seeded by 8 steps of int8 EF + SlowMo at cadence 2, then 48 steps at
+# the config's cadence on 1/64 of a lane's rows, checkpoints every 8, the
+# child killed inside its third round (and a second process on the card
+# takes ~8-10 s to start); (d) rates in turns and one save's cost
+CKPT_EVERY, CKPT_EVERY_K, CKPT_LOG_EVERY = 10, 16, 10
+CKPT_NAN_STEP, CKPT_NAN_RESTORES = 23, 20
+KILL_SEGMENT_STEPS, KILL_STEPS, KILL_EVERY, KILL_DISPATCH = 8, 48, 8, 3
+KILL_JOIN_S = 300.0
+CKPT_SAVES = 10
 LM_ARCH = "qwen2-0.5b"
 LM_BATCH, LM_SEQ = 4, 4096            # prefill: 4 x 4096 tokens
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 64, 32
@@ -2202,6 +2238,442 @@ def train_mesh(args, dev, card: str) -> None:
          seconds=time.perf_counter() - t0)
 
 
+# -- phase 12: checkpoint and restart -----------------------------------------
+
+
+def ckpt_program(args, dev):
+    """The main path bound for ``train_ckpt``: ``LogReg(int8, LUT)`` on
+    the phase's data, made from ``--seed`` on ``dev`` (the killed child
+    makes the same)."""
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 300)
+    X, y, _ = datasets.binary_classification(gen, args.rows, args.features)
+    program = LogReg(lr=0.5, precision="int8", sigmoid="lut").bind(
+        make_grid(args.lanes, device=dev), X, y)
+    return program, X, y
+
+
+def seeded_holder(program) -> dict:
+    """A merge-state holder seeded by a prior ``PimGrid.fit`` segment
+    under int8 EF and SlowMo at cadence 2 (``for_program`` refuses such
+    plans, so the buffers ride its checkpoints as cargo)."""
+    ms: dict = {}
+    program.grid.fit(init_state=program.state0, local_fn=program.local_fn,
+                     update_fn=program.update_fn, data=program.data,
+                     steps=KILL_SEGMENT_STEPS, merge_state=ms,
+                     merge_plan=MergePlan(
+                         cadence=2, compression=CompressionConfig(bits=8),
+                         outer=SlowMo()))
+    ms["tuning_trace"] = {"note": ["segment-done"]}
+    return ms
+
+
+def kill_config(args, ckpt_dir: str) -> TrainerConfig:
+    return TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=KILL_EVERY,
+                         log_every=KILL_EVERY, merge_every=args.cadence,
+                         batch_size=args.rows // args.lanes // MB_FRACTION)
+
+
+def ckpt_child(args, dev, ckpt_dir: str) -> int:
+    """(c)'s victim, in its own process: the run of :func:`kill_config`,
+    SIGKILLed inside its ``KILL_DISPATCH``-th round, after the round has
+    computed and before the trainer records or checkpoints it."""
+    import signal
+
+    program, X, y = ckpt_program(args, dev)
+    del X, y
+    tr = Trainer.for_program(program, kill_config(args, ckpt_dir),
+                             merge_state=seeded_holder(program))
+    orig = tr.step_fn
+    calls = {"n": 0}
+
+    def sabotaged(state, batch):
+        out = orig(state, batch)
+        calls["n"] += 1
+        if calls["n"] == KILL_DISPATCH:
+            sync(dev)
+            tr.ckpt.wait()      # the last save lands: the crash tests resume
+            os.kill(os.getpid(), signal.SIGKILL)
+        return out
+
+    tr.step_fn = sabotaged
+    tr.run(KILL_STEPS)
+    print("chip_smoke: the killed run finished", file=sys.stderr)
+    return 1
+
+
+def counted_trainer(program, cfg, steps, wrap=None) -> tuple:
+    """``Trainer.for_program(program, cfg).run(steps)`` (``wrap`` takes
+    and returns the step function) with the counters set to 0 just
+    before and read just after: (trainer, result, launches, seconds)."""
+    dev = program.grid.device
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = Trainer.for_program(program, cfg)
+    if wrap is not None:
+        tr.step_fn = wrap(tr.step_fn)
+    out = tr.run(steps)
+    sync(dev)
+    return tr, out, counts(), time.perf_counter() - t0
+
+
+def same_history(out, history) -> bool:
+    """A trainer's history against ``Program.fit``'s, step for step."""
+    return [e["step"] for e in out["history"]] == list(
+        map(float, range(len(history)))) and [
+        e["loss"] for e in out["history"]] == [float(m["loss"])
+                                               for m in history]
+
+
+def trainer_against_fit(args, program, X, y, base: str,
+                        check: bool) -> tuple:
+    """(a): the trainer at cadence 1 and the config's against
+    ``Program.fit`` of as many steps, bit for bit, with the same launches
+    and every checkpoint on a merge boundary.  Returns (runs, cadence-1
+    fit result)."""
+    runs, ref = [], None
+    k = args.cadence
+    for name, steps, cad, every in (
+            ("cadence 1", args.steps, 1, CKPT_EVERY),
+            (f"cadence {k}", args.cadence_steps, k, CKPT_EVERY_K)):
+        want = expected(fxp_matmul=FXP_STEP * steps, lut_activation=steps)
+        sync(program.grid.device)
+        reset_counts()
+        res = program.fit(steps=steps, merge_every=cad)
+        sync(program.grid.device)
+        fit_seen = counts()
+        cfg = TrainerConfig(ckpt_dir=tempfile.mkdtemp(dir=base),
+                            ckpt_every=every, log_every=CKPT_LOG_EVERY,
+                            merge_every=cad, ckpt_keep=1000)
+        tr, out, seen, seconds = counted_trainer(program, cfg, steps)
+        saved = tr.ckpt.steps()
+        s = {"run": f"Trainer.for_program, {name}", "steps": steps,
+             "ckpt_every": every, "launches": seen,
+             "fit_launches": fit_seen, "expected_launches": want,
+             "seconds": seconds, "restarts": out["restarts"],
+             "checkpoints": saved,
+             "bit_equal_to_fit": bool(torch.equal(tr.state, res.state))
+             and same_history(out, res.history),
+             "accuracy": accuracy(tr.state, X, y)}
+        require(s["bit_equal_to_fit"], f"{s['run']}: not bit-equal to "
+                f"Program.fit({steps}) at cadence {cad}")
+        require(out["restarts"] == 0, f"{s['run']}: {out['restarts']} "
+                "restarts")
+        require(saved and all((t + 1) % cad == 0 for t in saved),
+                f"{s['run']}: checkpoints {saved} off the merge boundaries")
+        if check:
+            require(seen == want and fit_seen == want, f"{s['run']}: "
+                    f"launches {seen} (fit {fit_seen}), the design "
+                    f"implies {want}")
+        runs.append(s)
+        if cad == 1:
+            ref = res
+    return runs, ref
+
+
+def restore_and_replay(args, program, ref, base: str, check: bool) -> list:
+    """(b): the cadence-1 trainer whose step returns a NaN loss once, at
+    step ``CKPT_NAN_STEP``: one restore of the step-20 checkpoint, the
+    replay, and the end bit-equal to (a); in line, with the background
+    sink and under a RecoveryPolicy."""
+    steps = args.steps
+    first = CKPT_NAN_STEP // CKPT_LOG_EVERY * CKPT_LOG_EVERY
+    replayed = (first + CKPT_LOG_EVERY) - CKPT_NAN_RESTORES
+    want = expected(fxp_matmul=FXP_STEP * (steps + replayed),
+                    lut_activation=steps + replayed)
+    runs = []
+    for name, extra in (("in line", {}),
+                        ("async_metrics", {"async_metrics": True}),
+                        ("RecoveryPolicy(backoff_base_s=0.0)",
+                         {"recovery": RecoveryPolicy(backoff_base_s=0.0)})):
+        def wrap(fn):
+            calls = {"n": 0}
+
+            def nan_once(state, batch):
+                state, metrics = fn(state, batch)
+                calls["n"] += 1
+                if calls["n"] == CKPT_NAN_STEP + 1:
+                    metrics = dict(metrics, loss=torch.full_like(
+                        metrics["loss"], float("nan")))
+                return state, metrics
+            return nan_once
+
+        cfg = TrainerConfig(ckpt_dir=tempfile.mkdtemp(dir=base),
+                            ckpt_every=CKPT_EVERY, log_every=CKPT_LOG_EVERY,
+                            **extra)
+        tr, out, seen, seconds = counted_trainer(program, cfg, steps, wrap)
+        steps_seen = [int(e["step"]) for e in out["history"]]
+        s = {"run": f"NaN at step {CKPT_NAN_STEP}, {name}",
+             "restarts": out["restarts"], "launches": seen,
+             "expected_launches": want, "seconds": seconds,
+             "history_entries": len(out["history"]),
+             "history_in_order": steps_seen == list(range(steps)),
+             "bit_equal_to_a": bool(torch.equal(tr.state, ref.state))
+             and same_history(out, ref.history),
+             "recovery_trace": [{k: v for k, v in e.items()
+                                 if k != "latency_s"}
+                                for e in out["recovery_trace"]]}
+        require(out["restarts"] == 1, f"{s['run']}: {out['restarts']} "
+                "restarts, want 1")
+        require(s["history_in_order"], f"{s['run']}: history steps "
+                f"{steps_seen}")
+        require(s["bit_equal_to_a"], f"{s['run']}: not bit-equal to (a)")
+        if "recovery" in extra:
+            ev = out["recovery_trace"]
+            require(len(ev) == 1 and ev[0]["action"] == "rollback"
+                    and ev[0]["to_step"] == CKPT_NAN_RESTORES,
+                    f"{s['run']}: recovery trace {ev}")
+        if check:
+            require(seen == want, f"{s['run']}: launches {seen}, the "
+                    f"replay implies {want}")
+        runs.append(s)
+    return runs
+
+
+def kill_and_resume(args, program, base: str, check: bool) -> dict:
+    """(c): a child process runs :func:`kill_config` and is SIGKILLed in
+    its third round; this process resumes from its checkpoints with a
+    holder of zeros and must end bit-equal to an uninterrupted run:
+    state, sampler counter, EF buffer, momentum and history."""
+    import signal
+
+    ckpt_dir = tempfile.mkdtemp(dir=base)
+    cmd = [sys.executable, os.path.abspath(__file__), "--seed",
+           str(args.seed), "--ckpt-child", ckpt_dir]
+    if args.rehearse:
+        cmd.append("--rehearse")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=KILL_JOIN_S)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"the killed child did not end within "
+                           f"{KILL_JOIN_S} s") from e
+    child_s = time.perf_counter() - t0
+    require(proc.returncode == -signal.SIGKILL, f"the child ended with "
+            f"{proc.returncode}, not SIGKILL: {proc.stderr[-2000:]}")
+    on_disk = CheckpointManager(ckpt_dir).steps()
+
+    ms_oracle = seeded_holder(program)
+    oracle = Trainer.for_program(program, kill_config(
+        args, tempfile.mkdtemp(dir=base)), merge_state=ms_oracle)
+    out_oracle = oracle.run(KILL_STEPS)
+
+    ms = {key: tree_map(torch.zeros_like, ms_oracle[key])
+          for key in ("error", "momentum")}
+    sync(program.grid.device)
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = Trainer.for_program(program, kill_config(args, ckpt_dir),
+                             merge_state=ms)
+    start = tr.start_step
+    out = tr.run(KILL_STEPS - start)
+    sync(program.grid.device)
+    seen, resume_s = counts(), time.perf_counter() - t0
+    n = KILL_STEPS - start
+    want = expected(fxp_matmul=FXP_STEP * n, lut_activation=n)
+    names = {key: tree_flatten_with_names(ms[key])[0]
+             for key in ("error", "momentum")}
+    buffers = all(
+        len(tree_leaves(ms[key])) == len(tree_leaves(ms_oracle[key])) > 0
+        and all(bool(torch.equal(a, b)) for a, b in zip(
+            tree_leaves(ms[key]), tree_leaves(ms_oracle[key])))
+        for key in ("error", "momentum"))
+    tail = out_oracle["history"][start:]
+    s = {"child_seconds": child_s, "child_exit": proc.returncode,
+         "checkpoints_left": on_disk, "resumed_at": start,
+         "resumed_launches": seen, "expected_launches": want,
+         "resume_seconds": resume_s, "buffer_leaves": names,
+         "state_bit_equal": bool(torch.equal(tr.state[0],
+                                             oracle.state[0])),
+         "counter": [float(tr.state[1]), float(oracle.state[1])],
+         "buffers_bit_equal": buffers,
+         "tuning_trace_restored": ms.get("tuning_trace") == {
+             "note": ["segment-done"]},
+         "history_bit_equal": [e["step"] for e in out["history"]]
+         == [e["step"] for e in tail] and [e["loss"] for e in
+                                           out["history"]]
+         == [e["loss"] for e in tail]}
+    last = KILL_DISPATCH * args.cadence
+    require(on_disk and on_disk[-1] < last, f"the child left checkpoints "
+            f"{on_disk}, past its kill at step {last}")
+    require(start == on_disk[-1] + 1, f"resumed at {start}, the newest "
+            f"checkpoint is {on_disk[-1]}")
+    for key in ("state_bit_equal", "buffers_bit_equal",
+                "tuning_trace_restored", "history_bit_equal"):
+        require(s[key], f"kill and resume: {key} is false")
+    require(s["counter"] == [float(KILL_STEPS)] * 2, f"kill and resume: "
+            f"sampler counters {s['counter']}")
+    if check:
+        require(seen == want, f"kill and resume: launches {seen}, the "
+                f"resumed steps imply {want}")
+    return s
+
+
+def trainer_rates(args, program, base: str) -> dict:
+    """(d): steps/s of ``Program.fit`` and of the trainer (with the
+    background sink, without a checkpoint directory, with in-line
+    saves), the median of ``KM_RATE_FITS`` runs each, taken in turns
+    (each trainer a fresh directory, built in the timed region, as a
+    user calls it); then where one trainer run's time goes."""
+    dev = program.grid.device
+    out = {}
+    for name, steps, cad, every in (
+            ("cadence 1", args.steps, 1, CKPT_EVERY),
+            (f"cadence {args.cadence}", args.cadence_steps, args.cadence,
+             CKPT_EVERY_K)):
+        def trainer(ckpt=True, in_line=False, **kw):
+            def run():
+                cfg = TrainerConfig(ckpt_dir=next(dirs) if ckpt else None,
+                                    ckpt_every=every,
+                                    log_every=CKPT_LOG_EVERY,
+                                    merge_every=cad, **kw)
+                tr = Trainer.for_program(program, cfg)
+                if in_line:
+                    tr.ckpt.async_save = False
+                tr.run(steps)
+            return run
+
+        contenders = {"Program.fit": lambda: program.fit(
+            steps=steps, merge_every=cad),
+            "Trainer": trainer(),
+            "Trainer, async_metrics": trainer(async_metrics=True),
+            "Trainer, no checkpoints": trainer(ckpt=False),
+            "Trainer, saves in line": trainer(in_line=True)}
+        dirs = iter([tempfile.mkdtemp(dir=base)    # + the host trace's
+                     for _ in range((KM_RATE_FITS + 1) * 3 + 1)])
+        for fn in contenders.values():
+            fn()
+        sync(dev)
+        rates: dict = {c: [] for c in contenders}
+        order = list(contenders)
+        for i in range(KM_RATE_FITS):
+            for c in (order if i % 2 == 0 else order[::-1]):
+                t0 = time.perf_counter()
+                contenders[c]()
+                sync(dev)
+                rates[c].append(steps / (time.perf_counter() - t0))
+        out[name] = {c: {"median": statistics.median(r), "min": min(r),
+                         "max": max(r), "fits": KM_RATE_FITS}
+                     for c, r in rates.items()}
+        out[name]["breakdown"] = {
+            c: trainer_breakdown(program, TrainerConfig(
+                ckpt_dir=ckpt_dir, ckpt_every=every,
+                log_every=CKPT_LOG_EVERY, merge_every=cad), steps)
+            for c, ckpt_dir in (("Trainer", tempfile.mkdtemp(dir=base)),
+                                ("Trainer, no checkpoints", None))}
+        if cad == 1:
+            out[name]["host_trace"] = {}
+            for c in ("Program.fit", "Trainer"):
+                trace = profile_call(contenders[c], dev, host_ops=10)
+                trace["host_self_ms"] = sum(trace.pop("host_ms").values())
+                out[name]["host_trace"][c] = trace
+    return out
+
+
+def trainer_breakdown(program, cfg, steps) -> dict:
+    """Where one warm trainer run's time goes: inside its step (or round)
+    calls, its flushes, ``CheckpointManager.save`` (which first waits
+    for the previous write) and every ``wait`` (blocked on a background
+    write: in a save and at the end); beside it, just before, a
+    ``Program.fit`` of as many steps and the same step calls in a bare
+    loop (one sync at the end)."""
+    dev = program.grid.device
+    k = cfg.merge_every
+    sync(dev)
+    t0 = time.perf_counter()
+    program.fit(steps=steps, merge_every=k)
+    sync(dev)
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    fn, state = program.step_fn() if k == 1 else program.round_fn(k)
+    t0 = time.perf_counter()
+    for _ in range(steps // k):
+        state, _ = fn(state, None)
+    sync(dev)
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    acc: dict = {}
+
+    def timed(fn, key):
+        acc[f"{key}_ms"], acc[f"{key}_calls"] = 0.0, 0
+
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[f"{key}_ms"] += (time.perf_counter() - t) * 1e3
+                acc[f"{key}_calls"] += 1
+        return run
+
+    t0 = time.perf_counter()
+    tr = Trainer.for_program(program, cfg)
+    tr.step_fn = timed(tr.step_fn, "step")
+    tr._flush = timed(tr._flush, "flush")
+    if tr.ckpt is not None:
+        tr.ckpt.wait = timed(tr.ckpt.wait, "wait")
+        tr.ckpt.save = timed(tr.ckpt.save, "save")
+    tr.run(steps)
+    sync(dev)
+    return {"run_ms": (time.perf_counter() - t0) * 1e3, "fit_ms": fit_ms,
+            "loop_ms": loop_ms, **acc}
+
+
+def save_cost(program, holder: dict, base: str) -> dict:
+    """(d): one ``CheckpointManager.save``: the part before it returns
+    (the host copy, one synchronising read on the card) and the
+    background write (``wait``), the median of ``CKPT_SAVES`` saves, for
+    the main path's state and for (c)'s v2 layout."""
+    dev = program.grid.device
+    trees = {"state (w)": program.state0,
+             "v2 layout (c)": {"model": (program.state0,
+                                         torch.zeros((), device=dev)),
+                               "merge_error": holder["error"],
+                               "merge_momentum": holder["momentum"]}}
+    out = {}
+    for name, tree in trees.items():
+        mgr = CheckpointManager(tempfile.mkdtemp(dir=base))
+        sync_ms, write_ms = [], []
+        for i in range(CKPT_SAVES):
+            sync(dev)
+            t0 = time.perf_counter()
+            mgr.save(i, tree, extra={"data_step": i})
+            t1 = time.perf_counter()
+            mgr.wait()
+            sync_ms.append((t1 - t0) * 1e3)
+            write_ms.append((time.perf_counter() - t1) * 1e3)
+        out[name] = {"leaves": len(tree_leaves(tree)),
+                     "bytes": nbytes(*tree_leaves(tree)),
+                     "sync_ms": statistics.median(sync_ms),
+                     "write_ms": statistics.median(write_ms),
+                     "saves": CKPT_SAVES}
+    return out
+
+
+def train_ckpt(args, dev, card: str) -> None:
+    """The main path through the fault-tolerant trainer: (a) against
+    ``Program.fit``, (b) restore and replay, (c) kill and resume in a
+    second process, (d) its cost."""
+    import shutil
+
+    check = not args.rehearse
+    t0 = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        program, X, y = ckpt_program(args, dev)
+        a, ref = trainer_against_fit(args, program, X, y, base, check)
+        del X, y
+        b = restore_and_replay(args, program, ref, base, check)
+        c = kill_and_resume(args, program, base, check)
+        d = {"steps_per_s": trainer_rates(args, program, base),
+             "save": save_cost(program, seeded_holder(program), base)}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    emit("train_ckpt", card=card, lanes=args.lanes, rows=args.rows,
+         features=args.features, trainer_against_fit=a,
+         restore_and_replay=b, kill_and_resume=c, cost=d,
+         seconds=time.perf_counter() - t0)
+
+
 def predict(name, wl, state, requests, launches: dict,
             check_counts: bool) -> None:
     """Requests of 1, 7 and 512 rows through ``Workload.predict``, equal
@@ -2507,6 +2979,8 @@ def main(argv=None) -> int:
     p.add_argument("--rehearse", action="store_true",
                    help="run on the CPU at 16 lanes x 2^14 rows with the "
                         "plain versions; prints no ok line")
+    # train_ckpt's victim process (the script runs itself with it)
+    p.add_argument("--ckpt-child", metavar="DIR", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     cfg = CONFIG
     args.lanes = 16 if args.rehearse else cfg.n_vdpus
@@ -2523,14 +2997,16 @@ def main(argv=None) -> int:
 
     if args.rehearse:
         dev = torch.device("cpu")
-        smi = "not measured (rehearsal on the CPU)"
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device; this script measures the "
                   "card (use --rehearse for a CPU dry run)", file=sys.stderr)
             return 1
         dev = torch.device("cuda")
-        smi = device_line()
+    if args.ckpt_child:
+        return ckpt_child(args, dev, args.ckpt_child)
+    smi = ("not measured (rehearsal on the CPU)" if args.rehearse
+           else device_line())
     emit("device", torch=torch.__version__, cuda=torch.version.cuda,
          kind=(torch.cuda.get_device_name(0) if dev.type == "cuda"
                else "cpu"), nvidia_smi=smi)
@@ -2599,6 +3075,8 @@ def main(argv=None) -> int:
     train_auto(args, dev, smi)
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     train_mesh(args, dev, smi)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    train_ckpt(args, dev, smi)
 
     kernels = []
     for name, t in times.items():

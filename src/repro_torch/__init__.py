@@ -36,6 +36,12 @@ dense decoder LM serving):
   * ``roofline``       — the H100's constants, the round counter and the
                          per-round prediction the cost model reads
   * ``optim``          — sgd, momentum, Nesterov, slow momentum, AdamW
+  * ``checkpoint``     — async, crash-consistent checkpoints in the JAX
+                         package's format (either resumes the other's)
+  * ``runtime``        — the fault-tolerant ``Trainer``
+                         (``Trainer.for_program`` over a bound program)
+  * ``resilience``     — the recovery policy (backoff, the divergence
+                         detector, the cadence ladder)
   * ``tree``           — ``tree_map`` / ``tree_leaves`` over tensor trees
   * ``models``         — dense decoder LMs: norms, RoPE, GQA attention
                          with a KV cache, SwiGLU/GELU MLP, prefill and

@@ -22,6 +22,10 @@ one per lane (leading ``n_vdpus`` dim) inside a cadence-k round.
 ``PimGrid.fit`` loop by default, an algorithm-owned loop where training
 is not that loop (the tree's levels).
 
+``Program.step_fn`` and ``Program.round_fn`` hand a bound program's
+step (or cadence-k merge round) to an outside training loop, the
+fault-tolerant ``runtime.Trainer``.  They run eagerly, like ``fit``.
+
 ``batch_size=b`` samples ``b`` of each vDPU's resident rows every local
 step, on the device (``core.minibatch``): the engine triple is wrapped
 so the state carries a step counter, ``(state, counter)``, and the
@@ -248,6 +252,47 @@ class Program:
             state = unwrap(state)
         return FitResult(state=state, history=history,
                          workload=self.workload)
+
+    def step_fn(self, *, batch_size: Optional[int] = None,
+                sample_seed: int = 0,
+                sample_permutation: Optional[mb.Permutation] = None):
+        """A merge-per-step function for outside training loops (the
+        ``runtime.Trainer``): ``step(state, batch) -> (state, metrics)``
+        over the resident data (``batch`` is ignored: the data never
+        moves).  It runs what a cadence-1 ``fit`` step runs, in the same
+        order.  Returns ``(step, state0)``; with ``batch_size`` the state
+        is ``(state, counter)``, so a checkpoint holds the sampler's
+        position."""
+        local_fn, update_fn, state0, _ = self._triple(
+            batch_size, sample_seed, sample_permutation)
+        grid, data = self.grid, self.data
+
+        def step(state, batch):
+            merged = grid.map_reduce(local_fn, state, data)
+            return update_fn(state, merged)
+
+        return step, state0
+
+    def round_fn(self, k: int, *, batch_size: Optional[int] = None,
+                 sample_seed: int = 0,
+                 sample_permutation: Optional[mb.Permutation] = None):
+        """An exact merge round at cadence ``k`` for outside loops:
+        ``round(state, batch) -> (state, [metrics of each of the k local
+        steps])``, ``merge_plan.cadence_round`` on the resident data (the
+        default plan's round).  Returns ``(round, state0)``; this is how
+        ``Trainer.for_program`` runs ``merge_every > 1`` with its
+        checkpoints on merge boundaries."""
+        if k < 1:
+            raise ValueError(f"round_fn needs cadence k >= 1, got {k}")
+        local_fn, update_fn, state0, _ = self._triple(
+            batch_size, sample_seed, sample_permutation)
+        grid, data = self.grid, self.data
+
+        def round(state, batch):
+            return mp.cadence_round(grid, local_fn, update_fn, k, state,
+                                    data)
+
+        return round, state0
 
 
 def fit(workload: Workload, grid: PimGrid, X, y=None, *, steps: int,

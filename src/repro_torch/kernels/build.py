@@ -9,6 +9,11 @@ per missing library, all at once, and waits for them together.
 
 The flags target Hopper only (``sm_90a``) and leave out
 ``--use_fast_math``: the LUT index must be an IEEE float32 divide.
+
+A kernel that cannot be built or launched raises :class:`KernelError`,
+a ``RuntimeError``, so that a caller which retries failed steps (the
+``Trainer``'s restore-and-replay) can tell it from a step that merely
+diverged and raise it at once.
 """
 
 from __future__ import annotations
@@ -31,6 +36,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: dict = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel could not be built (no ``nvcc``, a failed compile) or its
+    launch returned a CUDA error.  Retrying the step cannot help."""
+
+
 def nvcc_path() -> str:
     """``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda/bin/nvcc`` or the one on
     ``PATH``; raises when there is none."""
@@ -40,7 +50,7 @@ def nvcc_path() -> str:
     for path in candidates:
         if path and os.path.isfile(path) and os.access(path, os.X_OK):
             return path
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
         "PATH): the CUDA kernels are built from kernels/csrc/ at first use")
 
@@ -84,7 +94,7 @@ def build_all(names=KERNELS, sources: dict | None = None) -> dict:
         os.replace(tmp, library_path(name, srcs[name]))
         logs[name] = out
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise KernelError("nvcc failed:\n" + "\n".join(failed))
     return logs
 
 
@@ -111,5 +121,5 @@ def check(lib: ctypes.CDLL, name: str, err: int) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if err:
         msg = getattr(lib, f"{name}_error_string")(err)
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+        raise KernelError(f"{name} launch failed: CUDA error {err} "
                            f"({msg.decode() if msg else '?'})")

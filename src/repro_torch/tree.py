@@ -1,5 +1,5 @@
-"""Trees of tensors: the port's counterpart of ``jax.tree.map`` and
-``jax.tree.leaves``.
+"""Trees of tensors: the port's counterpart of ``jax.tree.map``,
+``jax.tree.leaves`` and ``jax.tree_util.tree_flatten_with_path``.
 
 A tree is a tensor, a tuple or named tuple of trees (a minibatch fit's
 ``(state, counter)``, an ``OptState``) or a dict of trees.  Dict leaves
@@ -32,6 +32,43 @@ def tree_leaves(tree) -> list[Any]:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_flatten_with_names(tree) -> tuple[list[str], list[Any]]:
+    """``(names, leaves)`` in :func:`tree_leaves`' order, each name the
+    leaf's path as ``jax.tree_util.keystr`` spells it: ``['k']`` for a
+    dict key, ``[i]`` for a tuple index, ``.field`` for a named tuple's
+    field, and ``""`` for a bare leaf.  A checkpoint's manifest holds
+    these names, so either package restores what the other wrote.
+
+    >>> import torch
+    >>> from repro_torch.optim.optimizers import OptState
+    >>> tree = {"model": (torch.zeros(2), torch.zeros(())),
+    ...         "merge_momentum": OptState(torch.zeros(()), torch.zeros(2))}
+    >>> for name in tree_flatten_with_names(tree)[0]:
+    ...     print(name)
+    ['merge_momentum'].step
+    ['merge_momentum'].inner
+    ['model'][0]
+    ['model'][1]
+    """
+    names: list[str] = []
+    leaves: list[Any] = []
+
+    def visit(t, path: str) -> None:
+        if isinstance(t, tuple):
+            fields = getattr(t, "_fields", None)
+            for i, x in enumerate(t):
+                visit(x, f"{path}.{fields[i]}" if fields else f"{path}[{i}]")
+        elif isinstance(t, dict):
+            for k in sorted(t):
+                visit(t[k], f"{path}[{k!r}]")
+        else:
+            names.append(path)
+            leaves.append(t)
+
+    visit(tree, "")
+    return names, leaves
 
 
 def tree_unflatten(tree, leaves) -> Any:

@@ -153,10 +153,10 @@ def cadence_ladder(k0: int, k_max: int, growth: int) -> List[int]:
 
 def shrink_k(k: int, k_min: int = 1) -> int:
     """THE cadence shrink rule: halve toward ``k_min``.  Shared by
-    ``PlanController.observe`` (delta-norm spike) and, in the JAX
-    package, the recovery degradation ladder (``resilience``, ROADMAP
-    item 13), so divergence always walks the same cadence steps,
-    whichever layer reacts first."""
+    ``PlanController.observe`` (delta-norm spike) and the recovery
+    degradation ladder (``resilience.recovery.RecoveryPolicy.degrade``
+    and the ``Trainer``'s cadence ladder), so divergence always walks
+    the same cadence steps, whichever layer reacts first."""
     return max(max(1, int(k_min)), int(k) // 2)
 
 
