@@ -117,6 +117,8 @@ Phases, each printed as one JSON line:
                 compressed accuracy within 0.01 of the exact cell's, the
                 tree equal to make_grid's, K-means' SSE at most 1.05 x
                 make_grid's; each cell's wire bytes, launches and steps/s;
+                and phase 13's dead pod on the real hop (exact and int8
+                EF at cadence 8);
  12. train_ckpt — the main path (LogReg int8 + LUT, 256 vDPUs x 2^24
                 rows, d=64) through the fault-tolerant
                 ``Trainer.for_program``: (a) at cadence 1 (50 steps,
@@ -136,7 +138,31 @@ Phases, each printed as one JSON line:
                 trainer (also with ``async_metrics``) against
                 ``Program.fit`` at cadence 1 and 8 in turns, and one
                 save's synchronous and background ms;
- 13. the ``kernels`` line (fxp_matmul's entry also times the
+ 13. train_faults — the main path (LogReg int8 + LUT, 256 vDPUs x 2^24
+                rows, d=64) through ``Program.fit`` under an armed
+                ``FaultPlan`` (``resilience.runtime.drive_fit``): (a) an
+                empty plan at cadence 8 (48 steps) and 1 (50) against the
+                unarmed fit, with the same launches (96 / 48, 100 / 50),
+                within 1e-6 and 1e-5 x max|w| (bit-equality reported),
+                accuracy within 0.01, one host sync a dispatched chunk,
+                steps/s of both in turns (5 fits each) and the overhead;
+                (b) at cadence 8 on the exact and int8 EF wires, a
+                checkpoint every dispatch and RecoveryPolicy(max_restarts
+                =10, degrade_after=2, spike_factor=50, backoff_base_s=0):
+                a dead lane, a dead pod (pods=4), a NaN lane, a flipped
+                wire bit, a 2 ms timeout and torn checkpoints (every save,
+                then a NaN lane): 48 finite history entries, the trace
+                replayed to the final plan, launches 2 / 1 a step run
+                (replays included), 255 / 192 / 256 survivors, a replayed
+                rollback bit-equal to the idle fit, dead hardware within
+                0.01 accuracy, a quarantined ``*.corrupt`` step, each
+                rollback's latency; (c) KMeans(int16) with a dead lane
+                (SSE at most 1.05 x fp32's, a launch an iteration); (d) a
+                dead lane on the (1, 1) NCCL mesh bit-equal to
+                ``make_grid``; train_mesh's two-rank world also runs a
+                dead pod at round 2 (exact and int8 EF, 128 survivors,
+                the exact cell within 1e-5 x max|w| of ``make_grid``'s);
+ 14. the ``kernels`` line (fxp_matmul's entry also times the
      multinomial's two dots at C = 4 and 10, with their byte bound), the
      nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -196,7 +222,8 @@ from repro_torch.launch.serve_lm import generate  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models.transformer import padded_vocab  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.resilience import RecoveryPolicy  # noqa: E402
+from repro_torch.resilience import (FaultEvent, FaultPlan,  # noqa: E402
+                                    RecoveryPolicy, faults, replay_trace)
 from repro_torch.roofline import hw  # noqa: E402
 from repro_torch.runtime import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.tree import (tree_flatten_with_names,  # noqa: E402
@@ -266,6 +293,27 @@ CKPT_NAN_STEP, CKPT_NAN_RESTORES = 23, 20
 KILL_SEGMENT_STEPS, KILL_STEPS, KILL_EVERY, KILL_DISPATCH = 8, 48, 8, 3
 KILL_JOIN_S = 300.0
 CKPT_SAVES = 10
+# train_faults: the main path under an armed FaultPlan.  (a) an empty plan
+# at the config's cadence (48 steps) and at 1 (50) against the unarmed
+# fit: within 1e-6 x max|w| at cadence 8 (the survivor merge computes
+# state + (S - n·state)/n where the unarmed round computes S·(1/n)) and
+# 1e-5 at 1 (states merged where the unarmed step merges partials),
+# accuracy within PLAN_ACC_TOL, steps/s of both in turns over 5 fits;
+# (b) one fault a cell at the config's cadence on the exact and int8 EF
+# wires, test_resilience.py's policy, a checkpoint every clean dispatch
+# (a dispatch runs every clean round before the next event, so the
+# rounds before round 3 are one dispatch and one save: the faults at
+# round 3 restore it); a dead pod is a quarter of the lanes; (c) K-means
+# with a dead lane (SSE within the int16 bar); (d) a dead lane on the
+# (1, 1) NCCL mesh against make_grid, bit for bit, and (in train_mesh's
+# two-rank world) a dead pod at round 2 on the real hop
+FAULT_IDLE_TOL_K, FAULT_IDLE_TOL_1 = 1e-6, 1e-5
+FAULT_POLICY = RecoveryPolicy(max_restarts=10, degrade_after=2,
+                              spike_factor=50.0, backoff_base_s=0.0)
+FAULT_PODS = 4
+FAULT_TORN_SAVES = 64
+FAULT_MESH_POD_ROUND = 2
+FAULT_KM_SSE = 1.05
 LM_ARCH = "qwen2-0.5b"
 LM_BATCH, LM_SEQ = 4, 4096            # prefill: 4 x 4096 tokens
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 64, 32
@@ -1068,6 +1116,7 @@ def profile_call(run, dev, match: str | None = None, host_ops: int = 0,
                if GEMM_KERNELS.search(e.key))
     out = {**label, "traced_wall_ms": wall_ms,
            "device_busy_ms": busy_us / 1e3,
+           "device_kernel_calls": sum(e.count for e in kernels),
            "idle_share": max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
            "port_kernels_ms": ours / 1e3,
            "gemm_kernels_ms": gemm / 1e3,
@@ -1959,6 +2008,12 @@ def mesh_hop_one(args, dev, store_dir: str) -> tuple:
                         f"{r_seen}), the design implies {want}")
             runs.append(s)
             refs[name] = r.state
+        # make_grid's fit under (b)'s dead pod (train_faults (d))
+        with faults.armed(mesh_fault_plan(MESH_RANKS),
+                          recovery=FAULT_POLICY):
+            refs["dead pod"] = api.fit(wl, grid, X, y,
+                                       steps=args.cadence_steps,
+                                       merge_every=args.cadence).state
         programs = {"(1, 1) mesh": wl.bind(mesh_grid, X, y),
                     "make_grid": wl.bind(grid, X, y)}
         rates = {"cadence 1": in_turns(programs, args.steps, KM_RATE_FITS),
@@ -2036,6 +2091,27 @@ def mesh_rank(rank: int, world: int, store: str, out_dir: str,
                 cell["error_shapes"] = [list(e.shape) for e in
                                         tree_leaves(holder["error"])]
             out["cells"][name] = cell
+        # train_faults (d): a dead pod on the real hop, where the pod
+        # holds its EF residual
+        out["faults"] = {}
+        for name, cfg in (("exact", None),
+                          ("int8 EF", CompressionConfig(bits=8))):
+            holder = {}
+            sync(dev)
+            reset_counts()
+            with faults.armed(mesh_fault_plan(world),
+                              recovery=FAULT_POLICY):
+                res = program.fit(steps=opts["cadence_steps"],
+                                  merge_plan=MergePlan(cadence=k,
+                                                       compression=cfg),
+                                  merge_state=holder)
+            sync(dev)
+            rep = holder["resilience_report"]
+            out["faults"][name] = {
+                "launches": counts(), "state": res.state.cpu().numpy(),
+                "losses": [float(m["loss"]) for m in res.history],
+                "survivors": rep["survivors"], "restarts": rep["restarts"],
+                "accuracy": accuracy(res.state, X, y)}
         # where a hop-2 step's time goes: 5 warm cadence-1 steps, traced
         # on rank 0 (rank 1 runs them alongside, untraced)
         if rank == 0:
@@ -2122,7 +2198,10 @@ def mesh_hop_two(args, dev, store_dir: str, refs: dict) -> dict:
     must be bit-equal; exact cells within 1e-5 x max|w| of make_grid's
     fit (``refs``, from part (a)), compressed cells' accuracy within
     0.01 of the exact cell's, the tree equal to make_grid's and K-means'
-    SSE at most 1.05 x make_grid's."""
+    SSE at most 1.05 x make_grid's.  Also train_faults' (d): a dead pod
+    at round 2 on the exact and int8 EF wires, 128 survivors, the ranks
+    bit-equal, the exact cell within 1e-5 x max|w| of make_grid's fit
+    under the same event (``refs["dead pod"]``)."""
     check = not args.rehearse
     # make_grid's K-means and tree, on the data the ranks will make
     grid = make_grid(args.lanes, device=dev)
@@ -2161,7 +2240,7 @@ def mesh_hop_two(args, dev, store_dir: str, refs: dict) -> dict:
             return a.dtype == b.dtype and a.tobytes() == b.tobytes()
         return a == b or (a != a and b != b)
 
-    for key in ("cells", "kmeans", "dtree"):
+    for key in ("cells", "kmeans", "dtree", "faults"):
         require(same(ranks[0][key], ranks[1][key]),
                 f"hop 2: rank 1's {key} differ from rank 0's")
     k = args.cadence
@@ -2199,6 +2278,35 @@ def mesh_hop_two(args, dev, store_dir: str, refs: dict) -> dict:
                     f"hop 2 {name}: accuracy {cell['accuracy']} not within "
                     f"{PLAN_ACC_TOL} of exact {exact['accuracy']}")
         summary.append(row)
+    fault_rows = []
+    for name, cell in ranks[0]["faults"].items():
+        row = {"run": f"dead pod 1 at round {FAULT_MESH_POD_ROUND}, {name}, "
+                      f"cadence {k}, (2, 1) mesh",
+               "launches": cell["launches"], "survivors": cell["survivors"],
+               "restarts": cell["restarts"], "accuracy": cell["accuracy"],
+               "loss_last": cell["losses"][-1]}
+        require(cell["survivors"] == args.lanes // MESH_RANKS and
+                cell["restarts"] == 0, f"hop 2 {row['run']}: "
+                f"{cell['survivors']} survivors, {cell['restarts']} restarts")
+        if check:
+            want = expected(fxp_matmul=FXP_STEP * args.cadence_steps,
+                            lut_activation=args.cadence_steps)
+            for r in ranks:
+                require(r["faults"][name]["launches"] == want,
+                        f"hop 2 {row['run']}: launches "
+                        f"{r['faults'][name]['launches']}, expected {want}")
+        if name == "exact":
+            want_w = refs["dead pod"].cpu().numpy()
+            row["gap_to_make_grid"] = float(abs(cell["state"] - want_w).max()
+                                            / abs(want_w).max())
+            # held on the card; a rehearsal's 16 lanes of 1,024 rows read
+            # 1.3e-5 (the summation order, carried by the int8 step's
+            # requantization), where the card's exact cells of this world
+            # read 1e-7 to 3e-6 (PERF.md)
+            require(not check or row["gap_to_make_grid"] <= 1e-5,
+                    f"hop 2 {row['run']}: {row['gap_to_make_grid']} x "
+                    f"max|w| from make_grid's")
+        fault_rows.append(row)
     km = ranks[0]["kmeans"]
     require(km["sse"] <= 1.05 * km_ref, f"hop 2 K-means SSE {km['sse']} "
             f"above 1.05 x make_grid's {km_ref}")
@@ -2214,6 +2322,7 @@ def mesh_hop_two(args, dev, store_dir: str, refs: dict) -> dict:
     return {"backend": "gloo", "world": MESH_RANKS, "mesh": [MESH_RANKS, 1],
             "device": opts["device"], "lanes_a_rank": ranks[0]["lanes"],
             "rows_a_rank": ranks[0]["rows_held"], "runs": summary,
+            "faults_dead_pod": fault_rows,
             "kmeans": {"sse": km["sse"], "make_grid_sse": km_ref,
                        "launches": km["launches"],
                        "seconds": [r["seconds"]["kmeans"] for r in ranks]},
@@ -2674,6 +2783,347 @@ def train_ckpt(args, dev, card: str) -> None:
          seconds=time.perf_counter() - t0)
 
 
+# -- phase 13: fault injection and the resilient fit --------------------------
+
+
+def faults_program(args, dev):
+    """The main path bound for ``train_faults``: ``LogReg(int8, LUT)`` on
+    the phase's data, made once from ``--seed`` on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 400)
+    X, y, _ = datasets.binary_classification(gen, args.rows, args.features)
+    program = LogReg(lr=0.5, precision="int8", sigmoid="lut").bind(
+        make_grid(args.lanes, device=dev), X, y)
+    return program, X, y
+
+
+def armed_fit(program, steps: int, plan, fp=None, **arm) -> tuple:
+    """``program.fit(steps, merge_plan=plan)``, under ``faults.armed(fp,
+    **arm)`` unless ``fp`` is None, with the counters set to 0 just
+    before and read just after: (result, the resilient report or None,
+    launches, seconds)."""
+    dev = program.grid.device
+    holder: dict = {}
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    if fp is None:
+        res = program.fit(steps=steps, merge_plan=plan, merge_state=holder)
+    else:
+        with faults.armed(fp, **arm):
+            res = program.fit(steps=steps, merge_plan=plan,
+                              merge_state=holder)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    require(faults.armed_context() is None, "a plan stayed armed")
+    return res, holder.get("resilience_report"), counts(), seconds
+
+
+def chunks(steps: int, k: int, scan_chunk: int = 32) -> int:
+    """Dispatched chunks (host syncs) of an idle armed fit."""
+    return -(-(steps // k) // scan_chunk) + (1 if steps % k else 0)
+
+
+def armed_rates(program, steps: int, plan, fits: int) -> dict:
+    """Steps/s of the unarmed fit and of the fit under an empty plan, in
+    turns (u a a u ...), and the armed plan's overhead."""
+    dev = program.grid.device
+
+    def run(armed: bool) -> None:
+        if armed:
+            with faults.armed(FaultPlan()):
+                program.fit(steps=steps, merge_plan=plan)
+        else:
+            program.fit(steps=steps, merge_plan=plan)
+
+    run(False)
+    run(True)
+    sync(dev)
+    rates: dict = {"unarmed": [], "armed idle": []}
+    for i in range(fits):
+        for name in (("unarmed", "armed idle") if i % 2 == 0
+                     else ("armed idle", "unarmed")):
+            t0 = time.perf_counter()
+            run(name == "armed idle")
+            sync(dev)
+            rates[name].append(steps / (time.perf_counter() - t0))
+    out = {name: {"median": statistics.median(r), "min": min(r),
+                  "max": max(r), "fits": fits} for name, r in rates.items()}
+    out["overhead_pct"] = (out["unarmed"]["median"]
+                           / out["armed idle"]["median"] - 1.0) * 100.0
+    return out
+
+
+def faults_idle(args, program, X, y, check: bool) -> tuple:
+    """(a) An empty plan against the unarmed fit at the config's cadence
+    and at 1: launches, the state gap, accuracy, host syncs, steps/s in
+    turns.  Returns (summary, the idle fit at the config's cadence)."""
+    runs, idle = [], None
+    k = args.cadence
+    for cad, steps, bar in ((k, args.cadence_steps, FAULT_IDLE_TOL_K),
+                            (1, args.steps, FAULT_IDLE_TOL_1)):
+        plan = MergePlan(cadence=cad)
+        want = expected(fxp_matmul=FXP_STEP * steps, lut_activation=steps)
+        base, _, base_seen, base_s = armed_fit(program, steps, plan)
+        res, rep, seen, seconds = armed_fit(program, steps, plan,
+                                            FaultPlan())
+        w_max = float(base.state.abs().max())
+        s = {"run": f"FaultPlan() armed, cadence {cad}", "steps": steps,
+             "launches": seen, "unarmed_launches": base_seen,
+             "expected_launches": want, "seconds": seconds,
+             "unarmed_seconds": base_s,
+             "gap_over_max_w": float((res.state - base.state).abs().max())
+             / w_max,
+             "bit_equal_to_unarmed": bool(torch.equal(res.state,
+                                                      base.state)),
+             "accuracy": accuracy(res.state, X, y),
+             "unarmed_accuracy": accuracy(base.state, X, y),
+             "host_syncs": rep["host_syncs"],
+             "expected_host_syncs": chunks(steps, cad),
+             "restarts": rep["restarts"]}
+        losses = [float(m["loss"]) for m in res.history]
+        require(len(losses) == steps and all(map(math.isfinite, losses)),
+                f"{s['run']}: history of {len(losses)} entries")
+        require(s["gap_over_max_w"] <= bar, f"{s['run']}: "
+                f"{s['gap_over_max_w']} x max|w| from the unarmed fit")
+        require(abs(s["accuracy"] - s["unarmed_accuracy"]) <= PLAN_ACC_TOL,
+                f"{s['run']}: accuracy {s['accuracy']} against "
+                f"{s['unarmed_accuracy']}")
+        require(s["restarts"] == 0 and
+                s["host_syncs"] == s["expected_host_syncs"],
+                f"{s['run']}: {s['restarts']} restarts, "
+                f"{s['host_syncs']} host syncs")
+        if check:
+            require(seen == want and base_seen == want, f"{s['run']}: "
+                    f"launches {seen} (unarmed {base_seen}), the design "
+                    f"implies {want}")
+        s["steps_per_s"] = armed_rates(program, steps, plan,
+                                       TIMING_RUNS)
+        if cad == 1:
+            # where the armed cadence-1 step's time goes: 5 warm steps of
+            # each, traced (the armed round merges lane states, so its
+            # update and merge run per lane)
+            s["profile"] = {
+                "unarmed": profile_call(
+                    lambda: program.fit(steps=5, merge_plan=plan),
+                    program.grid.device, host_ops=6, steps=5),
+                "armed idle": profile_call(
+                    lambda: armed_fit(program, 5, plan, FaultPlan()),
+                    program.grid.device, host_ops=6, steps=5)}
+            for prof in s["profile"].values():
+                prof.pop("host_ms", None)
+        runs.append(s)
+        if cad == k:
+            idle = res
+    return runs, idle
+
+
+def fault_cells(lanes: int) -> dict:
+    """(b)'s plans: kind -> (plan, survivors it leaves)."""
+    return {
+        "dead_lane": (FaultPlan(events=(
+            FaultEvent(1, "dead_lane", lane=5),)), lanes - 1),
+        "dead_pod": (FaultPlan(events=(
+            FaultEvent(1, "dead_pod", pod=1),), pods=FAULT_PODS),
+            lanes - lanes // FAULT_PODS),
+        "nan_lane": (FaultPlan(events=(
+            FaultEvent(3, "nan_lane", lane=2),)), lanes),
+        "wire_bitflip": (FaultPlan(events=(
+            FaultEvent(3, "wire_bitflip", leaf=0, index=2, bit=30),)),
+            lanes),
+        "timeout": (FaultPlan(events=(
+            FaultEvent(3, "timeout", duration_s=0.002),)), lanes),
+        # every save torn, then a divergence: the rollback quarantines
+        # the torn step and falls back to the fit's start
+        "torn_ckpt": (FaultPlan(events=tuple(
+            FaultEvent(i, "torn_ckpt") for i in range(FAULT_TORN_SAVES))
+            + (FaultEvent(4, "nan_lane", lane=1),)), lanes),
+    }
+
+
+def mesh_fault_plan(pods: int) -> FaultPlan:
+    """(d)'s dead pod on the two-rank world's real hop (``pods`` = its
+    ranks), and on ``make_grid`` for the reference."""
+    return FaultPlan(events=(FaultEvent(FAULT_MESH_POD_ROUND, "dead_pod",
+                                        pod=1),), pods=pods)
+
+
+def faults_matrix(args, program, X, y, idle_exact, base: str,
+                  check: bool) -> list:
+    """(b) One fault a cell at the config's cadence on the exact and int8
+    EF wires, a checkpoint every clean dispatch."""
+    k, steps = args.cadence, args.cadence_steps
+    rows = []
+    for wire_name, cfg in (("exact", None),
+                           ("int8 EF", CompressionConfig(bits=8))):
+        plan = MergePlan(cadence=k, compression=cfg)
+        idle = idle_exact
+        if cfg is not None:
+            idle = armed_fit(program, steps, plan, FaultPlan())[0]
+        acc_idle = accuracy(idle.state, X, y)
+        for kind, (fp, survivors) in fault_cells(args.lanes).items():
+            ckpt = tempfile.mkdtemp(dir=base)
+            res, rep, seen, seconds = armed_fit(
+                program, steps, plan, fp, recovery=FAULT_POLICY, ckpt=ckpt,
+                ckpt_every_rounds=1)
+            trace = rep["trace"]
+            rollbacks = [e for e in trace if e["action"] == "rollback"]
+            degrades = [e for e in trace if e["action"] == "degrade"]
+            replayed = replay_trace(trace, start_plan=plan)
+            run_steps = rep["rounds"] * k      # every round at cadence k
+            losses = [float(m["loss"]) for m in res.history]
+            row = {"run": f"{kind}, {wire_name}, cadence {k}",
+                   "launches": seen, "seconds": seconds,
+                   "restarts": rep["restarts"], "rounds": rep["rounds"],
+                   "steps_run": run_steps, "steps_replayed":
+                   run_steps - steps, "survivors": rep["survivors"],
+                   "fired": rep["fired"], "final_plan": rep["final_plan"],
+                   "trace": [{key: v for key, v in e.items()
+                              if key not in ("latency_s", "detail")}
+                             for e in trace],
+                   "latency_s": [e["latency_s"] for e in rollbacks],
+                   "accuracy": accuracy(res.state, X, y),
+                   "idle_accuracy": acc_idle,
+                   "bit_equal_to_idle": bool(torch.equal(res.state,
+                                                         idle.state))}
+            name = row["run"]
+            require(len(losses) == steps and all(map(math.isfinite, losses))
+                    and bool(torch.isfinite(res.state).all()),
+                    f"{name}: {len(losses)} history entries or not finite")
+            require((replayed[-1] if replayed else plan.describe())
+                    == rep["final_plan"], f"{name}: the trace does not "
+                    f"replay to {rep['final_plan']}")
+            require(len(rollbacks) == rep["restarts"],
+                    f"{name}: {len(rollbacks)} rollbacks, "
+                    f"{rep['restarts']} restarts")
+            require(all(e["to_cadence"] == k for e in degrades),
+                    f"{name}: the cadence was degraded: {degrades}")
+            require(rep["survivors"] == survivors, f"{name}: "
+                    f"{rep['survivors']} survivors, want {survivors}")
+            if kind in ("nan_lane", "timeout", "torn_ckpt"):
+                require(rep["restarts"] == 1 and not degrades,
+                        f"{name}: {rep['restarts']} restarts, degrades "
+                        f"{degrades}")
+            if kind in ("nan_lane", "timeout", "torn_ckpt") or (
+                    kind == "wire_bitflip" and rollbacks and not degrades):
+                require(row["bit_equal_to_idle"], f"{name}: the replayed "
+                        "fit is not bit-equal to the idle fit")
+            if kind in ("dead_lane", "dead_pod"):
+                require(abs(row["accuracy"] - acc_idle) <= PLAN_ACC_TOL,
+                        f"{name}: accuracy {row['accuracy']} against the "
+                        f"idle fit's {acc_idle}")
+            if kind == "torn_ckpt":
+                row["quarantined"] = sorted(d for d in os.listdir(ckpt)
+                                            if ".corrupt" in d)
+                require(row["quarantined"], f"{name}: no step quarantined")
+            if check:
+                want = expected(fxp_matmul=FXP_STEP * run_steps,
+                                lut_activation=run_steps)
+                require(seen == want, f"{name}: launches {seen}, the "
+                        f"trace implies {want}")
+            rows.append(row)
+    return rows
+
+
+def faults_kmeans(args, dev, check: bool) -> dict:
+    """(c) KMeans(int16) with a dead lane at round 1 against the unarmed
+    fp32 fit's SSE."""
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 410)
+    grid = make_grid(args.lanes, device=dev)
+    d, k, iters = args.km_features, args.km_clusters, args.km_iters
+    X, _, _ = datasets.blobs(gen, args.rows, d, k)
+    ref_sse = api.fit(KMeans(k=k), grid, X, steps=iters).eval(X)["sse"]
+    fp = FaultPlan(events=(FaultEvent(1, "dead_lane", lane=5),))
+    holder: dict = {}
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    with faults.armed(fp, recovery=FAULT_POLICY):
+        res = api.fit(KMeans(k=k, precision="int16"), grid, X, steps=iters,
+                      merge_state=holder)
+    sync(dev)
+    seen, seconds = counts(), time.perf_counter() - t0
+    rep = holder["resilience_report"]
+    s = {"run": "kmeans int16, dead lane at round 1", "iterations": iters,
+         "launches": seen, "seconds": seconds, "survivors":
+         rep["survivors"], "restarts": rep["restarts"],
+         "rounds": rep["rounds"], "sse": res.eval(X)["sse"],
+         "fp32_sse": ref_sse}
+    require(len(res.history) == iters and
+            bool(torch.isfinite(res.state).all()), f"{s['run']}: history "
+            f"of {len(res.history)} or a non-finite state")
+    require(rep["survivors"] == args.lanes - 1, f"{s['run']}: "
+            f"{rep['survivors']} survivors")
+    require(s["sse"] <= FAULT_KM_SSE * ref_sse, f"{s['run']}: SSE "
+            f"{s['sse']} above {FAULT_KM_SSE} x fp32's {ref_sse}")
+    if check:
+        require(seen == expected(kmeans_assign=rep["rounds"]),
+                f"{s['run']}: launches {seen}, {rep['rounds']} iterations "
+                "run")
+    return s
+
+
+def faults_mesh_one(args, program, X, y, store_dir: str,
+                    check: bool) -> dict:
+    """(d) A dead lane at cadence 8, no checkpoint directory, on
+    ``make_mesh_grid(lanes)`` (a world of one process, NCCL on the card)
+    bit-equal to the same plan on ``make_grid``."""
+    dev = program.grid.device
+    init_world("nccl" if dev.type == "cuda" else "gloo",
+               dist.FileStore(os.path.join(store_dir, "faults1"), 1))
+    try:
+        mesh_program = program.workload.bind(
+            make_mesh_grid(args.lanes, device=dev), X, y)
+        fp = FaultPlan(events=(FaultEvent(1, "dead_lane", lane=5),))
+        plan = MergePlan(cadence=args.cadence)
+        steps = args.cadence_steps
+        fits = {name: armed_fit(p, steps, plan, fp, recovery=FAULT_POLICY)
+                for name, p in (("mesh", mesh_program), ("grid", program))}
+        (m, m_rep, m_seen, m_s), (g, g_rep, g_seen, _) = \
+            fits["mesh"], fits["grid"]
+        s = {"run": f"dead lane, cadence {args.cadence}, (1, 1) mesh",
+             "backend": dist.get_backend(), "launches": m_seen,
+             "grid_launches": g_seen, "seconds": m_s,
+             "survivors": m_rep["survivors"],
+             "bit_equal_to_make_grid": bool(torch.equal(m.state, g.state))
+             and all(bool(torch.equal(a["loss"], b["loss"]))
+                     for a, b in zip(m.history, g.history))}
+        require(s["bit_equal_to_make_grid"], f"{s['run']}: not bit-equal "
+                "to make_grid's")
+        require(m_rep["survivors"] == g_rep["survivors"] == args.lanes - 1,
+                f"{s['run']}: survivors {m_rep['survivors']}")
+        if check:
+            want = expected(fxp_matmul=FXP_STEP * steps,
+                            lut_activation=steps)
+            require(m_seen == want and g_seen == want, f"{s['run']}: "
+                    f"launches {m_seen} (make_grid {g_seen}), want {want}")
+        return s
+    finally:
+        dist.destroy_process_group()
+
+
+def train_faults(args, dev, card: str) -> None:
+    """The main path under fault injection: (a) armed but idle, (b) the
+    fault matrix, (c) K-means, (d) the (1, 1) mesh."""
+    import shutil
+
+    check = not args.rehearse
+    t0 = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="chip_smoke_faults_")
+    try:
+        program, X, y = faults_program(args, dev)
+        a, idle = faults_idle(args, program, X, y, check)
+        b = faults_matrix(args, program, X, y, idle, base, check)
+        d = faults_mesh_one(args, program, X, y, base, check)
+        del program, X, y, idle
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+        c = faults_kmeans(args, dev, check)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    emit("train_faults", card=card, lanes=args.lanes, rows=args.rows,
+         features=args.features, armed_idle=a, matrix=b, kmeans=c,
+         mesh_one=d, seconds=time.perf_counter() - t0)
+
+
 def predict(name, wl, state, requests, launches: dict,
             check_counts: bool) -> None:
     """Requests of 1, 7 and 512 rows through ``Workload.predict``, equal
@@ -3077,6 +3527,8 @@ def main(argv=None) -> int:
     train_mesh(args, dev, smi)
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     train_ckpt(args, dev, smi)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    train_faults(args, dev, smi)
 
     kernels = []
     for name, t in times.items():

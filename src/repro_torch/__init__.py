@@ -40,8 +40,10 @@ dense decoder LM serving):
                          package's format (either resumes the other's)
   * ``runtime``        — the fault-tolerant ``Trainer``
                          (``Trainer.for_program`` over a bound program)
-  * ``resilience``     — the recovery policy (backoff, the divergence
-                         detector, the cadence ladder)
+  * ``resilience``     — fault plans and their injection, the
+                         survivor-weighted merge, the recovery policy
+                         (backoff, the divergence detector, the ladder)
+                         and ``drive_fit``, the fit under an armed plan
   * ``tree``           — ``tree_map`` / ``tree_leaves`` over tensor trees
   * ``models``         — dense decoder LMs: norms, RoPE, GQA attention
                          with a KV cache, SwiGLU/GELU MLP, prefill and

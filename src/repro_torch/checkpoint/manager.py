@@ -25,7 +25,10 @@ Crash consistency, as in the JAX package:
 * ``restore_latest`` quarantines a corrupt step (renamed to
   ``*.corrupt``) and falls back to the newest valid one;
 * a failed background write is parked and re-raised at the next
-  ``wait()`` or ``save()``; it is never published.
+  ``wait()`` or ``save()``; it is never published;
+* under an armed ``resilience.faults.FaultPlan`` a ``torn_ckpt`` event
+  truncates the payload of its save ordinal (the saves this manager has
+  made, from 0) after the publish, which the checksums then catch.
 
 The host copy.  ``save`` copies every leaf to host memory before it
 returns (``.to("cpu", copy=True)``; on the card the one synchronising
@@ -107,6 +110,7 @@ class CheckpointManager:
         self.async_save = async_save
         self._pending: Optional[threading.Thread] = None
         self._pending_exc: Optional[BaseException] = None
+        self._save_ordinal = 0   # torn-write fault events key on this
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
@@ -126,6 +130,8 @@ class CheckpointManager:
             "extra": extra or {},
             "time": time.time(),
         }
+        ordinal = self._save_ordinal
+        self._save_ordinal += 1
 
         def write():
             path = self._step_path(step)
@@ -139,6 +145,7 @@ class CheckpointManager:
             if os.path.exists(path):
                 shutil.rmtree(path)
             os.replace(tmp, path)      # atomic publish
+            self._maybe_tear(path, ordinal)
             self._retain()
 
         if self.async_save:
@@ -152,6 +159,20 @@ class CheckpointManager:
             self._pending.start()
         else:
             write()
+
+    def _maybe_tear(self, path: str, ordinal: int) -> None:
+        """The torn-write fault: truncate the published payload to half
+        when an armed ``FaultPlan`` schedules a ``torn_ckpt`` for this
+        save ordinal.  One check when nothing is armed."""
+        from repro_torch.resilience import faults
+
+        plan = faults.active()
+        if plan is None or not plan.saves_at(ordinal):
+            return
+        arrays = os.path.join(path, "arrays.npz")
+        size = os.path.getsize(arrays)
+        with open(arrays, "r+b") as f:
+            f.truncate(size // 2)
 
     def wait(self):
         """Block until the write in flight has finished; re-raise its

@@ -61,6 +61,7 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import merge_plan as mp
+from repro_torch.resilience import faults as _faults
 
 
 def mesh_device(device, mesh) -> torch.device:
@@ -212,6 +213,11 @@ class PimGrid:
         buffer (``"error"``) and the outer momentum (``"momentum"``) are
         read from it at entry and written back at exit, so they continue
         across ``fit`` calls.
+
+        Under an armed ``resilience.faults.FaultPlan`` a plan that is not
+        adaptive or auto runs ``resilience.runtime.drive_fit`` (the
+        survivor-weighted merge, with the armed recovery policy and
+        checkpoints), and ``merge_state`` also receives its report.
         """
         if engine not in ("python", "scan"):
             raise ValueError(f"unknown engine {engine!r}")
@@ -220,6 +226,21 @@ class PimGrid:
         plan = mp.MergePlan.resolve(
             merge_plan, merge_every=merge_every,
             overlap_merge=overlap_merge, merge_compression=merge_compression)
+        # fault injection (resilience): under an armed FaultPlan a static
+        # plan runs the resilient driver (survivor-weighted merges,
+        # injection, rollback); unarmed, this is one None check
+        ctx = _faults.armed_context()
+        if ctx is not None and not (plan.adaptive or plan.auto):
+            from repro_torch.resilience import runtime as _resilient
+
+            fplan, recovery, ckpt, ckpt_every = ctx
+            state, history, _report = _resilient.drive_fit(
+                self, init_state=init_state, local_fn=local_fn,
+                update_fn=update_fn, data=data, steps=steps, plan=plan,
+                fault_plan=fplan, recovery=recovery, ckpt=ckpt,
+                ckpt_every_rounds=ckpt_every, scan_chunk=scan_chunk,
+                callback=callback, merge_state=merge_state)
+            return state, history
         if not plan.is_exact_default:
             return mp.run_fit(
                 self, plan, init_state=init_state, local_fn=local_fn,

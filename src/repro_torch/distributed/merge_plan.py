@@ -726,7 +726,17 @@ def run_fit(grid, plan: MergePlan, *, init_state, local_fn: Callable,
     ef = held.get("error") if compression is not None or plan.auto \
         else None
     if plan.adaptive or plan.auto:
+        from repro_torch.resilience import faults
         from repro_torch.tuning.controller import run_controlled_fit
+
+        # the resilient driver covers static plans only: say that an
+        # armed plan injects nothing here rather than skip it silently
+        if faults.active() is not None:
+            warnings.warn(
+                "a FaultPlan is armed but this fit uses a controller-driven "
+                "plan (adaptive/auto); fault injection and recovery only "
+                "cover static plans — no faults will be injected",
+                MergeFallbackWarning, stacklevel=3)
         state, history, ef, ctl = run_controlled_fit(
             grid, plan, state=init_state, ef=ef, local_fn=local_fn,
             update_fn=update_fn, data=data, steps=steps, callback=callback)

@@ -15,10 +15,10 @@ JSON-able event so a recovery history replays offline:
 3. **Give up** — after ``max_restarts`` recoveries the failure is
    raised again.
 
-The ``Trainer`` (``runtime.trainer``, ``TrainerConfig.recovery``) reads
-this policy.  The fault plans and the resilient fit loop that also
-read it in the JAX package (``faults``, ``survivor``, ``runtime``) are
-ROADMAP item 13.
+The ``Trainer`` (``runtime.trainer``, ``TrainerConfig.recovery``) and
+the resilient fit loop (``resilience.runtime.drive_fit``, which
+``PimGrid.fit`` runs under an armed ``faults.FaultPlan``) read this
+policy.
 """
 
 from __future__ import annotations

@@ -188,24 +188,32 @@ class _MetricsSink:
 
 def to_host(values: list) -> list:
     """Each value as a numpy array (a tensor's dtype kept): the tensors
-    come back in one transfer for each device and dtype (flattened,
-    concatenated, one ``.cpu()``, split); other values go through
-    ``np.asarray``."""
+    come back in one transfer for each device (their bytes, each padded
+    to 8, concatenated, one ``.cpu()``, viewed back in their dtypes);
+    other values go through ``np.asarray``."""
     out: list = [None] * len(values)
     groups: dict = {}
     for i, v in enumerate(values):
         if isinstance(v, torch.Tensor):
-            groups.setdefault((v.device, v.dtype), []).append(i)
+            groups.setdefault(v.device, []).append(i)
         else:
             out[i] = np.asarray(v)
     for idx in groups.values():
-        flat = torch.cat([values[i].detach().reshape(-1) for i in idx])
-        host = flat.cpu().numpy()
-        off = 0
+        parts, offsets, off = [], [], 0
         for i in idx:
-            n = values[i].numel()
-            out[i] = host[off:off + n].reshape(tuple(values[i].shape))
-            off += n
+            raw = values[i].detach().contiguous().reshape(-1).view(
+                torch.uint8)
+            pad = -raw.numel() % 8        # a view needs aligned offsets
+            parts.append(torch.cat([raw, raw.new_zeros(pad)]) if pad
+                         else raw)
+            offsets.append(off)
+            off += raw.numel() + pad
+        host = torch.cat(parts).cpu()
+        for i, o in zip(idx, offsets):
+            v = values[i]
+            n = v.numel() * v.element_size()
+            out[i] = host[o:o + n].view(v.dtype).reshape(
+                tuple(v.shape)).numpy()
     return out
 
 

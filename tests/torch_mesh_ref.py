@@ -1,5 +1,5 @@
 """Shared helpers of the port's mesh tests (``tests/test_torch_mesh.py``,
-``tests/test_torch_collectives.py``).
+``tests/test_torch_collectives.py``, ``tests/test_torch_resilience.py``).
 
 * :func:`run_world` starts a ``torch.distributed`` world of gloo ranks on
   the CPU (``torch.multiprocessing`` spawn, a ``FileStore`` under a test
@@ -579,6 +579,103 @@ def mesh_scenario(rank: int, world: int, jax_resume: str) -> dict:
     except ValueError as e:
         out["indivisible"] = str(e)
     return out
+
+
+# -- the survivor merge on a (2, 2) mesh -------------------------------------
+
+# test_resilience.py::test_mesh_survivor_matrix: 16 vDPUs, 256 x 8 rows,
+# cadence 4, 48 steps, a NaN lane, a dead pod and a flipped wire bit,
+# every wire, no checkpoint directory (rollbacks go to the fit's start)
+SURVIVOR_STEPS = 48
+SURVIVOR_WIRES = {"exact": None, "int8ef": dict(bits=8),
+                  "topk": dict(bits=8, top_k_frac=0.25)}
+
+
+def survivor_data():
+    r = np.random.default_rng(26)
+    X = r.standard_normal((256, 8)).astype(np.float32)
+    w = r.standard_normal(8).astype(np.float32)
+    y = (X @ w + 0.1 * r.standard_normal(256)).astype(np.float32)
+    return X, y
+
+
+def survivor_case(flt, rec):
+    """The mixed fault plan and the recovery policy, in the package whose
+    ``resilience.faults`` is ``flt`` and ``resilience.recovery`` is
+    ``rec``."""
+    fp = flt.FaultPlan(events=(
+        flt.FaultEvent(2, "nan_lane", lane=3),
+        flt.FaultEvent(4, "dead_pod", pod=1),
+        flt.FaultEvent(6, "wire_bitflip", leaf=0, index=1, bit=29)))
+    pol = rec.RecoveryPolicy(max_restarts=10, degrade_after=2,
+                             spike_factor=50.0, backoff_base_s=0.0)
+    return fp, pol
+
+
+def _survivor_cells(grid, mp, comp, flt, rec, drive_fit, lf, uf, w0,
+                    data, to_np) -> dict:
+    import warnings
+
+    fp, pol = survivor_case(flt, rec)
+    out = {}
+    for name, c in SURVIVOR_WIRES.items():
+        plan = mp.MergePlan(cadence=4, compression=comp.CompressionConfig(
+            **c) if c else None)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            w, hist, rep = drive_fit(
+                grid, init_state=w0, local_fn=lf, update_fn=uf, data=data,
+                steps=SURVIVOR_STEPS, plan=plan, fault_plan=fp,
+                recovery=pol)
+        out[name] = {"w": to_np(w),
+                     "losses": np.asarray([float(h["loss"]) for h in hist]),
+                     "report": {k: rep[k] for k in (
+                         "restarts", "rounds", "survivors", "final_plan",
+                         "fired")},
+                     "trace": [(e["action"], e.get("to_step"),
+                                e.get("transient")) for e in rep["trace"]]}
+    return out
+
+
+def jax_survivor_main(out_path: str) -> None:
+    """JAX's survivor merges on a (2, 2) mesh of 4 forced CPU devices
+    (``make_mesh_grid(16, pods=2)``)."""
+    import jax.numpy as jnp
+
+    from repro.core import make_mesh_grid
+    from repro.core.mlalgos.linreg import make_linreg_step
+    from repro.distributed import compression as comp
+    from repro.distributed import merge_plan as mp
+    from repro.resilience import faults as flt
+    from repro.resilience import recovery as rec
+    from repro.resilience.runtime import drive_fit
+
+    grid = make_mesh_grid(16, pods=2)
+    assert tuple(grid.mesh.shape.values()) == (2, 2)
+    X, y = survivor_data()
+    data, n, lf, uf, w0 = make_linreg_step(grid, jnp.asarray(X),
+                                           jnp.asarray(y), lr=0.1)
+    dump(_survivor_cells(grid, mp, comp, flt, rec, drive_fit, lf, uf, w0,
+                         data, np.asarray), out_path)
+
+
+def survivor_mesh_scenario(rank: int, world: int) -> dict:
+    """The port's survivor merges on a (2, 2) mesh of the 4 ranks."""
+    from repro_torch.core import make_mesh_grid
+    from repro_torch.core.mlalgos.linreg import make_linreg_step
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import merge_plan as mp
+    from repro_torch.resilience import faults as flt
+    from repro_torch.resilience import recovery as rec
+    from repro_torch.resilience.runtime import drive_fit
+
+    grid = make_mesh_grid(16, pods=2, device="cpu")
+    X, y = survivor_data()
+    data, n, lf, uf, w0 = make_linreg_step(grid, X, y, lr=0.1)
+    return {"pod": grid.axis_index("pod"), "data": grid.axis_index("data"),
+            "cells": _survivor_cells(grid, mp, comp, flt, rec, drive_fit,
+                                     lf, uf, w0, data,
+                                     lambda t: t.numpy())}
 
 
 # -- on the card ---------------------------------------------------------------
