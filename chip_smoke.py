@@ -162,7 +162,35 @@ Phases, each printed as one JSON line:
                 ``make_grid``; train_mesh's two-rank world also runs a
                 dead pod at round 2 (exact and int8 EF, 128 survivors,
                 the exact cell within 1e-5 x max|w| of ``make_grid``'s);
- 14. the ``kernels`` line (fxp_matmul's entry also times the
+ 14. train_stream — the main path (LogReg int8 + LUT, 256 vDPUs, d=64)
+                trained from host rows (``data.StreamingDataset``: X
+                float32 (2^24, 64) and y, 4 GiB made on the card from
+                --seed and copied to the host once) through ``api.fit``:
+                one window's gather, numpy quantization, ``window_host``
+                and H2D timed alone; (a) one window of every row
+                (``shuffle=False``) at cadence 8, 48 steps, bit-equal to
+                the resident full-batch fit with its launches (96 / 48);
+                (b) rotations of 2^20 rows (4,096 slots a lane, 16 windows
+                an epoch), 8 steps a window, two prefetched, at cadence 8
+                and 1 and under int8 EF at 8 (48 steps, 6 windows)
+                bit-equal to the windowed resident reference (the same
+                windows taken on the card by ``index_select`` with the
+                sampler's schedule; the EF buffer too), and one step a
+                window for an epoch (16 steps) bit-equal to the resident
+                minibatch fit at ``batch_size=4096``, each with its
+                launches; (c) steps/s of the rotation at depth 0 and 2 and
+                of the resident minibatch fit, 3 fits each in turns, with
+                ingest, stall and overlap from ``last_run_stats`` and the
+                residency tax; (d) the device memory at every window at or
+                under the fit's baseline + 4 staged windows; (e)
+                ``Trainer.for_program`` over the ``StreamProgram`` at
+                cadence 8, checkpoints every 16 steps, bit-equal to (b)'s
+                cadence-8 rotation, every manifest with ``stream_tag`` and
+                ``rotation_window``, a fresh trainer resumed from the first
+                checkpoint bit-equal; (f) KMeans(int16) at d=16 (1 GiB of
+                host rows), one window an iteration, 10 iterations,
+                bit-equal to the resident minibatch fit, 10 launches;
+ 15. the ``kernels`` line (fxp_matmul's entry also times the
      multinomial's two dots at C = 4 and 10, with their byte bound), the
      nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -189,6 +217,7 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
@@ -222,6 +251,7 @@ from repro_torch.launch.serve_lm import generate  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models.transformer import padded_vocab  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.data import StreamingDataset  # noqa: E402
 from repro_torch.resilience import (FaultEvent, FaultPlan,  # noqa: E402
                                     RecoveryPolicy, faults, replay_trace)
 from repro_torch.roofline import hw  # noqa: E402
@@ -314,6 +344,16 @@ FAULT_PODS = 4
 FAULT_TORN_SAVES = 64
 FAULT_MESH_POD_ROUND = 2
 FAULT_KM_SSE = 1.05
+# train_stream: the main path trained from host rows (data.pipeline).  A
+# partition of 1/16 of the rows (2^20 of 2^24: 4,096 slots a lane, 16
+# windows an epoch), 8 steps a window, two windows prefetched; three
+# fits of each in turns for the rates; the trainer checkpoints every 16
+# steps
+STREAM_PARTS = 16
+STREAM_SPW = 8
+STREAM_DEPTH = 2
+STREAM_RATE_FITS = 3
+STREAM_CKPT_EVERY = 16
 LM_ARCH = "qwen2-0.5b"
 LM_BATCH, LM_SEQ = 4, 4096            # prefill: 4 x 4096 tokens
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 64, 32
@@ -1896,7 +1936,7 @@ def train_auto(args, dev, card: str) -> None:
          seconds=time.perf_counter() - t0)
 
 
-# -- phase 12: the mesh ------------------------------------------------------
+# -- phase 11: the mesh ------------------------------------------------------
 
 
 def mesh_cells(args) -> dict:
@@ -3124,6 +3164,402 @@ def train_faults(args, dev, card: str) -> None:
          mesh_one=d, seconds=time.perf_counter() - t0)
 
 
+# -- phase 14: out-of-core streaming -------------------------------------------
+
+
+def stream_of(args, X, y, **kw) -> StreamingDataset:
+    """The phase's stream of host rows: a partition of 1/STREAM_PARTS of
+    them, STREAM_SPW steps a window, STREAM_DEPTH windows prefetched, the
+    default permutation from --seed; ``kw`` overrides."""
+    opts = dict(partition_rows=args.rows // STREAM_PARTS,
+                steps_per_window=STREAM_SPW, prefetch_depth=STREAM_DEPTH,
+                seed=args.seed)
+    opts.update(kw)
+    return StreamingDataset(X, y, **opts)
+
+
+def same_fit(a, b) -> bool:
+    """Two fits' states and histories, bit for bit."""
+    return torch.equal(a.state, b.state) and len(a.history) == len(
+        b.history) and all(sorted(x) == sorted(z) and all(
+            torch.equal(x[key], z[key]) for key in x)
+        for x, z in zip(a.history, b.history))
+
+
+def streamed_fit(wl, grid, source, steps, **kw) -> tuple:
+    """A fit over ``source`` (a ``StreamingDataset``: ``api.fit``, which
+    binds it; a bound ``StreamProgram``: its ``fit``) with the counters
+    set to 0 just before and read just after, and the device memory
+    allocated read in the callback at every step: (result, launches,
+    seconds, baseline bytes, readings, the rotation's statistics)."""
+    dev = grid.device
+    readings: list = []
+
+    def cb(step, state, metrics):
+        if dev.type == "cuda":
+            readings.append(torch.cuda.memory_allocated(dev))
+
+    holder: dict = kw.pop("merge_state", {})
+    sync(dev)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    reset_counts()
+    t0 = time.perf_counter()
+    if isinstance(source, api.StreamProgram):
+        res = source.fit(steps=steps, callback=cb, merge_state=holder, **kw)
+    else:
+        res = api.fit(wl, grid, source, steps=steps, callback=cb,
+                      merge_state=holder, **kw)
+    sync(dev)
+    return (res, counts(), time.perf_counter() - t0, base, readings,
+            holder["streaming_trace"])
+
+
+def windowed_reference(wl, grid, X, y, rotation, steps, spw, **fit_kw):
+    """The rotation's plain version on the card: the resident set
+    (``Workload.bind``), each window's slots taken by ``index_select``
+    with the sampler's schedule drawn on the card
+    (``minibatch.batch_indices``), the mask multiplied into ``w`` and the
+    partials by ``per / n_valid`` (the sampler's multiply); one
+    ``PimGrid.fit`` of ``spw`` steps a window.  Returns (state, history,
+    launches)."""
+    dev = grid.device
+    prog = wl.bind(grid, X, y)
+    per, part, seed = rotation.per, rotation.part, rotation.stream.seed
+    state, history = prog.state0, []
+    sync(dev)
+    reset_counts()
+    for t in range(-(-steps // spw)):
+        idx, mask = mb.batch_indices(per, part, seed,
+                                     torch.tensor(t, device=dev))
+        win = {key: v.index_select(1, idx) for key, v in prog.data.items()}
+        win["w"] = win["w"] * mask
+        scale = torch.full((), float(per), device=dev) / torch.clamp(
+            mask.sum(), min=1.0)
+
+        def lf(st, sl, _s=scale):
+            return {key: v * _s for key, v in prog.local_fn(st, sl).items()}
+
+        state, h = grid.fit(init_state=state, local_fn=lf,
+                            update_fn=prog.update_fn, data=win,
+                            steps=min(spw, steps - len(history)), **fit_kw)
+        history.extend(h)
+    sync(dev)
+    return state, history, counts()
+
+
+def stream_window_cost(args, wl, prog, Xh, yh) -> tuple:
+    """One window's ingest of the bound ``prog`` timed alone, three
+    windows: the gather of its rows (``np.take``), the workload's numpy
+    transform (int8 quantization), the whole ``window_host`` (schedule,
+    gather, transform, the pad rows) and ``place`` (pinned copy and H2D).
+    Returns (summary, a staged window's bytes)."""
+    rot, consts = prog.data, prog.consts
+    parts = {"gather_s": [], "transform_s": [], "window_host_s": [],
+             "h2d_s": []}
+    buf = np.empty((args.lanes * rot.part, args.features), np.float32)
+    for t in range(3):
+        idx, _ = rot.schedule(t)
+        rows = (np.arange(args.lanes, dtype=np.int64)[:, None] * rot.per
+                + idx[None, :]).ravel()
+        t0 = time.perf_counter()
+        np.take(Xh, rows, axis=0, out=buf)
+        yb = np.take(yh, rows)
+        t1 = time.perf_counter()
+        wl.stream_transform(consts, buf, yb)
+        t2 = time.perf_counter()
+        host = rot.window_host(t)
+        t3 = time.perf_counter()
+        placed = rot.place(host)
+        sync(prog.grid.device)
+        t4 = time.perf_counter()
+        for key, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[key].append(v)
+    staged = nbytes(*placed.values())
+    out = {key: statistics.median(v) for key, v in parts.items()}
+    out.update(windows_timed=3, rows=args.lanes * rot.part,
+               gathered_bytes=int(buf.nbytes), staged_bytes=staged,
+               staged_dtypes={key: str(v.dtype) for key, v in placed.items()},
+               per=rot.per, part=rot.part,
+               windows_per_epoch=rot.windows_per_epoch)
+    return out, staged
+
+
+def stream_one_window(args, wl, grid, X, y, Xh, yh, check) -> dict:
+    """(a) One window of every row, unshuffled, at the config's cadence:
+    bit-equal to the resident full-batch fit, with its launches."""
+    k, steps = args.cadence, args.cadence_steps
+    want = expected(fxp_matmul=FXP_STEP * steps, lut_activation=steps)
+    sd = StreamingDataset(Xh, yh, partition_rows=args.rows,
+                          steps_per_window=steps, prefetch_depth=0,
+                          shuffle=False, seed=args.seed)
+    res, seen, seconds, _, _, stats = streamed_fit(wl, grid, sd, steps,
+                                                   merge_every=k)
+    ref, ref_seen, ref_stats = counted_fit(wl, grid, X, y, steps,
+                                           merge_every=k)
+    s = {"run": f"one window, shuffle=False, cadence {k}", "steps": steps,
+         "launches": seen, "resident_launches": ref_seen,
+         "expected_launches": want, "seconds": seconds,
+         "resident_seconds": ref_stats["seconds_fit"],
+         "ingest_s": stats["ingest_s"], "windows": stats["windows"],
+         "bit_equal_to_resident": same_fit(res, ref),
+         "accuracy": accuracy(res.state, X, y)}
+    require(s["bit_equal_to_resident"], f"{s['run']}: not bit-equal to "
+            "the resident full-batch fit")
+    if check:
+        require(seen == want and ref_seen == want, f"{s['run']}: launches "
+                f"{seen} (resident {ref_seen}), the design implies {want}")
+    return s
+
+
+def stream_rotations(args, wl, prog, X, y, Xh, yh, window_bytes: int,
+                     check: bool) -> tuple:
+    """(b) Rotations of the bound ``prog`` (STREAM_SPW steps a window) at
+    cadence 8 and 1 and under int8 EF at 8 against
+    :func:`windowed_reference`, and of one step a window (an epoch)
+    against the resident minibatch fit, bit for bit with the same
+    launches; (d) the memory read at every step.  Returns (summary, the
+    cadence-8 rotation's result)."""
+    grid, rot = prog.grid, prog.data
+    k, steps = args.cadence, args.cadence_steps
+    ef = MergePlan(cadence=k, compression=CompressionConfig(bits=8))
+    bound = (STREAM_DEPTH + 2) * window_bytes
+    runs, main = [], None
+    for name, kw in ((f"cadence {k}", dict(merge_every=k)),
+                     ("cadence 1", dict(merge_every=1)),
+                     (f"int8 EF, cadence {k}", dict(merge_plan=ef))):
+        ms: dict = {}
+        res, seen, seconds, base, readings, stats = streamed_fit(
+            wl, grid, prog, steps, merge_state=ms, **kw)
+        ref_ms: dict = {}
+        ref_state, ref_hist, ref_seen = windowed_reference(
+            wl, grid, X, y, rot, steps, STREAM_SPW, merge_state=ref_ms,
+            **kw)
+        want = expected(fxp_matmul=FXP_STEP * steps, lut_activation=steps)
+        s = {"run": f"rotation, {name}", "steps": steps,
+             "windows": stats["windows"], "launches": seen,
+             "reference_launches": ref_seen, "expected_launches": want,
+             "seconds": seconds, "stats": stats,
+             "bit_equal_to_reference": same_fit(
+                 res, api.FitResult(ref_state, ref_hist, wl)),
+             "accuracy": accuracy(res.state, X, y)}
+        if "error" in ms:
+            s["ef_buffer_bit_equal"] = all(
+                torch.equal(p, q) for p, q in zip(tree_leaves(ms["error"]),
+                                                  tree_leaves(ref_ms[
+                                                      "error"])))
+            require(s["ef_buffer_bit_equal"], f"{s['run']}: the EF buffer "
+                    "differs from the reference's")
+        if grid.device.type == "cuda":
+            require(readings, f"{s['run']}: the callback read no memory")
+            s["memory"] = {"baseline_bytes": base,
+                           "window_bytes": window_bytes,
+                           "bound_bytes": base + bound,
+                           "max_bytes": max(readings),
+                           "max_windows": (max(readings) - base)
+                           / window_bytes, "readings": len(readings)}
+            require(max(readings) <= base + bound, f"{s['run']}: "
+                    f"{max(readings)} bytes allocated at a window, above "
+                    f"{base} + {STREAM_DEPTH + 2} windows")
+        require(s["bit_equal_to_reference"], f"{s['run']}: not bit-equal "
+                "to the windowed resident reference")
+        if check:
+            require(seen == want and ref_seen == want, f"{s['run']}: "
+                    f"launches {seen} (reference {ref_seen}), the design "
+                    f"implies {want}")
+        runs.append(s)
+        if main is None:
+            main = res
+    # one step a window: the resident minibatch sampler, literally
+    steps = STREAM_PARTS
+    sd = stream_of(args, Xh, yh, steps_per_window=1)
+    res, seen, seconds, _, _, stats = streamed_fit(wl, grid, sd, steps)
+    ref, ref_seen, _ = counted_fit(wl, grid, X, y, steps,
+                                   batch_size=rot.part, sample_seed=args.seed)
+    want = expected(fxp_matmul=FXP_STEP * steps, lut_activation=steps)
+    s = {"run": "rotation, one step a window, cadence 1 (an epoch)",
+         "steps": steps, "windows": stats["windows"], "batch_size": rot.part,
+         "launches": seen, "resident_launches": ref_seen,
+         "expected_launches": want, "seconds": seconds, "stats": stats,
+         "bit_equal_to_resident_minibatch": same_fit(res, ref)}
+    require(s["bit_equal_to_resident_minibatch"], f"{s['run']}: not "
+            "bit-equal to the resident minibatch fit")
+    if check:
+        require(seen == want and ref_seen == want, f"{s['run']}: launches "
+                f"{seen} (resident {ref_seen}), the design implies {want}")
+    runs.append(s)
+    return runs, main
+
+
+def stream_rates(args, wl, prog, X, y, Xh, yh) -> dict:
+    """(c) Steps/s of the rotation at depth 0 and of the bound ``prog``
+    (depth 2) and of the resident minibatch fit at ``batch_size=part``,
+    STREAM_RATE_FITS fits each in turns at the config's cadence, with
+    each rotation's statistics and the residency tax (streaming steps/s
+    over resident)."""
+    grid = prog.grid
+    k, steps = args.cadence, args.cadence_steps
+    progs = {"depth 0": wl.bind_stream(grid, stream_of(
+                 args, Xh, yh, prefetch_depth=0)),
+             "depth 2": prog,
+             "resident minibatch": wl.bind(grid, X, y)}
+    part = progs["depth 2"].data.part
+    opts = {"resident minibatch": dict(batch_size=part,
+                                       sample_seed=args.seed)}
+    progs["resident minibatch"].fit(steps=STREAM_SPW, merge_every=k,
+                                    **opts["resident minibatch"])
+    rates: dict = {name: [] for name in progs}
+    stats: dict = {name: [] for name in progs if name.startswith("depth")}
+    order = list(progs)
+    for i in range(STREAM_RATE_FITS):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            sync(grid.device)
+            t0 = time.perf_counter()
+            progs[name].fit(steps=steps, merge_every=k, **opts.get(name, {}))
+            sync(grid.device)
+            rates[name].append(steps / (time.perf_counter() - t0))
+            if name in stats:
+                stats[name].append(progs[name].data.last_run_stats)
+    out = {name: {"median": statistics.median(r), "min": min(r),
+                  "max": max(r), "fits": len(r)}
+           for name, r in rates.items()}
+    for name, st in stats.items():
+        out[name]["rotation_stats"] = st
+        out[name]["residency_tax"] = (
+            out[name]["median"] / out["resident minibatch"]["median"])
+    out.update(steps=steps, cadence=k, batch_size=part)
+    return out
+
+
+def stream_trainer(args, prog, ref, base: str, check: bool) -> dict:
+    """(e) ``Trainer.for_program`` over the bound StreamProgram at the
+    config's cadence, checkpoints every STREAM_CKPT_EVERY steps, and a
+    second trainer over it: bit-equal to
+    (b)'s cadence-8 rotation with its launches, every manifest carrying
+    the rotation's tag and window, and a fresh trainer resumed from the
+    first checkpoint (the one covering step 16) ending bit-equal."""
+    import shutil
+
+    k, steps = args.cadence, args.cadence_steps
+
+    def cfg(d):
+        return TrainerConfig(ckpt_dir=d, ckpt_every=STREAM_CKPT_EVERY,
+                             log_every=STREAM_CKPT_EVERY, merge_every=k,
+                             ckpt_keep=1000)
+
+    dir_a = tempfile.mkdtemp(dir=base)
+    tr, out, seen, seconds = counted_trainer(prog, cfg(dir_a), steps)
+    saved = tr.ckpt.steps()
+    extras = []
+    for step in saved:
+        with open(os.path.join(dir_a, f"step_{step:010d}",
+                               "manifest.json")) as f:
+            extras.append(json.load(f)["extra"])
+    want = expected(fxp_matmul=FXP_STEP * steps, lut_activation=steps)
+    first = saved[0]
+    dir_b = tempfile.mkdtemp(dir=base)
+    shutil.copytree(os.path.join(dir_a, f"step_{first:010d}"),
+                    os.path.join(dir_b, f"step_{first:010d}"))
+    resumed = Trainer.for_program(prog, cfg(dir_b))
+    start = resumed.start_step
+    resumed.run(steps - start)
+    s = {"run": f"Trainer.for_program over the StreamProgram, cadence {k}",
+         "steps": steps, "ckpt_every": STREAM_CKPT_EVERY, "launches": seen,
+         "expected_launches": want, "seconds": seconds,
+         "restarts": out["restarts"], "checkpoints": saved,
+         "manifests": [{key: e.get(key) for key in ("stream_tag",
+                                                    "rotation_window")}
+                       for e in extras],
+         "bit_equal_to_api_fit": bool(torch.equal(tr.state, ref.state))
+         and same_history(out, ref.history),
+         "resumed_from_step": first, "resumed_start_step": start,
+         "resumed_bit_equal": bool(torch.equal(resumed.state, ref.state))}
+    require(s["bit_equal_to_api_fit"], f"{s['run']}: not bit-equal to "
+            "api.fit over the stream")
+    require(saved and all(e.get("stream_tag") == prog.stream_tag and
+                          e.get("rotation_window") == t // STREAM_SPW
+                          for e, t in zip(extras, saved)),
+            f"{s['run']}: manifests {s['manifests']} at {saved}")
+    require(start == first + 1 and s["resumed_bit_equal"], f"{s['run']}: "
+            f"resumed at {start} from the step-{first} checkpoint, "
+            f"bit-equal {s['resumed_bit_equal']}")
+    if check:
+        require(seen == want, f"{s['run']}: launches {seen}, the design "
+                f"implies {want}")
+    return s
+
+
+def stream_kmeans(args, dev, check: bool) -> dict:
+    """(f) KMeans(int16) at d = 16 from host rows, one window an
+    iteration: bit-equal to the resident minibatch fit at ``batch_size =
+    part``, a ``kmeans_assign`` launch an iteration."""
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 510)
+    grid = make_grid(args.lanes, device=dev)
+    d, k, iters = args.km_features, args.km_clusters, args.km_iters
+    X, _, _ = datasets.blobs(gen, args.rows, d, k)
+    Xh = X.cpu().numpy()
+    wl = KMeans(k=k, precision="int16", seed=args.seed)
+    sd = stream_of(args, Xh, None, steps_per_window=None)
+    res, seen, seconds, _, _, stats = streamed_fit(wl, grid, sd, iters)
+    part = sd.bind(grid).part
+    ref, ref_seen, _ = counted_fit(wl, grid, X, None, iters,
+                                   batch_size=part, sample_seed=args.seed)
+    want = expected(kmeans_assign=iters)
+    s = {"run": "kmeans int16, one window an iteration", "iterations": iters,
+         "host_bytes": int(Xh.nbytes), "batch_size": part,
+         "launches": seen, "resident_launches": ref_seen,
+         "expected_launches": want, "seconds": seconds, "stats": stats,
+         "bit_equal_to_resident_minibatch": same_fit(res, ref),
+         "sse_last": float(res.history[-1]["sse"])}
+    require(s["bit_equal_to_resident_minibatch"], f"{s['run']}: not "
+            "bit-equal to the resident minibatch fit")
+    if check:
+        require(seen == want and ref_seen == want, f"{s['run']}: launches "
+                f"{seen} (resident {ref_seen}), the design implies {want}")
+    return s
+
+
+def train_stream(args, dev, card: str) -> None:
+    """The main path trained from host rows (``data.pipeline``): (a) one
+    window, (b) rotations against their references and (d) the memory
+    read at every window, (c) the rates in turns and one window's
+    ingest, (e) the trainer, (f) K-means."""
+    import shutil
+
+    check = not args.rehearse
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 500)
+    X, y, _ = datasets.binary_classification(gen, args.rows, args.features)
+    Xh, yh = X.cpu().numpy(), y.cpu().numpy()
+    grid = make_grid(args.lanes, device=dev)
+    wl = LogReg(lr=0.5, precision="int8", sigmoid="lut")
+    base = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    try:
+        # one bind (stream_consts: the absmax over every host row) of the
+        # main stream, shared by (b), (c) and (e)
+        t1 = time.perf_counter()
+        prog = wl.bind_stream(grid, stream_of(args, Xh, yh))
+        sync(dev)
+        bind_s = time.perf_counter() - t1
+        window, window_bytes = stream_window_cost(args, wl, prog, Xh, yh)
+        window["bind_s"] = bind_s
+        a = stream_one_window(args, wl, grid, X, y, Xh, yh, check)
+        b, main = stream_rotations(args, wl, prog, X, y, Xh, yh,
+                                   window_bytes, check)
+        c = stream_rates(args, wl, prog, X, y, Xh, yh)
+        e = stream_trainer(args, prog, main, base, check)
+        del X, y, Xh, yh, main, prog
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+        f = stream_kmeans(args, dev, check)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    emit("train_stream", card=card, lanes=args.lanes, rows=args.rows,
+         features=args.features, host_bytes=args.rows * args.features * 4,
+         partition_rows=args.rows // STREAM_PARTS,
+         steps_per_window=STREAM_SPW, prefetch_depth=STREAM_DEPTH,
+         window=window, one_window=a, rotations=b, rates=c, trainer=e,
+         kmeans=f, seconds=time.perf_counter() - t0)
+
+
 def predict(name, wl, state, requests, launches: dict,
             check_counts: bool) -> None:
     """Requests of 1, 7 and 512 rows through ``Workload.predict``, equal
@@ -3529,6 +3965,8 @@ def main(argv=None) -> int:
     train_ckpt(args, dev, smi)
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     train_faults(args, dev, smi)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    train_stream(args, dev, smi)
 
     kernels = []
     for name, t in times.items():

@@ -53,8 +53,17 @@ dense decoder LM serving):
   * ``launch.serve_lm`` — batched greedy serving
   * ``launch.mesh``    — the process group and the ``("pod", "data")``
                          mesh
+  * ``data``           — the data pipeline: the prefetcher, the token
+                         stream and out-of-core streaming
+                         (``StreamingDataset`` rotated through the device
+                         by ``run_streaming_fit``)
   * ``interop``        — values carried across from the JAX package
 """
 
 from repro_torch.device import resolve_device  # noqa: F401
 from repro_torch.core.pim import make_mesh_grid  # noqa: F401
+from repro_torch.data import (  # noqa: F401
+    ShardedDataset, TokenStream, Prefetcher,
+    StreamingDataset, PartitionRotation, RotationFeed,
+    run_streaming_fit,
+)

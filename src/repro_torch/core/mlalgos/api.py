@@ -36,8 +36,17 @@ The overlapped and compressed merges compose with it: the float32
 counter crosses the wire like the state (quantized under compression,
 as in the JAX package) and is rounded where it is read.  Adaptive
 cadence and ``"auto"`` run under the plan controller
-(``repro_torch.tuning``); streaming sources are not ported yet (ROADMAP
-queue A, item 14) and raise ``NotImplementedError``.
+(``repro_torch.tuning``).
+
+An out-of-core source (``data.pipeline.StreamingDataset``, rows on the
+host) trains through the same entry point, ``fit(workload, grid,
+stream)`` with its labels inside the stream: ``Workload.bind_stream``
+takes the workload's constants from one pass over the host rows
+(``stream_consts``: the row count, the quantization scales of the whole
+dataset) and maps each window's rows as ``prepare`` maps the resident set
+(``stream_transform``, in numpy, on the prefetch thread), and the bound
+:class:`StreamProgram` trains a rotation window at a time
+(``data.pipeline``'s DESIGN).
 """
 
 from __future__ import annotations
@@ -135,10 +144,50 @@ class Workload:
         raise NotImplementedError(
             f"workload {self.name!r} does not implement predict")
 
+    # -- out-of-core streaming (opt-in) ----------------------------------
+
+    def stream_consts(self, stream, grid: PimGrid) -> Optional[dict]:
+        """The constants of a fit over a ``data.pipeline.StreamingDataset``
+        (``prepare``'s consts, from one pass over the host rows, since no
+        window sees them all), on ``grid``'s device.  ``None``, the
+        default, means the workload cannot stream (:meth:`bind_stream`
+        says so)."""
+        return None
+
+    def stream_transform(self, consts: dict, X_rows, y_rows):
+        """A window's host rows (numpy) -> the ``(X', extra0, ...)`` tuple
+        ``prepare`` would have given ``shard_rows``: labels mapped, values
+        quantized against the whole dataset's scales.  Row-local, so it
+        commutes with the rotation's gather; numpy, since it runs on the
+        prefetch thread."""
+        return (X_rows,) if y_rows is None else (X_rows, y_rows)
+
     def bind(self, grid: PimGrid, X, y=None) -> "Program":
         """Shard the dataset and assemble the engine closures once."""
         data, n, consts = self.prepare(grid, X, y)
         return Program.assemble(self, grid, data, n, consts)
+
+    def bind_stream(self, grid: PimGrid, stream) -> "StreamProgram":
+        """Bind an out-of-core ``data.pipeline.StreamingDataset``: the
+        closures of :meth:`bind`, over a ``PartitionRotation`` that puts
+        resident-sized windows on the device as they are needed."""
+        from repro_torch.data.pipeline import PartitionRotation
+
+        consts = self.stream_consts(stream, grid)
+        if consts is None:
+            raise ValueError(
+                f"workload {self.name!r} does not support streaming "
+                f"ingestion (stream_consts returned None): its "
+                f"prepare-time statistics cannot be derived from "
+                f"one-pass host statistics, or nobody has taught it "
+                f"to — use the fully-resident path")
+
+        def transform(Xb, yb):
+            return self.stream_transform(consts, Xb, yb)
+
+        rotation = PartitionRotation(stream, grid, transform=transform)
+        return StreamProgram.assemble(self, grid, rotation, stream.n_rows,
+                                      consts)
 
     def run(self, grid: PimGrid, X, y=None, *, steps: int,
             plan: mp.MergePlan, batch_size: Optional[int], engine: str,
@@ -253,21 +302,28 @@ class Program:
         return FitResult(state=state, history=history,
                          workload=self.workload)
 
+    def _step_triple(self, batch_size: Optional[int], sample_seed: int,
+                     permutation: Optional[mb.Permutation] = None):
+        """The engine triple that :meth:`step_fn` and :meth:`round_fn` run
+        (a :class:`StreamProgram` adds its window's scale)."""
+        return self._triple(batch_size, sample_seed, permutation)[:3]
+
     def step_fn(self, *, batch_size: Optional[int] = None,
                 sample_seed: int = 0,
                 sample_permutation: Optional[mb.Permutation] = None):
         """A merge-per-step function for outside training loops (the
         ``runtime.Trainer``): ``step(state, batch) -> (state, metrics)``
-        over the resident data (``batch`` is ignored: the data never
-        moves).  It runs what a cadence-1 ``fit`` step runs, in the same
-        order.  Returns ``(step, state0)``; with ``batch_size`` the state
-        is ``(state, counter)``, so a checkpoint holds the sampler's
+        over ``batch`` when given (a stream's window), else over the
+        resident data.  It runs what a cadence-1 ``fit`` step runs, in the
+        same order.  Returns ``(step, state0)``; with ``batch_size`` the
+        state is ``(state, counter)``, so a checkpoint holds the sampler's
         position."""
-        local_fn, update_fn, state0, _ = self._triple(
+        local_fn, update_fn, state0 = self._step_triple(
             batch_size, sample_seed, sample_permutation)
-        grid, data = self.grid, self.data
+        grid, resident = self.grid, self.data
 
         def step(state, batch):
+            data = resident if batch is None else batch
             merged = grid.map_reduce(local_fn, state, data)
             return update_fn(state, merged)
 
@@ -278,21 +334,65 @@ class Program:
                  sample_permutation: Optional[mb.Permutation] = None):
         """An exact merge round at cadence ``k`` for outside loops:
         ``round(state, batch) -> (state, [metrics of each of the k local
-        steps])``, ``merge_plan.cadence_round`` on the resident data (the
-        default plan's round).  Returns ``(round, state0)``; this is how
-        ``Trainer.for_program`` runs ``merge_every > 1`` with its
-        checkpoints on merge boundaries."""
+        steps])``, ``merge_plan.cadence_round`` on ``batch`` when given,
+        else on the resident data (the default plan's round).  Returns
+        ``(round, state0)``; this is how ``Trainer.for_program`` runs
+        ``merge_every > 1`` with its checkpoints on merge boundaries."""
         if k < 1:
             raise ValueError(f"round_fn needs cadence k >= 1, got {k}")
-        local_fn, update_fn, state0, _ = self._triple(
+        local_fn, update_fn, state0 = self._step_triple(
             batch_size, sample_seed, sample_permutation)
-        grid, data = self.grid, self.data
+        grid, resident = self.grid, self.data
 
         def round(state, batch):
+            data = resident if batch is None else batch
             return mp.cadence_round(grid, local_fn, update_fn, k, state,
                                     data)
 
         return round, state0
+
+
+@dataclasses.dataclass
+class StreamProgram(Program):
+    """A workload bound to a grid and an out-of-core rotation: ``data`` is
+    a ``data.pipeline.PartitionRotation``, which ``PimGrid.fit`` hands to
+    ``data.pipeline.run_streaming_fit``.  ``batch_size`` samples within a
+    window (the sampler's ``rows_per_vdpu`` is the window's ``part``),
+    every static plan runs inside each window, and EF and momentum
+    continue across windows through ``merge_state``; controller plans
+    are refused."""
+
+    is_stream_program = True
+
+    @property
+    def rows_per_vdpu(self) -> int:
+        return self.data.part
+
+    @property
+    def stream_tag(self) -> str:
+        """The rotation's identity, for the Trainer's checkpoints."""
+        return self.data.tag()
+
+    def batch_feed(self, cadence: int = 1):
+        """A deterministic ``batch_fn(step)`` over the rotation for the
+        ``Trainer``: window ``step // steps_per_window``, prefetched, and
+        gathered again on a rollback."""
+        from repro_torch.data.pipeline import RotationFeed
+
+        return RotationFeed(self.data, self.data.steps_per_window(cadence))
+
+    def _step_triple(self, batch_size, sample_seed, sample_permutation):
+        """The engine triple with the window's scale applied outside the
+        sampler (the sampler selects rows of every leaf it is given), so
+        the Trainer's steps over the feed's windows are a streaming
+        fit's."""
+        from repro_torch.data.pipeline import make_scaled_local
+
+        local_fn, update_fn, state0, _ = self._triple(
+            batch_size, sample_seed, sample_permutation)
+        if not self.data.exact_full:
+            local_fn = make_scaled_local(local_fn)
+        return local_fn, update_fn, state0
 
 
 def fit(workload: Workload, grid: PimGrid, X, y=None, *, steps: int,
@@ -307,7 +407,9 @@ def fit(workload: Workload, grid: PimGrid, X, y=None, *, steps: int,
     ``merge_plan.MergePlan`` (``None``: the exact default), e.g.
     ``MergePlan(cadence=8, outer=SlowMo())``; unsupported axes degrade
     with a ``MergeFallbackWarning``, and ``merge_state`` (a dict) carries
-    the error-feedback buffer and the outer momentum across fits.  ``batch_size``: rows sampled per
+    the error-feedback buffer and the outer momentum across fits.  ``X``
+    may be a ``data.pipeline.StreamingDataset`` (``y=None``: the labels
+    ride in it).  ``batch_size``: rows sampled per
     vDPU per local step (None: full batch), on the schedule of
     ``sample_seed`` and, when given, ``sample_permutation(seed, epoch,
     rows_per_vdpu)`` (default: ``minibatch.hashed_permutation``); it
@@ -330,9 +432,18 @@ def fit(workload: Workload, grid: PimGrid, X, y=None, *, steps: int,
     plan, batch_size = workload.merge_caps.constrain(workload.name, plan,
                                                      batch_size)
     if getattr(X, "is_streaming_source", False):
-        raise NotImplementedError(
-            "streaming sources are not ported to repro_torch yet (ROADMAP "
-            "queue A, item 14)")
+        # out-of-core: X is a data.pipeline.StreamingDataset carrying its
+        # own labels; PimGrid.fit hands the bound rotation to
+        # data.pipeline.run_streaming_fit
+        if y is not None:
+            raise ValueError(
+                "streaming fits carry labels inside the "
+                "StreamingDataset — pass y=None")
+        return workload.bind_stream(grid, X).fit(
+            steps=steps, batch_size=batch_size, engine=engine,
+            scan_chunk=scan_chunk, merge_plan=plan, merge_state=merge_state,
+            callback=callback, sample_seed=sample_seed,
+            sample_permutation=sample_permutation)
     return workload.run(grid, X, y, steps=steps, plan=plan,
                         batch_size=batch_size, engine=engine,
                         scan_chunk=scan_chunk, callback=callback,

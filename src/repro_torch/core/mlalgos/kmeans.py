@@ -27,7 +27,8 @@ import torch
 
 from repro_torch.core import quantize as qz
 from repro_torch.core.mlalgos import api
-from repro_torch.core.mlalgos.linreg import BITS, as_f32
+from repro_torch.core.mlalgos.linreg import (BITS, as_f32, host_f32,
+                                             stream_scale)
 from repro_torch.core.pim import PimGrid
 from repro_torch.kernels import dispatch
 
@@ -52,14 +53,16 @@ class KMeans(api.Workload):
 
     name = "kmeans"
 
+    def init_rows(self, n: int, device) -> torch.Tensor:
+        """The rows of the initial centroids: ``k`` distinct of ``n``,
+        drawn on ``device`` with one seeded generator, so every rank of a
+        mesh, and a stream of the same rows, starts from the same ones."""
+        gen = torch.Generator(device=device).manual_seed(self.seed)
+        return torch.randperm(n, generator=gen, device=device)[:self.k]
+
     def prepare(self, grid: PimGrid, X, y=None):
         X = as_f32(X, grid.device)
-        # the initial centroids are drawn from the full X with one seeded
-        # generator, so every rank of a mesh starts from the same ones
-        gen = torch.Generator(device=grid.device).manual_seed(self.seed)
-        init = torch.randperm(X.shape[0], generator=gen,
-                              device=grid.device)[:self.k]
-        consts = {"_c0": X[init]}
+        consts = {"_c0": X[self.init_rows(X.shape[0], grid.device)]}
         if self.precision == "fp32":
             data, n = grid.shard_rows(X)
         else:
@@ -68,6 +71,22 @@ class KMeans(api.Workload):
             consts["x_scale"] = Xq.scale                   # (1, d)
         consts["n"] = n
         return data, n, consts
+
+    def stream_consts(self, stream, grid: PimGrid):
+        # prepare's draw, on the grid's device, read from the host rows
+        init = self.init_rows(stream.n_rows, grid.device).cpu().numpy()
+        consts = {"n": stream.n_rows,
+                  "_c0": as_f32(host_f32(stream.rows(init)), grid.device)}
+        if self.precision != "fp32":
+            consts["x_scale"], consts["x_scale_host"] = stream_scale(
+                stream.feature_absmax(), BITS[self.precision], grid.device)
+        return consts
+
+    def stream_transform(self, consts, X_rows, y_rows):
+        if self.precision == "fp32":
+            return (host_f32(X_rows),)
+        return (qz.quantize_fixed_scale_np(X_rows, consts["x_scale_host"],
+                                           BITS[self.precision]),)
 
     def init_state(self, consts):
         return consts["_c0"]

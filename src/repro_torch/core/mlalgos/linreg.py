@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import quantize as qz
@@ -36,6 +37,19 @@ class LinRegResult:
 
 def as_f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def stream_scale(amax, bits: int, device) -> tuple:
+    """``symmetric_scale`` of a host absmax, on ``device`` (as the
+    resident path computes it) and its host copy for the numpy
+    quantization of the windows: ``(device scale, numpy scale)``."""
+    scale = qz.symmetric_scale(torch.as_tensor(amax).to(device), bits)
+    return scale, scale.cpu().numpy()
+
+
+def host_f32(x) -> np.ndarray:
+    """Host rows as float32, as ``as_f32`` takes resident ones."""
+    return np.asarray(x, np.float32)
 
 
 def matvec(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -112,6 +126,28 @@ class LinReg(api.Workload):
         data, n = grid.shard_rows(Xq.values, yq.values)
         return data, n, {"n": n, "d": d, "device": grid.device,
                          "x_scale": Xq.scale, "y_scale": yq.scale}
+
+    def stream_consts(self, stream, grid: PimGrid):
+        """``prepare``'s constants from one pass over the host rows: the
+        scales of the whole dataset, so every window quantizes on the
+        resident grid (``*_host``: their numpy copies, for the
+        windows)."""
+        consts = {"n": stream.n_rows, "d": stream.n_features,
+                  "device": grid.device}
+        if self.precision != "fp32":
+            consts["x_scale"], consts["x_scale_host"] = stream_scale(
+                stream.feature_absmax(), BITS[self.precision], grid.device)
+            consts["y_scale"], consts["y_scale_host"] = stream_scale(
+                stream.label_absmax(), 16, grid.device)
+        return consts
+
+    def stream_transform(self, consts, X_rows, y_rows):
+        if self.precision == "fp32":
+            return host_f32(X_rows), host_f32(y_rows)
+        return (qz.quantize_fixed_scale_np(X_rows, consts["x_scale_host"],
+                                           BITS[self.precision]),
+                qz.quantize_fixed_scale_np(y_rows, consts["y_scale_host"],
+                                           16))
 
     def init_state(self, consts):
         return torch.zeros((consts["d"],), dtype=torch.float32,

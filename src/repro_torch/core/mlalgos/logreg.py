@@ -20,10 +20,10 @@ import torch
 from repro_torch.core import lut as lut_mod
 from repro_torch.core import quantize as qz
 from repro_torch.core.mlalgos import api
-from repro_torch.core.mlalgos.linreg import (BITS, as_f32, int_forward,
-                                             int_gradient, matvec,
-                                             quantize_weight, rmatvec,
-                                             rowdot)
+from repro_torch.core.mlalgos.linreg import (BITS, as_f32, host_f32,
+                                             int_forward, int_gradient,
+                                             matvec, quantize_weight,
+                                             rmatvec, rowdot, stream_scale)
 from repro_torch.core.pim import PimGrid
 from repro_torch.kernels import dispatch
 
@@ -78,6 +78,23 @@ class LogReg(api.Workload):
             consts["x_scale"] = Xq.scale
         consts["n"] = n
         return data, n, consts
+
+    def stream_consts(self, stream, grid: PimGrid):
+        consts = {"n": stream.n_rows, "d": stream.n_features,
+                  "device": grid.device,
+                  "sig": make_sigmoid(self.sigmoid, self.lut_entries,
+                                      grid.device)}
+        if self.precision != "fp32":
+            consts["x_scale"], consts["x_scale_host"] = stream_scale(
+                stream.feature_absmax(), BITS[self.precision], grid.device)
+        return consts
+
+    def stream_transform(self, consts, X_rows, y_rows):
+        if self.precision == "fp32":
+            return host_f32(X_rows), host_f32(y_rows)
+        return (qz.quantize_fixed_scale_np(X_rows, consts["x_scale_host"],
+                                           BITS[self.precision]),
+                host_f32(y_rows))
 
     def init_state(self, consts):
         return torch.zeros((consts["d"],), dtype=torch.float32,

@@ -21,12 +21,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import lut as lut_mod
 from repro_torch.core import quantize as qz
 from repro_torch.core.mlalgos import api
-from repro_torch.core.mlalgos.linreg import BITS, as_f32, rowdot
+from repro_torch.core.mlalgos.linreg import (BITS, as_f32, host_f32,
+                                             rowdot, stream_scale)
 from repro_torch.core.pim import PimGrid
 from repro_torch.kernels import dispatch
 
@@ -114,6 +116,23 @@ class MultinomialLogReg(api.Workload):
             consts["x_scale"] = Xq.scale
         consts["n"] = n
         return data, n, consts
+
+    def stream_consts(self, stream, grid: PimGrid):
+        consts = {"n": stream.n_rows, "d": stream.n_features,
+                  "device": grid.device,
+                  "sm": make_softmax(self.softmax, self.lut_entries,
+                                     grid.device)}
+        if self.precision != "fp32":
+            consts["x_scale"], consts["x_scale_host"] = stream_scale(
+                stream.feature_absmax(), BITS[self.precision], grid.device)
+        return consts
+
+    def stream_transform(self, consts, X_rows, y_rows):
+        yi = np.asarray(y_rows).astype(np.int32)     # prepare's cast
+        if self.precision == "fp32":
+            return host_f32(X_rows), yi
+        return (qz.quantize_fixed_scale_np(X_rows, consts["x_scale_host"],
+                                           BITS[self.precision]), yi)
 
     def init_state(self, consts):
         return torch.zeros((consts["d"], self.n_classes),

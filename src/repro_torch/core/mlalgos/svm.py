@@ -18,14 +18,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import quantize as qz
 from repro_torch.core.mlalgos import api
-from repro_torch.core.mlalgos.linreg import (BITS, as_f32, int_forward,
-                                             int_gradient, matvec,
-                                             quantize_weight, rmatvec,
-                                             rowdot)
+from repro_torch.core.mlalgos.linreg import (BITS, as_f32, host_f32,
+                                             int_forward, int_gradient,
+                                             matvec, quantize_weight,
+                                             rmatvec, rowdot, stream_scale)
 from repro_torch.core.pim import PimGrid
 
 Precision = Literal["fp32", "int16", "int8"]
@@ -65,6 +66,22 @@ class LinearSVM(api.Workload):
             consts["x_scale"] = Xq.scale
         consts["n"] = n
         return data, n, consts
+
+    def stream_consts(self, stream, grid: PimGrid):
+        consts = {"n": stream.n_rows, "d": stream.n_features,
+                  "device": grid.device}
+        if self.precision != "fp32":
+            consts["x_scale"], consts["x_scale_host"] = stream_scale(
+                stream.feature_absmax(), BITS[self.precision], grid.device)
+        return consts
+
+    def stream_transform(self, consts, X_rows, y_rows):
+        # the ±1 labels of pm1, a window at a time
+        ys = np.where(np.asarray(y_rows) > 0, 1.0, -1.0).astype(np.float32)
+        if self.precision == "fp32":
+            return host_f32(X_rows), ys
+        return (qz.quantize_fixed_scale_np(X_rows, consts["x_scale_host"],
+                                           BITS[self.precision]), ys)
 
     def init_state(self, consts):
         return torch.zeros((consts["d"],), dtype=torch.float32,

@@ -214,6 +214,10 @@ class PimGrid:
         read from it at entry and written back at exit, so they continue
         across ``fit`` calls.
 
+        ``data`` may also be a ``data.pipeline.PartitionRotation`` (an
+        out-of-core dataset): ``data.pipeline.run_streaming_fit`` then
+        runs one fit like this one a rotation window.
+
         Under an armed ``resilience.faults.FaultPlan`` a plan that is not
         adaptive or auto runs ``resilience.runtime.drive_fit`` (the
         survivor-weighted merge, with the armed recovery policy and
@@ -226,6 +230,17 @@ class PimGrid:
         plan = mp.MergePlan.resolve(
             merge_plan, merge_every=merge_every,
             overlap_merge=overlap_merge, merge_compression=merge_compression)
+        # out-of-core streaming: a data.pipeline.PartitionRotation is
+        # trained a window at a time, each window through this fit again,
+        # so every path below (the armed-faults hook too) applies to it
+        if getattr(data, "is_streaming_rotation", False):
+            from repro_torch.data import pipeline as _pipeline
+
+            return _pipeline.run_streaming_fit(
+                self, data, init_state=init_state, local_fn=local_fn,
+                update_fn=update_fn, steps=steps, plan=plan,
+                merge_state=merge_state, callback=callback,
+                scan_chunk=scan_chunk, engine=engine)
         # fault injection (resilience): under an armed FaultPlan a static
         # plan runs the resilient driver (survivor-weighted merges,
         # injection, rollback); unarmed, this is one None check

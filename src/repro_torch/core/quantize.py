@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 _INT_DTYPES = {8: torch.int8, 16: torch.int16, 32: torch.int32,
@@ -136,6 +137,39 @@ def quantize_symmetric(x: torch.Tensor, bits: int = 8,
     q = torch.round(x / scale)
     dtype = _INT_DTYPES.get(bits, torch.int32)
     return Quantized(torch.clamp(q, -qmax - 1, qmax).to(dtype), scale)
+
+
+def quantize_fixed_scale(x, scale, bits: int = 8) -> Quantized:
+    """Symmetric quantization against a precomputed ``scale`` (the
+    out-of-core path: a rotation window sees a partition of the rows, so
+    its scale comes from the whole dataset's absmax,
+    ``data.pipeline.StreamingDataset.feature_absmax``).  The divide,
+    round and clip of :func:`quantize_symmetric`, so with
+    ``symmetric_scale`` of the global absmax a window equals the same
+    rows of the resident ``quantize_symmetric(X, axis=0)`` bit for bit."""
+    x = torch.as_tensor(x).float()
+    qmax = 2 ** (bits - 1) - 1
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    q = torch.round(x / scale)
+    dtype = _INT_DTYPES.get(bits, torch.int32)
+    return Quantized(torch.clamp(q, -qmax - 1, qmax).to(dtype), scale)
+
+
+_NP_INT_DTYPES = {8: np.int8, 16: np.int16, 32: np.int32, 64: np.int64}
+
+
+def quantize_fixed_scale_np(x, scale, bits: int = 8) -> np.ndarray:
+    """:func:`quantize_fixed_scale` in numpy, for the prefetch worker: it
+    quantizes a gathered window on the host, so the H2D copy ships int8
+    or int16 bytes, not float32.  The same float32 divide, round half to
+    even (``np.round``, like ``torch.round``) and clip, so the integers
+    are the same bit for bit; done in place on the quotient, one float32
+    temporary a call."""
+    qmax = 2 ** (bits - 1) - 1
+    q = np.divide(np.asarray(x, np.float32), np.asarray(scale, np.float32))
+    np.round(q, out=q)
+    np.clip(q, -qmax - 1, qmax, out=q)
+    return q.astype(_NP_INT_DTYPES.get(bits, np.int32))
 
 
 def ef_quantize(grad: torch.Tensor, error: torch.Tensor, bits: int = 8):

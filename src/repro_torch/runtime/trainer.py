@@ -251,8 +251,8 @@ class Trainer:
         self.step_fn = step_fn
         self.batch_fn = batch_fn
         self.cfg = config
-        # an out-of-core rotation's identity (streaming programs, ROADMAP
-        # item 14): checkpoints carry it and a restore under another
+        # an out-of-core rotation's identity (a StreamProgram's, see
+        # data.pipeline): checkpoints carry it and a restore under another
         # rotation is refused
         self._stream_tag = stream_tag
         self._stream_spw = stream_spw
@@ -348,8 +348,11 @@ class Trainer:
 
         At cadence 1 a trainer step is one merge-per-step training step
         over the resident data (``Program.step_fn``; the batch function
-        is a no-op).  ``config.batch_size`` turns on the device sampler,
-        whose counter rides in the checkpointed state, so a replay
+        is a no-op).  Over a ``StreamProgram`` the batch function is its
+        rotation feed (``StreamProgram.batch_feed``) and each checkpoint
+        carries the rotation's tag and window.  ``config.batch_size``
+        turns on the device sampler, whose counter rides in the
+        checkpointed state, so a replay
         resumes the epoch schedule where it left off;
         ``sample_permutation`` is ``fit``'s.
 
@@ -390,14 +393,25 @@ class Trainer:
         sampling = dict(batch_size=config.batch_size,
                         sample_seed=sample_seed,
                         sample_permutation=sample_permutation)
+        # a StreamProgram (out-of-core): the batch function is the rotation
+        # feed (window step // steps_per_window, prefetched, gathered again
+        # on a rollback or restore), and the rotation's tag rides in every
+        # checkpoint, so a resumed run replays the same partition sequence
         batch_fn: Callable[[int], Any] = lambda step: None
+        stream = {}
+        if getattr(program, "is_stream_program", False):
+            batch_fn = program.batch_feed(cadence)
+            stream = dict(stream_tag=program.stream_tag,
+                          stream_spw=batch_fn.spw)
         if cadence == 1:
             step_fn, state0 = program.step_fn(**sampling)
             return cls(step_fn, state0, batch_fn, config,
-                       state_placer=state_placer, merge_state=merge_state)
+                       state_placer=state_placer, merge_state=merge_state,
+                       **stream)
         round_fn, state0 = program.round_fn(cadence, **sampling)
         tr = cls(round_fn, state0, batch_fn, config,
-                 state_placer=state_placer, merge_state=merge_state)
+                 state_placer=state_placer, merge_state=merge_state,
+                 **stream)
         tr._steps_per_call = cadence
         rounds = {cadence: round_fn}
 
@@ -556,6 +570,10 @@ class Trainer:
         finally:
             if self._sink is not None:
                 self._sink.close()
+            # a rotation feed's prefetch thread holds device windows
+            close = getattr(self.batch_fn, "close", None)
+            if close is not None:
+                close()
 
     def _run(self, n_steps: int, callback: Optional[Callable]
              ) -> Dict[str, Any]:

@@ -1,5 +1,6 @@
 """Shared helpers of the port's mesh tests (``tests/test_torch_mesh.py``,
-``tests/test_torch_collectives.py``, ``tests/test_torch_resilience.py``).
+``tests/test_torch_collectives.py``, ``tests/test_torch_resilience.py``,
+``tests/test_torch_streaming.py``).
 
 * :func:`run_world` starts a ``torch.distributed`` world of gloo ranks on
   the CPU (``torch.multiprocessing`` spawn, a ``FileStore`` under a test
@@ -676,6 +677,45 @@ def survivor_mesh_scenario(rank: int, world: int) -> dict:
             "cells": _survivor_cells(grid, mp, comp, flt, rec, drive_fit,
                                      lf, uf, w0, data,
                                      lambda t: t.numpy())}
+
+
+# -- out-of-core streaming on a mesh ------------------------------------------
+
+STREAM_CELLS = ("linreg fp32", "linreg int8", "logreg int8 lut")
+
+
+def stream_mesh_scenario(rank: int, world: int) -> dict:
+    """A rotation on a (2, 1) mesh (each rank gathers its own 8 lanes'
+    rows) against the same mesh's resident minibatch fit at ``batch_size
+    = part``: each cell's states and losses, as numpy."""
+    from repro_torch.core import make_mesh_grid
+    from repro_torch.core import mlalgos as ml
+    from repro_torch.data import StreamingDataset
+
+    grid = make_mesh_grid(16, pods=world, device="cpu")
+    X, y = linreg_data()
+    yb = (y > 0).astype(np.float32)
+    out = {"n_local": grid.n_local}
+    for cell in STREAM_CELLS:
+        wl, yy = {"linreg fp32": (ml.LinReg(lr=0.05), y),
+                  "linreg int8": (ml.LinReg(lr=0.05, precision="int8"), y),
+                  "logreg int8 lut": (ml.LogReg(lr=0.5, precision="int8",
+                                                sigmoid="lut"), yb)}[cell]
+        sd = StreamingDataset(X, yy, partition_rows=64, steps_per_window=1,
+                              seed=3)
+        prog = wl.bind_stream(grid, sd)
+        window = prog.data.window_data(0)
+        rs = ml.api.fit(wl, grid, sd, steps=10)
+        rr = ml.api.fit(wl, grid, X, yy, steps=10,
+                        batch_size=prog.data.part, sample_seed=3)
+        out[cell] = {
+            "window_lanes": int(window["w"].shape[0]),
+            "scale_shape": tuple(window["scale"].shape),
+            "stream": (rs.state.numpy(),
+                       [float(m["loss"]) for m in rs.history]),
+            "resident": (rr.state.numpy(),
+                         [float(m["loss"]) for m in rr.history])}
+    return out
 
 
 # -- on the card ---------------------------------------------------------------
