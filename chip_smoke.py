@@ -44,6 +44,26 @@ Phases, each printed as one JSON line:
                 path; the fp32 predict of LogReg, LinReg, LinearSVM and
                 MultinomialLogReg on 7 rows equals the same rows padded
                 with zero rows to 16;
+ 5b. serve_pim — the trained LogReg(int8, LUT) state and six other
+                configurations (LogReg fp32 + exact, LinReg and LinearSVM
+                int8, MultinomialLogReg int8 + LUT at C = 4 and 10,
+                KMeans int16 k=8 d=16; seeded states) served through
+                ``serving.PredictRunner``, one CUDA graph a bucket (8 /
+                32 / 128 / 512), on held-out labelled rows: (b) requests
+                of 1, 7, 8, 100, 512 and 1,300 rows from the card and the
+                host bit-equal to the eager predict (K-means off the
+                near-ties); (c) 4 captures a configuration, none after,
+                none for an equal configuration, and a profile of 20
+                replays a bucket with the port's kernels and no pageable
+                copy; (d) rows/s of run_stream against the eager loop
+                (512- and 8-row batches) and one 8-row request's latency,
+                in turns, the idle share; (e) MicroBatchQueue bursts of
+                4,096 single rows at 2,000, 8,000 and 32,000/s: fp32
+                tickets bit-equal, int8 + LUT accuracy within 0.01 of
+                fp32's; (f) ModelRegistry over a Trainer.for_program run
+                (32 steps, cadence 8, checkpoints every 8): refresh
+                bit-equal, two swaps under traffic, a torn step skipped;
+                (g) ``launch.serve.main`` on the card;
   6. serve_lm — qwen2-0.5b at its full config (24 layers, bf16, random
                 weights from --seed): ``Model.prefill`` of 4 x 4096 tokens
                 (one flash launch per layer, last logits within 3e-2 x
@@ -202,6 +222,7 @@ run with a non-zero exit code and without the ``ok`` line.  Without CUDA (and wi
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -212,6 +233,7 @@ import pickle
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -247,6 +269,7 @@ from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
 from repro_torch.kernels.lut_activation import lut_activation  # noqa: E402
 from repro_torch.kernels.split_hist import split_hist  # noqa: E402
 from repro_torch.launch.mesh import init_world, make_pim_mesh  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.serve_lm import generate  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models.transformer import padded_vocab  # noqa: E402
@@ -256,6 +279,8 @@ from repro_torch.resilience import (FaultEvent, FaultPlan,  # noqa: E402
                                     RecoveryPolicy, faults, replay_trace)
 from repro_torch.roofline import hw  # noqa: E402
 from repro_torch.runtime import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.serving import (MicroBatchQueue, ModelRegistry,  # noqa: E402
+                                 PredictRunner)
 from repro_torch.tree import (tree_flatten_with_names,  # noqa: E402
                               tree_leaves, tree_map)
 from repro_torch.tuning import AutoTune, PlanController  # noqa: E402
@@ -354,6 +379,24 @@ STREAM_SPW = 8
 STREAM_DEPTH = 2
 STREAM_RATE_FITS = 3
 STREAM_CKPT_EVERY = 16
+# serve_pim: the trained main path served through serving.PredictRunner
+# (one CUDA graph a bucket), MicroBatchQueue and ModelRegistry.  Request
+# sizes of the ladder check (1,300 = 2 x 512 + 276 padded to 512), the
+# held-out labelled rows, replays a bucket in the profile, the rate
+# batches (64 top-bucket batches, 1,024 of 8 rows), 8-row latency calls,
+# the queue's bursts and deadline, and the registry's trainer run
+SERVE_PIM_SIZES = (1, 7, 8, 100, 512, 1300)
+SERVE_PIM_HELD_OUT = 4096
+SERVE_PIM_REPLAYS = 20
+SERVE_PIM_TOP_BATCHES, SERVE_PIM_SMALL_BATCHES = 64, 1024
+SERVE_PIM_LATENCY_CALLS = 200
+SERVE_PIM_RATES = (2000, 8000, 32000)
+SERVE_PIM_MAX_BATCH, SERVE_PIM_MAX_WAIT_MS = 32, 2.0
+SERVE_PIM_SWAP_REQUESTS, SERVE_PIM_SWAP_RATE = 2000, 8000
+SERVE_PIM_TRAIN_STEPS, SERVE_PIM_CKPT_EVERY = 32, 8
+# K-means: a row whose two nearest centroids are within this squared
+# distance may go either way under another GEMM's summation order
+KM_NEAR_TIE = 1e-4
 LM_ARCH = "qwen2-0.5b"
 LM_BATCH, LM_SEQ = 4, 4096            # prefill: 4 x 4096 tokens
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 64, 32
@@ -1193,7 +1236,7 @@ def small_parity(dev, seed: int, d: int) -> dict:
 def train(args, dev, card: str) -> tuple:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     grid = make_grid(args.lanes, device=dev)
-    X, y, _ = datasets.binary_classification(gen, args.rows, args.features)
+    X, y, w_true = datasets.binary_classification(gen, args.rows, args.features)
     check = not args.rehearse
     runs = []
     t0 = time.perf_counter()
@@ -1245,7 +1288,7 @@ def train(args, dev, card: str) -> tuple:
          rows=args.rows, features=args.features,
          runs=runs, small_parity=small_parity(dev, args.seed, args.features),
          seconds=time.perf_counter() - t0)
-    return wl, main_res.state, requests, main_counts
+    return wl, main_res.state, requests, main_counts, w_true
 
 
 def km_run(name, wl, grid, X, iters, check, launches=None, **kw) -> tuple:
@@ -3606,6 +3649,415 @@ def pad_invariance(state: torch.Tensor, requests: torch.Tensor) -> list:
     return out
 
 
+# -- phase 5b: serving the trained main path (serving/) ----------------------
+
+
+def held_out(args, dev, w_true: torch.Tensor) -> tuple:
+    """Labelled rows the fit never saw, drawn from the main path's own
+    logistic model (``binary_classification``'s law) from ``--seed``."""
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 400)
+    X = torch.randn((SERVE_PIM_HELD_OUT, args.features), generator=gen,
+                    device=dev)
+    p = torch.sigmoid(X @ w_true)
+    y = (torch.rand((SERVE_PIM_HELD_OUT,), generator=gen, device=dev)
+         < p).float()
+    return X, y
+
+
+def serve_configs(args, dev, wl, state, X) -> dict:
+    """The served configurations: ``name -> (workload, state, rows)``.
+    The main path's trained state (and its fp32 + exact twin); the other
+    workloads at their trained shapes with states from ``--seed``
+    (serving's bits and time do not depend on the values)."""
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 500)
+    d, kd, k = args.features, args.km_features, args.km_clusters
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    out = {"logreg int8 lut": (wl, state, X),
+           "logreg fp32 exact": (LogReg(lr=0.5), state, X),
+           "linreg int8": (LinReg(lr=0.1, precision="int8"), rand(d), X),
+           "svm int8": (LinearSVM(precision="int8"), rand(d), X)}
+    for C in MN_CLASSES:
+        out[f"multinomial int8 lut C={C}"] = (
+            MultinomialLogReg(n_classes=C, lr=0.5, precision="int8",
+                              softmax="lut"), 0.3 * rand(d, C), X)
+    out["kmeans int16"] = (KMeans(k=k, precision="int16"), rand(k, kd),
+                           rand(SERVE_PIM_HELD_OUT, kd))
+    return out
+
+
+def km_tie_free(wl, centroids: torch.Tensor, rows: torch.Tensor):
+    """The rows whose two nearest centroids are more than ``KM_NEAR_TIE``
+    apart (squared, in float64), on the rows ``predict`` sees (int16:
+    quantized on the request's own grid and dequantized)."""
+    if wl.precision != "fp32":
+        q = qz.quantize_symmetric(rows, bits=16, axis=0)
+        rows = q.values.float() * q.scale
+    d2 = ((rows.double()[:, None] - centroids.double()[None]) ** 2).sum(-1)
+    two = torch.topk(d2, 2, dim=1, largest=False).values
+    return (two[:, 1] - two[:, 0]) > KM_NEAR_TIE
+
+
+def served_equal(wl, state, rows, got, want) -> bool:
+    """A runner's output against the eager predict: bit for bit; K-means
+    labels off the near-ties.  In a rehearsal on the CPU within 1e-6 x
+    max|want|: the CPU's vectorised exp rounds the elements past a
+    tensor's last full vector otherwise than its vector lanes do, and a
+    padded request moves elements across that boundary."""
+    if got.shape != want.shape:
+        return False
+    if isinstance(wl, KMeans):
+        keep = km_tie_free(wl, state, rows)
+        return bool(torch.equal(got[keep], want[keep]))
+    if state.device.type == "cpu":
+        return bool(torch.allclose(got.cpu(), want.cpu(), rtol=0, atol=1e-6
+                                   * float(want.abs().max())))
+    return bool(torch.equal(got, want))
+
+
+def serve_ladder(name, runner, wl, state, rows) -> dict:
+    """(b): requests of every ``SERVE_PIM_SIZES`` size, from the card and
+    from the host (pinned staging), against the eager ``predict`` on the
+    unpadded rows with ``use_kernels(False)``: on each chunk of an
+    oversize request, as the runner splits it (a quantized request takes
+    its scales over its own rows)."""
+    sizes = {}
+    top = runner.buckets[-1]
+    for n in SERVE_PIM_SIZES:
+        Xn = rows[:n]
+        with dispatch.use_kernels(False):
+            want = torch.cat([wl.predict(state, Xn[i:i + top])
+                              for i in range(0, n, top)])
+        for src, req in (("card", Xn), ("host", Xn.cpu().numpy())):
+            got = runner.predict(req)
+            require(bool(torch.isfinite(got.float()).all()),
+                    f"serve {name}: predict({n}, {src}) not finite")
+            require(served_equal(wl, state, Xn, got, want),
+                    f"serve {name}: predict({n}) from the {src} != the "
+                    "eager predict")
+        sizes[n] = "equal"
+    return sizes
+
+
+def replay_profile(runner, rows_host: np.ndarray, dev) -> dict:
+    """(c): ``torch.profiler`` over ``SERVE_PIM_REPLAYS`` calls of each
+    bucket from host rows: the port's kernels and the host-to-device
+    copies, by name, as the device saw them (a replay runs no Python, so
+    the wrappers' counters cannot see it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for b in runner.buckets:
+        X = rows_host[:b]
+        runner.predict(X)
+        sync(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # a profile started just before a burst of replays lost the
+            # first few (7 of 20 once, on an H100): let the tracer settle
+            time.sleep(0.05)
+            for _ in range(SERVE_PIM_REPLAYS):
+                runner.predict(X)
+            sync(dev)
+        seen = {"fxp": 0, "lut": 0, "pinned_h2d": 0, "pageable_h2d": 0,
+                "kernels": 0}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            seen["kernels"] += e.count
+            if re.search(r"fxp_\w+?_kernel", e.key):
+                seen["fxp"] += e.count
+            elif "lut_kernel" in e.key:
+                seen["lut"] += e.count
+            elif "HtoD" in e.key and "Pageable" in e.key:
+                seen["pageable_h2d"] += e.count
+            elif "HtoD" in e.key:
+                seen["pinned_h2d"] += e.count
+        out[b] = seen
+    return out
+
+
+def expected_replay(wl) -> dict:
+    """A bucket call's launches of the port's kernels."""
+    quantized = not isinstance(wl, KMeans) and wl.precision != "fp32"
+    n_cols = getattr(wl, "n_classes", 1)
+    lut = getattr(wl, "sigmoid", getattr(wl, "softmax", "")) == "lut"
+    return {"fxp": dispatch.hybrid_launches(n_cols) if quantized else 0,
+            "lut": int(lut)}
+
+
+def serve_rates(runner, wl, state, rows_host: np.ndarray, dev) -> dict:
+    """(d): rows/s of ``run_stream`` against the eager ``predict`` loop on
+    the same host batches (top bucket and 8 rows), median of
+    ``TIMING_RUNS`` in turns; one 8-row request's latency to the host,
+    graph against eager, in turns; the idle share of a profiled
+    ``run_stream``."""
+    top = runner.buckets[-1]
+    feeds = {
+        f"{top}-row batches": [rows_host[(i * top) % len(rows_host):][:top]
+                               for i in range(SERVE_PIM_TOP_BATCHES)],
+        "8-row batches": [rows_host[(i * 8) % len(rows_host):][:8]
+                          for i in range(SERVE_PIM_SMALL_BATCHES)]}
+    out = {}
+    for label, feed in feeds.items():
+        def graph():
+            for _ in runner.run_stream(feed):
+                pass
+            sync(dev)
+
+        def eager():
+            for X in feed:
+                wl.predict(state, X)
+            sync(dev)
+
+        rows = sum(len(X) for X in feed)
+        graph()
+        eager()
+        rates = {"graph": [], "eager": []}
+        for i in range(TIMING_RUNS):
+            for name in (("graph", "eager") if i % 2 == 0
+                         else ("eager", "graph")):
+                t0 = time.perf_counter()
+                (graph if name == "graph" else eager)()
+                rates[name].append(rows / (time.perf_counter() - t0))
+        out[label] = {name: {"median_rows_per_s": statistics.median(r),
+                             "min": min(r), "max": max(r)}
+                      for name, r in rates.items()}
+        out[label]["graph_over_eager"] = (
+            out[label]["graph"]["median_rows_per_s"]
+            / out[label]["eager"]["median_rows_per_s"])
+        if dev.type == "cuda":
+            out[label]["profile"] = profile_call(graph, dev)
+    x8 = rows_host[:8]
+    lat = {"graph": [], "eager": []}
+    for i in range(SERVE_PIM_LATENCY_CALLS):
+        for name in (("graph", "eager") if i % 2 == 0 else ("eager", "graph")):
+            t0 = time.perf_counter()
+            if name == "graph":
+                runner.predict(x8).cpu()
+            else:
+                wl.predict(state, x8).cpu()
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+    out["8-row latency"] = {name: {"median_ms": statistics.median(v),
+                                   "p99_ms": float(np.percentile(v, 99))}
+                            for name, v in lat.items()}
+    return out
+
+
+def serve_queue(runner, rows_host: np.ndarray) -> dict:
+    """(e): open-loop bursts of single-row requests through a
+    ``MicroBatchQueue`` at each offered rate, the warm heap frozen as
+    ``launch.serve`` freezes it: tickets, served requests/s, p50, p99,
+    the mean batch."""
+    out = {}
+    for rate in SERVE_PIM_RATES:
+        q = MicroBatchQueue(runner, max_batch=SERVE_PIM_MAX_BATCH,
+                            max_wait_ms=SERVE_PIM_MAX_WAIT_MS)
+        with serve_cli.frozen_heap():
+            tickets, seconds = serve_cli.open_loop(q, rows_host,
+                                                   SERVE_PIM_HELD_OUT, rate)
+        q.close()
+        st = q.stats()
+        out[rate] = {"tickets": tickets, "served_per_s":
+                     st["requests"] / seconds, "p50_ms": st["p50_ms"],
+                     "p99_ms": st["p99_ms"], "mean_batch": st["mean_batch"],
+                     "batches": st["batches"]}
+    return out
+
+
+def serve_registry(args, dev, wl, grid, rows, rows_host, base: str
+                   ) -> dict:
+    """(f): ``Trainer.for_program`` on the main path (cadence 8, a
+    checkpoint every 8 steps, the v2 layout), ``refresh()`` to its newest
+    step bit-equal to the eager predict on the trainer's state, two
+    publishes while the queue serves, and a torn newest step skipped."""
+    program, X, y = ckpt_program(args, dev)
+    del X, y
+    d = args.features
+    tr = Trainer.for_program(program, TrainerConfig(
+        ckpt_dir=base, ckpt_every=SERVE_PIM_CKPT_EVERY,
+        log_every=SERVE_PIM_CKPT_EVERY, merge_every=args.cadence,
+        ckpt_keep=1000))
+    tr.run(SERVE_PIM_TRAIN_STEPS)
+    tr.ckpt.wait()
+    steps = tr.ckpt.steps()
+    del program
+    require(len(steps) >= 3, f"serve registry: checkpoints {steps}")
+    reg = ModelRegistry(wl, torch.zeros(d, device=dev), ckpt_dir=base,
+                        grid=grid)
+    newest = reg.refresh()
+    require(newest == steps[-1], f"serve registry: refresh() published "
+            f"{newest}, the newest step is {steps[-1]}")
+    runner = reg.current()[1]
+    with dispatch.use_kernels(False):
+        want = wl.predict(tr.state, rows[:512])
+    equal = (bool(torch.equal(runner.state, tr.state))
+             and bool(torch.equal(runner.predict(rows[:512]), want)))
+    require(equal, "serve registry: the refreshed model != the trainer's")
+
+    older = steps[-3]
+    published = [runner]
+    q = MicroBatchQueue(reg, max_batch=SERVE_PIM_MAX_BATCH,
+                        max_wait_ms=SERVE_PIM_MAX_WAIT_MS)
+    span = SERVE_PIM_SWAP_REQUESTS / SERVE_PIM_SWAP_RATE
+
+    def swaps():
+        time.sleep(span / 3)
+        published.append(reg.load_step(older))
+        time.sleep(span / 3)
+        published.append(reg.load_step(newest))
+
+    swapper = threading.Thread(target=swaps)
+    with serve_cli.frozen_heap():
+        swapper.start()
+        tickets, seconds = serve_cli.open_loop(q, rows_host,
+                                               SERVE_PIM_SWAP_REQUESTS,
+                                               SERVE_PIM_SWAP_RATE)
+        swapper.join()
+    q.close()
+    versions = {}
+    for t in tickets:
+        versions[t.version] = versions.get(t.version, 0) + 1
+    captures = [r.compile_misses for r in published]
+    require(len(tickets) == SERVE_PIM_SWAP_REQUESTS
+            and all(t.result is not None for t in tickets),
+            "serve registry: a ticket was lost across the swaps")
+    require(set(versions) <= {older, newest}, f"serve registry: versions "
+            f"{sorted(versions)} beyond the published {older}, {newest}")
+    require(captures == [0] * len(published), f"serve registry: the swaps "
+            f"captured {captures}")
+
+    with open(os.path.join(reg._mgr._step_path(newest), "arrays.npz"),
+              "r+b") as f:
+        f.seek(30)
+        f.write(b"\xff\xff\xff\xff")
+    torn = ModelRegistry(wl, torch.zeros(d, device=dev), ckpt_dir=base,
+                         grid=grid)
+    skipped_to = torn.refresh()
+    require(skipped_to == steps[-2], f"serve registry: with step {newest} "
+            f"torn, refresh() published {skipped_to}, not {steps[-2]}")
+    return {"checkpoints": steps, "refreshed": newest,
+            "bit_equal_to_trainer": equal, "swaps": [older, newest],
+            "tickets": len(tickets), "versions_served": versions,
+            "served_per_s": len(tickets) / seconds,
+            "swap_captures": captures, "torn_step": newest,
+            "refresh_after_tear": skipped_to}
+
+
+def serve_pim(args, dev, card: str, wl, state, w_true) -> None:
+    """The trained main path (and the other device workloads) served on
+    the card: (a) the models, (b) the ladder, (c) counters and the
+    replays' launches, (d) rates and latency, (e) the queue, (f) the
+    registry, (g) the CLI."""
+    import io
+    import shutil
+
+    check = not args.rehearse
+    t0 = time.perf_counter()
+    X, y = held_out(args, dev, w_true)
+    X_host, y_host = X.cpu().numpy(), y.cpu().numpy()
+    grid = make_grid(args.lanes, device=dev)
+    configs = serve_configs(args, dev, wl, state, X)
+    runners, ladder, replays = {}, {}, {}
+    for name, (swl, st, rows) in configs.items():
+        r = PredictRunner(swl, st, grid=grid)
+        r.warmup(rows.shape[1])
+        require(r.compile_misses == len(r.buckets), f"serve {name}: warmup "
+                f"captured {r.compile_misses}, not {len(r.buckets)}")
+        runners[name] = r
+        ladder[name] = serve_ladder(name, r, swl, st, rows)
+        if dev.type == "cuda":
+            replays[name] = replay_profile(r, rows.cpu().numpy(), dev)
+            want = expected_replay(swl)
+            for b, seen in replays[name].items():
+                if check:
+                    require(seen["fxp"] == want["fxp"] * SERVE_PIM_REPLAYS
+                            and seen["lut"] == want["lut"]
+                            * SERVE_PIM_REPLAYS, f"serve {name}: "
+                            f"{SERVE_PIM_REPLAYS} replays of bucket {b} "
+                            f"launched {seen}, the design implies {want} "
+                            "a call")
+                require(seen["pageable_h2d"] == 0, f"serve {name}: bucket "
+                        f"{b} copied from pageable host memory: {seen}")
+    emit("serve_pim", part="ladder", card=card, configs={
+        name: {"buckets": list(runners[name].buckets),
+               "features": rows.shape[1], "state": list(st.shape),
+               "sizes": ladder[name], "replays_per_bucket": replays.get(
+                   name, "not measured (no card)"),
+               "expected_per_call": expected_replay(swl)}
+        for name, (swl, st, rows) in configs.items()})
+
+    main = runners["logreg int8 lut"]
+    twin_state = state.flip(0)
+    twin = PredictRunner(LogReg(lr=0.5, precision="int8", sigmoid="lut"),
+                         twin_state, grid=grid)
+    twin.warmup(args.features)
+    with dispatch.use_kernels(False):
+        want = wl.predict(twin_state, X[:100])
+    twin_ok = bool(torch.equal(twin.predict(X[:100]), want))
+    require(twin.compile_misses == 0, f"serve: an equal configuration "
+            f"captured {twin.compile_misses} graphs")
+    require(twin_ok, "serve: the second runner's output is not its own "
+            "state's")
+
+    rates = serve_rates(main, wl, state, X_host, dev)
+    emit("serve_pim", part="rates", card=card, workload="logreg int8 lut",
+         features=args.features, **rates)
+
+    fp32 = runners["logreg fp32 exact"]
+    fwl = configs["logreg fp32 exact"][0]
+    eager_fp32 = fwl.predict(state, X).cpu().numpy()
+    queue = {}
+    for name, r in (("logreg fp32 exact", fp32), ("logreg int8 lut", main)):
+        bursts = serve_queue(r, X_host)
+        for rate, b in bursts.items():
+            got = np.stack([t.result for t in b.pop("tickets")])
+            b["accuracy"] = float(((got > 0.5) == (y_host > 0.5)).mean())
+            if name == "logreg fp32 exact":
+                b["equal_to_eager"] = served_equal(
+                    fwl, state, X, torch.from_numpy(got),
+                    torch.from_numpy(eager_fp32))
+                require(b["equal_to_eager"], f"serve queue: fp32 tickets "
+                        f"at {rate}/s != the eager predict")
+        queue[name] = bursts
+    for rate in SERVE_PIM_RATES:
+        gap = abs(queue["logreg int8 lut"][rate]["accuracy"]
+                  - queue["logreg fp32 exact"][rate]["accuracy"])
+        require(gap <= PLAN_ACC_TOL, f"serve queue at {rate}/s: int8 + LUT "
+                f"accuracy {gap} from fp32 + exact's")
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        registry = serve_registry(args, dev, wl, grid, X, X_host, base)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(["--workload", "linreg", "--precision", "int8",
+                        "--requests", "512", "--rate", "2000",
+                        "--device", str(dev)])
+    cli = buf.getvalue().strip().splitlines()[-1]
+    require(cli.startswith("linreg/int8: 512 requests")
+            and cli.endswith("(steady 0)"), f"serve CLI: {cli!r}")
+
+    steady = {name: r.counters() for name, r in runners.items()}
+    require(all(c["steady_compile_misses"] == 0 for c in steady.values()),
+            f"serve: steady-state captures {steady}")
+    emit("serve_pim", part="queue, registry, cli", card=card,
+         max_batch=SERVE_PIM_MAX_BATCH, max_wait_ms=SERVE_PIM_MAX_WAIT_MS,
+         burst=SERVE_PIM_HELD_OUT, queue=queue,
+         registry=registry,
+         second_runner={"captures": twin.compile_misses,
+                        "own_results": twin_ok},
+         counters=steady, cli=cli,
+         grid_cache_entries=len(grid._tuning_cache),
+         seconds=time.perf_counter() - t0)
+
+
 # -- phase 6: the serving path ----------------------------------------------
 
 
@@ -3934,12 +4386,13 @@ def main(argv=None) -> int:
 
     on_card = dev.type == "cuda"
     main_counts = {}
-    wl, state, requests, seen = train(args, dev, smi)
+    wl, state, requests, seen, w_true = train(args, dev, smi)
     main_counts.update(fxp_matmul=seen["fxp_matmul"],
                        lut_activation=seen["lut_activation"])
     predict("logreg", wl, state, requests,
             expected(fxp_matmul=1, lut_activation=1), on_card)
     emit("predict", pad_invariance=pad_invariance(state, requests))
+    serve_pim(args, dev, smi, wl, state, w_true)
     del state, requests
     wl, state, requests, seen = train_kmeans(args, dev, smi)
     main_counts["kmeans_assign"] = seen["kmeans_assign"]

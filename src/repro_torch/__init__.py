@@ -11,8 +11,8 @@ Entry points (``make_grid``, ``make_mesh_grid``, ``PimGrid``, ``api.fit``,
 passes ``device="cpu"``; on the CPU every kernel wrapper runs its plain
 PyTorch version.
 
-Ported so far (the training paths of the paper's four workloads, and
-dense decoder LM serving):
+Ported so far (the training and serving paths of the paper's four
+workloads, and dense decoder LM serving):
 
   * ``core.quantize``  — symmetric quantization, int8 limbs, hybrid dot
   * ``core.lut``       — LUT tables and lookups, Taylor sigmoid
@@ -50,6 +50,12 @@ dense decoder LM serving):
                          decode behind ``Model``
   * ``configs``        — ``pim_ml`` (the four workloads' fields of
                          ``PimMLConfig``) and ``qwen2_0_5b``
+  * ``serving``        — ``PredictRunner`` (``Workload.predict`` behind a
+                         bucket ladder, one CUDA graph a bucket),
+                         ``ModelRegistry`` (checkpointed versions, an
+                         atomic hot-swap) and ``MicroBatchQueue``
+  * ``launch.serve``   — the serving CLI: train or restore, publish,
+                         an open-loop burst through the queue
   * ``launch.serve_lm`` — batched greedy serving
   * ``launch.mesh``    — the process group and the ``("pod", "data")``
                          mesh

@@ -83,10 +83,31 @@ def _np_silu(x):
     return x * _np_sigmoid(x)
 
 
+_SHARED: dict = {}
+
+
+def shared_lut(fn: Callable[[np.ndarray], np.ndarray], x_min: float,
+               x_max: float, n_entries: int, device) -> LutTable:
+    """:func:`build_lut` once per ``(fn, range, entries, device)``.
+    ``predict`` asks for its table on every call, and a new table on the
+    card is a copy from pageable host memory, which synchronises and
+    cannot be captured in a CUDA graph (``serving.PredictRunner``).  The
+    table is shared: do not write into it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (fn, float(x_min), float(x_max), int(n_entries), dev)
+    lut = _SHARED.get(key)
+    if lut is None:
+        lut = _SHARED.setdefault(key, build_lut(fn, x_min, x_max,
+                                                n_entries, dev))
+    return lut
+
+
 def sigmoid_lut(n_entries: int = 1024, bound: float = 8.0,
                 device="cpu") -> LutTable:
-    """The paper's sigmoid table on [-8, 8]."""
-    return build_lut(_np_sigmoid, -bound, bound, n_entries, device)
+    """The paper's sigmoid table on [-8, 8] (:func:`shared_lut`)."""
+    return shared_lut(_np_sigmoid, -bound, bound, n_entries, device)
 
 
 def gelu_lut(n_entries: int = 2048, bound: float = 8.0,
@@ -113,8 +134,8 @@ def exp_lut(n_entries: int = 1024, bound: float = 16.0,
     ``z - max(z) <= 0``; below -16 exp is under 1.2e-7 and the clamp to
     the end entry is exact enough for training.  ``lut_activation``
     serves it unchanged (it clamps to the end entries and sends NaN to
-    entry 0)."""
-    return build_lut(np.exp, -bound, 0.0, n_entries, device)
+    entry 0).  Shared (:func:`shared_lut`)."""
+    return shared_lut(np.exp, -bound, 0.0, n_entries, device)
 
 
 def taylor_sigmoid(x: torch.Tensor, order: int = 7) -> torch.Tensor:

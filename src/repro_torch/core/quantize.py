@@ -95,8 +95,11 @@ def _rounding_rshift(x: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def div_scalar(x: torch.Tensor, s: float) -> torch.Tensor:
-    """``x / s`` as a true IEEE divide in ``x.dtype`` on any device."""
-    return x / torch.tensor(s, dtype=x.dtype, device=x.device)
+    """``x / s`` as a true IEEE divide in ``x.dtype`` on any device.  The
+    divisor is a fill, not ``torch.tensor``'s copy from pageable host
+    memory, which synchronises the stream and cannot be captured in a
+    CUDA graph (``serving.PredictRunner``)."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
 @dataclasses.dataclass(frozen=True)

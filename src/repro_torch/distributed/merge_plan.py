@@ -112,6 +112,7 @@ True
 from __future__ import annotations
 
 import dataclasses
+import threading
 import warnings
 from typing import Any, Callable, Optional
 
@@ -141,6 +142,9 @@ def warn_fallback(algo: str, knobs: str, reason: str) -> None:
 # -- the grid's cache ----------------------------------------------------
 
 _CACHE_MAX = 32
+# one lock for every grid's cache: a lookup reorders the LRU (pop, then
+# put back), which another thread's lookup must not see half done
+CACHE_LOCK = threading.RLock()
 
 
 def fn_signature(fn) -> tuple:
@@ -186,10 +190,11 @@ def fn_signature(fn) -> tuple:
 def cache_get(grid, key):
     """Look ``key`` up in the grid's cache (``PimGrid._tuning_cache``),
     most recently used last."""
-    entry = grid._tuning_cache.get(key)
-    if entry is None:
-        return None
-    grid._tuning_cache[key] = grid._tuning_cache.pop(key)
+    with CACHE_LOCK:
+        entry = grid._tuning_cache.get(key)
+        if entry is None:
+            return None
+        grid._tuning_cache[key] = grid._tuning_cache.pop(key)
     return entry[0]
 
 
@@ -197,10 +202,11 @@ def cache_put(grid, key, value, local_fn, update_fn) -> None:
     """Insert into the grid's cache, dropping the least recently used
     entry past ``_CACHE_MAX``; the functions ride along so the
     identities in ``key`` stay alive."""
-    cache = grid._tuning_cache
-    while len(cache) >= _CACHE_MAX:
-        cache.pop(next(iter(cache)))
-    cache[key] = (value, local_fn, update_fn)
+    with CACHE_LOCK:
+        cache = grid._tuning_cache
+        while len(cache) >= _CACHE_MAX:
+            cache.pop(next(iter(cache)))
+        cache[key] = (value, local_fn, update_fn)
 
 
 # -- outer optimizers --------------------------------------------------
