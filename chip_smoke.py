@@ -69,8 +69,12 @@ Phases, each printed as one JSON line:
                 (one flash launch per layer, last logits within 3e-2 x
                 max|logit| of the ``use_kernels(False)`` twin), its
                 tokens/s and a profile; ``generate`` on 8 requests of 64
-                prompt + 32 greedy tokens, and a profile of 8 decode
-                steps; in float32 at full width, the
+                prompt + 32 greedy tokens (one captured decode step a
+                token), its step against the eager decode in lockstep
+                (logits bit for bit, tokens equal), decode tokens/s graph
+                against eager in turns, idle shares and host launch calls
+                a token, and a profile of 8 eager decode steps; in float32
+                at full width, the
                 prefill against its twin (1e-4 x max|logit|) and against
                 the replay through ``decode_step`` (1e-3 x max|logit|);
   7. train_more — the slice's other workloads at 256 vDPUs x 2^24 rows,
@@ -210,9 +214,34 @@ Phases, each printed as one JSON line:
                 checkpoint bit-equal; (f) KMeans(int16) at d=16 (1 GiB of
                 host rows), one window an iteration, 10 iterations,
                 bit-equal to the resident minibatch fit, 10 launches;
- 15. the ``kernels`` line (fxp_matmul's entry also times the
-     multinomial's two dots at C = 4 and 10, with their byte bound), the
-     nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+ 15. train_graph — the compiled engine (``core.graphs``) at 256 vDPUs x
+                2^24 rows: LogReg int8 + LUT at cadence 1 and 8, LogReg
+                fp32 + exact, LinearSVM int8, LinReg int8, MultinomialLogReg
+                int8 + LUT at C = 4, minibatch LogReg at cadence 1 and 8
+                and minibatch KMeans (1,024 rows a lane a step), KMeans
+                int16 at cadence 1 and 8, and the plans SlowMo at 1 and 8,
+                Nesterov at 8, int8 EF at 1 and 8, top-k 0.25 at 8, overlap
+                at 1 and 8, overlap + int8 EF + SlowMo at 8 (48 steps, 10
+                K-means iterations), each bound once: (a) the scan fit,
+                replaying captured chunks, bit-equal to engine="python" in
+                the state and every history entry (or within the eager
+                fit's own repeat spread, printed); (b) the captures of a
+                first fit (a graph a chunk length, and one for a trailing
+                round) and 0 for a second fit of the program, and two
+                ``api.fit`` calls capturing again each (new closures); (c)
+                the port's kernels the replays launch, counted by
+                torch.profiler, equal to the eager rounds' (2 fxp_* and 1
+                lut_kernel a step on the main path); (d) steps/s of the
+                graph, engine="python" and the eager chunk loop that scan
+                ran before the graphs (``merge_plan.run_rounds`` on the
+                eager round), in turns, with idle shares; (e) the graphs'
+                pool bytes.  Phases 4-14 count a captured chunk's warm-up
+                round and capture in the wrappers' counters, never a
+                replay (:func:`fit_expect`);
+ 16. the ``kernels`` line (fxp_matmul's entry also times the
+     multinomial's two dots at C = 4 and 10, with their byte bound; the
+     main path's replayed launches from train_graph), the nvidia-smi line,
+     and last ``{"ok": true, "device": {...}}``.
 
 Any mismatch, missing launch or exception (a rank's included) ends the
 run with a non-zero exit code and without the ``ok`` line.  Without CUDA (and without
@@ -257,6 +286,8 @@ from repro_torch.core.mlalgos.dtree import (bin_dtype,  # noqa: E402
                                             bin_features)
 from repro_torch.distributed.compression import (  # noqa: E402
     CompressionConfig, wire_bytes)
+from repro_torch.core.graphs import Graph  # noqa: E402
+from repro_torch.distributed import merge_plan as mp  # noqa: E402
 from repro_torch.distributed.merge_plan import (  # noqa: E402
     AdaptiveCadence, MergePlan, Nesterov, SlowMo)
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
@@ -270,7 +301,8 @@ from repro_torch.kernels.lut_activation import lut_activation  # noqa: E402
 from repro_torch.kernels.split_hist import split_hist  # noqa: E402
 from repro_torch.launch.mesh import init_world, make_pim_mesh  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
-from repro_torch.launch.serve_lm import generate  # noqa: E402
+from repro_torch.launch.serve_lm import (DecodeStep,  # noqa: E402
+                                         Generation, generate)
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models.transformer import padded_vocab  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
@@ -495,6 +527,58 @@ def counts() -> dict:
 def expected(**launches) -> dict:
     """Every wrapper's expected count: those named, and 0 for the rest."""
     return {fn.__name__: launches.get(fn.__name__, 0) for fn in WRAPPERS}
+
+
+# PimGrid.fit's default chunk of rounds
+SCAN_CHUNK = 32
+
+
+def fit_plan(kw: dict) -> MergePlan:
+    """The merge plan of a fit's keyword arguments."""
+    return MergePlan.resolve(kw.get("merge_plan"),
+                             merge_every=kw.get("merge_every", 1))
+
+
+def replays_chunks(grid, plan: MergePlan) -> bool:
+    """Whether a scan fit of ``plan`` on ``grid`` replays captured chunk
+    runners (``core.graphs``): no mesh, no armed fault plan, a static
+    plan.  Otherwise its rounds run eagerly."""
+    return (grid.mesh is None and faults.armed_context() is None
+            and not (plan.adaptive or plan.auto))
+
+
+def eager_local_steps(steps: int, plan: MergePlan) -> int:
+    """Local steps the eager rounds of a fit run: the overlap's prologue
+    is one more phase of ``cadence`` steps."""
+    return steps + (plan.cadence if plan.overlap and steps >= plan.cadence
+                    else 0)
+
+
+def graph_local_steps(steps: int, plan: MergePlan,
+                      chunk: int = SCAN_CHUNK) -> int:
+    """Local steps the kernel wrappers' counters see in a scan fit that
+    captures its chunk runners anew (``api.fit`` binds new data and
+    closures): each graph (the full chunk, the last chunk, a trailing
+    short round) counts its warm-up round and its captured rounds once,
+    a replay nothing; the overlap's eager prologue counts its phase."""
+    k = plan.cadence
+    rounds, rem = divmod(steps, k)
+    lengths = {min(chunk, rounds)} | ({rounds % chunk} if rounds > chunk
+                                      and rounds % chunk else set())
+    n = sum((length + 1) * k for length in lengths if rounds)
+    return n + 2 * rem + (k if plan.overlap and rounds else 0)
+
+
+def fit_expect(want: dict, steps: int, grid, **kw) -> dict:
+    """``want``, the launches a fit's eager rounds make, as the counters
+    see them when the fit captures its chunk runners anew
+    (:func:`graph_local_steps`); unchanged where the fit runs eagerly."""
+    plan = fit_plan(kw)
+    if not replays_chunks(grid, plan) or not steps:
+        return want
+    eager = eager_local_steps(steps, plan)
+    graph = graph_local_steps(steps, plan)
+    return {name: n * graph // eager for name, n in want.items()}
 
 
 def sync(dev: torch.device) -> None:
@@ -1112,8 +1196,10 @@ def fit_run(name, workload, grid, X, y, steps, expect, check_counts,
     summary)."""
     res, seen, stats = counted_fit(workload, grid, X, y, steps, **kw)
     losses = [float(m["loss"]) for m in res.history]
+    eager, expect = expect, fit_expect(expect, steps, grid, **kw)
     summary = {"run": name, "steps": steps, "launches": seen,
-               "expected_launches": expect, **stats,
+               "expected_launches": expect, "eager_launches": eager,
+               **stats,
                "loss_first": losses[0], "loss_last": losses[-1]}
     require(len(losses) == steps, f"{name}: {len(losses)} history entries")
     require(all(math.isfinite(v) for v in losses), f"{name}: loss not "
@@ -1132,7 +1218,7 @@ def step_rate(workload, grid, X, y, steps, reps=5, **kw) -> dict:
     median, lowest and highest of ``reps`` fits of ``steps`` steps (host
     clock, ending in a synchronise)."""
     program = workload.bind(grid, X, y)
-    program.fit(steps=2, **kw)
+    program.fit(steps=steps, **kw)   # captures the chunks timed below
     sync(grid.device)
     rates = []
     for _ in range(reps):
@@ -1148,7 +1234,7 @@ def profile_steps(workload, grid, X, y, steps: int, **kw) -> dict:
     """Where a main-path step's time goes: ``torch.profiler`` over
     ``steps`` warm steps of ``Program.fit``."""
     program = workload.bind(grid, X, y)
-    program.fit(steps=2, **kw)
+    program.fit(steps=steps, **kw)   # captures the chunks traced below
     return profile_call(lambda: program.fit(steps=steps, **kw), grid.device,
                         steps=steps)
 
@@ -1297,9 +1383,10 @@ def km_run(name, wl, grid, X, iters, check, launches=None, **kw) -> tuple:
     cannot rise) the last SSE at most the first."""
     res, seen, stats = counted_fit(wl, grid, X, None, iters, **kw)
     sse = [float(m["sse"]) for m in res.history]
-    want = expected(kmeans_assign=iters if launches is None else launches)
+    eager = expected(kmeans_assign=iters if launches is None else launches)
+    want = fit_expect(eager, iters, grid, **kw)
     summary = {"run": name, "iterations": iters, "launches": seen,
-               "expected_launches": want, **stats,
+               "expected_launches": want, "eager_launches": eager, **stats,
                "sse_first": sse[0], "sse_last": sse[-1],
                "moved_last": float(res.history[-1]["moved"]),
                "eval_sse": res.eval(X)["sse"]}
@@ -1581,7 +1668,7 @@ def rates_in_turns(program, plans: dict, steps: int, fits: int) -> dict:
     on every plan alike."""
     dev = program.grid.device
     for plan in plans.values():
-        program.fit(steps=2, merge_plan=plan)
+        program.fit(steps=steps, merge_plan=plan)
     sync(dev)
     rates: dict = {name: [] for name in plans}
     order = list(plans)
@@ -1659,7 +1746,7 @@ def train_plans(args, dev, card: str) -> None:
             "merge_state != fit(48)")
     timed = {name: plans[name] for name in list(plans)[:5]}
     rates = rates_in_turns(program, timed, steps, KM_RATE_FITS)
-    program.fit(steps=2, merge_plan=plans["SlowMo, cadence 1"])
+    program.fit(steps=5, merge_plan=plans["SlowMo, cadence 1"])
     emit("profile", workload="logreg SlowMo, cadence 1", **profile_call(
         lambda: program.fit(steps=5, merge_plan=plans["SlowMo, cadence 1"]),
         dev, steps=5))
@@ -1787,7 +1874,7 @@ def train_wire(args, dev, card: str) -> None:
         if name in rates:
             s["steps_per_s"] = rates[name]
     prof_plan = plans["int8 EF, cadence 1"][0]
-    program.fit(steps=2, merge_plan=prof_plan)
+    program.fit(steps=5, merge_plan=prof_plan)
     emit("profile", workload="logreg int8 EF, cadence 1", **profile_call(
         lambda: program.fit(steps=5, merge_plan=prof_plan), dev, steps=5))
     del X, y, program
@@ -1998,7 +2085,7 @@ def in_turns(programs: dict, steps: int, fits: int, **kw) -> dict:
     (as :func:`rates_in_turns` takes plans)."""
     dev = next(iter(programs.values())).grid.device
     for program in programs.values():
-        program.fit(steps=2, **kw)
+        program.fit(steps=steps, **kw)
     sync(dev)
     rates: dict = {name: [] for name in programs}
     order = list(programs)
@@ -2085,10 +2172,14 @@ def mesh_hop_one(args, dev, store_dir: str) -> tuple:
                  **m_stats, "bit_equal_to_make_grid": equal,
                  "accuracy": accuracy(m.state, X, y)}
             require(equal, f"{s['run']}: not bit-equal to make_grid's fit")
+            # make_grid's fit replays its captured chunks
+            r_want = fit_expect(want, steps, grid, merge_plan=plan)
+            s["grid_expected_launches"] = r_want
             if check:
-                require(m_seen == want and r_seen == want,
+                require(m_seen == want and r_seen == r_want,
                         f"{s['run']}: launches {m_seen} (make_grid "
-                        f"{r_seen}), the design implies {want}")
+                        f"{r_seen}), the design implies {want} "
+                        f"({r_want})")
             runs.append(s)
             refs[name] = r.state
         # make_grid's fit under (b)'s dead pod (train_faults (d))
@@ -2553,10 +2644,13 @@ def trainer_against_fit(args, program, X, y, base: str,
                 "restarts")
         require(saved and all((t + 1) % cad == 0 for t in saved),
                 f"{s['run']}: checkpoints {saved} off the merge boundaries")
+        # Program.fit captures its chunks; the trainer runs eagerly
+        fit_want = fit_expect(want, steps, program.grid, merge_every=cad)
+        s["fit_expected_launches"] = fit_want
         if check:
-            require(seen == want and fit_seen == want, f"{s['run']}: "
+            require(seen == want and fit_seen == fit_want, f"{s['run']}: "
                     f"launches {seen} (fit {fit_seen}), the design "
-                    f"implies {want}")
+                    f"implies {want} ({fit_want})")
         runs.append(s)
         if cad == 1:
             ref = res
@@ -2975,16 +3069,20 @@ def faults_idle(args, program, X, y, check: bool) -> tuple:
                 s["host_syncs"] == s["expected_host_syncs"],
                 f"{s['run']}: {s['restarts']} restarts, "
                 f"{s['host_syncs']} host syncs")
+        # the unarmed fit captures its chunks; the armed one is eager
+        base_want = fit_expect(want, steps, program.grid, merge_plan=plan)
+        s["unarmed_expected_launches"] = base_want
         if check:
-            require(seen == want and base_seen == want, f"{s['run']}: "
-                    f"launches {seen} (unarmed {base_seen}), the design "
-                    f"implies {want}")
+            require(seen == want and base_seen == base_want,
+                    f"{s['run']}: launches {seen} (unarmed {base_seen}), "
+                    f"the design implies {want} ({base_want})")
         s["steps_per_s"] = armed_rates(program, steps, plan,
                                        TIMING_RUNS)
         if cad == 1:
             # where the armed cadence-1 step's time goes: 5 warm steps of
             # each, traced (the armed round merges lane states, so its
             # update and merge run per lane)
+            program.fit(steps=5, merge_plan=plan)
             s["profile"] = {
                 "unarmed": profile_call(
                     lambda: program.fit(steps=5, merge_plan=plan),
@@ -3263,8 +3361,9 @@ def windowed_reference(wl, grid, X, y, rotation, steps, spw, **fit_kw):
     with the sampler's schedule drawn on the card
     (``minibatch.batch_indices``), the mask multiplied into ``w`` and the
     partials by ``per / n_valid`` (the sampler's multiply); one
-    ``PimGrid.fit`` of ``spw`` steps a window.  Returns (state, history,
-    launches)."""
+    ``PimGrid.fit`` of ``spw`` steps a window, on the eager rounds
+    (``engine="python"``), as the rotation runs its windows.  Returns
+    (state, history, launches)."""
     dev = grid.device
     prog = wl.bind(grid, X, y)
     per, part, seed = rotation.per, rotation.part, rotation.stream.seed
@@ -3284,7 +3383,8 @@ def windowed_reference(wl, grid, X, y, rotation, steps, spw, **fit_kw):
 
         state, h = grid.fit(init_state=state, local_fn=lf,
                             update_fn=prog.update_fn, data=win,
-                            steps=min(spw, steps - len(history)), **fit_kw)
+                            steps=min(spw, steps - len(history)),
+                            engine="python", **fit_kw)
         history.extend(h)
     sync(dev)
     return state, history, counts()
@@ -3348,9 +3448,12 @@ def stream_one_window(args, wl, grid, X, y, Xh, yh, check) -> dict:
          "accuracy": accuracy(res.state, X, y)}
     require(s["bit_equal_to_resident"], f"{s['run']}: not bit-equal to "
             "the resident full-batch fit")
+    ref_want = fit_expect(want, steps, grid, merge_every=k)
+    s["resident_expected_launches"] = ref_want
     if check:
-        require(seen == want and ref_seen == want, f"{s['run']}: launches "
-                f"{seen} (resident {ref_seen}), the design implies {want}")
+        require(seen == want and ref_seen == ref_want, f"{s['run']}: "
+                f"launches {seen} (resident {ref_seen}), the design "
+                f"implies {want} ({ref_want})")
     return s
 
 
@@ -3426,9 +3529,12 @@ def stream_rotations(args, wl, prog, X, y, Xh, yh, window_bytes: int,
          "bit_equal_to_resident_minibatch": same_fit(res, ref)}
     require(s["bit_equal_to_resident_minibatch"], f"{s['run']}: not "
             "bit-equal to the resident minibatch fit")
+    ref_want = fit_expect(want, steps, grid)
+    s["resident_expected_launches"] = ref_want
     if check:
-        require(seen == want and ref_seen == want, f"{s['run']}: launches "
-                f"{seen} (resident {ref_seen}), the design implies {want}")
+        require(seen == want and ref_seen == ref_want, f"{s['run']}: "
+                f"launches {seen} (resident {ref_seen}), the design "
+                f"implies {want} ({ref_want})")
     runs.append(s)
     return runs, main
 
@@ -3555,9 +3661,12 @@ def stream_kmeans(args, dev, check: bool) -> dict:
          "sse_last": float(res.history[-1]["sse"])}
     require(s["bit_equal_to_resident_minibatch"], f"{s['run']}: not "
             "bit-equal to the resident minibatch fit")
+    ref_want = fit_expect(want, iters, grid)
+    s["resident_expected_launches"] = ref_want
     if check:
-        require(seen == want and ref_seen == want, f"{s['run']}: launches "
-                f"{seen} (resident {ref_seen}), the design implies {want}")
+        require(seen == want and ref_seen == ref_want, f"{s['run']}: "
+                f"launches {seen} (resident {ref_seen}), the design "
+                f"implies {want} ({ref_want})")
     return s
 
 
@@ -3601,6 +3710,334 @@ def train_stream(args, dev, card: str) -> None:
          steps_per_window=STREAM_SPW, prefetch_depth=STREAM_DEPTH,
          window=window, one_window=a, rotations=b, rates=c, trainer=e,
          kmeans=f, seconds=time.perf_counter() - t0)
+
+
+# -- phase 15: the compiled engine ------------------------------------------
+
+# train_graph: fits of 48 steps (a multiple of the config's cadence 8; at
+# cadence 1 a chunk of 32 rounds and one of 16), K-means of the config's 10
+# iterations (at cadence 8 one round and a trailing round of 2); the
+# rates are GRAPH_FITS fits a contender, in turns
+GRAPH_STEPS = 48
+GRAPH_FITS = 3
+GRAPH_KERNELS = {"fxp_matmul": re.compile(r"fxp_\w+?_kernel"),
+                 "lut_activation": re.compile(r"lut_kernel"),
+                 "kmeans_assign": re.compile(r"km_reduce")}
+
+
+def graph_cells(args) -> dict:
+    """train_graph's configurations: name -> (data set, workload, the
+    fit's keyword arguments)."""
+    k = args.cadence
+    batch = args.rows // args.lanes // MB_FRACTION
+    lr8 = LogReg(lr=0.5, precision="int8", sigmoid="lut")
+    int8 = CompressionConfig(bits=8)
+    km = KMeans(k=args.km_clusters, precision="int16")
+    return {
+        "logreg int8 lut, cadence 1": ("binary", lr8, {}),
+        f"logreg int8 lut, cadence {k}": ("binary", lr8, {"merge_every": k}),
+        "logreg fp32 exact, cadence 1": ("binary", LogReg(lr=0.5), {}),
+        "svm int8, cadence 1": ("binary", LinearSVM(
+            lr=0.1, l2=CONFIG.svm_l2, precision="int8"), {}),
+        f"logreg int8 lut, batch_size {batch}, cadence 1": (
+            "binary", lr8, {"batch_size": batch}),
+        f"logreg int8 lut, batch_size {batch}, cadence {k}": (
+            "binary", lr8, {"batch_size": batch, "merge_every": k}),
+        "SlowMo, cadence 1": ("binary", lr8, {
+            "merge_plan": MergePlan(outer=SlowMo())}),
+        f"SlowMo, cadence {k}": ("binary", lr8, {
+            "merge_plan": MergePlan(cadence=k, outer=SlowMo())}),
+        f"Nesterov, cadence {k}": ("binary", lr8, {
+            "merge_plan": MergePlan(cadence=k, outer=Nesterov())}),
+        "int8 EF, cadence 1": ("binary", lr8, {
+            "merge_plan": MergePlan(compression=int8)}),
+        f"int8 EF, cadence {k}": ("binary", lr8, {
+            "merge_plan": MergePlan(cadence=k, compression=int8)}),
+        f"top-k {WIRE_TOP_K} int8, cadence {k}": ("binary", lr8, {
+            "merge_plan": MergePlan(cadence=k, compression=CompressionConfig(
+                bits=8, top_k_frac=WIRE_TOP_K))}),
+        "overlap, cadence 1": ("binary", lr8, {
+            "merge_plan": MergePlan(overlap=True)}),
+        f"overlap, cadence {k}": ("binary", lr8, {
+            "merge_plan": MergePlan(cadence=k, overlap=True)}),
+        f"overlap + int8 EF + SlowMo, cadence {k}": ("binary", lr8, {
+            "merge_plan": MergePlan(cadence=k, overlap=True,
+                                    compression=int8, outer=SlowMo())}),
+        "linreg int8, cadence 1": ("regression", LinReg(
+            lr=0.1, precision="int8"), {}),
+        "multinomial int8 lut C=4, cadence 1": ("mixture", MultinomialLogReg(
+            n_classes=4, precision="int8", softmax="lut"), {}),
+        "kmeans int16, cadence 1": ("blobs", km, {}),
+        f"kmeans int16, cadence {k}": ("blobs", km, {"merge_every": k}),
+        f"kmeans int16, batch_size {batch}": ("blobs", km,
+                                              {"batch_size": batch}),
+    }
+
+
+def graph_data(name: str, args, gen):
+    """A train_graph data set at the path's full size: (X, y)."""
+    if name == "binary":
+        X, y, _ = datasets.binary_classification(gen, args.rows,
+                                                 args.features)
+    elif name == "regression":
+        X, y, _ = datasets.regression(gen, args.rows, args.features)
+    elif name == "mixture":
+        X, y = datasets.mixture_classification(gen, args.rows,
+                                               args.features, 4)
+    else:
+        X, _, _ = datasets.blobs(gen, args.rows, args.km_features,
+                                 args.km_clusters)
+        y = None
+    return X, y
+
+
+def step_launches(wl) -> dict:
+    """The port's kernels one local step of ``wl`` launches."""
+    if isinstance(wl, KMeans):
+        return {"kmeans_assign": 1}
+    if wl.precision == "fp32":
+        return {}
+    n_fxp = 2 * dispatch.hybrid_launches(getattr(wl, "n_classes", 1))
+    lut = getattr(wl, "sigmoid", getattr(wl, "softmax", "")) == "lut"
+    return {"fxp_matmul": n_fxp, **({"lut_activation": 1} if lut else {})}
+
+
+def graph_count(steps: int, plan: MergePlan, chunk: int = SCAN_CHUNK) -> int:
+    """Graphs a fit captures on fresh runners: a chunk length of full
+    rounds each (the full chunk, the last one), and the trailing short
+    round's."""
+    rounds, rem = divmod(steps, plan.cadence)
+    lengths = {min(chunk, rounds)} | ({rounds % chunk} if rounds > chunk
+                                      and rounds % chunk else set())
+    return (len(lengths) if rounds else 0) + (1 if rem else 0)
+
+
+def fit_gap(a, b) -> float:
+    """The largest difference of two fits, over the state and every
+    history value."""
+    gap = float((a.state.double() - b.state.double()).abs().max())
+    for x, z in zip(a.history, b.history, strict=True):
+        for key in x:
+            gap = max(gap, float((x[key].double()
+                                  - z[key].double()).abs().max()))
+    return gap
+
+
+def eager_scan_fit(program, steps: int, plan: MergePlan,
+                   batch_size=None) -> tuple:
+    """The eager chunk loop ``engine="scan"`` ran before the chunk
+    runners, on ``program``'s functions: ``PimGrid.fit``'s rounds through
+    ``merge_plan.run_rounds`` (``merge_plan.run_fit``'s for another
+    plan), one host sync a chunk of 32 rounds, nothing captured."""
+    lf, uf, s0, _ = program._triple(batch_size, 0)
+    grid, data = program.grid, program.data
+    if not plan.is_exact_default:
+        return mp.run_fit(grid, plan, init_state=s0, local_fn=lf,
+                          update_fn=uf, data=data, steps=steps,
+                          callback=None, scan_chunk=SCAN_CHUNK,
+                          engine="scan", merge_state=None, compiled=False)
+
+    def round_fn(state, kk):
+        if kk == 1:
+            state, metrics = uf(state, grid.map_reduce(lf, state, data))
+            return state, [metrics]
+        return mp.cadence_round(grid, lf, uf, kk, state, data)
+
+    return mp.run_rounds(steps, plan.cadence, round_fn, s0, engine="scan",
+                         scan_chunk=SCAN_CHUNK, callback=None)
+
+
+def fit_runners(program, steps: int, plan: MergePlan,
+                batch_size=None) -> list:
+    """The chunk runners a scan fit of ``program`` replays (from the
+    grid's cache)."""
+    lf, uf, _, _ = program._triple(batch_size, 0)
+    grid = program.grid
+    rounds, rem = divmod(steps, plan.cadence)
+    out = []
+    for kk, n in ((plan.cadence, rounds), (rem, rem)):
+        if not n:
+            continue
+        if plan.is_exact_default:
+            out.append(grid.make_runner(lf, uf, merge_every=kk))
+        else:
+            out.append(mp.pipeline_runners(
+                grid, lf, uf, merge_every=kk,
+                overlap=plan.overlap and kk == plan.cadence,
+                compression=plan.compression, state_wire=plan.cadence > 1,
+                outer=plan.outer)["runner"])
+    return out
+
+
+def turns(contenders: dict, steps: int, fits: int, dev) -> dict:
+    """Steps/s of each contender (a function running one fit of
+    ``steps`` steps): the median, lowest and highest of ``fits`` fits,
+    in turns (in order, then reversed, ...), host clock ending in a
+    synchronise."""
+    for run in contenders.values():
+        run()
+    sync(dev)
+    rates: dict = {name: [] for name in contenders}
+    order = list(contenders)
+    for i in range(fits):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            contenders[name]()
+            sync(dev)
+            rates[name].append(steps / (time.perf_counter() - t0))
+    return {name: {"median": statistics.median(r), "min": min(r),
+                   "max": max(r), "fits": fits} for name, r in rates.items()}
+
+
+def device_launches(run, dev) -> tuple:
+    """``torch.profiler`` over one call of ``run()``: the port's kernels
+    the device ran (a replay runs no Python, so only the profiler sees
+    its launches), the host's CUDA launch calls and the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    sync(dev)
+    # one warm-up call traced and discarded: a trace that starts with
+    # graph replays lost the first kernels of the first (1 fxp_* and the
+    # lut_kernel of 48 steps, on an H100) even after a 50 ms pause
+    traced: list = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(
+                     p.key_averages())) as prof:
+        run()
+        sync(dev)
+        prof.step()
+        t0 = time.perf_counter()
+        run()
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    seen = {name: 0 for name in GRAPH_KERNELS}
+    busy_us, host_launches = 0.0, 0
+    for e in traced[0]:
+        if e.key.startswith("ProfilerStep"):
+            continue             # the step's span on the device timeline
+        if e.device_type == DeviceType.CUDA:
+            busy_us += e.self_device_time_total
+            for name, pattern in GRAPH_KERNELS.items():
+                if pattern.search(e.key):
+                    seen[name] += e.count
+        elif e.key.startswith("cuda") and "Launch" in e.key:
+            host_launches += e.count
+    return seen, {"traced_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+                  "idle_share": (max(0.0, 1.0 - busy_us / 1e3 / wall_ms)
+                                 if busy_us else "not measured"),
+                  "host_launch_calls": host_launches}
+
+
+def graph_cell(name: str, program, kw: dict, steps: int, dev,
+               check: bool) -> dict:
+    """One train_graph configuration: (a) the scan fit on its captured
+    chunks against ``engine="python"``, bit for bit, in the state and
+    every history entry (where the eager fit does not repeat itself, the
+    spread it shows bounds the graph's gap); (b) the captures of a first
+    and a second fit of the program; (c) the port's kernels the replays
+    launch, counted by the profiler, against the eager rounds'; (d)
+    steps/s of the graph, ``engine="python"`` and the eager chunk loop,
+    in turns, and their idle shares; (e) the graphs' pool bytes."""
+    plan = fit_plan(kw)
+    batch = kw.get("batch_size")
+
+    def graph():
+        return program.fit(steps=steps, **kw)
+
+    def python():
+        return program.fit(steps=steps, engine="python", **kw)
+
+    eager, again = python(), python()
+    before = Graph.captures
+    first = graph()
+    captured = Graph.captures - before
+    second = graph()
+    captured_again = Graph.captures - before - captured
+    repeats = same_fit(eager, again)
+    s = {"run": name, "steps": steps, "plan": plan.describe(),
+         "batch_size": batch, "eager_repeats_bit_equal": repeats,
+         "bit_equal_to_python": same_fit(first, eager),
+         "second_fit_bit_equal": same_fit(second, first),
+         "captures_first_fit": captured,
+         "expected_captures": graph_count(steps, plan),
+         "captures_second_fit": captured_again}
+    if not repeats:
+        s["eager_spread"] = fit_gap(eager, again)
+        s["graph_gap"] = fit_gap(first, eager)
+        require(s["graph_gap"] <= s["eager_spread"], f"train_graph {name}: "
+                f"graph gap {s['graph_gap']} beyond the eager fit's own "
+                f"spread {s['eager_spread']}")
+    else:
+        require(s["bit_equal_to_python"], f"train_graph {name}: the "
+                "graph fit != engine=\"python\" (which repeats itself)")
+    require(s["second_fit_bit_equal"], f"train_graph {name}: a second "
+            "graph fit differs from the first")
+    require(captured == s["expected_captures"] and captured_again == 0,
+            f"train_graph {name}: captures {captured} then "
+            f"{captured_again}, expected {s['expected_captures']} then 0")
+    local = eager_local_steps(steps, plan)
+    want = {k: n * local for k, n in step_launches(program.workload).items()}
+    seen, prof = device_launches(graph, dev)
+    seen = {k: n for k, n in seen.items() if n or k in want}
+    _, prof_python = device_launches(python, dev)
+    s.update(replayed_launches=seen, expected_launches=want,
+             launches_per_step={k: n / local for k, n in seen.items()},
+             profile_graph=prof, profile_python=prof_python)
+    if check:
+        require(seen == want, f"train_graph {name}: the replays launched "
+                f"{seen}, the eager rounds {want}")
+    s["steps_per_s"] = turns(
+        {"graph": graph, "python": python,
+         "eager scan": lambda: eager_scan_fit(program, steps, plan, batch)},
+        steps, GRAPH_FITS, dev)
+    s["pool_bytes"] = sum(r.pool_bytes() for r in fit_runners(
+        program, steps, plan, batch))
+    return s
+
+
+def train_graph(args, dev, card: str) -> dict:
+    """The compiled engine (``core.graphs``): every configuration of
+    :func:`graph_cells` at the path's full size through
+    :func:`graph_cell`, and two ``api.fit`` calls of the main path (new
+    closures a call: each captures again).  Returns the main path's and
+    K-means' replayed launches, for the kernels line."""
+    check = not args.rehearse
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 600)
+    grid = make_grid(args.lanes, device=dev)
+    cells = graph_cells(args)
+    runs, replayed, api_captures = [], {}, []
+    for data_name in ("binary", "regression", "mixture", "blobs"):
+        X, y = graph_data(data_name, args, gen)
+        for name, (dset, wl, kw) in cells.items():
+            if dset != data_name:
+                continue
+            steps = (args.km_iters if isinstance(wl, KMeans)
+                     else GRAPH_STEPS)
+            program = wl.bind(grid, X, y)
+            s = graph_cell(name, program, kw, steps, dev, check)
+            runs.append(s)
+            if name in ("logreg int8 lut, cadence 1",
+                        "kmeans int16, cadence 1"):
+                replayed[name] = (s["replayed_launches"], steps)
+            del program
+        if data_name == "binary":
+            wl = cells["logreg int8 lut, cadence 1"][1]
+            for _ in range(2):
+                before = Graph.captures
+                api.fit(wl, grid, X, y, steps=GRAPH_STEPS)
+                api_captures.append(Graph.captures - before)
+            require(api_captures == [2, 2], f"train_graph: api.fit "
+                    f"captured {api_captures} (new closures a call)")
+        del X, y
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+    emit("train_graph", card=card, lanes=args.lanes, rows=args.rows,
+         features=args.features, runs=runs,
+         api_fit_captures=api_captures, seconds=time.perf_counter() - t0)
+    return replayed
 
 
 def predict(name, wl, state, requests, launches: dict,
@@ -4002,10 +4439,24 @@ def serve_pim(args, dev, card: str, wl, state, w_true) -> None:
             f"captured {twin.compile_misses} graphs")
     require(twin_ok, "serve: the second runner's output is not its own "
             "state's")
+    # fits on this grid capture their chunk runners into its cache beside
+    # the bucket graphs: more runners than a kind's budget evict none of
+    # the server's entries (merge_plan.cache_put: a budget a kind)
+    rows = args.lanes * 16
+    for i in range(mp._CACHE_MAX + 8):
+        api.fit(LinReg(lr=0.01 + 1e-3 * i), grid, X[:rows], y[:rows],
+                steps=2)
+    kinds = [key[0] for key in grid._tuning_cache]
+    beside = {"fits": mp._CACHE_MAX + 8,
+              "fit_runners_held": kinds.count("fit_runner"),
+              "bucket_graphs_held": kinds.count("serving")}
+    require(beside["bucket_graphs_held"] == sum(
+        len(r.buckets) for r in runners.values()), f"serve: fits beside the "
+        f"server evicted bucket graphs: {beside}")
 
     rates = serve_rates(main, wl, state, X_host, dev)
     emit("serve_pim", part="rates", card=card, workload="logreg int8 lut",
-         features=args.features, **rates)
+         features=args.features, fits_beside=beside, **rates)
 
     fp32 = runners["logreg fp32 exact"]
     fwl = configs["logreg fp32 exact"][0]
@@ -4169,6 +4620,116 @@ def timed_prefill(model, params, tokens) -> float:
     return time.perf_counter() - t0
 
 
+def eager_generate(model, params, prompts: torch.Tensor,
+                   new_tokens: int) -> Generation:
+    """``generate`` on the eager decode: ``Model.decode_step`` called a
+    step at a time, ``pos`` a tensor stepped on the card, the argmax
+    taken after each step, the same clocks."""
+    B, P = prompts.shape
+    V, dev = model.cfg.vocab_size, model.device
+    cache = model.init_cache(B, P + new_tokens)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    for t in range(P):
+        logits, cache = model.decode_step(params, cache,
+                                          prompts[:, t:t + 1], pos)
+        pos += 1
+    prompt_logits = logits[:, -1].clone()
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None]
+    out = [tok]
+    t0 = time.perf_counter()
+    for _ in range(new_tokens - 1):
+        logits, cache = model.decode_step(params, cache, tok, pos)
+        pos += 1
+        tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None]
+        out.append(tok)
+    sync(dev)
+    return Generation(torch.cat(out, dim=1), prompt_logits, prefill_s,
+                      time.perf_counter() - t0)
+
+
+def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
+                 dev, check: bool) -> dict:
+    """The captured decode step (``launch.serve_lm.DecodeStep``) against
+    the eager decode: every step's logits and token compared in lockstep,
+    bit for bit (the tokens must be equal); decode tokens/s of
+    ``generate`` against :func:`eager_generate` in turns; the idle share
+    and the host's CUDA launch calls a token over 8 decode tokens of
+    each."""
+    B, P = prompts.shape
+    V = model.cfg.vocab_size
+    t0 = time.perf_counter()
+    step = DecodeStep(model, params, B, P + new_tokens)
+    sync(dev)
+    capture_s = time.perf_counter() - t0
+    step.reset()
+    cache = model.init_cache(B, P + new_tokens)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    tok = None
+    logits_equal, tokens_equal, gap, first_diff = True, True, 0.0, None
+    for t in range(P + new_tokens - 1):
+        given = prompts[:, t:t + 1] if t < P else tok
+        logits, cache = model.decode_step(params, cache, given, pos)
+        pos += 1
+        tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None]
+        got = step(prompts[:, t:t + 1] if t < P else None)
+        if not torch.equal(got, logits):
+            logits_equal = False
+            first_diff = t if first_diff is None else first_diff
+            gap = max(gap, float((got.float() - logits.float()).abs().max()))
+        tokens_equal = tokens_equal and bool(torch.equal(step.tok, tok))
+    require(tokens_equal, "the captured decode step's tokens != the eager "
+            "decode's")
+    eager = eager_generate(model, params, prompts, new_tokens)
+    graph = generate(model, params, prompts, new_tokens)
+    require(torch.equal(graph.tokens, eager.tokens), "generate's tokens != "
+            "the eager decode's")
+    rates: dict = {"graph": [], "eager": []}
+    for i in range(TIMING_RUNS):
+        for name in (("graph", "eager") if i % 2 == 0
+                     else ("eager", "graph")):
+            fn = generate if name == "graph" else eager_generate
+            res = fn(model, params, prompts, new_tokens)
+            rates[name].append(B * (new_tokens - 1) / res.decode_s)
+    rates = {name: {"median": statistics.median(r), "min": min(r),
+                    "max": max(r), "runs": len(r)}
+             for name, r in rates.items()}
+    n = 8
+    step.reset()
+    for t in range(P):
+        step(prompts[:, t:t + 1])
+
+    def graph_steps():
+        step.pos.fill_(P)
+        for _ in range(n):
+            step()
+
+    _, prof_graph = device_launches(graph_steps, dev)
+    cache = model.init_cache(B, P + n)
+    pos = torch.full((), P, dtype=torch.int32, device=dev)
+
+    def eager_steps():
+        pos.fill_(P)
+        tok = prompts[:, :1]
+        for _ in range(n):
+            logits, _ = model.decode_step(params, cache, tok, pos)
+            pos.add_(1)
+            tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None]
+
+    _, prof_eager = device_launches(eager_steps, dev)
+    for prof in (prof_graph, prof_eager):
+        prof["host_launch_calls_per_token"] = prof["host_launch_calls"] / n
+    return {"capture_s": capture_s, "pool_bytes": step.graph.pool_bytes,
+            "logits_bit_equal": logits_equal, "tokens_equal": tokens_equal,
+            "logits_max_abs_gap": gap, "first_differing_step": first_diff,
+            "steps_compared": P + new_tokens - 1,
+            "decode_tokens_per_s": rates, "profile_graph": prof_graph,
+            "profile_eager": prof_eager}
+
+
 def serve_lm(args, dev, card: str) -> dict:
     """qwen2-0.5b (the smoke config in a rehearsal): the prefill main path
     with its launch count, twin check, rate and profile; ``generate`` on
@@ -4234,6 +4795,8 @@ def serve_lm(args, dev, card: str) -> dict:
         require(tuple(res.tokens.shape) == (SERVE_REQUESTS, SERVE_NEW)
                 and int(res.tokens.min()) >= 0 and int(res.tokens.max()) < V,
                 f"generate gave {tuple(res.tokens.shape)}")
+        serve_graph = decode_graph(model, params, prompts, SERVE_NEW, dev,
+                                   check)
         cache = model.init_cache(SERVE_REQUESTS, SERVE_PROMPT)
         emit("profile", workload="decode", **profile_call(
             lambda: [model.decode_step(params, cache, prompts[:, t:t + 1], t)
@@ -4249,7 +4812,8 @@ def serve_lm(args, dev, card: str) -> dict:
                      SERVE_REQUESTS * (SERVE_NEW - 1) / res.decode_s,
                  "replay_s": res.prefill_s, "decode_s": res.decode_s,
                  "prefill_vs_replay": logits_gap(pre, res.prompt_logits),
-                 "first_tokens": res.tokens[0, :8].tolist()}
+                 "first_tokens": res.tokens[0, :8].tolist(),
+                 "graph": serve_graph}
         del params, model, logits, pre, res
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -4420,6 +4984,8 @@ def main(argv=None) -> int:
     train_faults(args, dev, smi)
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     train_stream(args, dev, smi)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    replayed = train_graph(args, dev, smi)
 
     kernels = []
     for name, t in times.items():
@@ -4431,6 +4997,13 @@ def main(argv=None) -> int:
                  "bound_by": t["bound_by"],
                  "library_ms": t.get("library_ms"),
                  "library_note": LIBRARY_NOTES[name], "per": PER[name]}
+        for run, (seen, steps) in replayed.items():
+            if name in seen:
+                # the main path's replays (train_graph, torch.profiler): the
+                # wrappers' "launches" count a captured chunk's warm-up
+                # round and capture, never a replay
+                entry["replayed_launches"] = {"run": run, "steps": steps,
+                                              "launches": seen[name]}
         for extra in ("single_call_ms", "parts", "multinomial", "int32_bins",
                       "float32_ms", "library_bf16_ms",
                       "library_max_abs_err", "bit_equal_share"):

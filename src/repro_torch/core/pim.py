@@ -36,18 +36,35 @@ replicated delta norms), the tree's splits (from the all-reduced
 histogram) and K-means' initial centroids (drawn from the full ``X``
 with one seeded generator).
 
-The JAX engine compiles the loop (``lax.scan`` over chunks, a compile
-cache, donated carries).  PyTorch runs eagerly, so the port has no
-compile cache or donation (a grid keeps one small cache, of the plan
-controller's cost model, ``merge_plan.cache_get``); its two engines run
-the same arithmetic and differ only in when per-step metrics reach the
-host:
+DESIGN — the compiled engine (CUDA graphs)
+------------------------------------------
 
-  * ``engine="python"`` — metrics come back after every step (or round),
-    and callbacks see every step's state;
-  * ``engine="scan"``  — metrics stay on the device and come back with
-    one synchronisation per ``scan_chunk`` rounds; callbacks see the
-    end-of-chunk state, as under the JAX scan engine.
+The JAX engine compiles the loop as chunks of ``lax.scan`` over merge
+rounds, cached on the grid, with a donated carry.  The port captures the
+same chunks as CUDA graphs (``core.graphs``), one engine a choice of
+``engine``:
+
+  * ``engine="scan"`` on a grid without a mesh replays
+    :meth:`PimGrid.make_runner`'s chunk runner once per ``scan_chunk``
+    rounds (``merge_plan.pipeline_runners``' for every other static
+    plan): one captured graph a (data binding, chunk length), its
+    metrics stacked on the card and brought to the host in one transfer
+    a key, one host sync a chunk.  The runner is cached on the grid by
+    the ``fn_signature`` of the step functions, the kernel flag and the
+    cadence (``merge_plan.cache_get`` / ``cache_put``); a fit captures
+    at most the full chunk and the remainder (and a short last round at
+    cadence k, under its own ``merge_every`` key).  The caller's
+    ``init_state`` is copied in and the returned state cloned out; a
+    callback sees the end-of-chunk state, which the next chunk
+    overwrites (JAX's donated-carry rule: copy what you keep);
+  * ``engine="python"`` runs every round eagerly and brings its metrics
+    to the host at once; callbacks see every round's state.  It is the
+    oracle the graphs are held against, bit for bit: the same kernels in
+    the same order;
+  * on a mesh (NCCL cannot be captured here, and gloo never), under an
+    armed ``FaultPlan``, under an adaptive or auto plan (one host sync a
+    dispatch) and a streaming window at a time (new tensors a window),
+    ``"scan"`` runs the eager rounds with one host sync a chunk.
 """
 
 from __future__ import annotations
@@ -58,10 +75,12 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import graphs as _graphs
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import merge_plan as mp
 from repro_torch.resilience import faults as _faults
+from repro_torch.tree import tree_map
 
 
 def mesh_device(device, mesh) -> torch.device:
@@ -96,8 +115,9 @@ class PimGrid:
                 f"n_vdpus={self.n_vdpus} not divisible by data shards "
                 f"{self.n_shards}")
         self.device = mesh_device(device, mesh)
-        # the plan controller's cost model and setup, keyed by the step
-        # functions (merge_plan.cache_get / cache_put)
+        # the grid's cache (merge_plan.cache_get / cache_put), keyed by
+        # the step functions: chunk runners, serving's bucket graphs, the
+        # plan controller's cost model and setup
         self._tuning_cache: dict = {}
 
     # -- layout --------------------------------------------------------
@@ -187,6 +207,68 @@ class PimGrid:
         return self.reduce(
             {k: v.sum(dim=0) for k, v in local_fn(model, data).items()})
 
+    def make_runner(self, local_fn: Callable, update_fn: Callable, *,
+                    merge_every: int = 1) -> _graphs.ChunkRunner:
+        """The cached chunk runner for ``(local_fn, update_fn)``, the
+        counterpart of ``repro.core.pim.PimGrid.make_runner``.
+
+        ``runner(state, data, length=L)`` runs ``L`` merge rounds and
+        returns ``(state, stacked_metrics)``.  At ``merge_every=1`` a
+        round is one merge-per-step step and metric leaves come back
+        ``(L, ...)``; at cadence ``k > 1`` a round is
+        ``merge_plan.cadence_round`` (``k`` vDPU-local steps and one state
+        merge) and metric leaves are ``(L, k, ...)``.  On the card each
+        ``(data binding, L)`` is one captured CUDA graph
+        (``core.graphs.ChunkRunner``: the data read in place, the state
+        a static carry the graph writes back, returned live); on the CPU
+        the same rounds run eagerly on the same static carry.
+
+        Cached on the grid as JAX caches its jitted runner, keyed by the
+        ``merge_plan.fn_signature`` of both functions (code and captured
+        values: equal closures share a runner, a changed hyperparameter
+        does not), ``dispatch.kernels_enabled()`` (a runner captured with
+        the kernels never serves a ``use_kernels(False)`` fit) and
+        ``merge_every``, in the grid's bounded LRU.
+
+        >>> import torch
+        >>> grid = make_cpu_grid(4)
+        >>> data, n = grid.shard_rows(torch.arange(8.0)[:, None])
+        >>> def local_fn(w, sl):
+        ...     return {"g": ((w - sl["X"]) * sl["w"][..., None]).sum(-2)}
+        >>> def update_fn(w, merged):
+        ...     return w - 0.1 * merged["g"] / n, {"g0": merged["g"][0]}
+        >>> runner = grid.make_runner(local_fn, update_fn)
+        >>> grid.make_runner(local_fn, update_fn) is runner
+        True
+        >>> grid.make_runner(local_fn, update_fn, merge_every=4) is runner
+        False
+        >>> w, stacked = runner(torch.zeros(1), data, length=3)
+        >>> tuple(stacked["g0"].shape), runner._cache_size()
+        ((3,), 1)
+        """
+        if merge_every < 1:
+            raise ValueError(
+                f"merge_every must be >= 1, got {merge_every}")
+        from repro_torch.kernels import dispatch as _dispatch
+
+        key = ("fit_runner", mp.fn_signature(local_fn),
+               mp.fn_signature(update_fn), _dispatch.kernels_enabled(),
+               merge_every)
+        with mp.CACHE_LOCK:
+            runner = mp.cache_get(self, key)
+            if runner is None:
+                if merge_every == 1:
+                    def round_fn(state, data):
+                        merged = self.map_reduce(local_fn, state, data)
+                        return update_fn(state, merged)
+                else:
+                    def round_fn(state, data):
+                        return mp.cadence_round(self, local_fn, update_fn,
+                                                merge_every, state, data)
+                runner = _graphs.ChunkRunner(round_fn, self.device)
+                mp.cache_put(self, key, runner, local_fn, update_fn)
+        return runner
+
     def fit(self, *, init_state, local_fn: Callable,
             update_fn: Callable, data: dict, steps: int,
             callback: Callable | None = None, scan_chunk: int = 32,
@@ -205,6 +287,14 @@ class PimGrid:
         one short round, and a round of one step is a merge-per-step
         step, as in the JAX engine.  ``scan_chunk`` counts rounds.
 
+        ``engine="scan"`` replays :meth:`make_runner`'s captured chunks
+        on a grid without a mesh (DESIGN — the compiled engine): the
+        returned state is the caller's own, but a callback sees the
+        end-of-chunk state, live, which the next chunk overwrites (copy
+        it to keep it), as under JAX's donated carry.
+        ``engine="python"`` runs every round eagerly, its metrics and
+        callbacks a round at a time.
+
         Every other plan (``overlap_merge``, ``merge_compression`` (a
         ``distributed.compression.CompressionConfig``), SlowMo or Nesterov
         outer momentum, a custom ``OuterOptimizer``) is driven by
@@ -216,7 +306,8 @@ class PimGrid:
 
         ``data`` may also be a ``data.pipeline.PartitionRotation`` (an
         out-of-core dataset): ``data.pipeline.run_streaming_fit`` then
-        runs one fit like this one a rotation window.
+        runs one fit like this one a rotation window, on the eager
+        rounds.
 
         Under an armed ``resilience.faults.FaultPlan`` a plan that is not
         adaptive or auto runs ``resilience.runtime.drive_fit`` (the
@@ -231,8 +322,8 @@ class PimGrid:
             merge_plan, merge_every=merge_every,
             overlap_merge=overlap_merge, merge_compression=merge_compression)
         # out-of-core streaming: a data.pipeline.PartitionRotation is
-        # trained a window at a time, each window through this fit again,
-        # so every path below (the armed-faults hook too) applies to it
+        # trained a window at a time, each window through _fit, so every
+        # path below (the armed-faults hook too) applies to it
         if getattr(data, "is_streaming_rotation", False):
             from repro_torch.data import pipeline as _pipeline
 
@@ -241,6 +332,20 @@ class PimGrid:
                 update_fn=update_fn, steps=steps, plan=plan,
                 merge_state=merge_state, callback=callback,
                 scan_chunk=scan_chunk, engine=engine)
+        return self._fit(plan, init_state=init_state, local_fn=local_fn,
+                         update_fn=update_fn, data=data, steps=steps,
+                         callback=callback, scan_chunk=scan_chunk,
+                         engine=engine, merge_state=merge_state,
+                         compiled=engine == "scan" and self.mesh is None)
+
+    def _fit(self, plan: mp.MergePlan, *, init_state, local_fn: Callable,
+             update_fn: Callable, data: dict, steps: int,
+             callback: Callable | None, scan_chunk: int, engine: str,
+             merge_state: dict | None, compiled: bool):
+        """:meth:`fit` on resident ``data`` under a resolved plan.
+        ``compiled``: replay the captured chunk runners (``"scan"``
+        without a mesh); ``data.pipeline.run_streaming_fit`` passes
+        False, since every window is new tensors."""
         # fault injection (resilience): under an armed FaultPlan a static
         # plan runs the resilient driver (survivor-weighted merges,
         # injection, rollback); unarmed, this is one None check
@@ -261,7 +366,11 @@ class PimGrid:
                 self, plan, init_state=init_state, local_fn=local_fn,
                 update_fn=update_fn, data=data, steps=steps,
                 callback=callback, scan_chunk=scan_chunk, engine=engine,
-                merge_state=merge_state)
+                merge_state=merge_state, compiled=compiled)
+        if compiled:
+            return self._fit_chunks(plan.cadence, init_state, local_fn,
+                                    update_fn, data, steps, callback,
+                                    scan_chunk)
 
         def round_fn(state, kk):
             if kk == 1:
@@ -274,6 +383,25 @@ class PimGrid:
         return mp.run_rounds(steps, plan.cadence, round_fn, init_state,
                              engine=engine, scan_chunk=scan_chunk,
                              callback=callback)
+
+    def _fit_chunks(self, k: int, init_state, local_fn, update_fn, data,
+                    steps: int, callback, scan_chunk: int):
+        """The default plan on the chunk runners: full rounds of ``k`` in
+        chunks of ``scan_chunk``, then a trailing ``steps % k`` round on
+        its own runner (``merge_every=steps % k``), as in the JAX
+        engine."""
+        history: list = []
+        if steps <= 0:
+            return init_state, history
+        rounds, rem = divmod(steps, k)
+        state = init_state
+        for kk, n in ((k, rounds), (rem, 1 if rem else 0)):
+            if n:
+                state = mp.replay_rounds(
+                    self.make_runner(local_fn, update_fn, merge_every=kk),
+                    state, data, n, kk, kk > 1, scan_chunk, history,
+                    callback)
+        return tree_map(torch.clone, state), history
 
 
 def make_grid(n_vdpus: int = 64, device=None) -> PimGrid:

@@ -614,7 +614,8 @@ def run_streaming_fit(grid, rotation: PartitionRotation, *, init_state,
 
     ``PimGrid.fit`` dispatches here when ``data`` is a
     :class:`PartitionRotation`; each window's fit runs the whole engine
-    unchanged (scan or python, any static plan, an armed fault plan),
+    on the eager rounds (scan or python, any static plan, an armed fault
+    plan; the scan engine's captured chunks would bind each new window),
     and EF and momentum continue across windows through
     ``merge_state``.  Returns ``(state, history)``, an entry a local
     step, and leaves the ingest, stall and overlap statistics in
@@ -657,11 +658,13 @@ def run_streaming_fit(grid, rotation: PartitionRotation, *, init_state,
                 def cb(step, st, m, _off=done, _cb=callback):
                     return _cb(_off + step, st, m)
             try:
-                state, h = grid.fit(
-                    init_state=state, local_fn=scaled_lf,
+                # eager rounds: a window is new tensors, which a chunk
+                # runner would capture again (ROADMAP item 19b)
+                state, h = grid._fit(
+                    plan, init_state=state, local_fn=scaled_lf,
                     update_fn=update_fn, data=data, steps=k,
-                    merge_plan=plan, merge_state=merge_state,
-                    engine=engine, scan_chunk=scan_chunk, callback=cb)
+                    merge_state=merge_state, engine=engine,
+                    scan_chunk=scan_chunk, callback=cb, compiled=False)
             finally:
                 _release_window(data)
             history.extend(h)

@@ -84,7 +84,10 @@ Cadence amortises the merge, overlap hides it, compression shrinks it
 
 Carries: ``(state, ef, mom)``, and ``(state, pending, ef, mom)`` under
 overlap; ``mom`` is ``()`` for plain commits, ``ef`` ``None`` without
-compression.
+compression.  On a grid without a mesh ``engine="scan"`` replays these
+rounds as captured chunks (:func:`pipeline_runners`, ``core.graphs``);
+the eager rounds of :func:`run_rounds` are the oracle they are held
+against, and still run meshes (see ``core.pim``'s DESIGN notes).
 
 Example — a SlowMo plan at cadence 4 converges on the problem the default
 plan solves:
@@ -198,14 +201,26 @@ def cache_get(grid, key):
     return entry[0]
 
 
+def _kind(key) -> Any:
+    """An entry's kind: the key's first element when it names one
+    (``"fit_runner"``, ``"serving"``, ``"tuning_cost_model"``, ...)."""
+    if isinstance(key, tuple) and key and isinstance(key[0], str):
+        return key[0]
+    return None
+
+
 def cache_put(grid, key, value, local_fn, update_fn) -> None:
     """Insert into the grid's cache, dropping the least recently used
-    entry past ``_CACHE_MAX``; the functions ride along so the
-    identities in ``key`` stay alive."""
+    entry of the key's kind past ``_CACHE_MAX`` of them: each kind has
+    its own budget, so fits capturing new chunk runners never evict a
+    server's hot bucket graphs, nor the reverse.  The functions ride
+    along so the identities in ``key`` stay alive."""
     with CACHE_LOCK:
         cache = grid._tuning_cache
-        while len(cache) >= _CACHE_MAX:
-            cache.pop(next(iter(cache)))
+        kind = _kind(key)
+        same = [k for k in cache if _kind(k) == kind]
+        while len(same) >= _CACHE_MAX:
+            cache.pop(same.pop(0))
         cache[key] = (value, local_fn, update_fn)
 
 
@@ -705,10 +720,136 @@ def flush_metrics(pending: list, history: list, state, callback) -> None:
             callback(len(history) - 1, state, metrics)
 
 
+def flush_stacked(stacked: dict, rounds: int, k: int, nested: bool,
+                  history: list, state, callback) -> None:
+    """A chunk's stacked metrics (a chunk runner's: ``(rounds, ...)``,
+    ``(rounds, k, ...)`` when ``nested``) to the host in one transfer per
+    key, one ``history`` entry a local step; a callback sees ``state``,
+    the end-of-chunk state."""
+    host = {key: v.cpu() for key, v in stacked.items()}
+    for r in range(rounds):
+        for j in range(k if nested else 1):
+            metrics = {key: v[r, j] if nested else v[r]
+                       for key, v in host.items()}
+            history.append(metrics)
+            if callback is not None:
+                callback(len(history) - 1, state, metrics)
+
+
+def replay_rounds(runner, carry, data, rounds: int, k: int, nested: bool,
+                  scan_chunk: int, history: list, callback,
+                  state_of: Callable = lambda carry: carry):
+    """``rounds`` rounds of a chunk runner (``core.graphs.ChunkRunner``)
+    in chunks of ``scan_chunk``, each chunk's metrics flushed into
+    ``history`` (:func:`flush_stacked`; a callback sees
+    ``state_of(carry)``).  Returns the runner's live carry."""
+    done = 0
+    while done < rounds:
+        length = min(scan_chunk, rounds - done)
+        carry, stacked = runner(carry, data, length=length)
+        flush_stacked(stacked, length, k, nested, history, state_of(carry),
+                      callback)
+        done += length
+    return carry
+
+
+def _clone(tree):
+    return tree_map(lambda t: None if t is None else t.clone(), tree)
+
+
+def pipeline_runners(grid, local_fn: Callable, update_fn: Callable, *,
+                     merge_every: int, overlap: bool, compression,
+                     state_wire: bool,
+                     outer: OuterOptimizer = AverageCommit()) -> dict:
+    """The cached pieces of one overlap x compression x outer mode, the
+    counterpart of ``repro.distributed.merge_plan.pipeline_runners``:
+    ``"runner"``, a ``core.graphs.ChunkRunner`` of the mode's rounds
+    over the carry ``(state, ef, mom)`` (``(state, pending, ef, mom)``
+    under overlap), one captured graph a (data binding, chunk length) on
+    the card, metrics ``(L, ...)`` on the partials wire and ``(L, k,
+    ...)`` on the state wire; ``"round"``, one eager round of the same
+    pieces; under overlap ``"prologue"`` (``prologue(state, data) ->
+    pending``) and ``"drain"`` (``drain(carry) -> (state, ef, mom)``),
+    eager, once a fit.
+
+    Keyed on the grid as JAX keys it: the ``fn_signature`` of both
+    functions, the kernel flag, the cadence, ``overlap``,
+    ``compression``, ``state_wire`` and ``outer``.  ``mom`` is ``()`` for
+    plain commits; an ``ef`` of ``None`` under compression is sized by
+    the runner's warm-up round and starts as zeros, as
+    :func:`merge_pending` sizes it at the first merge."""
+    from repro_torch.core.graphs import ChunkRunner
+    from repro_torch.kernels import dispatch as _dispatch
+
+    key = ("fit_runner", fn_signature(local_fn), fn_signature(update_fn),
+           _dispatch.kernels_enabled(), merge_every, overlap, compression,
+           state_wire, outer)
+    with CACHE_LOCK:
+        cached = cache_get(grid, key)
+        if cached is not None:
+            return cached
+        fns = pipeline_fns(grid, local_fn, update_fn,
+                           merge_every=merge_every, compression=compression,
+                           state_wire=state_wire, outer=outer)
+        if overlap:
+            def round_fn(carry, data):
+                return overlapped_body(fns, data)(carry)
+
+            runners = {
+                "round": round_fn,
+                "prologue": lambda state, data: fns[3](state, data)[0],
+                "drain": lambda carry: drain(fns, carry,
+                                             state_wire=state_wire)}
+        else:
+            def round_fn(carry, data):
+                carry, metrics = plain_round(fns, data, carry,
+                                             state_wire=state_wire)
+                return carry, metrics if state_wire else metrics[0]
+
+            runners = {"round": round_fn}
+        runners["runner"] = ChunkRunner(round_fn, grid.device)
+        cache_put(grid, key, runners, local_fn, update_fn)
+        return runners
+
+
+def _fit_chunks(grid, plan: MergePlan, state, ef, mom, *, local_fn,
+                update_fn, data, steps: int, callback, scan_chunk: int):
+    """:func:`run_fit`'s rounds on :func:`pipeline_runners`' chunk
+    runners: full rounds in chunks of ``scan_chunk`` (the overlap's
+    prologue before them and its drain after), then a trailing ``steps %
+    k`` round on the state wire, not overlapped.  Returns ``(state, ef,
+    mom, history)``, cloned out of the runners' carries."""
+    k = plan.cadence
+    state_wire = k > 1
+    history: list = []
+    if steps <= 0:
+        return state, ef, mom, history
+    rounds, rem = divmod(steps, k)
+    if rounds:
+        rs = pipeline_runners(grid, local_fn, update_fn, merge_every=k,
+                              overlap=plan.overlap,
+                              compression=plan.compression,
+                              state_wire=state_wire, outer=plan.outer)
+        carry = ((state, rs["prologue"](state, data), ef, mom)
+                 if plan.overlap else (state, ef, mom))
+        carry = replay_rounds(rs["runner"], carry, data, rounds, k,
+                              state_wire, scan_chunk, history, callback,
+                              lambda c: c[0])
+        state, ef, mom = rs["drain"](carry) if plan.overlap else carry
+    if rem:
+        rs = pipeline_runners(grid, local_fn, update_fn, merge_every=rem,
+                              overlap=False, compression=plan.compression,
+                              state_wire=True, outer=plan.outer)
+        state, ef, mom = replay_rounds(rs["runner"], (state, ef, mom), data,
+                                       1, rem, True, 1, history, callback,
+                                       lambda c: c[0])
+    return _clone(state), _clone(ef), _clone(mom), history
+
+
 def run_fit(grid, plan: MergePlan, *, init_state, local_fn: Callable,
             update_fn: Callable, data: dict, steps: int,
             callback: Optional[Callable], scan_chunk: int, engine: str,
-            merge_state: Optional[dict]):
+            merge_state: Optional[dict], compiled: bool = False):
     """``PimGrid.fit``'s loop for every plan that is not the exact
     default.  Returns ``(state, history)`` with one entry per local step;
     reads ``merge_state["error"]`` and ``["momentum"]`` at entry and
@@ -722,7 +863,10 @@ def run_fit(grid, plan: MergePlan, *, init_state, local_fn: Callable,
     prologue adds one phase of local steps (``cadence`` of them) whose
     metrics are not reported.  Adaptive and auto plans run
     ``tuning.controller.run_controlled_fit``, one dispatch at a time
-    (``engine`` and ``scan_chunk`` do not apply).
+    (``engine`` and ``scan_chunk`` do not apply).  ``compiled`` (set by
+    ``PimGrid.fit`` for ``"scan"`` without a mesh) replays
+    :func:`pipeline_runners`' chunks; otherwise the rounds run eagerly
+    through :func:`run_rounds`, the oracle the chunks are held against.
     """
     outer, compression, k = plan.outer, plan.compression, plan.cadence
     state_wire = k > 1
@@ -758,6 +902,13 @@ def run_fit(grid, plan: MergePlan, *, init_state, local_fn: Callable,
         mom = held.get("momentum")
         if mom is None:
             mom = outer.init(init_state)
+    if compiled:
+        state, ef, mom, history = _fit_chunks(
+            grid, plan, init_state, ef, mom, local_fn=local_fn,
+            update_fn=update_fn, data=data, steps=steps,
+            callback=callback, scan_chunk=scan_chunk)
+        _hold(grid, merge_state, ef, outer, mom)
+        return state, history
     pieces: dict = {}
 
     def fns(kk):
@@ -797,9 +948,14 @@ def run_fit(grid, plan: MergePlan, *, init_state, local_fn: Callable,
                                 scan_chunk=scan_chunk, callback=cb)
     state, ef, mom = drain(fns(k), carry, state_wire=state_wire) \
         if plan.overlap else carry
+    _hold(grid, merge_state, ef, outer, mom)
+    return state, history
+
+
+def _hold(grid, merge_state: Optional[dict], ef, outer, mom) -> None:
+    """Write a fit's EF buffer and outer momentum into its holder."""
     if merge_state is not None:
         if ef is not None:
             merge_state["error"] = gather_merge_error(grid, ef)
         if not outer.plain_commit:
             merge_state["momentum"] = mom
-    return state, history

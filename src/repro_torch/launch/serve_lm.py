@@ -9,7 +9,9 @@ Port of ``examples/serve_lm.py``:
 The full config runs on the card by default, with random weights drawn
 from seed 0 at the published shapes; ``--smoke`` takes the reduced
 config.  As in the JAX script, the cache is filled by replaying each
-prompt token through ``decode_step``.
+prompt token through ``decode_step``; JAX jits that step once with a
+traced ``pos``, and the port captures it once as a CUDA graph
+(:class:`DecodeStep`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import time
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config, list_archs
+from repro_torch.core.graphs import Graph
 from repro_torch.models import Model, build
 
 
@@ -37,33 +40,82 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+class DecodeStep:
+    """One greedy decode step over static buffers, captured once on the
+    card (``core.graphs.Graph``): the token ``tok`` (B, 1) and the
+    position ``pos`` (0-dim int32) live on the card, and a replay runs
+    ``Model.decode_step`` on the static KV cache, writes the argmax of
+    the next token into ``tok`` and steps ``pos``, so a token costs one
+    replay.  ``logits`` (B, 1, Vp) is the step's output, overwritten by
+    every replay.  The weights are read in place.  On the CPU a replay
+    runs the same step eagerly on the same buffers."""
+
+    def __init__(self, model: Model, params: dict, batch: int,
+                 max_len: int):
+        dev, V = model.device, model.cfg.vocab_size
+        self.cache = model.init_cache(batch, max_len)
+        self.tok = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+        self.pos = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def step(cache, tok, pos):
+            logits, _ = model.decode_step(params, cache, tok, pos)
+            tok.copy_(torch.argmax(logits[:, -1, :V], dim=-1)[:, None])
+            pos.add_(1)
+            return logits
+
+        self.graph = Graph(dev)
+        scratch = (model.init_cache(batch, max_len), self.tok.clone(),
+                   self.pos.clone())
+        self.graph.warm(lambda: step(*scratch))
+        del scratch
+        self.graph.capture(lambda: step(self.cache, self.tok, self.pos))
+
+    def reset(self) -> None:
+        """Position 0 and an empty cache, as ``init_cache`` makes it."""
+        for layer in self.cache:
+            for t in layer.values():
+                t.zero_()
+        self.pos.zero_()
+
+    def __call__(self, token: torch.Tensor | None = None) -> torch.Tensor:
+        """One step at ``pos``, on ``token`` (B, 1) when given (a prompt
+        token, copied in on the card), else on the argmax the previous
+        step wrote; returns the static ``logits``."""
+        if token is not None:
+            self.tok.copy_(token)
+        self.graph.replay()
+        return self.graph.outputs
+
+
 def generate(model: Model, params: dict, prompts: torch.Tensor,
              new_tokens: int) -> Generation:
     """Greedy continuation of ``prompts`` (B, P) by ``new_tokens`` tokens.
 
-    The cache (``P + new_tokens`` positions) is filled by replaying the
-    prompt through ``decode_step``; the first new token is the argmax of
-    the last prompt position's logits, each later one that of the step
-    before.  Times end in a synchronise."""
+    One :class:`DecodeStep` is captured for ``(B, P + new_tokens)``
+    before the clocks start.  The cache is filled by replaying it over
+    the prompt, each prompt token copied into its static token on the
+    card; the first new token is the argmax of the last prompt
+    position's logits, each later one that of the step before, written
+    by the replay itself.  A decode token costs one replay and one copy
+    of the token out, with no host read until the end.  Times end in a
+    synchronise."""
     B, P = prompts.shape
-    V = model.cfg.vocab_size
     dev = model.device
-    cache = model.init_cache(B, P + new_tokens)
+    step = DecodeStep(model, params, B, P + new_tokens)
+    step.reset()
+    prompts = prompts.to(dev)
     _sync(dev)
     t0 = time.perf_counter()
     for t in range(P):
-        logits, cache = model.decode_step(params, cache,
-                                          prompts[:, t:t + 1], t)
+        logits = step(prompts[:, t:t + 1])
+    prompt_logits = logits[:, -1].clone()
     _sync(dev)
     prefill_s = time.perf_counter() - t0
-    prompt_logits = logits[:, -1]
-    tok = torch.argmax(prompt_logits[:, :V], dim=-1)[:, None]
-    out = [tok]
+    out = [step.tok.clone()]
     t0 = time.perf_counter()
-    for t in range(P, P + new_tokens - 1):
-        logits, cache = model.decode_step(params, cache, tok, t)
-        tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None]
-        out.append(tok)
+    for _ in range(new_tokens - 1):
+        step()
+        out.append(step.tok.clone())
     _sync(dev)
     return Generation(torch.cat(out, dim=1), prompt_logits, prefill_s,
                       time.perf_counter() - t0)

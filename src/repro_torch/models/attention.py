@@ -194,21 +194,34 @@ def init_cache(cfg: cm.ModelConfig, batch: int, max_len: int,
             for name in ("k", "v")}
 
 
+def decode_pos(pos, device) -> torch.Tensor:
+    """A decode position as JAX's traced ``pos``: a 0-dim int32 tensor on
+    ``device``.  A Python int is filled there (a fill, not a copy from
+    host memory), so eager callers may pass one."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int32).reshape(())
+    return torch.full((), int(pos), dtype=torch.int32, device=device)
+
+
 def attn_decode(cfg: cm.ModelConfig, p: dict, x: torch.Tensor, cache: dict,
-                pos: int) -> Tuple[torch.Tensor, dict]:
-    """One-token decode: x (B, 1, d) at absolute position ``pos``.
+                pos) -> Tuple[torch.Tensor, dict]:
+    """One-token decode: x (B, 1, d) at absolute position ``pos``, a 0-dim
+    int32 tensor on the device (JAX's traced ``pos``; an int is filled
+    there), so a captured decode step reads it from the card.
 
     RoPE is applied before insertion.  The new key and value are written
-    into the cache in place (JAX returns an updated copy), and the query
-    attends over the whole ``max_len`` cache with positions ``>= pos + 1``
-    masked, as JAX does."""
+    into the cache in place at ``pos`` (``index_copy_``; JAX returns an
+    updated copy), and the query attends over the whole ``max_len`` cache
+    with positions ``>= pos + 1`` masked, as JAX does."""
     B = x.shape[0]
+    pos = decode_pos(pos, x.device)
     q, k, v = qkv_proj(cfg, p, x)
-    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    posb = pos.reshape(1, 1).expand(B, 1)
     if cfg.pos_emb == "rope":
         q = cm.rope(q, posb, cfg.rope_base, cfg.rope_dim)
         k = cm.rope(k, posb, cfg.rope_base, cfg.rope_dim)
-    cache["k"][:, pos] = k[:, 0]
-    cache["v"][:, pos] = v[:, 0]
+    slot = pos.reshape(1).long()
+    cache["k"].index_copy_(1, slot, k)
+    cache["v"].index_copy_(1, slot, v)
     o = mha(q, cache["k"], cache["v"], causal=False, kv_valid_len=pos + 1)
     return out_proj(p, o), cache

@@ -49,10 +49,12 @@ class Model:
         return tfm.lm_init_cache(self.cfg, batch, max_len, self.device)
 
     def decode_step(self, params: dict, cache: List[dict],
-                    token: torch.Tensor, pos: int
+                    token: torch.Tensor, pos
                     ) -> Tuple[torch.Tensor, List[dict]]:
         """token (B, 1) at absolute position ``pos`` -> (logits (B, 1,
-        Vp), cache updated in place)."""
+        Vp), cache updated in place).  ``pos`` is a 0-dim int32 tensor on
+        the model's device, as JAX's traced ``pos`` (an int is filled
+        there), so the step can be captured (``launch.serve_lm``)."""
         return tfm.lm_decode_step(self.cfg, params, cache, token, pos)
 
     def param_count(self, params: dict) -> int:

@@ -76,7 +76,7 @@ def init_layer_cache(cfg: cm.ModelConfig, batch: int, max_len: int,
 
 
 def layer_decode(cfg: cm.ModelConfig, p: dict, x: torch.Tensor, cache: dict,
-                 pos: int) -> Tuple[torch.Tensor, dict]:
+                 pos) -> Tuple[torch.Tensor, dict]:
     h = cm.apply_norm(cfg, p["norm1"], x)
     mix, cache = att.attn_decode(cfg, p["mixer"], h, cache, pos)
     x = x + mix
@@ -161,11 +161,13 @@ def lm_init_cache(cfg: cm.ModelConfig, batch: int, max_len: int,
 
 
 def lm_decode_step(cfg: cm.ModelConfig, params: dict, cache: List[dict],
-                   token: torch.Tensor, pos: int
+                   token: torch.Tensor, pos
                    ) -> Tuple[torch.Tensor, List[dict]]:
-    """token (B, 1) at absolute position ``pos`` -> (logits (B, 1, Vp),
-    cache).  The cache is updated in place."""
+    """token (B, 1) at absolute position ``pos`` (a 0-dim int32 tensor on
+    the device, as JAX's traced ``pos``, or an int) -> (logits (B, 1,
+    Vp), cache).  The cache is updated in place."""
     x = _embed(cfg, params, token)
+    pos = att.decode_pos(pos, x.device)
     for i, p in enumerate(params["layers"]):
         x, cache[i] = layer_decode(cfg, p, x, cache[i], pos)
     x = cm.apply_norm(cfg, params["final_norm"], x)

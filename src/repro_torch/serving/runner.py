@@ -19,7 +19,8 @@ the :class:`PredictRunner` closes the shape set:
   static buffer by each call, never a constant of it.
 
 On ``cuda`` a cache entry is one ``torch.cuda.CUDAGraph`` of
-``workload.predict(state, X)`` (:class:`BucketEntry`), which JAX's
+``workload.predict(state, X)`` (:class:`BucketEntry`, on
+``core.graphs.Graph``), which JAX's
 ahead-of-time compiled executable becomes: a call copies the state into
 the entry's static state, stages the rows into its static input (through
 a pinned buffer, ``non_blocking``), replays the graph and clones its
@@ -45,6 +46,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.graphs import Graph
 from repro_torch.distributed import merge_plan as mp
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -89,33 +91,34 @@ class BucketEntry:
     @classmethod
     def eager(cls, fwd: Callable, state, bucket: int, d: int
               ) -> "BucketEntry":
-        """The CPU entry: ``replay`` runs ``fwd`` on the static buffers."""
-        static, st, x = _buffers(state, bucket, d)
-        out = fwd(st, x)
-        return cls(static, x, out, lambda: out.copy_(fwd(st, x)))
+        """The CPU entry: ``replay`` runs ``fwd`` on the static buffers
+        (``core.graphs.Graph`` on the CPU)."""
+        return cls._entry(fwd, state, bucket, d, warmup_calls=0)
 
     @classmethod
     def capture(cls, fwd: Callable, state, bucket: int, d: int
                 ) -> "BucketEntry":
         """Capture ``fwd(state, X)`` for ``(bucket, d)`` float32 rows on
-        the card: warm-up calls on a side stream, then the capture there
-        in ``thread_local`` mode (another thread may copy or allocate on
-        the card meanwhile, as the queue's worker and a registry refresh
-        do).  The graph owns its memory pool: entries may be replayed
-        from several threads, so they share none."""
+        the card (``core.graphs.Graph``): warm-up calls on the graph's
+        side stream, then the capture there in ``thread_local`` mode
+        (another thread may copy or allocate on the card meanwhile, as
+        the queue's worker and a registry refresh do), into a pool of the
+        graph's own: entries may be replayed from several threads, so
+        they share none.  The forward only reads its inputs, so it warms
+        up on the static buffers themselves."""
+        return cls._entry(fwd, state, bucket, d, warmup_calls=WARMUP_CALLS)
+
+    @classmethod
+    def _entry(cls, fwd: Callable, state, bucket: int, d: int, *,
+               warmup_calls: int) -> "BucketEntry":
         static, st, x = _buffers(state, bucket, d)
-        dev = x.device
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            for _ in range(WARMUP_CALLS):
-                fwd(st, x)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream,
-                              capture_error_mode="thread_local"):
-            out = fwd(st, x)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        return cls(static, x, out, graph.replay)
+        graph = Graph(x.device)
+        for _ in range(warmup_calls):
+            graph.warm(lambda: fwd(st, x))
+        graph.capture(lambda: fwd(st, x))
+        if graph.outputs is None:          # the CPU: the first call
+            graph.replay()
+        return cls(static, x, graph.outputs, graph.replay)
 
     def run(self, state, X, n: int) -> torch.Tensor:
         """``fwd(state, X padded)[:n]``: the state and the rows copied

@@ -740,3 +740,70 @@ def test_two_ranks_share_the_card_over_gloo(tmp_path):
                        merge_plan=mesh_ref.card_plan(mp, comp, cell)
                        ).state.cpu().numpy()
         assert abs(got - want).max() <= 1e-5 * abs(want).max(), cell
+
+
+# -- the compiled engine ------------------------------------------------------
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"merge_every": 4}, {"batch_size": 64},
+    {"merge_plan": "int8-ef"}, {"merge_plan": "overlap-slowmo-k4"}],
+    ids=["cadence-1", "cadence-4", "minibatch", "int8-ef", "overlap-slowmo"])
+def test_scan_fit_replays_graphs_bit_equal_to_python(kw):
+    """On the card ``engine="scan"`` replays captured chunks: bit-equal
+    to ``engine="python"`` (state and history), a second fit of the
+    program captures nothing, and the replays launch no wrapper call."""
+    from repro_torch.core.graphs import Graph
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import merge_plan as mp
+
+    dev = require_cuda()
+    plans = {"int8-ef": mp.MergePlan(compression=comp.CompressionConfig()),
+             "overlap-slowmo-k4": mp.MergePlan(cadence=4, overlap=True,
+                                               outer=mp.SlowMo())}
+    if "merge_plan" in kw:
+        kw = {"merge_plan": plans[kw["merge_plan"]]}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    X, y, _ = datasets.binary_classification(gen, 8 * 512 + 3, 32)
+    program = LogReg(lr=0.5, precision="int8", sigmoid="lut").bind(
+        make_grid(8), X, y)
+    a = program.fit(steps=10, engine="python", **kw)
+    b = program.fit(steps=10, scan_chunk=4, **kw)
+    before, launches = Graph.captures, fxp_matmul.launches
+    c = program.fit(steps=10, scan_chunk=4, **kw)
+    assert Graph.captures == before
+    if not getattr(kw.get("merge_plan"), "overlap", False):
+        # (the overlap's prologue runs eagerly, once a fit)
+        assert fxp_matmul.launches == launches
+    for res in (b, c):
+        assert torch.equal(a.state, res.state)
+        for m, n in zip(a.history, res.history, strict=True):
+            assert torch.equal(m["loss"], n["loss"])
+
+
+def test_generate_replays_one_decode_step_a_token():
+    """The smoke qwen2 on the card: ``generate``'s tokens equal the eager
+    decode's, and its decode launches one graph a token."""
+    from repro_torch.launch.serve_lm import DecodeStep, generate
+
+    dev = require_cuda()
+    cfg = get_smoke_config("qwen2-0.5b")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(2))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 6), device=dev,
+                            generator=torch.Generator(device=dev
+                                                      ).manual_seed(3))
+    res = generate(model, params, prompts, 5)
+    cache = model.init_cache(2, 11)
+    for t in range(6):
+        logits, cache = model.decode_step(params, cache, prompts[:, t:t + 1],
+                                          t)
+    tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+    want = [tok]
+    for t in range(6, 10):
+        logits, cache = model.decode_step(params, cache, tok, t)
+        tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+        want.append(tok)
+    assert torch.equal(res.tokens, torch.cat(want, 1))
+    step = DecodeStep(model, params, 2, 11)
+    assert step.graph.pool_bytes is not None

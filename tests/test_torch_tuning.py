@@ -656,7 +656,10 @@ def test_default_plan_writes_no_tuning_trace():
     a = train_linreg(grid, X, y, lr=0.05, steps=10, merge_state=ms)
     b = train_linreg(grid, X, y, lr=0.05, steps=10, engine="python")
     assert torch.equal(a.w, b.w) and ms == {}
-    assert grid._tuning_cache == {}
+    # the grid's cache holds the scan engine's chunk runner, nothing of
+    # the plan controller
+    assert not [k for k in grid._tuning_cache
+                if str(k[0]).startswith("tuning")]
 
 
 def test_the_tree_drops_auto_with_jaxs_warning():
