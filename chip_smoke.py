@@ -7,8 +7,9 @@
 Phases, each printed as one JSON line:
 
   1. device   — the card, and its name and power limit from nvidia-smi;
-  2. build    — the five CUDA kernels built from
-                src/repro_torch/kernels/csrc, in parallel;
+  2. build    — the five CUDA libraries built from
+                src/repro_torch/kernels/csrc, in parallel
+                (flash_attention.cu also holds the backward);
   3. compare  — each kernel's wrapper against its plain PyTorch version
                 on the card at the training paths' shapes (256 lanes x
                 65,536 rows) and on ragged shapes: fxp_matmul (the whole
@@ -77,6 +78,28 @@ Phases, each printed as one JSON line:
                 at full width, the
                 prefill against its twin (1e-4 x max|logit|) and against
                 the replay through ``decode_step`` (1e-3 x max|logit|);
+ 6b. train_lm — qwen2-0.5b trained at full width (24 layers, bf16 params,
+                a float32 master, AdamW at lr 3e-4): (a) the backward
+                kernel ``flash_attention_bwd`` against its plain version
+                in bf16 and float32 at D = 32, 64, 128, G = 1, 2, 7,
+                causal and full, a ragged S and the training shape (4 x
+                14 heads, 2 KV heads, S = 2048, D = 64): float32 within
+                2e-5 and bf16 within 1e-2 of max|grad| (the bit-equal
+                share printed), two launches bit-equal, the forward with
+                lse bit-equal to the forward without it; (b) its times,
+                bound, plain version and float32 / bf16 SDPA backward;
+                (c) 20 steps of 4 x 2048 tokens from ``TokenStream``
+                through ``launch.train``'s step and the ``Trainer``: 24
+                forward and 24 backward flash launches a step, finite
+                losses falling (the last five below the first), tokens/s,
+                a profile of one step by kernel class and its parts
+                (forward, backward, cross entropy, AdamW) apart; (d) 10
+                steps saved and resumed by a new Trainer, bit-equal to
+                (c) in every leaf; (e) one bf16 step against its
+                ``use_kernels(False)`` twin (loss within 1e-2, gradients'
+                relative L2 under 5e-2), and float32 at full width cut to
+                2 layers and 2 x 512 tokens (every leaf within 1e-4 x
+                max|g|);
   7. train_more — the slice's other workloads at 256 vDPUs x 2^24 rows,
                 d=64, each run with its launches, accuracy and steps/s
                 (median of 5 fits): LinearSVM int8 against fp32 (accuracy
@@ -293,7 +316,7 @@ from repro_torch.distributed.merge_plan import (  # noqa: E402
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
 from repro_torch.kernels import split_hist as split_hist_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
-                                                 route)
+                                                 flash_attention_bwd, route)
 from repro_torch.kernels.fxp_matmul import fxp_matmul  # noqa: E402
 from repro_torch.kernels.fxp_matmul import route as fxp_route  # noqa: E402
 from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
@@ -301,12 +324,15 @@ from repro_torch.kernels.lut_activation import lut_activation  # noqa: E402
 from repro_torch.kernels.split_hist import split_hist  # noqa: E402
 from repro_torch.launch.mesh import init_world, make_pim_mesh  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.launch.serve_lm import (DecodeStep,  # noqa: E402
                                          Generation, generate)
 from repro_torch.models import build as build_model  # noqa: E402
+from repro_torch.models import transformer as lm_tfm  # noqa: E402
 from repro_torch.models.transformer import padded_vocab  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.data import StreamingDataset  # noqa: E402
+from repro_torch.data import StreamingDataset, TokenStream  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.resilience import (FaultEvent, FaultPlan,  # noqa: E402
                                     RecoveryPolicy, faults, replay_trace)
 from repro_torch.roofline import hw  # noqa: E402
@@ -459,6 +485,9 @@ SOURCES = {
                    "src/repro/kernels/split_hist.py:58"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:73"),
+    # no TPU kernel: the gradient of the one above
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:73"),
 }
 LIBRARY_NOTES = {
     "fxp_matmul": "no one PyTorch call computes hybrid_dot: "
@@ -477,6 +506,16 @@ LIBRARY_NOTES = {
                        "timed outside the path; library_bf16_ms is the "
                        "same call on the bf16 views, which rounds p to "
                        "bf16",
+    "flash_attention_bwd": "not a TPU kernel: the gradient of "
+                           "flash_attention (the JAX package trains through "
+                           "jax.grad of its plain attention).  torch.autograd"
+                           ".grad of scaled_dot_product_attention(is_causal="
+                           "True, enable_gqa=True) on the bf16 views of q, k "
+                           "and v: the same function at the same precision "
+                           "(its fused backward, like this kernel, rounds p "
+                           "and ds to bf16 as product operands), timed "
+                           "outside the path; library_fp32_ms is the same "
+                           "on float32 copies",
 }
 PER = {
     "fxp_matmul": "one logreg training step: forward (L,R,d)x(d,1) + "
@@ -492,6 +531,10 @@ PER = {
     "flash_attention": "one layer's causal self-attention in qwen2-0.5b's "
                        "prefill: q (4, 14, 4096, 64), k and v (4, 2, 4096, "
                        "64), bf16, on the wgmma kernel",
+    "flash_attention_bwd": "one layer's attention gradient in qwen2-0.5b's "
+                           "training step: q, o, dO (4, 14, 2048, 64), k and "
+                           "v (4, 2, 2048, 64), bf16, causal; three launches "
+                           "(delta, dK/dV, dQ) on mma.sync",
 }
 PORT_KERNELS = re.compile(r"(fxp_\w+?_kernel|lut_kernel|km_partials|km_reduce"
                           r"|hist_kernel|flash_\w+?_kernel)")
@@ -512,7 +555,7 @@ def require(cond: bool, what: str) -> None:
 
 
 WRAPPERS = (fxp_matmul, lut_activation, kmeans_assign, split_hist,
-            flash_attention)
+            flash_attention, flash_attention_bwd)
 
 
 def reset_counts() -> None:
@@ -4859,6 +4902,436 @@ def serve_lm(args, dev, card: str) -> dict:
     return seen
 
 
+# -- train_lm: qwen2-0.5b trained at full width ------------------------------
+
+# the backward against its plain version on the same q, k, v, o, dO and
+# lse: float32 within 2e-5 of max|grad| (summation order), bf16 within
+# 1e-2 (p and ds rounded once to bf16 as mma operands, where the plain
+# version keeps them in float32); max|grad| over dq, dk and dv
+FLASH_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_RESUME_AT = 4, 2048, 20, 10
+TRAIN_LR = 3e-4
+TRAIN_STEADY_STEPS = 3
+# one bf16 step with kernels against use_kernels(False): the loss within
+# 1e-2 relative; the gradients' relative L2 gap under 5e-2 (one-ulp
+# attention outputs and the backward's bf16 p and ds, re-rounded through
+# 24 layers of bf16 activations); float32 at full width, cut to 2 layers
+# and 2 x 512 tokens, every leaf within 1e-4 of its max|g| (summation
+# order)
+TRAIN_TWIN_LOSS_RTOL = 1e-2
+TRAIN_TWIN_GRAD_L2 = 5e-2
+TRAIN_F32_LAYERS, TRAIN_F32_BATCH, TRAIN_F32_SEQ = 2, 2, 512
+TRAIN_F32_TOL = 1e-4
+FLASH_FWD_KERNELS = re.compile(r"flash_(wgmma|mma|simt)_kernel")
+FLASH_BWD_KERNELS = {"delta": re.compile(r"flash_bwd_delta_kernel"),
+                     "dkdv": re.compile(r"flash_bwd_dkdv_\w+?_kernel"),
+                     "dq": re.compile(r"flash_bwd_dq_\w+?_kernel")}
+STEP_CLASSES = (("flash_forward", FLASH_FWD_KERNELS),
+                ("flash_backward", re.compile(r"flash_bwd_")),
+                ("gemm", GEMM_KERNELS),
+                ("reductions", re.compile(r"reduce|softmax|logsumexp",
+                                          re.IGNORECASE)),
+                ("gather_scatter", re.compile(
+                    r"gather|scatter|index|embedding|sort", re.IGNORECASE)),
+                ("elementwise", re.compile(r"elementwise|vectorized|"
+                                           r"unrolled|fill|copy|cat",
+                                           re.IGNORECASE)))
+
+
+def flash_bwd_check(name, q, k, v, causal) -> dict:
+    """flash_attention_bwd against its plain version within FLASH_BWD_TOL
+    (bf16: the bit-equal share printed), a second launch bit-equal, and
+    the forward with lse bit-equal to the forward without it."""
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    fwd_same = bool(torch.equal(o, flash_attention(q, k, v, causal=causal)))
+    gen = torch.Generator(device=q.device).manual_seed(q.shape[2])
+    do = torch.randn((q.shape[0], q.shape[2], q.shape[1], q.shape[3]),
+                     generator=gen, device=q.device).to(q.dtype
+                                                        ).transpose(1, 2)
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    scale = max(float(w.float().abs().max()) for w in want)
+    errs = [max_abs_err(g, w) for g, w in zip(got, want)]
+    share = (sum(int((g == w).sum()) for g, w in zip(got, want))
+             / sum(w.numel() for w in want))
+    out = {"case": name, "q": list(q.shape), "k": list(k.shape),
+           "dtype": str(q.dtype)[6:], "causal": causal,
+           "group": q.shape[1] // k.shape[1],
+           "max_abs_err": max(errs), "err_over_max_grad": max(errs) / scale,
+           "dq_dk_dv_err": errs, "bit_equal_share": share,
+           "forward_with_lse_bit_equal": fwd_same,
+           "deterministic": all(torch.equal(a, b)
+                                for a, b in zip(got, again)),
+           "finite": all(bool(torch.isfinite(g).all()) for g in got)}
+    out["within_tolerance"] = out["err_over_max_grad"] <= \
+        FLASH_BWD_TOL[q.dtype]
+    require(out["within_tolerance"] and out["finite"],
+            f"flash_attention_bwd != plain version: {out}")
+    require(out["deterministic"] and fwd_same,
+            f"flash_attention_bwd not deterministic or the forward with lse "
+            f"!= without: {out}")
+    return out
+
+
+def compare_flash_bwd(gen, seq: int) -> list:
+    """bf16 and float32; D = 32, 64, 128; G = 1, 2, 7; causal and full; a
+    ragged S; qwen2-0.5b's training shape (4 x 14 heads, 2 KV heads,
+    ``seq``, D = 64)."""
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, shape, causal in (
+                ("qwen2 training", (TRAIN_BATCH, 14, 2, seq, 64), True),
+                ("ragged S, G=7", (2, 14, 2, 1000, 64), True),
+                ("full, G=7", (1, 14, 2, 513, 64), False),
+                ("D=32, G=1", (2, 4, 4, 300, 32), True),
+                ("D=32 full, G=2", (2, 4, 2, 256, 32), False),
+                ("D=128, G=2", (1, 8, 4, 700, 128), True),
+                ("D=128 full, G=1", (1, 4, 4, 512, 128), False)):
+            out.append(flash_bwd_check(
+                name, *flash_inputs(gen, *shape, dtype), causal))
+    return out
+
+
+def sdpa_grads(q, k, v, do):
+    """The gradient of PyTorch's fused attention on the same views: the
+    yardstick of the backward's ``library_ms`` (bf16) and
+    ``library_fp32_ms``, never called by the port."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(sdpa(*leaves), leaves, do)
+
+
+def time_flash_bwd(gen, seq: int, iters: int) -> dict:
+    """One layer's attention gradient in qwen2-0.5b's bf16 training step,
+    every tensor in the layout the step gives the kernel: (B, H, S, D)
+    views of (B, S, H, D) tensors, dO too.  ops: the function's five
+    products of 2·D a live (query, key) pair (s = q·kᵀ, as p is not an
+    input; dV = pᵀ·dO; dp = dO·vᵀ; dK = dsᵀ·q; dQ = ds·k), at the bf16
+    peak; the dQ kernel's second q·kᵀ and dO·vᵀ are the design's cost and
+    not counted.  bytes: q, k, v, o, dO and lse read once, dq, dk and dv
+    written once."""
+    dev = gen.device
+    B, H, Kh, D = TRAIN_BATCH, 14, 2, 64
+    q, k, v = flash_inputs(gen, B, H, Kh, seq, D, torch.bfloat16)
+    check = flash_bwd_check("timed shapes", q, k, v, True)
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    do = torch.randn((B, seq, H, D), generator=gen, device=dev
+                     ).to(o.dtype).transpose(1, 2)
+    grads = flash_attention_bwd(q, k, v, o, do, lse)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    lib_err = max(max_abs_err(a, b) for a, b in zip(
+        sdpa_grads(q, k, v, do), grads))
+    lib_fp32_err = max(max_abs_err(a, b) for a, b in zip(
+        sdpa_grads(qf, kf, vf, dof), grads))
+
+    def run():
+        return flash_attention_bwd(q, k, v, o, do, lse)
+
+    t = {"ms": median_ms(run, dev, iters),
+         "single_call_ms": single_call_ms(run, dev, iters),
+         "plain_ms": median_ms(lambda: ref.flash_attention_bwd_ref(
+             q, k, v, o, do, lse), dev, max(1, iters // 5)),
+         "library_ms": median_ms(lambda: sdpa_grads(q, k, v, do), dev,
+                                 iters),
+         "library_fp32_ms": median_ms(lambda: sdpa_grads(qf, kf, vf, dof),
+                                      dev, max(1, iters // 5)),
+         "library_max_abs_err": lib_err,
+         "library_fp32_max_abs_err": lib_fp32_err,
+         "bytes": nbytes(q, k, v, o, do, lse, *grads),
+         "ops": 10 * B * H * D * seq * (seq + 1) // 2,
+         "max_abs_err": check["max_abs_err"],
+         "err_over_max_grad": check["err_over_max_grad"],
+         "bit_equal_share": check["bit_equal_share"]}
+    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
+                                         hw.PEAK_FLOPS_BF16)
+    of, lsef = flash_attention(qf, kf, vf, return_lse=True)
+    t["float32_ms"] = median_ms(lambda: flash_attention_bwd(
+        qf, kf, vf, of, dof, lsef), dev, max(1, iters // 5))
+    return t
+
+
+def step_profile(run, dev) -> dict:
+    """``torch.profiler`` over one warm training step: device time by
+    class of kernel (the flash forward and backward, cuBLAS GEMMs,
+    reductions, gathers, elementwise passes), the flash kernels' launches
+    by name, and the device's idle share of the traced window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"device_time": "not measured (the profiler recorded no "
+                "device events)", "traced_wall_ms": wall_ms}
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    by_class = {name: 0.0 for name, _ in STEP_CLASSES}
+    by_class["other"] = 0.0
+    for e in kernels:
+        cls = next((name for name, pat in STEP_CLASSES
+                    if pat.search(e.key)), "other")
+        by_class[cls] += e.self_device_time_total / 1e3
+    launches = {"flash_forward": sum(e.count for e in kernels
+                                     if FLASH_FWD_KERNELS.search(e.key))}
+    for name, pat in FLASH_BWD_KERNELS.items():
+        launches[f"flash_bwd_{name}"] = sum(e.count for e in kernels
+                                            if pat.search(e.key))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    return {"traced_wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "device_ms_by_class": by_class, "flash_launches": launches,
+            "device_kernel_calls": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def event_ms(fn, dev) -> float:
+    """One call's device time between two CUDA events (host clock on the
+    CPU)."""
+    sync(dev)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def step_parts(model, opt, state, batch, dev) -> dict:
+    """A warm step's parts, each between CUDA events: the step's
+    ``launch.train.loss_and_grads``, the loss forward alone on leaves that
+    autograd records (the gradient is the difference), the cross entropy
+    alone (forward and gradient on the step's logits) and the AdamW
+    update."""
+    out = {}
+    holder = {}
+
+    def forward():
+        model.loss(lm_train.trainable(state["params"]), batch)
+
+    def loss_and_grads():
+        holder["grads"] = lm_train.loss_and_grads(model, state["params"],
+                                                  batch)[2]
+
+    def update():
+        with torch.no_grad():
+            opt.update(holder["grads"], state["opt"], state["params"])
+
+    out["forward_ms"] = event_ms(forward, dev)
+    out["loss_and_grads_ms"] = event_ms(loss_and_grads, dev)
+    out["backward_ms"] = out["loss_and_grads_ms"] - out["forward_ms"]
+    out["adamw_ms"] = event_ms(update, dev)
+    holder.clear()
+    with torch.no_grad():
+        logits = lm_tfm.lm_forward(model.cfg, state["params"],
+                                   batch["tokens"])
+    lg = logits.detach().requires_grad_()
+
+    def ce():
+        torch.autograd.grad(lm_tfm.cross_entropy(lg, batch["tokens"]), lg)
+
+    out["cross_entropy_ms"] = single_call_ms(ce, dev, 3)
+    del logits, lg
+    return out
+
+
+def leaves_equal(a, b) -> dict:
+    """Bit-equality of two states leaf by leaf, and the largest gap where
+    they differ."""
+    names, la = tree_flatten_with_names(a)
+    lb = tree_leaves(b)
+    differ = {n: max_abs_err(x, y) for n, x, y in zip(names, la, lb)
+              if not torch.equal(x, y)}
+    return {"leaves": len(la), "bit_equal": not differ,
+            "differing": dict(list(differ.items())[:8])}
+
+
+def grads_of(model, params, batch) -> tuple:
+    loss, _, grads = lm_train.loss_and_grads(model, params, batch)
+    return loss.detach(), tree_leaves(grads)
+
+
+def grad_twin(model, params, batch) -> dict:
+    """The loss and its gradients with kernels against use_kernels(False)
+    on the same parameters and batch."""
+    loss, got = grads_of(model, params, batch)
+    with dispatch.use_kernels(False):
+        twin_loss, want = grads_of(model, params, batch)
+    num = sum(float((a.float() - w.float()).norm()) ** 2
+              for a, w in zip(got, want))
+    den = sum(float(w.float().norm()) ** 2 for w in want)
+    worst = max(max_abs_err(a, w) / max(float(w.float().abs().max()), 1e-30)
+                for a, w in zip(got, want))
+    return {"loss": float(loss), "twin_loss": float(twin_loss),
+            "loss_rel_gap": abs(float(loss) - float(twin_loss))
+            / abs(float(twin_loss)),
+            "grad_rel_l2": (num / den) ** 0.5,
+            "worst_leaf_err_over_max": worst}
+
+
+def lm_trainer(model, opt, seed: int, seq: int, ckpt_dir=None) -> Trainer:
+    """``launch.train``'s pieces: the state from ``seed``, a TokenStream
+    batch of TRAIN_BATCH x ``seq`` tokens a step, the step function, the
+    fault-tolerant Trainer."""
+    cfg = model.cfg
+    stream = TokenStream(cfg.vocab_size, TRAIN_BATCH, seq, seed=seed,
+                         device=model.device)
+    # one checkpoint kept: a save of the full-width state is 6.9 GB
+    return Trainer(lm_train.make_step_fn(model, opt),
+                   lm_train.make_state(model, opt, seed),
+                   lm_train.make_batch_fn(cfg, stream, TRAIN_BATCH, seq),
+                   TrainerConfig(ckpt_dir=ckpt_dir, ckpt_keep=1,
+                                 log_every=10))
+
+
+def train_lm(args, dev, card: str) -> tuple:
+    """qwen2-0.5b trained at full width (the smoke config in a
+    rehearsal): (a) the backward kernel against its plain version, (b) its
+    times, (c) 20 steps through ``launch.train`` and the Trainer with
+    their launches, loss, tokens/s and a profile of one step, (d) a run
+    saved at step 10 and resumed, bit-equal to (c), (e) one step against
+    its ``use_kernels(False)`` twin in bf16 and, cut to 2 layers, in
+    float32.  Returns the main path's launches and the backward's times."""
+    cfg = (get_smoke_config if args.rehearse else get_config)(LM_ARCH)
+    check = not args.rehearse
+    seq = TRAIN_SEQ if check else 64
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 40)
+    emit("compare", flash_attention_bwd=compare_flash_bwd(
+        gen, seq if check else 130))
+    times = time_flash_bwd(gen, seq if check else 130, args.iters)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) the main path: counts set to 0 just before, read just after
+    model = build_model(cfg, dev)
+    opt = adamw(TRAIN_LR)
+    seed = args.seed + 41
+    trainer = lm_trainer(model, opt, seed, seq)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = trainer.run(TRAIN_STEPS)
+    sync(dev)
+    run_s = time.perf_counter() - t0
+    seen = counts()
+    want = expected(flash_attention=cfg.n_layers * TRAIN_STEPS,
+                    flash_attention_bwd=cfg.n_layers * TRAIN_STEPS)
+    if check:
+        require(seen == want, f"train_lm launched {seen}, the design "
+                f"implies {want}")
+    losses = [h["loss"] for h in trainer.history]
+    first, last5 = losses[0], statistics.mean(losses[-5:])
+    require(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+            f"train_lm losses {losses}")
+    require(out["restarts"] == 0, f"train_lm restarted: {out}")
+    require(last5 < first, f"train_lm: the last five steps' mean loss "
+            f"{last5} is not below the first step's {first}")
+    n_tok = TRAIN_BATCH * seq
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
+    state = trainer.state
+    step_fn = lm_train.make_step_fn(model, opt)
+    batch = trainer.batch_fn(TRAIN_STEPS)
+    step_fn(state, batch)                                     # warm
+    steady = []
+    for _ in range(TRAIN_STEADY_STEPS):
+        sync(dev)
+        t1 = time.perf_counter()
+        step_fn(state, batch)
+        sync(dev)
+        steady.append(time.perf_counter() - t1)
+    reset_counts()
+    prof = step_profile(lambda: step_fn(state, batch), dev)
+    if check and "flash_launches" in prof:
+        per = {k: v for k, v in prof["flash_launches"].items()}
+        require(all(n == cfg.n_layers for n in per.values()),
+                f"a profiled step launched the flash kernels {per}, the "
+                f"design implies {cfg.n_layers} each")
+    parts = step_parts(model, opt, state, batch, dev)
+    main = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": seq,
+            "launches": seen, "expected_launches": want,
+            "first_loss": first, "last5_mean_loss": last5,
+            "losses": losses, "run_s": run_s,
+            "tokens_per_s": {"run": n_tok * TRAIN_STEPS / run_s,
+                             "steady_median": n_tok / statistics.median(
+                                 steady),
+                             "steady_steps_s": steady},
+            "peak_memory_gib": peak, "profile": prof, "parts": parts}
+    emit("train_lm", card=card, part="main path", arch=cfg.name,
+         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+         dtype=cfg.dtype, params=model.param_count(state["params"]), **main)
+    del batch
+
+    # (d) saved at step TRAIN_RESUME_AT, resumed by a new Trainer
+    base = tempfile.mkdtemp(prefix="train_lm_")
+    try:
+        t1 = time.perf_counter()
+        lm_trainer(model, opt, seed, seq, base).run(TRAIN_RESUME_AT)
+        first_s = time.perf_counter() - t1
+        resumed = lm_trainer(model, opt, seed, seq, base)
+        restore_s = time.perf_counter() - t1 - first_s
+        require(resumed.start_step == TRAIN_RESUME_AT,
+                f"resumed at step {resumed.start_step}")
+        resumed.run(TRAIN_STEPS - TRAIN_RESUME_AT)
+        same = leaves_equal(resumed.state, state)
+        same_losses = [h["loss"] for h in resumed.history] == \
+            losses[TRAIN_RESUME_AT:]
+        resume = {"resumed_at": resumed.start_step, **same,
+                  "losses_equal": same_losses, "first_run_s": first_s,
+                  "restore_s": restore_s,
+                  "total_s": time.perf_counter() - t1}
+        require(same["bit_equal"] and same_losses,
+                f"train_lm: the resumed run != the straight run: {resume}")
+        del resumed
+    finally:
+        import shutil
+        shutil.rmtree(base, ignore_errors=True)
+    del trainer, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (e) one step against its use_kernels(False) twin
+    params = model.init(seed)
+    twin_batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                          (TRAIN_BATCH, seq), generator=gen,
+                                          device=dev)}
+    bf16 = grad_twin(model, params, twin_batch)
+    require(bf16["loss_rel_gap"] <= TRAIN_TWIN_LOSS_RTOL
+            and bf16["grad_rel_l2"] < TRAIN_TWIN_GRAD_L2,
+            f"train_lm: a bf16 step != its plain twin: {bf16}")
+    del params, model
+    cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS,
+                                block_pattern=(cfg.pattern[0],)
+                                * TRAIN_F32_LAYERS, dtype="float32")
+    model32 = build_model(cfg32, dev)
+    f32 = grad_twin(model32, model32.init(seed), {"tokens": torch.randint(
+        0, cfg.vocab_size, (TRAIN_F32_BATCH, min(seq, TRAIN_F32_SEQ)),
+        generator=gen, device=dev)})
+    require(f32["worst_leaf_err_over_max"] <= TRAIN_F32_TOL,
+            f"train_lm: a float32 step != its plain twin: {f32}")
+    emit("train_lm", card=card, part="resume and twins", resume=resume,
+         bf16_twin=bf16, float32_twin={"layers": TRAIN_F32_LAYERS,
+                                       "batch": TRAIN_F32_BATCH,
+                                       "seq": min(seq, TRAIN_F32_SEQ), **f32},
+         seconds=time.perf_counter() - t_phase)
+    return seen, times
+
+
 # -- main ------------------------------------------------------------------
 
 
@@ -4969,6 +5442,12 @@ def main(argv=None) -> int:
     main_counts["flash_attention"] = serve_lm(args, dev, smi)[
         "flash_attention"]
     torch.cuda.empty_cache() if dev.type == "cuda" else None
+    trained, times["flash_attention_bwd"] = train_lm(args, dev, smi)
+    main_counts["flash_attention_bwd"] = trained["flash_attention_bwd"]
+    times["flash_attention"]["train_lm_launches"] = trained["flash_attention"]
+    times["flash_attention_bwd"]["launches_per_train_step"] = \
+        trained["flash_attention_bwd"] // TRAIN_STEPS
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
     train_more(args, dev, smi)
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     train_plans(args, dev, smi)
@@ -5005,8 +5484,11 @@ def main(argv=None) -> int:
                 entry["replayed_launches"] = {"run": run, "steps": steps,
                                               "launches": seen[name]}
         for extra in ("single_call_ms", "parts", "multinomial", "int32_bins",
-                      "float32_ms", "library_bf16_ms",
-                      "library_max_abs_err", "bit_equal_share"):
+                      "float32_ms", "library_bf16_ms", "library_fp32_ms",
+                      "library_max_abs_err", "library_fp32_max_abs_err",
+                      "bit_equal_share",
+                      "err_over_max_grad", "train_lm_launches",
+                      "launches_per_train_step"):
             if extra in t:
                 entry[extra] = t[extra]
         kernels.append(entry)

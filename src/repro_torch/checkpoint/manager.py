@@ -34,8 +34,15 @@ The host copy.  ``save`` copies every leaf to host memory before it
 returns (``.to("cpu", copy=True)``; on the card the one synchronising
 read), and only the file write runs in the background: a CPU tensor's
 ``.numpy()`` would share the live tensor's memory, which the next step
-may update in place.  A bf16 leaf has no numpy dtype and is refused
-(ROADMAP item A18.7, LM training, brings the first bf16 state).
+may update in place.
+
+bf16 leaves.  numpy has no bf16, and the JAX package's writer stores a
+bf16 leaf as its raw two-byte bit patterns, an npz array of dtype
+``V2``; the manifest records no dtype.  The port writes the same bytes
+under the same dtype (:func:`host_copy`) and reads a ``V2`` array back
+through its template leaf's dtype, so its bf16 checkpoints are
+byte-compatible with JAX's.  (JAX's own ``restore`` cannot cast a
+``V2`` array back: only the port reads such a leaf.)
 """
 
 from __future__ import annotations
@@ -55,8 +62,9 @@ import torch
 
 from repro_torch.tree import tree_flatten_with_names, tree_unflatten
 
-# the dtypes a leaf may have: a save refuses a tensor whose dtype is not
-# here, and a restore a stored array whose dtype is not
+# the dtypes a leaf may have besides bf16 (BF16_BITS): a save refuses a
+# tensor whose dtype is not here, and a restore a stored array whose dtype
+# is not
 NUMPY_TO_TORCH = {
     np.dtype(np.bool_): torch.bool,
     np.dtype(np.uint8): torch.uint8,
@@ -77,17 +85,42 @@ class CheckpointCorruptError(RuntimeError):
     corruption."""
 
 
+# the npz dtype of a bf16 leaf: its bit patterns, as JAX's writer stores them
+BF16_BITS = np.dtype("V2")
+
+
 def host_copy(leaf) -> np.ndarray:
-    """A leaf as a numpy array that owns its memory."""
+    """A leaf as a numpy array that owns its memory; a bf16 tensor as its
+    bit patterns, of dtype :data:`BF16_BITS`."""
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype not in NUMPY_TO_TORCH.values():
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(BF16_BITS)
+        if host.dtype not in NUMPY_TO_TORCH.values():
             raise TypeError(
                 f"cannot checkpoint a {leaf.dtype} leaf: the npz format "
-                f"holds numpy dtypes only, and {leaf.dtype} has none "
-                f"(bf16 checkpoints come with LM training, ROADMAP item "
-                f"A18.7)")
-        return leaf.detach().to("cpu", copy=True).numpy()
+                f"holds numpy dtypes and bf16 bit patterns only")
+        return host.numpy()
     return np.array(leaf, copy=True)
+
+
+def _leaf_from_host(name: str, host: np.ndarray, tmpl) -> torch.Tensor:
+    """A stored array as a tensor of its template leaf's dtype, on the
+    template's device; a ``V2`` array is taken as bf16 bit patterns."""
+    if not isinstance(tmpl, torch.Tensor):
+        raise TypeError(f"template leaf {name!r} is a "
+                        f"{type(tmpl).__name__}, not a tensor: a restore "
+                        f"places each leaf on its template's device")
+    if host.dtype == BF16_BITS:
+        if tmpl.dtype != torch.bfloat16:
+            raise TypeError(f"checkpoint leaf {name!r} holds bf16 bit "
+                            f"patterns, its template is {tmpl.dtype}")
+        bits = torch.from_numpy(np.ascontiguousarray(host).view(np.int16))
+        return bits.view(torch.bfloat16).to(tmpl.device)
+    if host.dtype not in NUMPY_TO_TORCH:
+        raise TypeError(f"checkpoint leaf {name!r} has dtype {host.dtype}, "
+                        f"which the port does not restore")
+    return torch.as_tensor(host, dtype=tmpl.dtype, device=tmpl.device)
 
 
 def _sha256(path: str) -> str:
@@ -266,17 +299,7 @@ class CheckpointManager:
                 if placer is not None:
                     out.append(placer(name, host))
                     continue
-                if host.dtype not in NUMPY_TO_TORCH:
-                    raise TypeError(f"checkpoint leaf {name!r} has dtype "
-                                    f"{host.dtype}, which the port does "
-                                    f"not restore")
-                if not isinstance(tmpl, torch.Tensor):
-                    raise TypeError(
-                        f"template leaf {name!r} is a "
-                        f"{type(tmpl).__name__}, not a tensor: a restore "
-                        f"places each leaf on its template's device")
-                out.append(torch.as_tensor(host, dtype=tmpl.dtype,
-                                           device=tmpl.device))
+                out.append(_leaf_from_host(name, host, tmpl))
         return tree_unflatten(template, out), meta["extra"]
 
     def restore_latest(self, template: Any, placer=None):

@@ -16,13 +16,13 @@ from typing import Dict, List
 from repro_torch.models.common import ModelConfig
 
 _ARCHS: Dict[str, str] = {
+    "phi4-mini-3.8b": "phi4_mini",
+    "minitron-8b": "minitron_8b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "qwen1.5-110b": "qwen15_110b",
 }
 # arch -> the ROADMAP item whose model family it needs
 _PENDING: Dict[str, str] = {
-    "phi4-mini-3.8b": "A18.1 (the other dense decoder configs)",
-    "minitron-8b": "A18.1 (the other dense decoder configs)",
-    "qwen1.5-110b": "A18.1 (the other dense decoder configs)",
     "recurrentgemma-2b": "A18.2 (LOCAL_ATTN ring buffer) and A18.5 (RG-LRU)",
     "qwen3-moe-235b-a22b": "A18.3 (MoE)",
     "phi3.5-moe-42b-a6.6b": "A18.3 (MoE)",
@@ -33,7 +33,7 @@ _PENDING: Dict[str, str] = {
 
 
 def list_archs() -> List[str]:
-    """The architectures the port serves."""
+    """The architectures the port trains and serves."""
     return list(_ARCHS)
 
 

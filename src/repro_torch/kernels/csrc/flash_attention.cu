@@ -147,9 +147,9 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, Strides sq, Strides sk,
-                 Strides sv, Strides so, int S, int group, int causal,
-                 float scale) {
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 Strides sq, Strides sk, Strides sv, Strides so, int S,
+                 int group, int causal, float scale) {
   constexpr int kLd = D + 8;         // padded row: conflict-free fragments
   constexpr int kSteps = D / 16;     // k-steps of q.k^T
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -292,8 +292,14 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // out = acc / max(l, 1e-30), rows past S not written
+  // out = acc / max(l, 1e-30), rows past S not written; lse = m + log(l)
+  // (m holds scaled scores) when asked for
   const float l_lo = fmaxf(l[0], 1e-30f), l_hi = fmaxf(l[1], 1e-30f);
+  if (lse != nullptr && t == 0) {
+    float* lh = lse + (static_cast<long long>(b) * gridDim.y + h) * S;
+    if (row_lo < S) lh[row_lo] = m[0] + logf(l[0]);
+    if (row_hi < S) lh[row_hi] = m[1] + logf(l[1]);
+  }
   __nv_bfloat16* oh = out + b * so.b + h * so.h;
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) {
@@ -642,8 +648,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ out, Strides so, int S, int H,
-                   int B, int group, int causal, float scale) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   Strides so, int S, int H, int B, int group, int causal,
+                   float scale) {
   using L = WgLayout<D>;
   constexpr int kHalves = D / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -755,8 +762,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(ph);
     fence_regs(pl);
 
-    // out = o / max(l, 1e-30), rows past S not written
+    // out = o / max(l, 1e-30), rows past S not written; lse = scale * m +
+    // log(l) (m holds unscaled scores) when asked for
     const float l_lo = fmaxf(l[0], 1e-30f), l_hi = fmaxf(l[1], 1e-30f);
+    if (lse != nullptr && w.t == 0) {
+      float* lh = lse + (static_cast<long long>(b) * H + h) * S;
+      if (w.row_lo < S) lh[w.row_lo] = fmaf(m[0], scale, logf(l[0]));
+      if (w.row_hi < S) lh[w.row_hi] = fmaf(m[1], scale, logf(l[1]));
+    }
     __nv_bfloat16* oh = out + b * so.b + h * so.h;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -800,8 +813,9 @@ template <int D>
 __global__ void __launch_bounds__(kSimtThreads)
 flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
-                  Strides sq, Strides sk, Strides sv, Strides so, int S,
-                  int group, int causal, float scale) {
+                  float* __restrict__ lse, Strides sq, Strides sk,
+                  Strides sv, Strides so, int S, int group, int causal,
+                  float scale) {
   constexpr int kLd = D + 1;         // odd row stride: conflict-free columns
   constexpr int kPld = kTile + 1;
   constexpr int kCols = D / 16;      // output columns per thread
@@ -910,10 +924,626 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;
     const float li = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)     // m holds scaled scores
+      lse[(static_cast<long long>(b) * gridDim.y + h) * S + row] =
+          m[i] + logf(l[i]);
 #pragma unroll
     for (int j = 0; j < kCols; ++j)
       oh[row * so.s + tx + 16 * j] = __fdiv_rn(acc[i][j], li);
   }
+}
+
+// ---------------------------------------------------------------------------
+// backward: the gradient of the forward above (no TPU kernel: the JAX
+// package trains through autodiff of its plain attention)
+// ---------------------------------------------------------------------------
+//
+// FlashAttention-2's scheme, from the forward's float32 row log-sum-exp
+// lse (B, H, S) and its output O:
+//
+//   delta = rowsum(dO o O)                           flash_bwd_delta_kernel
+//   per (batch, kv head, 64-key tile), over the H / Kh query heads of the
+//   group and the live 64-row query tiles:           flash_bwd_dkdv_*_kernel
+//     s  = q . k^T * scale;  p = exp(s - lse) (0 where masked)
+//     dV += p^T . dO;  dp = dO . v^T;  ds = p o (dp - delta)
+//     dK += ds^T . q                      (dK scaled once at the end)
+//   per (batch, head, 64-row query tile), over the live key tiles:
+//     dQ += ds . k (recomputing s, p, dp and ds)     flash_bwd_dq_*_kernel
+//
+// Every gradient element is summed inside one block (the GQA group's heads
+// included), so there are no float atomics: two launches give the same
+// bits.  bf16 runs mma.sync m16n8k16 with float32 accumulators: p and ds
+// are rounded once to bf16 as the A operands of their products (the
+// forward carries p to 2^-16 as two terms; here one term keeps each of the
+// seven products at 2 D operations a live pair); float32 runs the same
+// recurrences on the CUDA cores.  Rows and keys at or past S are masked
+// and never written.  What bounds it on the H100: operations.  The
+// function needs five products, 10 D a live (query, key) pair, 2.5x the
+// forward's q.k^T and p.v; the dQ kernel's second q.k^T and dO.v^T (4 D)
+// are this design's cost, 14 D in all.  The dK/dV kernel
+// keeps K and V in shared memory and streams Q and dO tiles, the dQ kernel
+// keeps Q and dO and streams K and V.  Later work: wgmma fed by TMA, as
+// the forward has it.
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+constexpr int kDeltaRows = 8;      // rows of (B, H, S) a block, a warp each
+
+// delta[row] = sum_d dO[row, d] * O[row, d] in float32, rows in (b, h, s)
+// order.
+template <typename T>
+__global__ void __launch_bounds__(kDeltaRows * 32)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, Strides so, Strides sdo,
+                       int S, int H, int D, long long rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kDeltaRows + threadIdx.x / 32;
+  if (row >= rows) return;                       // a whole warp returns
+  const int lane = threadIdx.x % 32;
+  const int s = static_cast<int>(row % S);
+  const long long bh = row / S;
+  const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
+  const T* orow = o + b * so.b + h * so.h + s * so.s;
+  const T* drow = dout + b * sdo.b + h * sdo.h + s * sdo.s;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32)
+    acc = fmaf(to_float(drow[d]), to_float(orow[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// bf16: tensor cores.  Four warps, 16 rows of a 64-row tile each.
+
+// c[nt] = rows r, r + 8 of tile a . rows nt * 8 + g of tile b, over D: a
+// 16 x 64 product of two (64, D + 8) row-major shared tiles, in the score
+// fragment layout (c[nt][e]: row e < 2 ? r : r + 8, column nt * 8 + 2t +
+// (e & 1)).
+template <int D>
+__device__ __forceinline__ void rows_dot_rows(float (&c)[8][4],
+                                              const __nv_bfloat16* a,
+                                              const __nv_bfloat16* b, int r,
+                                              int g, int t) {
+  constexpr int kLd = D + 8;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const __nv_bfloat16* pa = a + r * kLd + kk * 16 + 2 * t;
+    uint32_t fa[4];
+    fa[0] = *reinterpret_cast<const uint32_t*>(pa);
+    fa[1] = *reinterpret_cast<const uint32_t*>(pa + 8 * kLd);
+    fa[2] = *reinterpret_cast<const uint32_t*>(pa + 8);
+    fa[3] = *reinterpret_cast<const uint32_t*>(pa + 8 * kLd + 8);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const __nv_bfloat16* pb = b + (nt * 8 + g) * kLd + kk * 16 + 2 * t;
+      mma_bf16(c[nt], fa, *reinterpret_cast<const uint32_t*>(pb),
+               *reinterpret_cast<const uint32_t*>(pb + 8));
+    }
+  }
+}
+
+// acc (16 rows x D) += x . m: x the 16 x 64 float32 values of a score
+// fragment (rounded once to bf16 as A fragments), m a (64, D + 8)
+// row-major shared tile whose rows are the contraction, its B fragments by
+// ldmatrix.trans, two d-tiles a load.
+template <int D>
+__device__ __forceinline__ void frags_dot_tile(float (&acc)[D / 8][4],
+                                               const float (&x)[8][4],
+                                               const __nv_bfloat16* m,
+                                               int lane) {
+  constexpr int kLd = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[4];
+    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+#pragma unroll
+    for (int nd = 0; nd < D / 8; nd += 2) {
+      const int mat = lane / 8;
+      const int row = kk * 16 + (mat & 1) * 8 + lane % 8;
+      const int col = (nd + (mat >> 1)) * 8;
+      uint32_t mb[4];
+      ldmatrix_x4_trans(mb, m + row * kLd + col);
+      mma_bf16(acc[nd], a, mb[0], mb[1]);
+      mma_bf16(acc[nd + 1], a, mb[2], mb[3]);
+    }
+  }
+}
+
+// Rows r, r + 8 of a (rows, D) gradient: acc * scale as bf16, rows past S
+// not written.
+template <int D>
+__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst,
+                                                long long s_stride,
+                                                const float (&acc)[D / 8][4],
+                                                int row_lo, int t, int S,
+                                                float scale) {
+  const int row_hi = row_lo + 8;
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int col = nd * 8 + t * 2;
+    if (row_lo < S)
+      *reinterpret_cast<uint32_t*>(dst + row_lo * s_stride + col) =
+          pack_bf16(acc[nd][0] * scale, acc[nd][1] * scale);
+    if (row_hi < S)
+      *reinterpret_cast<uint32_t*>(dst + row_hi * s_stride + col) =
+          pack_bf16(acc[nd][2] * scale, acc[nd][3] * scale);
+  }
+}
+
+// One block per (64-key tile, kv head, batch); key tile 0, the longest
+// under the causal mask, first.  Shared: K, V, then each query tile's Q,
+// dO, lse and delta.  A warp's rows are keys: s^T = K . Q^T and dp^T =
+// V . dO^T, so p^T and ds^T are the A fragments of dV += p^T . dO and
+// dK += ds^T . Q without a transpose.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkdv_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+    Strides sdo, Strides sdk, Strides sdv, int S, int H, int group,
+    int causal, float scale) {
+  constexpr int kLd = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Vs = Ks + kTile * kLd;
+  __nv_bfloat16* Qs = Vs + kTile * kLd;
+  __nv_bfloat16* Ds = Qs + kTile * kLd;            // dO
+  float* Ls = reinterpret_cast<float*>(Ds + kTile * kLd);
+  float* Es = Ls + kTile;                          // delta
+
+  const int n_t = (S + kTile - 1) / kTile;
+  const int jk = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = jk * kTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r = warp * 16 + g;                     // tile rows r, r + 8
+  const int key_lo = k0 + r, key_hi = key_lo + 8;
+
+  load_tile_bf16<D>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, S);
+  load_tile_bf16<D>(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, S);
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
+
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = hk * group + gi;
+    const __nv_bfloat16* qh = q + b * sq.b + h * sq.h;
+    const __nv_bfloat16* doh = dout + b * sdo.b + h * sdo.h;
+    const float* lh = lse + (static_cast<long long>(b) * H + h) * S;
+    const float* eh = delta + (static_cast<long long>(b) * H + h) * S;
+    for (int iq = causal ? jk : 0; iq < n_t; ++iq) {
+      const int q0 = iq * kTile;
+      __syncthreads();                   // the last tile's readers are done
+      load_tile_bf16<D>(Qs, qh, sq.s, q0, S);
+      load_tile_bf16<D>(Ds, doh, sdo.s, q0, S);
+      if (threadIdx.x < kTile) {
+        const int row = q0 + threadIdx.x;
+        Ls[threadIdx.x] = row < S ? lh[row] : 0.f;
+        Es[threadIdx.x] = row < S ? eh[row] : 0.f;
+      }
+      __syncthreads();
+      float st[8][4], dpt[8][4];
+      rows_dot_rows<D>(st, Ks, Qs, r, g, t);       // s^T: keys x queries
+      rows_dot_rows<D>(dpt, Vs, Ds, r, g, t);      // dp^T
+      const bool edge =
+          (causal && iq == jk) || q0 + kTile > S || k0 + kTile > S;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cq = nt * 8 + 2 * t + (e & 1);  // query in the tile
+          const int key = (e < 2) ? key_lo : key_hi;
+          const bool ok = !edge || (q0 + cq < S && key < S &&
+                                    (!causal || key <= q0 + cq));
+          const float p = ok ? expf(fmaf(st[nt][e], scale, -Ls[cq])) : 0.f;
+          st[nt][e] = p;
+          dpt[nt][e] = p * (dpt[nt][e] - Es[cq]);
+        }
+      }
+      frags_dot_tile<D>(dva, st, Ds, lane);        // dV += p^T . dO
+      frags_dot_tile<D>(dka, dpt, Qs, lane);       // dK += ds^T . Q
+    }
+  }
+  store_rows_bf16<D>(dk + b * sdk.b + hk * sdk.h, sdk.s, dka, key_lo, t, S,
+                     scale);
+  store_rows_bf16<D>(dv + b * sdv.b + hk * sdv.h, sdv.s, dva, key_lo, t, S,
+                     1.f);
+}
+
+// One block per (64-row query tile, head, batch), the longest tiles first.
+// Shared: Q and dO, then each key tile's K and V.  A warp's rows are
+// queries, as in the forward; ds is the A fragment of dQ += ds . K.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+    Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq, int S,
+    int group, int causal, float scale) {
+  constexpr int kLd = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ds = Qs + kTile * kLd;            // dO
+  __nv_bfloat16* Ks = Ds + kTile * kLd;
+  __nv_bfloat16* Vs = Ks + kTile * kLd;
+
+  const int n_t = (S + kTile - 1) / kTile;
+  const int iq = n_t - 1 - static_cast<int>(blockIdx.x);  // longest first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int q0 = iq * kTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r = warp * 16 + g;
+  const int row_lo = q0 + r, row_hi = row_lo + 8;
+
+  load_tile_bf16<D>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
+  load_tile_bf16<D>(Ds, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S);
+  const long long bh = (static_cast<long long>(b) * gridDim.y + h) * S;
+  const float l_lo = row_lo < S ? lse[bh + row_lo] : 0.f;
+  const float l_hi = row_hi < S ? lse[bh + row_hi] : 0.f;
+  const float e_lo = row_lo < S ? delta[bh + row_lo] : 0.f;
+  const float e_hi = row_hi < S ? delta[bh + row_hi] : 0.f;
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+    dqa[nd][0] = dqa[nd][1] = dqa[nd][2] = dqa[nd][3] = 0.f;
+
+  const int n_k = causal ? iq + 1 : n_t;
+  for (int jk = 0; jk < n_k; ++jk) {
+    const int k0 = jk * kTile;
+    __syncthreads();                     // the last tile's readers are done
+    load_tile_bf16<D>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, S);
+    load_tile_bf16<D>(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, S);
+    __syncthreads();
+    float s[8][4], dp[8][4];
+    rows_dot_rows<D>(s, Qs, Ks, r, g, t);
+    rows_dot_rows<D>(dp, Ds, Vs, r, g, t);
+    const bool edge =
+        (causal && jk == iq) || k0 + kTile > S || q0 + kTile > S;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = (e < 2) ? row_lo : row_hi;
+        const int key = k0 + nt * 8 + 2 * t + (e & 1);
+        const bool ok =
+            !edge || (row < S && key < S && (!causal || key <= row));
+        const float p =
+            ok ? expf(fmaf(s[nt][e], scale, -((e < 2) ? l_lo : l_hi))) : 0.f;
+        s[nt][e] = p * (dp[nt][e] - ((e < 2) ? e_lo : e_hi));     // ds
+      }
+    }
+    frags_dot_tile<D>(dqa, s, Ks, lane);           // dQ += ds . K
+  }
+  store_rows_bf16<D>(dq + b * sdq.b + h * sdq.h, sdq.s, dqa, row_lo, t, S,
+                     scale);
+}
+
+// float32: CUDA cores, 256 threads as 16 x 16, each owning 4 x 4 of the
+// 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j) and 4 x D / 16 of
+// its gradient rows (columns tx + 16 c).
+
+template <int D>
+__global__ void __launch_bounds__(kSimtThreads)
+flash_bwd_dkdv_simt_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, Strides sq, Strides sk,
+    Strides sv, Strides sdo, Strides sdk, Strides sdv, int S, int H,
+    int group, int causal, float scale) {
+  constexpr int kLd = D + 1;         // odd row stride: conflict-free columns
+  constexpr int kPld = kTile + 1;
+  constexpr int kCols = D / 16;
+  extern __shared__ float smem_f[];
+  float* Ks = smem_f;                // (64, D + 1) each
+  float* Vs = Ks + kTile * kLd;
+  float* Qs = Vs + kTile * kLd;
+  float* Ds = Qs + kTile * kLd;      // dO
+  float* Ps = Ds + kTile * kLd;      // p^T (64 keys, 65)
+  float* Gs = Ps + kTile * kPld;     // ds^T
+  float* Ls = Gs + kTile * kPld;     // lse of the query tile
+  float* Es = Ls + kTile;            // delta
+
+  const int n_t = (S + kTile - 1) / kTile;
+  const int jk = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = jk * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  load_tile_f32<D>(Ks, kLd, k + b * sk.b + hk * sk.h, sk.s, k0, S);
+  load_tile_f32<D>(Vs, kLd, v + b * sv.b + hk * sv.h, sv.s, k0, S);
+  float dka[4][kCols], dva[4][kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = hk * group + gi;
+    const float* lh = lse + (static_cast<long long>(b) * H + h) * S;
+    const float* eh = delta + (static_cast<long long>(b) * H + h) * S;
+    for (int iq = causal ? jk : 0; iq < n_t; ++iq) {
+      const int q0 = iq * kTile;
+      __syncthreads();
+      load_tile_f32<D>(Qs, kLd, q + b * sq.b + h * sq.h, sq.s, q0, S);
+      load_tile_f32<D>(Ds, kLd, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S);
+      if (threadIdx.x < kTile) {
+        const int row = q0 + threadIdx.x;
+        Ls[threadIdx.x] = row < S ? lh[row] : 0.f;
+        Es[threadIdx.x] = row < S ? eh[row] : 0.f;
+      }
+      __syncthreads();
+      float st[4][4], dpt[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float kv[4], vv[4], qv[4], ov[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          kv[i] = Ks[(ty + 16 * i) * kLd + d];
+          vv[i] = Vs[(ty + 16 * i) * kLd + d];
+          qv[i] = Qs[(tx + 16 * i) * kLd + d];
+          ov[i] = Ds[(tx + 16 * i) * kLd + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
+            dpt[i][j] = fmaf(vv[i], ov[j], dpt[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int cq = tx + 16 * j, row = q0 + cq;
+          const bool ok = row < S && key < S && (!causal || key <= row);
+          const float p = ok ? expf(fmaf(st[i][j], scale, -Ls[cq])) : 0.f;
+          Ps[(ty + 16 * i) * kPld + cq] = p;
+          Gs[(ty + 16 * i) * kPld + cq] = p * (dpt[i][j] - Es[cq]);
+        }
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < kTile; ++c) {
+        float pv[4], gv[4], ov[kCols], qv[kCols];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pv[i] = Ps[(ty + 16 * i) * kPld + c];
+          gv[i] = Gs[(ty + 16 * i) * kPld + c];
+        }
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          ov[j] = Ds[c * kLd + tx + 16 * j];
+          qv[j] = Qs[c * kLd + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) {
+            dva[i][j] = fmaf(pv[i], ov[j], dva[i][j]);
+            dka[i][j] = fmaf(gv[i], qv[j], dka[i][j]);
+          }
+      }
+    }
+  }
+  float* dkh = dk + b * sdk.b + hk * sdk.h;
+  float* dvh = dv + b * sdv.b + hk * sdv.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key >= S) continue;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      dkh[key * sdk.s + tx + 16 * j] = dka[i][j] * scale;
+      dvh[key * sdv.s + tx + 16 * j] = dva[i][j];
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kSimtThreads)
+flash_bwd_dq_simt_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo,
+    Strides sdq, int S, int group, int causal, float scale) {
+  constexpr int kLd = D + 1;
+  constexpr int kPld = kTile + 1;
+  constexpr int kCols = D / 16;
+  extern __shared__ float smem_f[];
+  float* Qs = smem_f;                // (64, D + 1) each
+  float* Ds = Qs + kTile * kLd;      // dO
+  float* Ks = Ds + kTile * kLd;
+  float* Vs = Ks + kTile * kLd;
+  float* Gs = Vs + kTile * kLd;      // ds (64 rows, 65)
+
+  const int n_t = (S + kTile - 1) / kTile;
+  const int iq = n_t - 1 - static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int q0 = iq * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  load_tile_f32<D>(Qs, kLd, q + b * sq.b + h * sq.h, sq.s, q0, S);
+  load_tile_f32<D>(Ds, kLd, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S);
+  const long long bh = (static_cast<long long>(b) * gridDim.y + h) * S;
+  float lr[4], er[4], dqa[4][kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    lr[i] = row < S ? lse[bh + row] : 0.f;
+    er[i] = row < S ? delta[bh + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dqa[i][c] = 0.f;
+  }
+
+  const int n_k = causal ? iq + 1 : n_t;
+  for (int jk = 0; jk < n_k; ++jk) {
+    const int k0 = jk * kTile;
+    __syncthreads();
+    load_tile_f32<D>(Ks, kLd, k + b * sk.b + hk * sk.h, sk.s, k0, S);
+    load_tile_f32<D>(Vs, kLd, v + b * sv.b + hk * sv.h, sv.s, k0, S);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[4], ov[4], kv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = Qs[(ty + 16 * i) * kLd + d];
+        ov[i] = Ds[(ty + 16 * i) * kLd + d];
+        kv[i] = Ks[(tx + 16 * i) * kLd + d];
+        vv[i] = Vs[(tx + 16 * i) * kLd + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+        const bool ok = row < S && key < S && (!causal || key <= row);
+        const float p = ok ? expf(fmaf(s[i][j], scale, -lr[i])) : 0.f;
+        Gs[(ty + 16 * i) * kPld + tx + 16 * j] = p * (dp[i][j] - er[i]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < kTile; ++c) {
+      float gv[4], kv[kCols];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) gv[i] = Gs[(ty + 16 * i) * kPld + c];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) kv[j] = Ks[c * kLd + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+          dqa[i][j] = fmaf(gv[i], kv[j], dqa[i][j]);
+    }
+  }
+  float* dqh = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      dqh[row * sdq.s + tx + 16 * j] = dqa[i][j] * scale;
+  }
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* delta;
+  void *dq, *dk, *dv;
+  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
+  int B, S, H, Kh, causal;
+  float scale;
+};
+
+// The three launches of one backward, each checked; kernel 0 = bf16 on
+// mma.sync, 1 = float32 on the CUDA cores.
+template <int D>
+int launch_bwd_d(int kernel, const BwdArgs& a, cudaStream_t stream) {
+  const int group = a.H / a.Kh;
+  const int n_t = (a.S + kTile - 1) / kTile;
+  const long long rows = static_cast<long long>(a.B) * a.H * a.S;
+  const long long delta_blocks = (rows + kDeltaRows - 1) / kDeltaRows;
+  if (delta_blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 kv_grid(n_t, a.Kh, a.B), q_grid(n_t, a.H, a.B);
+  int err;
+  if (kernel == 1) {
+    flash_bwd_delta_kernel<float>
+        <<<static_cast<unsigned>(delta_blocks), kDeltaRows * 32, 0, stream>>>(
+            static_cast<const float*>(a.o), static_cast<const float*>(a.dout),
+            a.delta, a.so, a.sdo, a.S, a.H, D, rows);
+    if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+    const int smem_kv = (4 * kTile * (D + 1) + 2 * kTile * (kTile + 1) +
+                         2 * kTile) * static_cast<int>(sizeof(float));
+    const int smem_q = (4 * kTile * (D + 1) + kTile * (kTile + 1)) *
+                       static_cast<int>(sizeof(float));
+    cudaFuncSetAttribute(flash_bwd_dkdv_simt_kernel<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem_kv);
+    cudaFuncSetAttribute(flash_bwd_dq_simt_kernel<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+    flash_bwd_dkdv_simt_kernel<D><<<kv_grid, kSimtThreads, smem_kv, stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+        a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.S, a.H, group, a.causal,
+        a.scale);
+    if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+    flash_bwd_dq_simt_kernel<D><<<q_grid, kSimtThreads, smem_q, stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(a.dq), a.sq, a.sk, a.sv, a.sdo,
+        a.sdq, a.S, group, a.causal, a.scale);
+  } else if (kernel == 0) {
+    using bf = __nv_bfloat16;
+    flash_bwd_delta_kernel<bf>
+        <<<static_cast<unsigned>(delta_blocks), kDeltaRows * 32, 0, stream>>>(
+            static_cast<const bf*>(a.o), static_cast<const bf*>(a.dout),
+            a.delta, a.so, a.sdo, a.S, a.H, D, rows);
+    if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+    const int smem_q = 4 * kTile * (D + 8) * static_cast<int>(sizeof(bf));
+    const int smem_kv = smem_q + 2 * kTile * static_cast<int>(sizeof(float));
+    cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem_kv);
+    cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+    flash_bwd_dkdv_mma_kernel<D><<<kv_grid, kMmaThreads, smem_kv, stream>>>(
+        static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+        static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout), a.lse,
+        a.delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.sq, a.sk,
+        a.sv, a.sdo, a.sdk, a.sdv, a.S, a.H, group, a.causal, a.scale);
+    if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+    flash_bwd_dq_mma_kernel<D><<<q_grid, kMmaThreads, smem_q, stream>>>(
+        static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+        static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout), a.lse,
+        a.delta, static_cast<bf*>(a.dq), a.sq, a.sk, a.sv, a.sdo, a.sdq, a.S,
+        group, a.causal, a.scale);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
@@ -973,8 +1603,8 @@ int tensor_map(CUtensorMap* map, const void* base, Strides st, int B, int S,
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 Strides sq, Strides sk, Strides sv, Strides so, int B, int S,
-                 int H, int Kh, float scale, int causal,
+                 float* lse, Strides sq, Strides sk, Strides sv, Strides so,
+                 int B, int S, int H, int Kh, float scale, int causal,
                  cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = tensor_map(&tq, q, sq, B, S, H, D);
@@ -989,15 +1619,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   flash_wgmma_kernel<D><<<static_cast<unsigned>(blocks), kWgThreads, smem,
                           stream>>>(tq, tk, tv,
-                                    static_cast<__nv_bfloat16*>(out), so, S,
-                                    H, B, H / Kh, causal, scale);
+                                    static_cast<__nv_bfloat16*>(out), lse,
+                                    so, S, H, B, H / Kh, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_d(int kernel, const void* q, const void* k, const void* v,
-             void* out, Strides sq, Strides sk, Strides sv, Strides so, int B,
-             int S, int H, int Kh, int causal, float scale,
+             void* out, float* lse, Strides sq, Strides sk, Strides sv,
+             Strides so, int B, int S, int H, int Kh, int causal, float scale,
              cudaStream_t stream) {
   const int group = H / Kh;
   const dim3 grid((S + kTile - 1) / kTile, H, B);
@@ -1010,8 +1640,8 @@ int launch_d(int kernel, const void* q, const void* k, const void* v,
                          static_cast<int>(smem));
     flash_simt_kernel<D><<<grid, kSimtThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), sq, sk, sv,
-        so, S, group, causal, scale);
+        static_cast<const float*>(v), static_cast<float*>(out), lse, sq, sk,
+        sv, so, S, group, causal, scale);
   } else if constexpr (D == 32) {
     if (kernel != 0) return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = 3 * kTile * (D + 8) * sizeof(__nv_bfloat16);
@@ -1022,12 +1652,12 @@ int launch_d(int kernel, const void* q, const void* k, const void* v,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), sq, sk, sv, so, S, group, causal,
-        scale);
+        static_cast<__nv_bfloat16*>(out), lse, sq, sk, sv, so, S, group,
+        causal, scale);
   } else {
     if (kernel != 2) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_wgmma<D>(q, k, v, out, sq, sk, sv, so, B, S, H, Kh, scale,
-                           causal, stream);
+    return launch_wgmma<D>(q, k, v, out, lse, sq, sk, sv, so, B, S, H, Kh,
+                           scale, causal, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1037,15 +1667,19 @@ int launch_d(int kernel, const void* q, const void* k, const void* v,
 // q, k, v, out: base pointers; each has element strides (batch, seq, head)
 // and unit stride along D.  kernel 0 = bf16 on mma.sync (D = 32), 1 =
 // float32 on the CUDA cores, 2 = bf16 on wgmma + TMA (D in {64, 128}); D
-// in {32, 64, 128}, and another kernel for a D is an invalid value.
-// Returns cudaGetLastError() after the launch, or an error of its own (the
+// in {32, 64, 128}, and another kernel for a D is an invalid value.  lse,
+// when not null, receives the float32 row log-sum-exp of the scaled
+// scores, a contiguous (B, H, S) array, for the backward; it is the last
+// argument, so a caller of a library without it passes none.  Returns
+// cudaGetLastError() after the launch, or an error of its own (the
 // wrapper checks shapes, strides and alignment before calling).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int kernel,
     long long sqb, long long sqs, long long sqh, long long skb,
     long long sks, long long skh, long long svb, long long svs,
     long long svh, long long sob, long long sos, long long soh, int B, int S,
-    int H, int Kh, int D, int causal, float scale, void* stream) {
+    int H, int Kh, int D, int causal, float scale, void* stream,
+    float* lse) {
   if (B < 1 || S < 1 || H < 1 || Kh < 1 || H % Kh != 0 || kernel < 0 ||
       kernel > 2 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1054,14 +1688,14 @@ extern "C" int flash_attention_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch_d<32>(kernel, q, k, v, out, sq, sk, sv, so, B, S, H, Kh,
-                          causal, scale, st);
+      return launch_d<32>(kernel, q, k, v, out, lse, sq, sk, sv, so, B, S, H,
+                          Kh, causal, scale, st);
     case 64:
-      return launch_d<64>(kernel, q, k, v, out, sq, sk, sv, so, B, S, H, Kh,
-                          causal, scale, st);
+      return launch_d<64>(kernel, q, k, v, out, lse, sq, sk, sv, so, B, S, H,
+                          Kh, causal, scale, st);
     case 128:
-      return launch_d<128>(kernel, q, k, v, out, sq, sk, sv, so, B, S, H, Kh,
-                           causal, scale, st);
+      return launch_d<128>(kernel, q, k, v, out, lse, sq, sk, sv, so, B, S,
+                           H, Kh, causal, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1073,4 +1707,45 @@ extern "C" const char* flash_attention_error_string(int err) {
   if (err == kErrTensorMap)
     return "cuTensorMapEncodeTiled refused the tensor's layout";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The backward of one forward: q, k, v, o (the forward's output), dout
+// (its gradient), lse (the forward's row log-sum-exp, a contiguous
+// (B, H, S) float32 array) in; delta, a contiguous (B, H, S) float32
+// scratch; dq, dk, dv out, in the inputs' dtype.  Each of the eight
+// tensors has element strides (batch, seq, head) and unit stride along D.
+// kernel 0 = bf16 on mma.sync, 1 = float32 on the CUDA cores; D in {32,
+// 64, 128}.  Three launches (delta, dK/dV, dQ), each checked; returns the
+// first error, or 0.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, int kernel, long long sqb, long long sqs, long long sqh,
+    long long skb, long long sks, long long skh, long long svb,
+    long long svs, long long svh, long long sob, long long sos,
+    long long soh, long long sdob, long long sdos, long long sdoh,
+    long long sdqb, long long sdqs, long long sdqh, long long sdkb,
+    long long sdks, long long sdkh, long long sdvb, long long sdvs,
+    long long sdvh, int B, int S, int H, int Kh, int D, int causal,
+    float scale, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || Kh < 1 || H % Kh != 0 || kernel < 0 ||
+      kernel > 1 || B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv,
+                  Strides{sqb, sqs, sqh}, Strides{skb, sks, skh},
+                  Strides{svb, svs, svh}, Strides{sob, sos, soh},
+                  Strides{sdob, sdos, sdoh}, Strides{sdqb, sdqs, sdqh},
+                  Strides{sdkb, sdks, sdkh}, Strides{sdvb, sdvs, sdvh},
+                  B, S, H, Kh, causal, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return launch_bwd_d<32>(kernel, a, st);
+    case 64:
+      return launch_bwd_d<64>(kernel, a, st);
+    case 128:
+      return launch_bwd_d<128>(kernel, a, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -20,10 +20,14 @@ Port of ``repro.kernels.dispatch``:
   ``nearest_centroid``  — (matmul + argmin)  kmeans eval / predict
   ====================  ===================  ============================
 
+When autograd records (LM training), ``flash_attention`` goes through
+:class:`FlashAttention`, whose backward launches ``flash_attention_bwd``.
+
 ``use_kernels(False)`` routes each to its plain PyTorch function
 (``quantize.hybrid_dot``, ``lut.lut_lookup``, ``ref.kmeans_assign_ref``,
-``ref.split_hist_ref``, ``ref.flash_attention_ref``); parity tests and ``chip_smoke.py`` use it.
-With kernels on, each wrapper launches its kernel on a CUDA tensor and
+``ref.split_hist_ref``, ``ref.flash_attention_ref`` and
+``ref.flash_attention_bwd_ref``); parity tests and ``chip_smoke.py`` use
+it.  With kernels on, each wrapper launches its kernel on a CUDA tensor and
 runs its plain version on a CPU tensor.
 
 Example — the kernel path equals the plain path on an integer product:
@@ -161,10 +165,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Self-attention of the model's ``q`` ``(B, S, H, D)`` and ``k``/``v``
     ``(B, S, Kh, D)`` -> ``(B, S, H, D)``: the kernel reads them as
-    ``(B, H, S, D)`` views, by strides, with no copy."""
+    ``(B, H, S, D)`` views, by strides, with no copy.  When autograd
+    records (grad mode on and any of q, k, v requiring grad) the call goes
+    through :class:`FlashAttention`, whose backward is the
+    ``flash_attention_bwd`` kernel; otherwise it is the forward alone."""
     args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-    if kernels_enabled():
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        out = FlashAttention.apply(*args, causal)
+    elif kernels_enabled():
         out = _fa.flash_attention(*args, causal=causal)
     else:
         out = ref.flash_attention_ref(*args, causal=causal)
     return out.transpose(1, 2)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: the forward saves q, k, v, its output
+    and the row log-sum-exp; the backward runs ``flash_attention_bwd`` (on
+    the card the kernel, on the CPU its plain version) or, under
+    ``use_kernels(False)``, ``ref.flash_attention_bwd_ref``.  Inputs and
+    gradients are ``(B, H, S, D)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        if kernels_enabled():
+            o, lse = _fa.flash_attention(q, k, v, causal=causal,
+                                         return_lse=True)
+        else:
+            o, lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                             return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        ctx.kernels = kernels_enabled()
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # autograd hands dO over in any layout; the kernel takes unit
+        # stride along D and 16-byte aligned rows, which the model's
+        # (B, S, H, D) layout has: copy into it (no copy when it is so)
+        do = do.transpose(1, 2).contiguous().transpose(1, 2)
+        bwd = (_fa.flash_attention_bwd if ctx.kernels
+               else ref.flash_attention_bwd_ref)
+        dq, dk, dv = bwd(q, k, v, o, do, lse, causal=ctx.causal)
+        return dq, dk, dv, None

@@ -1,14 +1,21 @@
-"""Wrapper of the ``flash_attention`` CUDA kernel
-(``csrc/flash_attention.cu``).
+"""Wrapper of the ``flash_attention`` CUDA kernels
+(``csrc/flash_attention.cu``): the attention forward and its backward.
 
-Port of ``repro/kernels/flash_attention.py::flash_attention``: causal
-(or full) grouped-query attention forward with an online softmax, p in
-float32 as the TPU kernel keeps it.  A CPU tensor runs the plain version
-(:func:`repro_torch.kernels.ref.flash_attention_ref`); a CUDA tensor
-launches one of the library's three kernels (:func:`route`) or raises.
-``flash_attention.launches`` counts the launches; each launch also
-charges its bytes and operations to an active
-``roofline.analysis.RoundCounter``.
+:func:`flash_attention` ports ``repro/kernels/flash_attention.py::
+flash_attention``: causal (or full) grouped-query attention forward with
+an online softmax, p in float32 as the TPU kernel keeps it; asked for
+(``return_lse``), it also returns the float32 row log-sum-exp the
+backward takes.  :func:`flash_attention_bwd` is its gradient, which the
+TPU package never had (JAX trains through autodiff of its plain
+attention): dq, dk and dv from q, k, v, the output, its gradient and the
+log-sum-exp (FlashAttention-2's scheme, three launches of the library).
+A CPU tensor runs the plain versions (:func:`repro_torch.kernels.ref.
+flash_attention_ref`, :func:`~repro_torch.kernels.ref.
+flash_attention_bwd_ref`); a CUDA tensor launches the kernels (the
+forward's by :func:`route`, the backward's by dtype) or raises.
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
+the calls that launched; each also charges its bytes and operations to
+an active ``roofline.analysis.RoundCounter``.
 """
 
 from __future__ import annotations
@@ -30,9 +37,16 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
         _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]),
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p]),
+    "flash_attention_bwd_launch": (ctypes.c_int, [ctypes.c_void_p] * 10 + [
+        ctypes.c_int] + [_LL] * 24 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]),
     "flash_attention_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+# the backward's kernels, by dtype: bf16 on mma.sync, float32 on the CUDA
+# cores (the codes flash_attention_bwd_launch takes)
+_BWD_KERNELS = {torch.bfloat16: 0, torch.float32: 1}
 
 
 def _check(q, k, v):
@@ -57,10 +71,10 @@ def _check(q, k, v):
                          f"{q.device}")
 
 
-def _check_cuda_layout(q, k, v):
-    """What the kernel takes: bf16 or float32, D in HEAD_DIMS, unit stride
+def _check_cuda_layout(q, k, v, **more):
+    """What the kernels take: bf16 or float32, D in HEAD_DIMS, unit stride
     along D, and 16-byte aligned rows (pointers and the batch, head and
-    sequence strides)."""
+    sequence strides) of q, k, v and the backward's ``more`` tensors."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"the flash_attention kernel takes bf16 or float32, "
                         f"got {q.dtype}")
@@ -68,7 +82,7 @@ def _check_cuda_layout(q, k, v):
         raise ValueError(f"the flash_attention kernel takes head dims "
                          f"{HEAD_DIMS}, got {q.shape[-1]}")
     vec = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
                 st % vec for st in t.stride()[:3]):
             raise ValueError(
@@ -92,38 +106,50 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, return_lse: bool = False):
     """Attention forward: ``q`` ``(B, H, S, D)``, ``k``/``v`` ``(B, Kh,
-    S, D)``, ``H % Kh == 0`` -> ``(B, H, S, D)`` in ``q``'s dtype.
+    S, D)``, ``H % Kh == 0`` -> ``(B, H, S, D)`` in ``q``'s dtype; with
+    ``return_lse``, ``(out, lse)``, ``lse`` the float32 row log-sum-exp of
+    the scaled scores, a contiguous ``(B, H, S)`` tensor.
 
     On the card: bf16 or float32, ``D`` in ``HEAD_DIMS``, any ``S >= 1``,
     unit stride along ``D`` and 16-byte aligned batch, head and sequence
     strides (the transposed view of the model's ``(B, S, H, D)`` tensors
     qualifies).  The result is the transposed view of a contiguous
-    ``(B, S, H, D)`` tensor, the layout the output projection reads."""
+    ``(B, S, H, D)`` tensor, the layout the output projection reads.
+    Writing ``lse`` changes nothing else: the output is the same bits."""
     _check(q, k, v)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       return_lse=return_lse)
     _check_cuda_layout(q, k, v)
+    B, H, S, D = q.shape
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     o = _launch(build.load("flash_attention", _SIGNATURES),
-                route(q.dtype, q.shape[-1]), q, k, v, causal)
+                route(q.dtype, q.shape[-1]), q, k, v, causal, lse)
     flash_attention.launches += 1
     # q·kᵀ once and p·v (in bf16 as two products, p's hi and lo terms)
     # per (query, key) pair, key <= query when causal
-    B, H, S, D = q.shape
-    pairs = S * (S + 1) // 2 if causal else S * S
     wide = q.dtype == torch.float32
-    analysis.charge(analysis.nbytes(q, k, v, o),
-                    (4 if wide else 6) * D * B * H * pairs,
+    analysis.charge(analysis.nbytes(q, k, v, o, *(lse,) * return_lse),
+                    (4 if wide else 6) * D * B * H * _pairs(S, causal),
                     analysis.op_kind(q.dtype))
-    return o
+    return (o, lse) if return_lse else o
 
 
-def _launch(lib, kernel: str, q, k, v, causal: bool) -> torch.Tensor:
+def _pairs(S: int, causal: bool) -> int:
+    """Live (query, key) pairs of one head: key <= query when causal."""
+    return S * (S + 1) // 2 if causal else S * S
+
+
+def _launch(lib, kernel: str, q, k, v, causal: bool,
+            lse: torch.Tensor | None = None) -> torch.Tensor:
     """One launch of ``kernel`` from ``lib``, a build of
     ``csrc/flash_attention.cu``, on tensors that passed the wrapper's
-    checks.  Counts nothing: :func:`flash_attention` counts its own calls,
-    and ``tools/kernel_ab.py`` times builds of edited sources with it."""
+    checks; ``lse``, when given, receives the row log-sum-exp.  Counts
+    nothing: :func:`flash_attention` counts its own calls, and
+    ``tools/kernel_ab.py`` times builds of edited sources with it."""
     B, H, S, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     o = out.transpose(1, 2)
@@ -135,9 +161,70 @@ def _launch(lib, kernel: str, q, k, v, causal: bool) -> torch.Tensor:
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _KERNELS[kernel], *strides, B, S, H, k.shape[1], D, int(causal),
-            1.0 / D ** 0.5, stream)
+            1.0 / D ** 0.5, stream, None if lse is None else lse.data_ptr())
     build.check(lib, "flash_attention", err)
     return o
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        *, causal: bool = True):
+    """The gradient of :func:`flash_attention`: ``q`` ``(B, H, S, D)``,
+    ``k``/``v`` ``(B, Kh, S, D)``, the forward's output ``o`` and its
+    gradient ``do`` (both ``(B, H, S, D)``, the inputs' dtype) and its
+    ``lse`` (float32 ``(B, H, S)``) -> ``(dq, dk, dv)`` in the inputs'
+    dtype, float32 accumulation.
+
+    On the card: the forward's dtypes, head dims and layouts (``o`` and
+    ``do`` too); three launches, Δ = rowsum(dO ∘ O), dK/dV a (batch, kv
+    head, key tile) and dQ a (batch, head, query tile), with no float
+    atomics, so two calls give the same bits.  bf16 runs on ``mma.sync``
+    (p and ds rounded once to bf16 as operands), float32 on the CUDA
+    cores.  The gradients are transposed views of contiguous ``(B, S,
+    heads, D)`` tensors, as the forward's output."""
+    _check(q, k, v)
+    B, H, S, D = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be q's shape, dtype and device "
+                             f"{tuple(q.shape)}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 or \
+            lse.device != q.device:
+        raise ValueError(f"lse must be float32 (B, H, S) = ({B}, {H}, {S}) "
+                         f"on q's device, got {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}")
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                           causal=causal)
+    _check_cuda_layout(q, k, v, o=o, do=do)
+    lse = lse.contiguous()
+    Kh = k.shape[1]
+    grads = [torch.empty((B, S, heads, D), dtype=q.dtype, device=q.device
+                         ).transpose(1, 2) for heads in (H, Kh, Kh)]
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = []
+    for t in (q, k, v, o, do, *grads):          # (batch, seq, head)
+        strides += [t.stride(0), t.stride(2), t.stride(1)]
+    lib = build.load("flash_attention", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(g.data_ptr() for g in grads), _BWD_KERNELS[q.dtype], *strides,
+            B, S, H, Kh, D, int(causal), 1.0 / D ** 0.5, stream)
+    build.check(lib, "flash_attention", err)
+    flash_attention_bwd.launches += 1
+    # the function's five products of 2·D a live (query, key) pair: s =
+    # q·kᵀ (p is not an input), dV = pᵀ·dO, dp = dO·vᵀ, dK = dsᵀ·q and dQ =
+    # ds·k.  The dQ kernel's second q·kᵀ and dO·vᵀ are this
+    # implementation's cost, not the function's, and are not charged.
+    analysis.charge(analysis.nbytes(q, k, v, o, do, lse, *grads),
+                    10 * D * B * H * _pairs(S, causal),
+                    analysis.op_kind(q.dtype))
+    return tuple(grads)
+
+
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

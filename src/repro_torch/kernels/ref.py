@@ -99,7 +99,7 @@ FLASH_NEG_INF = -1e30         # the TPU kernel's mask value
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
+                        *, causal: bool = True, return_lse: bool = False):
     """Online-softmax attention over 64-key tiles, in float32 throughout
     as the TPU kernel computes it: ``q`` ``(B, H, S, D)``, ``k``/``v``
     ``(B, Kh, S, D)`` with ``H % Kh == 0`` (query head ``h`` reads key
@@ -113,7 +113,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bit.  Scores ``q·kᵀ · (1/√D)`` (the scale is the Python float rounded
     once, as the TPU kernel has it); masked scores are ``-1e30`` and
     their ``p`` is 0; the output is ``acc / max(l, 1e-30)``, a division,
-    so a row with no unmasked key gives 0."""
+    so a row with no unmasked key gives 0.
+
+    With ``return_lse`` it returns ``(out, lse)``, ``lse = m + log(l)``
+    the float32 row log-sum-exp of the scaled scores ``(B, H, S)``, which
+    the backward (:func:`flash_attention_bwd_ref`) takes."""
     B, H, S, D = q.shape
     G = H // k.shape[1]
     kx = k.repeat_interleave(G, dim=1) if G > 1 else k
@@ -140,4 +144,57 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pv = torch.matmul(p, vx[:, :, k0:k1].float())
         acc = acc * corr[..., None] + pv
         m = m_new
-    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return (out, m + torch.log(l)) if return_lse else out
+
+
+FLASH_BWD_ROWS = 512          # query rows a pass of the plain backward
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, *,
+                            causal: bool = True):
+    """The gradient of :func:`flash_attention_ref` from its output ``o``,
+    the output's gradient ``do`` (both ``(B, H, S, D)``) and the forward's
+    row log-sum-exp ``lse`` ``(B, H, S)``: ``(dq, dk, dv)`` in the
+    inputs' dtype, shaped as ``q``, ``k`` and ``v``.
+
+    FlashAttention-2's formulas in float32, not autograd: with ``s = q·kᵀ
+    · scale`` (the forward's float32 scale) and ``p = exp(s − lse)`` (0
+    where masked),
+
+        Δ  = rowsum(dO ∘ O)          dv = pᵀ·dO
+        dp = dO·vᵀ                   ds = p ∘ (dp − Δ)
+        dq = scale · ds·k            dk = scale · dsᵀ·q
+
+    and a key head's dk and dv sum over the ``H / Kh`` query heads that
+    read it.  Query rows go in passes of ``FLASH_BWD_ROWS``, so the
+    float32 scores of one pass are all that is held."""
+    B, H, S, D = q.shape
+    Kh = k.shape[1]
+    G = H // Kh
+    kx = (k.repeat_interleave(G, dim=1) if G > 1 else k).float()
+    vx = (v.repeat_interleave(G, dim=1) if G > 1 else v).float()
+    scale = torch.tensor(1.0 / D ** 0.5, dtype=torch.float32).item()
+    qf, dof = q.float(), do.float()
+    delta = (dof * o.float()).sum(dim=-1)                      # (B, H, S)
+    keys = torch.arange(S, device=q.device)
+    dq = torch.empty((B, H, S, D), dtype=torch.float32, device=q.device)
+    dkx = torch.zeros((B, H, S, D), dtype=torch.float32, device=q.device)
+    dvx = torch.zeros((B, H, S, D), dtype=torch.float32, device=q.device)
+    for r0 in range(0, S, FLASH_BWD_ROWS):
+        r1 = min(S, r0 + FLASH_BWD_ROWS)
+        s = torch.matmul(qf[:, :, r0:r1], kx.transpose(-1, -2)) * scale
+        p = torch.exp(s - lse[:, :, r0:r1, None])
+        if causal:
+            rows = torch.arange(r0, r1, device=q.device)
+            p = torch.where(keys[None, :] <= rows[:, None], p, 0.0)
+        dvx += torch.matmul(p.transpose(-1, -2), dof[:, :, r0:r1])
+        dp = torch.matmul(dof[:, :, r0:r1], vx.transpose(-1, -2))
+        ds = p * (dp - delta[:, :, r0:r1, None])
+        dq[:, :, r0:r1] = torch.matmul(ds, kx) * scale
+        dkx += torch.matmul(ds.transpose(-1, -2), qf[:, :, r0:r1])
+    dk = (dkx * scale).view(B, Kh, G, S, D).sum(dim=2)
+    dv = dvx.view(B, Kh, G, S, D).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

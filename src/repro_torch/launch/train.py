@@ -1,0 +1,131 @@
+"""LM training launcher: ``--arch <id>`` through the fault-tolerant
+``Trainer``.
+
+Port of ``repro/launch/train.py``:
+
+    python -m repro_torch.launch.train --arch qwen2-0.5b --smoke \
+        --steps 50 --batch 8 --seq 128 --device cpu           # CPU
+    python -m repro_torch.launch.train --arch qwen2-0.5b \
+        --steps 20 --batch 4 --seq 2048                       # the card
+
+Parameters are random from seed 0 at the config's shapes and dtype
+(bf16 at full size); AdamW keeps a float32 master, moments and a step
+beside them; a batch a step comes from ``TokenStream(seed=0)``; with
+``--ckpt-dir`` the trainer checkpoints and a second run over the same
+directory resumes.  A step is ``Model.loss``, ``torch.autograd.grad``
+over the parameter leaves (the attention's gradient is the
+``flash_attention_bwd`` kernel on the card), then the optimizer's update
+out of place under ``torch.no_grad()``.  JAX jits the step; the port runs
+it eagerly.  The production meshes (``--production-mesh``,
+``--multi-pod``) are not ported: they raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Callable
+
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config, list_archs
+from repro_torch.data import TokenStream
+from repro_torch.models import Model, build
+from repro_torch.models import common as cm
+from repro_torch.optim import Optimizer, adamw
+from repro_torch.runtime import Trainer, TrainerConfig
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+def make_state(model: Model, opt: Optimizer, seed: int = 0) -> dict:
+    """``{"params", "opt"}``: the model's random parameters from ``seed``
+    on its device and the optimizer's state over them."""
+    params = model.init(seed)
+    return {"params": params, "opt": opt.init(params)}
+
+
+def trainable(params):
+    """``params`` as fresh leaves that autograd records, detached from
+    whatever produced them."""
+    return tree_map(lambda p: p.detach().requires_grad_(), params)
+
+
+def loss_and_grads(model: Model, params, batch: dict):
+    """``(loss, metrics, grads)``: ``Model.loss`` on ``batch`` and its
+    gradient in every parameter leaf, ``grads`` shaped as ``params``.  The
+    step's forward and backward, and nothing else."""
+    leaves = trainable(params)
+    loss, metrics = model.loss(leaves, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    return loss, metrics, tree_unflatten(leaves, grads)
+
+
+def make_step_fn(model: Model, opt: Optimizer) -> Callable:
+    """``step_fn(state, batch) -> (state, metrics)``: ``loss_and_grads``,
+    then ``opt.update``.  The metrics (``loss``, ``ce``, ``aux``) stay on
+    the device; the state handed in is not changed."""
+
+    def step_fn(state: dict, batch: dict):
+        loss, metrics, grads = loss_and_grads(model, state["params"], batch)
+        with torch.no_grad():
+            new_p, new_o = opt.update(grads, state["opt"], state["params"])
+        return ({"params": new_p, "opt": new_o},
+                {"loss": loss.detach(),
+                 **{k: v.detach() for k, v in metrics.items()}})
+
+    return step_fn
+
+
+def make_batch_fn(cfg: cm.ModelConfig, stream: TokenStream, batch: int,
+                  seq: int) -> Callable[[int], dict]:
+    """``step -> {"tokens": (batch, seq)}`` from ``stream``, pure in the
+    step.  JAX's launcher also adds zero encoder frames and prefix
+    embeddings for enc-dec and VLM configs, which the port does not build
+    yet (ROADMAP item A18.6): ``cfg`` must be a decoder the port runs."""
+    if (stream.batch, stream.seq) != (batch, seq):
+        raise ValueError(f"the stream gives ({stream.batch}, {stream.seq}) "
+                         f"batches, asked for ({batch}, {seq})")
+    if stream.vocab != cfg.vocab_size:
+        raise ValueError(f"the stream draws from {stream.vocab} tokens, "
+                         f"{cfg.name} has {cfg.vocab_size}")
+    return stream.batch_at
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced config of the arch (CPU)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the (16, 16) mesh (not ported)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the (2, 16, 16) mesh (not ported)")
+    args = ap.parse_args(argv)
+    if args.production_mesh or args.multi_pod:
+        raise NotImplementedError(
+            "the production meshes are not ported yet: ROADMAP queue A, "
+            "items 17.2 (make_production_mesh) and A18.8 "
+            "(distributed/sharding.py, launch/shardings.py)")
+
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    model = build(cfg, args.device)
+    opt = adamw(args.lr)
+    stream = TokenStream(cfg.vocab_size, args.batch, args.seq, seed=0,
+                         device=model.device)
+    trainer = Trainer(make_step_fn(model, opt), make_state(model, opt),
+                      make_batch_fn(cfg, stream, args.batch, args.seq),
+                      TrainerConfig(ckpt_dir=args.ckpt_dir, log_every=10))
+    out = trainer.run(args.steps, callback=lambda s, m: print(
+        f"step {s}: loss={float(m['loss']):.4f}"))
+    print(f"done: {out['final_step']} steps, restarts={out['restarts']}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

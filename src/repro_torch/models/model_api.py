@@ -1,10 +1,9 @@
 """Model facade: one object per architecture config exposing ``init``,
-``prefill``, ``init_cache`` and ``decode_step``.
+``loss``, ``prefill``, ``init_cache`` and ``decode_step``.
 
 Port of ``repro/models/model_api.py`` for the decoder-only families the
 port runs (dense attention).  ``build`` raises ``NotImplementedError``
-for a family that is not ported, naming its ROADMAP item; the training
-loss waits for item A18.7.
+for a family that is not ported, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,14 +34,19 @@ class Model:
                              f"{self.device}")
         return tfm.init_lm(self.cfg, gen)
 
+    def loss(self, params: dict, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, dict]:
+        """Next-token training loss of ``batch["tokens"]`` (B, S): ``(loss,
+        {"ce", "aux"})``, float32 scalars (``transformer.lm_loss``).
+        Differentiable in every parameter leaf that requires grad."""
+        _no_prefix(batch)
+        return tfm.lm_loss(self.cfg, params, batch)
+
     def prefill(self, params: dict, batch: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
         """Full-context forward of ``batch["tokens"]`` (B, S); returns the
         last position's logits (B, 1, Vp)."""
-        if "prefix_embeds" in batch:
-            raise NotImplementedError(
-                "prefix embeddings are not ported yet: ROADMAP queue A, "
-                "item A18.6 (enc-dec and VLM prefix)")
+        _no_prefix(batch)
         return tfm.lm_prefill(self.cfg, params, batch["tokens"])
 
     def init_cache(self, batch: int, max_len: int) -> List[dict]:
@@ -59,6 +63,13 @@ class Model:
 
     def param_count(self, params: dict) -> int:
         return sum(t.numel() for t in _leaves(params))
+
+
+def _no_prefix(batch: dict) -> None:
+    if "prefix_embeds" in batch:
+        raise NotImplementedError(
+            "prefix embeddings are not ported yet: ROADMAP queue A, "
+            "item A18.6 (enc-dec and VLM prefix)")
 
 
 def _leaves(tree):

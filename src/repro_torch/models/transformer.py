@@ -1,13 +1,15 @@
-"""Decoder-only LM stack: prefill and single-token decode over dense
-attention layers.
+"""Decoder-only LM stack: the training loss, prefill and single-token
+decode over dense attention layers.
 
 Port of ``repro/models/transformer.py`` for one device.  JAX
 ``lax.scan``s the smallest repeating unit of the layer pattern and
 rematerialises it; the port keeps the parameters as a list with one dict
-per layer and loops over it, and caches mirror that list.  Only dense
-``ATTN`` layers are ported: ``LOCAL_ATTN``, ``MAMBA2``, ``RGLRU`` and MoE
-channel mixers raise ``NotImplementedError`` naming their ROADMAP items,
-and the training loss waits for item A18.7.
+per layer and loops over it, and caches mirror that list.  Autograd
+keeps every layer's activations (no rematerialisation); the attention's
+gradient is the ``flash_attention_bwd`` kernel
+(``kernels.dispatch.FlashAttention``).  Only dense ``ATTN`` layers are
+ported: ``LOCAL_ATTN``, ``MAMBA2``, ``RGLRU`` and MoE channel mixers
+raise ``NotImplementedError`` naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
@@ -110,8 +113,9 @@ def init_lm(cfg: cm.ModelConfig, gen: torch.Generator) -> dict:
 
 
 def _embed(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"].index_select(0, tokens.reshape(-1))
-    x = x.view(*tokens.shape, cfg.d_model)
+    # a gather whose gradient on the card sums a token's rows in a fixed
+    # order (index_select's backward adds them with atomics)
+    x = F.embedding(tokens, params["embed"])
     if cfg.emb_scale:
         x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(x.dtype)
     return x
@@ -143,6 +147,33 @@ def lm_forward(cfg: cm.ModelConfig, params: dict, tokens: torch.Tensor
     """tokens (B, S) -> logits (B, S, Vp)."""
     x = _stack(cfg, params, tokens)
     return _head(cfg, params, cm.apply_norm(cfg, params["final_norm"], x))
+
+
+def lm_loss(cfg: cm.ModelConfig, params: dict, batch: dict,
+            aux_weight: float = 0.01) -> Tuple[torch.Tensor, dict]:
+    """``batch["tokens"]`` (B, S) -> ``(loss, {"ce", "aux"})``: next-token
+    cross entropy over the full logits, ``loss = ce + aux_weight · aux``
+    with ``aux`` a float32 zero (dense stacks have no router loss), as
+    ``repro/models/transformer.py::lm_loss``."""
+    tokens = batch["tokens"]
+    logits = lm_forward(cfg, params, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    ce = cross_entropy(logits, tokens)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+def cross_entropy(logits: torch.Tensor, tokens: torch.Tensor
+                  ) -> torch.Tensor:
+    """Next-token CE in float32: the mean over the ``B·(S−1)`` predicted
+    positions of ``logsumexp(logits) − logits[gold]``.  JAX reads the
+    gold logit through a one-hot contraction, a sharding choice; the
+    gather is the same function (one index a row, so its gradient has no
+    sums to order)."""
+    lg = logits[:, :-1].float()
+    tg = tokens[:, 1:].long()
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, tg[..., None])[..., 0]
+    return (lse - gold).mean()
 
 
 def lm_prefill(cfg: cm.ModelConfig, params: dict, tokens: torch.Tensor

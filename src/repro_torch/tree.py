@@ -2,7 +2,8 @@
 ``jax.tree.leaves`` and ``jax.tree_util.tree_flatten_with_path``.
 
 A tree is a tensor, a tuple or named tuple of trees (a minibatch fit's
-``(state, counter)``, an ``OptState``) or a dict of trees.  Dict leaves
+``(state, counter)``, an ``OptState``), a list of trees (an LM's
+``"layers"``) or a dict of trees.  Dict leaves
 are visited in sorted key order, as ``jax.tree.leaves`` visits them, so
 a sum over the leaves adds in the reference's order.
 """
@@ -15,10 +16,10 @@ from typing import Any, Callable
 def tree_map(fn: Callable, tree, *rest):
     """``fn(leaf, *matching leaves of rest)`` on every leaf of ``tree``;
     ``rest`` must have ``tree``'s structure."""
-    if isinstance(tree, tuple):
+    if isinstance(tree, (tuple, list)):
         out = [tree_map(fn, t, *(r[i] for r in rest))
                for i, t in enumerate(tree)]
-        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+        return _rebuild(tree, out)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
@@ -27,7 +28,7 @@ def tree_map(fn: Callable, tree, *rest):
 
 def tree_leaves(tree) -> list[Any]:
     """The leaves of ``tree`` in JAX's order."""
-    if isinstance(tree, tuple):
+    if isinstance(tree, (tuple, list)):
         return [leaf for t in tree for leaf in tree_leaves(t)]
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
@@ -37,7 +38,7 @@ def tree_leaves(tree) -> list[Any]:
 def tree_flatten_with_names(tree) -> tuple[list[str], list[Any]]:
     """``(names, leaves)`` in :func:`tree_leaves`' order, each name the
     leaf's path as ``jax.tree_util.keystr`` spells it: ``['k']`` for a
-    dict key, ``[i]`` for a tuple index, ``.field`` for a named tuple's
+    dict key, ``[i]`` for a tuple or list index, ``.field`` for a named tuple's
     field, and ``""`` for a bare leaf.  A checkpoint's manifest holds
     these names, so either package restores what the other wrote.
 
@@ -56,7 +57,7 @@ def tree_flatten_with_names(tree) -> tuple[list[str], list[Any]]:
     leaves: list[Any] = []
 
     def visit(t, path: str) -> None:
-        if isinstance(t, tuple):
+        if isinstance(t, (tuple, list)):
             fields = getattr(t, "_fields", None)
             for i, x in enumerate(t):
                 visit(x, f"{path}.{fields[i]}" if fields else f"{path}[{i}]")
@@ -77,12 +78,20 @@ def tree_unflatten(tree, leaves) -> Any:
     it = iter(leaves)
 
     def build(t):
-        if isinstance(t, tuple):
-            out = [build(x) for x in t]
-            return type(t)(*out) if hasattr(t, "_fields") else tuple(out)
+        if isinstance(t, (tuple, list)):
+            return _rebuild(t, [build(x) for x in t])
         if isinstance(t, dict):
             built = {k: build(t[k]) for k in sorted(t)}
             return {k: built[k] for k in t}
         return next(it)
 
     return build(tree)
+
+
+def _rebuild(node, children: list):
+    """A node of ``node``'s kind (named tuple, tuple or list) holding
+    ``children``."""
+    if isinstance(node, list):
+        return children
+    return type(node)(*children) if hasattr(node, "_fields") \
+        else tuple(children)

@@ -236,10 +236,19 @@ def test_restore_takes_the_template_dtype_and_device(tmp_path):
 
 
 def test_bf16_leaf_is_refused_naming_lm_training(tmp_path):
+    """Refused until LM training (ROADMAP A18.7) brought bf16 states: a
+    bf16 leaf is now stored as its bit patterns (npz dtype V2, as JAX's
+    writer stores it; tests/test_torch_lm_train.py holds the bytes), and a
+    dtype the format has no bytes for is still refused."""
     mgr = CheckpointManager(str(tmp_path), async_save=False)
-    with pytest.raises(TypeError, match="A18.7"):
-        mgr.save(0, {"w": torch.zeros(2, dtype=torch.bfloat16)})
+    with pytest.raises(TypeError, match="bf16 bit patterns"):
+        mgr.save(0, {"w": torch.zeros(2, dtype=torch.complex64)})
     assert mgr.steps() == []
+    w = torch.tensor([1.5, -0.0], dtype=torch.bfloat16)
+    assert host_copy(w).dtype == np.dtype("V2")
+    mgr.save(0, {"w": w})
+    out, _ = mgr.restore(0, {"w": torch.zeros(2, dtype=torch.bfloat16)})
+    assert torch.equal(out["w"].view(torch.int16), w.view(torch.int16))
 
 
 # -- hardening (tests/test_resilience.py::TestCheckpointHardening) -----------

@@ -23,7 +23,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import dispatch, ref  # noqa: E402
 from repro_torch.kernels import split_hist as split_hist_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
-                                                 route)
+                                                 flash_attention_bwd, route)
 from repro_torch.kernels.fxp_matmul import fxp_matmul  # noqa: E402
 from repro_torch.kernels.fxp_matmul import route as fxp_route  # noqa: E402
 from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
@@ -507,6 +507,118 @@ def test_small_prefill_near_its_plain_twin(dtype, tol):
         want = model.prefill(params, {"tokens": toks}).float()
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+# the backward kernel against its plain version on the same q, k, v, o,
+# dO and lse (the kernel forward's): float32 within 2e-5 of max|grad|
+# (summation order), bf16 within 1e-2 (p and ds rounded once to bf16 as
+# mma operands; the plain version keeps them in float32); max|grad| over
+# dq, dk and dv
+FLASH_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def _flash_bwd_case(dev, B, H, Kh, S, D, causal, dtype, seed=4):
+    q, k, v = _flash_inputs(dev, B, H, Kh, S, D, dtype, seed)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    do = torch.randn((B, S, H, D), generator=g, device=dev).to(
+        dtype).transpose(1, 2)
+    return q, k, v, o, do, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,Kh,S,D,causal", [
+    (2, 2, 2, 130, 32, True),        # G = 1, D = 32, ragged S
+    (2, 4, 2, 128, 32, False),
+    (1, 14, 2, 1000, 64, True),      # qwen2-0.5b's heads (G = 7), ragged
+    (2, 14, 2, 256, 64, False),
+    (1, 8, 4, 200, 128, True),       # G = 2, D = 128
+    (1, 8, 1, 64, 128, False),
+    (1, 3, 1, 1, 64, True)])         # one position
+def test_flash_bwd_kernel_equals_plain(B, H, Kh, S, D, causal, dtype):
+    dev = require_cuda()
+    q, k, v, o, do, lse = _flash_bwd_case(dev, B, H, Kh, S, D, causal, dtype)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    assert flash_attention_bwd.launches == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    scale = max(float(w.float().abs().max()) for w in want)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert bool(torch.isfinite(a).all())
+        assert float((a.float() - w.float()).abs().max()) <= \
+            FLASH_BWD_TOL[dtype] * scale
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 32),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 64)])
+def test_flash_forward_with_lse_equals_forward_without(dtype, D):
+    """Each route's output with lse is the output without it, bit for
+    bit, and its lse is the plain version's within 1e-5 (relative)."""
+    dev = require_cuda()
+    q, k, v = _flash_inputs(dev, 2, 4, 2, 300, D, dtype)
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    assert torch.equal(o, flash_attention(q, k, v))
+    _, want = ref.flash_attention_ref(q, k, v, return_lse=True)
+    torch.testing.assert_close(lse, want, atol=0.0, rtol=1e-5)
+
+
+def test_flash_bwd_kernel_raises_without_counting():
+    """float16 inputs raise on the card, and the counter does not move."""
+    dev = require_cuda()
+    q, k, v, o, do, lse = _flash_bwd_case(dev, 1, 2, 1, 64, 64, True,
+                                          torch.float32)
+    before = flash_attention_bwd.launches
+    with pytest.raises(TypeError):
+        flash_attention_bwd(q.half(), k.half(), v.half(), o.half(),
+                            do.half(), lse)
+    with pytest.raises(ValueError):                    # head dim 48
+        flash_attention_bwd(q[..., :48], k[..., :48], v[..., :48],
+                            o[..., :48], do[..., :48], lse)
+    assert flash_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_small_training_step_near_its_plain_twin(dtype):
+    """The smoke qwen2's loss gradients on the card: one forward and one
+    backward flash launch a layer, every leaf within 1e-4 of its max|g| of
+    the use_kernels(False) twin in float32 (summation order), the
+    gradients' relative L2 gap under 5e-2 in bf16 (one-ulp attention
+    outputs and bf16 p and ds re-rounded through the stack)."""
+    from repro_torch.launch.train import loss_and_grads, make_step_fn
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+
+    dev = require_cuda()
+    cfg, model, params, toks = _small_lm(dev, dtype)
+
+    def grads():
+        loss, _, g = loss_and_grads(model, params, {"tokens": toks})
+        return loss, tree_leaves(g)
+
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    loss, got = grads()
+    assert flash_attention.launches == flash_attention_bwd.launches == \
+        cfg.n_layers
+    with dispatch.use_kernels(False):
+        twin_loss, want = grads()
+    torch.testing.assert_close(loss, twin_loss, atol=0.0, rtol=1e-2)
+    if dtype == "float32":
+        for a, w in zip(got, want):
+            assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    else:
+        num = sum(float((a.float() - w.float()).norm()) ** 2
+                  for a, w in zip(got, want))
+        den = sum(float(w.float().norm()) ** 2 for w in want)
+        assert (num / den) ** 0.5 < 5e-2
+    opt = adamw(3e-4)
+    state, met = make_step_fn(model, opt)(
+        {"params": params, "opt": opt.init(params)}, {"tokens": toks})
+    assert bool(torch.isfinite(met["loss"]))
 
 
 # (a dtype, b dtype, N, per-lane b): N = 1, 4, 8, 10, 16 and 20 (a

@@ -145,7 +145,7 @@ def test_port_imports_neither_jax_nor_repro():
         "          'kernels.flash_attention', 'models.common',\n"
         "          'models.attention', 'models.mlp', 'models.transformer',\n"
         "          'models.model_api', 'configs.qwen2_0_5b',\n"
-        "          'launch.serve_lm', 'core.mlalgos.svm',\n"
+        "          'launch.serve_lm', 'launch.train', 'core.mlalgos.svm',\n"
         "          'core.mlalgos.multinomial', 'core.minibatch',\n"
         "          'optim.optimizers', 'tree', 'distributed.merge_plan',\n"
         "          'tuning.controller', 'tuning.cost', 'tuning.measurement',\n"
