@@ -315,8 +315,9 @@ from repro_torch.distributed.merge_plan import (  # noqa: E402
     AdaptiveCadence, MergePlan, Nesterov, SlowMo)
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
 from repro_torch.kernels import split_hist as split_hist_mod  # noqa: E402
-from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
-                                                 flash_attention_bwd, route)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    BWD_BLOCK_ROWS, BWD_TILE_ROWS, bwd_route, bwd_scratch, flash_attention,
+    flash_attention_bwd, route)
 from repro_torch.kernels.fxp_matmul import fxp_matmul  # noqa: E402
 from repro_torch.kernels.fxp_matmul import route as fxp_route  # noqa: E402
 from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
@@ -533,8 +534,8 @@ PER = {
                        "64), bf16, on the wgmma kernel",
     "flash_attention_bwd": "one layer's attention gradient in qwen2-0.5b's "
                            "training step: q, o, dO (4, 14, 2048, 64), k and "
-                           "v (4, 2, 2048, 64), bf16, causal; three launches "
-                           "(delta, dK/dV, dQ) on mma.sync",
+                           "v (4, 2, 2048, 64), bf16, causal; four launches "
+                           "(delta, dQ, dK/dV, the group sum) on wgmma + TMA",
 }
 PORT_KERNELS = re.compile(r"(fxp_\w+?_kernel|lut_kernel|km_partials|km_reduce"
                           r"|hist_kernel|flash_\w+?_kernel)")
@@ -679,6 +680,26 @@ def single_call_ms(fn, dev: torch.device, iters: int) -> float:
             t0 = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def host_ms(fn, dev: torch.device, iters: int,
+            runs: int = TIMING_RUNS) -> float:
+    """Median over ``runs`` runs of the host's time for one ``fn()`` call
+    in a run of ``iters`` calls enqueued back to back, after two warm-up
+    calls: the host clock from the first call to the return of the last,
+    before the card is waited on (what a caller's thread spends in the
+    wrapper while the card works)."""
+    fn()
+    fn()
+    sync(dev)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / iters)
+        sync(dev)
     return statistics.median(times)
 
 
@@ -4925,6 +4946,7 @@ TRAIN_F32_TOL = 1e-4
 FLASH_FWD_KERNELS = re.compile(r"flash_(wgmma|mma|simt)_kernel")
 FLASH_BWD_KERNELS = {"delta": re.compile(r"flash_bwd_delta_kernel"),
                      "dkdv": re.compile(r"flash_bwd_dkdv_\w+?_kernel"),
+                     "gsum": re.compile(r"flash_bwd_gsum_kernel"),
                      "dq": re.compile(r"flash_bwd_dq_\w+?_kernel")}
 STEP_CLASSES = (("flash_forward", FLASH_FWD_KERNELS),
                 ("flash_backward", re.compile(r"flash_bwd_")),
@@ -4951,13 +4973,14 @@ def flash_bwd_check(name, q, k, v, causal) -> dict:
     got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
     again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    kernel = bwd_route(q.dtype, q.shape[-1])
     scale = max(float(w.float().abs().max()) for w in want)
     errs = [max_abs_err(g, w) for g, w in zip(got, want)]
     share = (sum(int((g == w).sum()) for g, w in zip(got, want))
              / sum(w.numel() for w in want))
     out = {"case": name, "q": list(q.shape), "k": list(k.shape),
            "dtype": str(q.dtype)[6:], "causal": causal,
-           "group": q.shape[1] // k.shape[1],
+           "group": q.shape[1] // k.shape[1], "kernel": kernel,
            "max_abs_err": max(errs), "err_over_max_grad": max(errs) / scale,
            "dq_dk_dv_err": errs, "bit_equal_share": share,
            "forward_with_lse_bit_equal": fwd_same,
@@ -4977,7 +5000,9 @@ def flash_bwd_check(name, q, k, v, causal) -> dict:
 def compare_flash_bwd(gen, seq: int) -> list:
     """bf16 and float32; D = 32, 64, 128; G = 1, 2, 7; causal and full; a
     ragged S; qwen2-0.5b's training shape (4 x 14 heads, 2 KV heads,
-    ``seq``, D = 64)."""
+    ``seq``, D = 64); and the wgmma schedule's edges: S = 1, 127, 129 and
+    300 (a ragged last 128-key tile), the group sum skipped (G = 1) and
+    taken (G = 2, 7)."""
     out = []
     for dtype in (torch.bfloat16, torch.float32):
         for name, shape, causal in (
@@ -4987,10 +5012,82 @@ def compare_flash_bwd(gen, seq: int) -> list:
                 ("D=32, G=1", (2, 4, 4, 300, 32), True),
                 ("D=32 full, G=2", (2, 4, 2, 256, 32), False),
                 ("D=128, G=2", (1, 8, 4, 700, 128), True),
-                ("D=128 full, G=1", (1, 4, 4, 512, 128), False)):
+                ("D=128 full, G=1", (1, 4, 4, 512, 128), False),
+                ("S=1, G=1", (2, 2, 2, 1, 64), True),
+                ("S=127, G=2", (1, 4, 2, 127, 64), True),
+                ("S=129, G=1, D=128", (1, 4, 4, 129, 128), True),
+                ("S=129 full, G=7", (1, 7, 1, 129, 64), False),
+                ("S=300, G=7", (2, 14, 2, 300, 64), True),
+                ("S=300 full, G=2, D=128", (1, 4, 2, 300, 128), False),
+                ("S=300, G=1, D=128", (1, 2, 2, 300, 128), True)):
             out.append(flash_bwd_check(
                 name, *flash_inputs(gen, *shape, dtype), causal))
+            if dtype == torch.bfloat16 and shape[-1] in (64, 128):
+                require(out[-1]["kernel"] == "wgmma",
+                        f"the backward took {out[-1]['kernel']} at {shape}")
     return out
+
+
+def bwd_split(run, dev, calls: int = 5) -> dict:
+    """Each backward kernel's device time a launch (``torch.profiler`` over
+    ``calls`` warm calls of ``run``): delta, dK/dV, the group sum and dQ.
+    The time is the kernel's total over the launches the profiler
+    recorded, divided by them; in a long process it records fewer than
+    were made, so their number says nothing of the main path's launches
+    and is not given."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        sync(dev)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"device_time": "not measured (the profiler recorded no "
+                "device events)"}
+    out = {}
+    for name, pat in FLASH_BWD_KERNELS.items():
+        hits = [e for e in kernels if pat.search(e.key)]
+        seen = sum(e.count for e in hits)
+        out[name] = {"ms_a_launch": (sum(e.self_device_time_total
+                                         for e in hits) / 1e3 / seen
+                                     if seen else None),
+                     "kernel": hits[0].key[:60] if hits else None}
+    return out
+
+
+def bwd_design(B: int, H: int, Kh: int, seq: int, D: int, dev) -> dict:
+    """The backward design's costs beyond the function's, worked out from
+    the shape (nothing here is measured): the scratch (delta and
+    lse·log2(e) a padded row, a GQA group's float32 partials) and the
+    partials' traffic (written once, read once by the group sum); the
+    operations with the dQ kernel's recomputed q·kᵀ and dO·vᵀ (14·D a live
+    pair against the function's 10·D); and, causal, each kernel's
+    schedule in streamed 64-row tiles: a dK/dV block of key tile ``j``
+    walks the query tiles from ``2 j``, a dQ block of query tile ``i`` the
+    key tiles up to ``2 i + 1``, the longest first, against an even share
+    of the card's SMs (csrc/flash_attention.cu's note)."""
+    kernel = bwd_route(torch.bfloat16, D)
+    n_delta, n_scratch = bwd_scratch(kernel, B, H, Kh, seq, D)
+    n_t = -(-seq // BWD_TILE_ROWS)
+    step = BWD_BLOCK_ROWS // BWD_TILE_ROWS
+    walks = [n_t - step * j for j in range(-(-seq // BWD_BLOCK_ROWS))]
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)           # the H100 SXM's
+    return {"kernel": kernel, "shape": [B, H, Kh, seq, D],
+            "scratch_bytes": 4 * (n_delta + n_scratch),
+            "partials_traffic_bytes": 2 * 4 * (n_scratch - n_delta),
+            "ops_with_recompute": 14 * B * H * D * seq * (seq + 1) // 2,
+            "schedule": {"tile_rows": BWD_TILE_ROWS,
+                         "blocks_a_kernel": len(walks) * B * H,
+                         "tiles_a_kernel": sum(walks) * B * H,
+                         "longest_block_tiles": max(walks),
+                         "even_share_tiles": sum(walks) * B * H / sms,
+                         "sms": sms}}
 
 
 def sdpa_grads(q, k, v, do):
@@ -5029,6 +5126,7 @@ def time_flash_bwd(gen, seq: int, iters: int) -> dict:
 
     t = {"ms": median_ms(run, dev, iters),
          "single_call_ms": single_call_ms(run, dev, iters),
+         "host_ms": host_ms(run, dev, iters),
          "plain_ms": median_ms(lambda: ref.flash_attention_bwd_ref(
              q, k, v, o, do, lse), dev, max(1, iters // 5)),
          "library_ms": median_ms(lambda: sdpa_grads(q, k, v, do), dev,
@@ -5044,6 +5142,9 @@ def time_flash_bwd(gen, seq: int, iters: int) -> dict:
          "bit_equal_share": check["bit_equal_share"]}
     t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
                                          hw.PEAK_FLOPS_BF16)
+    emit("flash_bwd_design", **bwd_design(B, H, Kh, seq, D, dev))
+    t["split"] = (bwd_split(run, dev) if dev.type == "cuda"
+                  else "not measured (a CPU rehearsal)")
     of, lsef = flash_attention(qf, kf, vf, return_lse=True)
     t["float32_ms"] = median_ms(lambda: flash_attention_bwd(
         qf, kf, vf, of, dof, lsef), dev, max(1, iters // 5))
@@ -5342,10 +5443,46 @@ def device_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def ptxas_kernel(mangled: str) -> str:
+    """``name<args>`` of a kernel from its mangled name: the last of the
+    length-prefixed identifiers after ``_Z``/``_ZN`` (past the anonymous
+    namespace), then its template's integer and element type
+    (``flash_bwd_dkdv_wgmma_kernel<128>``)."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = None
+    while (m := re.match(r"\d+", mangled[pos:])) is not None:
+        pos += len(m.group())
+        name = mangled[pos:pos + int(m.group())]
+        pos += len(name)
+    if not name:
+        return mangled[:60]
+    tail = mangled[pos:]
+    if not tail.startswith("I"):
+        return name
+    args = ["bf16"] if tail.startswith("I13__nv_bfloat16") else \
+        ["float"] if tail.startswith("If") else []
+    width = re.match(r"I\w*?Li(\d+)E", tail)
+    return f"{name}<{', '.join(args + [width.group(1)] if width else args)}>"
+
+
 def ptxas_summary(log: str) -> list:
-    return [{"registers": int(r), "spill_stores": int(s)}
-            for s, r in re.findall(r"(\d+) bytes spill stores.*?\n.*?Used "
-                                   r"(\d+) registers", log)]
+    """Each kernel of ``nvcc -Xptxas -v``'s report: its registers, spill
+    stores and the performance notes ptxas gave it (C7512: ``wgmma``
+    serialised for want of registers; C7515 and the like: serialised for
+    another reason), by code."""
+    notes: dict = {}
+    for code, fn in re.findall(r"\((C\d{4})\)[^\n]*?'(\w+)'", log):
+        notes.setdefault(fn, []).append(code)
+    out = []
+    for part in log.split("Compiling entry function '")[1:]:
+        fn = part.split("'", 1)[0]
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        regs = re.search(r"Used (\d+) registers", part)
+        out.append({"kernel": ptxas_kernel(fn),
+                    "registers": int(regs.group(1)) if regs else None,
+                    "spill_stores": int(spill.group(1)) if spill else None,
+                    "notes": sorted(set(notes.get(fn, [])))})
+    return out
 
 
 def main(argv=None) -> int:
@@ -5483,7 +5620,8 @@ def main(argv=None) -> int:
                 # round and capture, never a replay
                 entry["replayed_launches"] = {"run": run, "steps": steps,
                                               "launches": seen[name]}
-        for extra in ("single_call_ms", "parts", "multinomial", "int32_bins",
+        for extra in ("single_call_ms", "host_ms", "parts", "multinomial", "int32_bins",
+                      "split",
                       "float32_ms", "library_bf16_ms", "library_fp32_ms",
                       "library_max_abs_err", "library_fp32_max_abs_err",
                       "bit_equal_share",

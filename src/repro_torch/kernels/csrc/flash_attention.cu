@@ -71,11 +71,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <atomic>
 
 namespace {
 
 constexpr int kTile = 64;          // query rows per block, keys per tile
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
+constexpr float kLog2e = 1.44269504088896341f;
 
 struct Strides {
   long long b, s, h;               // elements
@@ -711,7 +713,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     w.t = lane % 4;
     w.S = S;
     w.causal = causal;
-    w.scale_log2 = scale * 1.44269504088896341f;
+    w.scale_log2 = scale * kLog2e;
 
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
     float o[D / 2];
@@ -942,59 +944,144 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // lse (B, H, S) and its output O:
 //
 //   delta = rowsum(dO o O)                           flash_bwd_delta_kernel
-//   per (batch, kv head, 64-key tile), over the H / Kh query heads of the
-//   group and the live 64-row query tiles:           flash_bwd_dkdv_*_kernel
+//   per key tile, over the live query tiles:         flash_bwd_dkdv_*_kernel
 //     s  = q . k^T * scale;  p = exp(s - lse) (0 where masked)
 //     dV += p^T . dO;  dp = dO . v^T;  ds = p o (dp - delta)
 //     dK += ds^T . q                      (dK scaled once at the end)
-//   per (batch, head, 64-row query tile), over the live key tiles:
+//   per query tile, over the live key tiles:
 //     dQ += ds . k (recomputing s, p, dp and ds)     flash_bwd_dq_*_kernel
 //
-// Every gradient element is summed inside one block (the GQA group's heads
-// included), so there are no float atomics: two launches give the same
-// bits.  bf16 runs mma.sync m16n8k16 with float32 accumulators: p and ds
-// are rounded once to bf16 as the A operands of their products (the
-// forward carries p to 2^-16 as two terms; here one term keeps each of the
-// seven products at 2 D operations a live pair); float32 runs the same
-// recurrences on the CUDA cores.  Rows and keys at or past S are masked
-// and never written.  What bounds it on the H100: operations.  The
-// function needs five products, 10 D a live (query, key) pair, 2.5x the
-// forward's q.k^T and p.v; the dQ kernel's second q.k^T and dO.v^T (4 D)
-// are this design's cost, 14 D in all.  The dK/dV kernel
-// keeps K and V in shared memory and streams Q and dO tiles, the dQ kernel
-// keeps Q and dO and streams K and V.  Later work: wgmma fed by TMA, as
-// the forward has it.
+// No float atomics: every gradient element is summed in a fixed order, so
+// two launches give the same bits and a resumed training run equals a
+// straight one.  That is why the dQ kernel recomputes s and dp rather than
+// taking ds from the dK/dV kernel: the function needs five products, 10 D
+// operations a live (query, key) pair, this design 14 D.  p and ds are
+// rounded once to bf16 as the A operands of their products, every sum is
+// float32; float32 runs the same recurrences on the CUDA cores.  Rows and
+// keys at or past S are masked and never written.  What bounds it on the
+// H100: operations, so the best this design can reach is 10 / 14 of the
+// bound.
+//
+// Three routes, chosen by the wrapper (flash_attention.py, route(), the
+// forward's rule):
+//   * bf16, D in {64, 128}: wgmma fed by TMA, warp-specialised as the
+//     forward (one producer warpgroup, two consumer warpgroups of 64 rows,
+//     a kStages ring behind full and empty mbarriers), four launches.
+//     flash_bwd_delta_kernel also writes lse * log2(e), each head's rows
+//     padded to 64 (+inf past S, so that p = 0 there), for the TMA-fed
+//     kernels.  flash_bwd_dq_wgmma_kernel: one block per (batch, head,
+//     128-row query tile), Q and dO resident, 64-key K and V tiles
+//     streamed.  flash_bwd_dkdv_wgmma_kernel: one block per (batch, query
+//     head, 128-key tile), K and V resident, the live 64-row Q and dO
+//     tiles streamed with their lse and delta rows; s^T = K.Q^T and dp^T
+//     = V.dO^T are the A fragments of dV += p^T.dO and dK += ds^T.Q (dO
+//     and Q read MN-major).  A block owns one query head, so a GQA
+//     group's G heads write float32 partials that flash_bwd_gsum_kernel
+//     adds in head order (G = 1 writes bf16 directly).  At qwen2-0.5b's
+//     training shape (q (4, 14, 2048, 64), causal) the dK/dV kernel's 896
+//     blocks walk 2 to 32 tiles, the longest first, against an even share
+//     of 115 on 132 SMs (the dQ kernel's 896 alike: 2 to 32 key tiles);
+//     the old schedule, a block per (KV head, key tile) over the group's 7
+//     heads, walked 7 to 224 against 28.
+//   * bf16, D = 32: mma.sync m16n8k16 (a 64-byte row is narrower than the
+//     128-byte swizzle), four warps a block, three launches; the dK/dV
+//     block owns a (batch, kv head, 64-key tile) and loops over the
+//     group's heads.
+//   * float32: the CUDA cores, the same schedule as D = 32.
+//
+// Measured at the training shape (PERF.md, kernel table; chip_smoke.py
+// on an NVIDIA H100 80GB HBM3 at 700 W): ~0.31 ms a call against the
+// 0.076 ms bound, under bf16 SDPA's backward (~0.39 ms) in the same run,
+// where the mma.sync design took 0.98: delta ~0.015, dQ ~0.105, dK/dV
+// ~0.155, the group sum ~0.023.  The two wgmma kernels run their 14 D at
+// ~42 % of the bf16 peak: a consumer waits on its own products between
+// the exponentials.  Tried and not kept (PERF.md): queueing the next
+// tile's s^T and dp^T behind this tile's dV and dK (no accumulator
+// written but by wgmma, each fenced where it is zeroed, else ptxas
+// serialises the products, C7515) took 0.010 ms off at D = 64 but ran
+// the D = 128 dK/dV kernel out of registers (C7512), 10 % slower; 128-row
+// tiles (the dK/dV kernel's ran out of registers; the dQ kernel's changed
+// nothing beyond the noise); a ring of 2 or 4 stages.
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int kDeltaThreads = 256;
+
+// 16 bytes of a row of x times the same of y, added to acc in order.
+__device__ __forceinline__ float dot16(const float* x, const float* y,
+                                       float acc) {
+  const float4 a = *reinterpret_cast<const float4*>(x);
+  const float4 b = *reinterpret_cast<const float4*>(y);
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+__device__ __forceinline__ float dot16(const __nv_bfloat16* x,
+                                       const __nv_bfloat16* y, float acc) {
+  const uint4 a = *reinterpret_cast<const uint4*>(x);
+  const uint4 b = *reinterpret_cast<const uint4*>(y);
+  const uint32_t as[4] = {a.x, a.y, a.z, a.w}, bs[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fa =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&as[i]));
+    const float2 fb =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bs[i]));
+    acc = fmaf(fa.x, fb.x, acc);
+    acc = fmaf(fa.y, fb.y, acc);
+  }
+  return acc;
 }
 
-constexpr int kDeltaRows = 8;      // rows of (B, H, S) a block, a warp each
+// Lanes a row of the delta pass: 16-byte loads, at most 8 lanes a row, so
+// a warp reads whole rows of 128 bytes or more.
+template <typename T, int D>
+__host__ __device__ constexpr int delta_lanes() {
+  return D * static_cast<int>(sizeof(T)) / 16 < 8
+             ? D * static_cast<int>(sizeof(T)) / 16 : 8;
+}
 
 // delta[row] = sum_d dO[row, d] * O[row, d] in float32, rows in (b, h, s)
-// order.
-template <typename T>
-__global__ void __launch_bounds__(kDeltaRows * 32)
+// order, s_pad rows a head, delta_lanes() lanes a row.  Given lse2 (the
+// wgmma route, s_pad = S rounded up to 64), it also writes lse2[row] = lse
+// * log2(e), and rows at or past S get delta 0 and lse2 +inf, so that
+// exp2(s - lse2) is 0 there.
+template <typename T, int D>
+__global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                       float* __restrict__ delta, Strides so, Strides sdo,
-                       int S, int H, int D, long long rows) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kDeltaRows + threadIdx.x / 32;
-  if (row >= rows) return;                       // a whole warp returns
-  const int lane = threadIdx.x % 32;
-  const int s = static_cast<int>(row % S);
-  const long long bh = row / S;
-  const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
-  const T* orow = o + b * so.b + h * so.h + s * so.s;
-  const T* drow = dout + b * sdo.b + h * sdo.h + s * sdo.s;
+                       const float* __restrict__ lse,
+                       float* __restrict__ delta, float* __restrict__ lse2,
+                       Strides so, Strides sdo, int S, int s_pad, int H,
+                       long long rows) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  constexpr int kLanes = delta_lanes<T, D>();
+  const int sub = threadIdx.x % kLanes;
+  const long long row = static_cast<long long>(blockIdx.x) *
+                            (kDeltaThreads / kLanes) + threadIdx.x / kLanes;
+  const int s = static_cast<int>(row % s_pad);
+  const long long bh = row / s_pad;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32)
-    acc = fmaf(to_float(drow[d]), to_float(orow[d]), acc);
+  if (row < rows && s < S) {
+    const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
+    const T* orow = o + b * so.b + h * so.h + s * so.s;
+    const T* drow = dout + b * sdo.b + h * sdo.h + s * sdo.s;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+    for (int i = sub * kVec; i < D; i += kLanes * kVec)
+      acc = dot16(drow + i, orow + i, acc);
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
+  if (row >= rows || sub != 0) return;
+  delta[row] = acc;
+  if (lse2 != nullptr)
+    lse2[row] = s < S ? lse[bh * S + s] * kLog2e : __int_as_float(0x7f800000);
+}
+
+// Blocks of the delta pass over rows.
+template <typename T, int D>
+long long delta_blocks(long long rows) {
+  constexpr int per = kDeltaThreads / delta_lanes<T, D>();
+  return (rows + per - 1) / per;
 }
 
 // bf16: tensor cores.  Four warps, 16 rows of a 64-row tile each.
@@ -1233,6 +1320,518 @@ flash_bwd_dq_mma_kernel(
   }
   store_rows_bf16<D>(dq + b * sdq.b + h * sdq.h, sdq.s, dqa, row_lo, t, S,
                      scale);
+}
+
+// bf16, D in {64, 128}: wgmma on TMA-fed tiles, warp-specialised (the
+// forward's producer, ring and register split).
+
+constexpr int kBwdRows = 64;               // rows of a streamed tile
+constexpr int kBwdHalf = kBwdRows * 128;   // its 64-column half: 8 KB
+
+// Shared memory of both backward kernels, from a 1024-byte aligned base:
+// a resident pair of 128-row tiles (K and V, or Q and dO), a ring of
+// kStages pairs of streamed 64-row tiles (Q and dO, or K and V), the
+// ring's lse2 and delta rows (64 floats each; the dK/dV kernel's), then
+// the mbarriers.  A tile is D / 64 halves of its rows x 64 columns, each
+// loaded as 64-row TMA boxes, 128-byte swizzled.
+template <int D>
+struct BwdLayout {
+  static constexpr int kRes = (D / 64) * kHalf;        // 128 rows
+  static constexpr int kTile = (D / 64) * kBwdHalf;    // 64 rows
+  static constexpr int kResA = 0;
+  static constexpr int kResB = kRes;
+  static constexpr int kRingA = 2 * kRes;
+  static constexpr int kRingB = kRingA + kStages * kTile;
+  static constexpr int kRows = kRingB + kStages * kTile;
+  static constexpr int kBar = kRows + kStages * 2 * kBwdRows * 4;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// d (+)= a . b: a and b from shared memory, both K-major; m64n64k16.
+// scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// bytes (a multiple of 16) from 16-byte aligned global memory into shared
+// memory, completing on the barrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// `boxes` 64-row TMA boxes from row0 of one head into a tile whose halves
+// are half_bytes apart.
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t dst, int half_bytes,
+                                          const CUtensorMap* map,
+                                          uint32_t bar, int row0, int boxes,
+                                          int head, int batch) {
+  for (int hf = 0; hf < D / 64; ++hf)
+    for (int r = 0; r < boxes; ++r)
+      tma_load(dst + hf * half_bytes + r * kBwdHalf, map, bar, hf * 64,
+               row0 + r * kBwdRows, head, batch);
+}
+
+// x = a . b^T over D: a the consumer's 64 rows of a resident 128-row tile,
+// b a 64-row ring tile, both K-major; D / 16 k-steps of m64n64k16.  x[4j +
+// e] is a's row (e < 2 ? lo : lo + 8), b's row 8j + 2t + (e & 1).
+template <int D>
+__device__ __forceinline__ void issue_rows_dot(float (&x)[32], uint32_t a,
+                                               uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(x, sw128_desc(a + (kk / 4) * kHalf + (kk % 4) * 32, 16, 1024),
+                 sw128_desc(b + (kk / 4) * kBwdHalf + (kk % 4) * 32, 16, 1024),
+                 kk > 0);
+}
+
+// acc += f . m: f the bf16 A fragments of 64 contraction rows (k-step kk
+// holds rows 16kk..16kk + 15), m a 64-row ring tile read MN-major.
+template <int D>
+__device__ __forceinline__ void issue_frags_dot(float (&acc)[D / 2],
+                                                const uint32_t (&f)[4][4],
+                                                uint32_t m) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_pv<D>(acc, f[kk], sw128_desc(m + kk * 16 * 128, kBwdHalf, 1024));
+}
+
+// Four float32 values of an accumulator's group j as two bf16 A-fragment
+// registers of k-step j / 2 (split_p's layout, one term).
+__device__ __forceinline__ void put_frag(uint32_t (&f)[4][4], int j,
+                                         const float (&v)[4]) {
+  f[j / 2][(j % 2) * 2] = pack_bf16(v[0], v[1]);
+  f[j / 2][(j % 2) * 2 + 1] = pack_bf16(v[2], v[3]);
+}
+
+// Rows lo, lo + 8 of an m64nD accumulator (acc[4j + e]: row e < 2 ? lo :
+// lo + 8, column 8j + 2t + (e & 1)) times scale as bf16; rows past S not
+// written.
+template <int D>
+__device__ __forceinline__ void store_acc_bf16(__nv_bfloat16* dst,
+                                               long long s_stride,
+                                               const float (&acc)[D / 2],
+                                               int lo, int t, int S,
+                                               float scale) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (lo < S)
+      *reinterpret_cast<uint32_t*>(dst + lo * s_stride + col) =
+          pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    if (lo + 8 < S)
+      *reinterpret_cast<uint32_t*>(dst + (lo + 8) * s_stride + col) =
+          pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+  }
+}
+
+// The same rows as float32 into a contiguous (rows, D) array.
+template <int D>
+__device__ __forceinline__ void store_acc_f32(float* dst,
+                                              const float (&acc)[D / 2],
+                                              int lo, int t, int S) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (lo < S)
+      *reinterpret_cast<float2*>(dst + static_cast<long long>(lo) * D + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (lo + 8 < S)
+      *reinterpret_cast<float2*>(dst + static_cast<long long>(lo + 8) * D +
+                                 col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// p^T = exp2(s^T * scale * log2(e) - lse2[query]), in place in x (the
+// dK/dV kernel's tile: rows keys key_lo, key_lo + 8, columns queries q0 +
+// 8j + 2t + (e & 1)), and its bf16 A fragments; kMask zeroes the keys past
+// their query (the tiles that meet the diagonal).
+template <bool kMask>
+__device__ __forceinline__ void p_cols(float (&x)[32], uint32_t (&pf)[4][4],
+                                       const float* l2, float scale_log2,
+                                       int key_lo, int q0, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 lj = *reinterpret_cast<const float2*>(l2 + 8 * j + 2 * t);
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = ex2(fmaf(x[4 * j + e], scale_log2, -((e & 1) ? lj.y : lj.x)));
+      if (kMask && key_lo + 8 * (e >> 1) > q0 + 8 * j + 2 * t + (e & 1))
+        p[e] = 0.f;
+      x[4 * j + e] = p[e];
+    }
+    put_frag(pf, j, p);
+  }
+}
+
+// p = exp2(s * scale * log2(e) - lse2[row]), in place in x (the dQ
+// kernel's tile: rows row_lo, row_lo + 8 with lse2 lr, columns keys k0 +
+// 8j + 2t + (e & 1)); kMask zeroes the keys at or past S and, when
+// causal, past their row.
+template <bool kMask>
+__device__ __forceinline__ void p_rows(float (&x)[32], const float (&lr)[2],
+                                       float scale_log2, int row_lo, int k0,
+                                       int t, int S, int causal) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = ex2(fmaf(x[4 * j + e], scale_log2, -lr[e >> 1]));
+      const int key = k0 + 8 * j + 2 * t + (e & 1);
+      const int row = row_lo + 8 * (e >> 1);
+      x[4 * j + e] =
+          kMask && (key >= S || (causal && key > row)) ? 0.f : v;
+    }
+  }
+}
+
+// One block per (batch, query head, 128-key tile), flattened with the key
+// tile slowest, so that key tile 0, the longest under the causal mask,
+// starts first.  Warpgroup 0 produces: one thread loads the block's K and
+// V once, then the head's live 64-row Q and dO tiles with their lse2 and
+// delta rows into the ring.  Warpgroups 1 and 2 consume, 64 keys each:
+// s^T = K.Q^T and dp^T = V.dO^T (two commit groups, so that p^T's
+// exponentials run while dp^T is in flight), then dV += p^T.dO and dK +=
+// ds^T.Q with p^T and ds^T as register A fragments.  With a GQA group (H >
+// Kh) the block writes its head's float32 partials of dK and dV to part
+// ((B, H, S, D) each, dK's first) for flash_bwd_gsum_kernel; without (part
+// null) it writes dK (scaled) and dV.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse2,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv,
+                            float* __restrict__ part, Strides sdk,
+                            Strides sdv, int S, int H, int B, int group,
+                            int causal, float scale) {
+  using L = BwdLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const float* rows_s =
+      reinterpret_cast<const float*>(smem_raw + (base - raw) + L::kRows);
+  const uint32_t bar_res = base + L::kBar;
+  const uint32_t bar_full = bar_res + 8;
+  const uint32_t bar_empty = bar_res + 8 * (1 + kStages);
+
+  const int s_pad = (S + kBwdRows - 1) / kBwdRows * kBwdRows;
+  const int n_q = s_pad / kBwdRows;
+  const int heads = H * B;
+  const int jk = static_cast<int>(blockIdx.x) / heads;
+  const int h = static_cast<int>(blockIdx.x) % heads % H;
+  const int b = static_cast<int>(blockIdx.x) % heads / H;
+  const int hk = h / group, k0 = jk * kWgRows;
+  const int iq0 = causal ? k0 / kBwdRows : 0;     // the first live query tile
+  const long long bh = static_cast<long long>(b) * H + h;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_res, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_res, 2 * L::kRes);
+      load_rows<D>(base + L::kResA, kHalf, &tk, bar_res, k0, 2, hk, b);
+      load_rows<D>(base + L::kResB, kHalf, &tv, bar_res, k0, 2, hk, b);
+      const float* l2 = lse2 + bh * s_pad;
+      const float* dl = delta + bh * s_pad;
+      for (int i = 0; iq0 + i < n_q; ++i) {
+        const int st = i % kStages, q0 = (iq0 + i) * kBwdRows;
+        const uint32_t full = bar_full + 8 * st;
+        const uint32_t rows = base + L::kRows + st * 2 * kBwdRows * 4;
+        // the first pass over the ring finds every stage free
+        mbar_wait(bar_empty + 8 * st, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::kTile + 2 * kBwdRows * 4);
+        load_rows<D>(base + L::kRingA + st * L::kTile, kBwdHalf, &tq, full,
+                     q0, 1, h, b);
+        load_rows<D>(base + L::kRingB + st * L::kTile, kBwdHalf, &tdo, full,
+                     q0, 1, h, b);
+        bulk_load(rows, l2 + q0, kBwdRows * 4, full);
+        bulk_load(rows + kBwdRows * 4, dl + q0, kBwdRows * 4, full);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = threadIdx.x / 128 - 1;          // consumer 0 or 1
+    const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+    const int t = lane % 4;
+    const int key_lo = k0 + c * 64 + warp * 16 + lane / 4;  // and key_lo + 8
+    const float scale_log2 = scale * kLog2e;
+    const uint32_t ka = base + L::kResA + c * kBwdHalf;
+    const uint32_t va = base + L::kResB + c * kBwdHalf;
+    float dva[D / 2], dka[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dva[i] = dka[i] = 0.f;
+    float x[32], y[32];
+    uint32_t pf[4][4], df[4][4];
+
+    mbar_wait(bar_res, 0);
+    for (int i = 0; iq0 + i < n_q; ++i) {
+      const int st = i % kStages, q0 = (iq0 + i) * kBwdRows;
+      const uint32_t qt = base + L::kRingA + st * L::kTile;
+      const uint32_t dot = base + L::kRingB + st * L::kTile;
+      const float* l2 = rows_s + st * 2 * kBwdRows;
+      const float* dl = l2 + kBwdRows;
+      // only the tiles that meet the diagonal need the causal mask; query
+      // rows past S have lse2 = +inf, so p = 0 there without one
+      const bool edge = causal && q0 < k0 + kWgRows;
+      mbar_wait(bar_full + 8 * st, (i / kStages) & 1);
+      wg_fence();
+      issue_rows_dot<D>(x, ka, qt);               // s^T = K . Q^T
+      wg_commit();
+      issue_rows_dot<D>(y, va, dot);              // dp^T = V . dO^T
+      wg_commit();
+      wg_wait<1>();                               // s^T is in
+      fence_regs(x);
+      if (edge)
+        p_cols<true>(x, pf, l2, scale_log2, key_lo, q0, t);
+      else
+        p_cols<false>(x, pf, l2, scale_log2, key_lo, q0, t);
+      fence_regs(pf);
+      wg_fence();
+      issue_frags_dot<D>(dva, pf, dot);           // dV += p^T . dO
+      wg_commit();
+      wg_wait<1>();                               // dp^T is in
+      fence_regs(y);
+      // ds^T = p^T o (dp^T - delta[query])
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dj = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+        float g[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          g[e] = x[4 * j + e] * (y[4 * j + e] - ((e & 1) ? dj.y : dj.x));
+        put_frag(df, j, g);
+      }
+      fence_regs(df);
+      wg_fence();
+      issue_frags_dot<D>(dka, df, qt);            // dK += ds^T . Q
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(pf);
+      fence_regs(df);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);   // stage free
+    }
+
+    if (part == nullptr) {
+      store_acc_bf16<D>(dk + b * sdk.b + hk * sdk.h, sdk.s, dka, key_lo, t, S,
+                        scale);
+      store_acc_bf16<D>(dv + b * sdv.b + hk * sdv.h, sdv.s, dva, key_lo, t, S,
+                        1.f);
+    } else {
+      float* pk = part + bh * S * D;
+      store_acc_f32<D>(pk, dka, key_lo, t, S);
+      store_acc_f32<D>(pk + static_cast<long long>(heads) * S * D, dva, key_lo,
+                       t, S);
+    }
+  }
+}
+
+// One block per (batch, head, 128-row query tile), the longest tiles first
+// as in the forward.  Warpgroup 0 produces: one thread loads the block's Q
+// and dO once, then the live 64-key K and V tiles into the ring.
+// Warpgroups 1 and 2 consume, 64 rows each: s = Q.K^T and dp = dO.V^T
+// (two commit groups), ds in registers, then dQ += ds.K with K read
+// MN-major.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse2,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, Strides sdq, int S,
+                          int H, int B, int group, int causal, float scale) {
+  using L = BwdLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bar_res = base + L::kBar;
+  const uint32_t bar_full = bar_res + 8;
+  const uint32_t bar_empty = bar_res + 8 * (1 + kStages);
+
+  const int s_pad = (S + kBwdRows - 1) / kBwdRows * kBwdRows;
+  const int n_t = s_pad / kBwdRows;                 // 64-key tiles
+  const int n_q = (S + kWgRows - 1) / kWgRows;      // 128-row query tiles
+  const int heads = H * B;
+  const int iq = n_q - 1 - static_cast<int>(blockIdx.x) / heads;
+  const int h = static_cast<int>(blockIdx.x) % heads % H;
+  const int b = static_cast<int>(blockIdx.x) % heads / H;
+  const int hk = h / group, q0 = iq * kWgRows;
+  const int n_k = causal ? min(n_t, 2 * iq + 2) : n_t;
+  const long long bh = static_cast<long long>(b) * H + h;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_res, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_res, 2 * L::kRes);
+      load_rows<D>(base + L::kResA, kHalf, &tq, bar_res, q0, 2, h, b);
+      load_rows<D>(base + L::kResB, kHalf, &tdo, bar_res, q0, 2, h, b);
+      for (int jk = 0; jk < n_k; ++jk) {
+        const int st = jk % kStages;
+        const uint32_t full = bar_full + 8 * st;
+        mbar_wait(bar_empty + 8 * st, ((jk / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::kTile);
+        load_rows<D>(base + L::kRingA + st * L::kTile, kBwdHalf, &tk, full,
+                     jk * kBwdRows, 1, hk, b);
+        load_rows<D>(base + L::kRingB + st * L::kTile, kBwdHalf, &tv, full,
+                     jk * kBwdRows, 1, hk, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = threadIdx.x / 128 - 1;
+    const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+    const int t = lane % 4;
+    const int row_lo = q0 + c * 64 + warp * 16 + lane / 4;   // and row_lo + 8
+    const float scale_log2 = scale * kLog2e;
+    const uint32_t qa = base + L::kResA + c * kBwdHalf;
+    const uint32_t oa = base + L::kResB + c * kBwdHalf;
+    const float* l2 = lse2 + bh * s_pad;
+    const float* dl = delta + bh * s_pad;
+    float lr[2], dr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_lo + 8 * r;
+      lr[r] = row < S ? l2[row] : __int_as_float(0x7f800000);
+      dr[r] = row < S ? dl[row] : 0.f;
+    }
+    float dqa[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+    float x[32], y[32];
+    uint32_t df[4][4];
+
+    mbar_wait(bar_res, 0);
+    for (int jk = 0; jk < n_k; ++jk) {
+      const int st = jk % kStages, k0 = jk * kBwdRows;
+      const uint32_t kt = base + L::kRingA + st * L::kTile;
+      const uint32_t vt = base + L::kRingB + st * L::kTile;
+      // the diagonal tiles and the ragged last one need the mask
+      const bool edge = (causal && k0 >= q0) || k0 + kBwdRows > S;
+      mbar_wait(bar_full + 8 * st, (jk / kStages) & 1);
+      wg_fence();
+      issue_rows_dot<D>(x, qa, kt);               // s = Q . K^T
+      wg_commit();
+      issue_rows_dot<D>(y, oa, vt);               // dp = dO . V^T
+      wg_commit();
+      wg_wait<1>();                               // s is in
+      fence_regs(x);
+      if (edge)
+        p_rows<true>(x, lr, scale_log2, row_lo, k0, t, S, causal);
+      else
+        p_rows<false>(x, lr, scale_log2, row_lo, k0, t, S, causal);
+      wg_wait<0>();                               // dp is in
+      fence_regs(y);
+      // ds = p o (dp - delta[row])
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float g[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          g[e] = x[4 * j + e] * (y[4 * j + e] - dr[e >> 1]);
+        put_frag(df, j, g);
+      }
+      fence_regs(df);
+      wg_fence();
+      issue_frags_dot<D>(dqa, df, kt);            // dQ += ds . K
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(dqa);
+      fence_regs(df);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);   // stage free
+    }
+    store_acc_bf16<D>(dq + b * sdq.b + h * sdq.h, sdq.s, dqa, row_lo, t, S,
+                      scale);
+  }
+}
+
+// dK and dV of each KV head from its group's float32 partials (B, H, S, D)
+// (dK's, then dV's, plane elements on), added in head order h = hk * G,
+// ..., hk * G + G - 1, so that every launch gives the same bits; dK scaled,
+// both written as bf16.  Four columns a thread; blockIdx.y picks dK (0) or
+// dV (1).
+__global__ void __launch_bounds__(256)
+flash_bwd_gsum_kernel(const float* __restrict__ part,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, Strides sdk,
+                      Strides sdv, int S, int H, int Kh, int D,
+                      long long quads, long long plane, float scale) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= quads) return;
+  const bool is_v = blockIdx.y == 1;
+  const int group = H / Kh;
+  const int d = static_cast<int>(i * 4 % D);
+  const long long r = i * 4 / D;                  // (b, hk, s) rows
+  const int s = static_cast<int>(r % S);
+  const long long bk = r / S;
+  const int hk = static_cast<int>(bk % Kh), b = static_cast<int>(bk / Kh);
+  const long long row = (static_cast<long long>(b) * H + hk * group) * S + s;
+  const float* src = part + (is_v ? plane : 0) + row * D + d;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int g = 1; g < group; ++g) {
+    const float4 x = *reinterpret_cast<const float4*>(
+        src + static_cast<long long>(g) * S * D);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const float m = is_v ? 1.f : scale;
+  __nv_bfloat16* dst =
+      is_v ? dv + b * sdv.b + hk * sdv.h + s * sdv.s + d
+           : dk + b * sdk.b + hk * sdk.h + s * sdk.s + d;
+  *reinterpret_cast<uint2*>(dst) = make_uint2(
+      pack_bf16(acc.x * m, acc.y * m), pack_bf16(acc.z * m, acc.w * m));
 }
 
 // float32: CUDA cores, 256 threads as 16 x 16, each owning 4 x 4 of the
@@ -1476,23 +2075,105 @@ struct BwdArgs {
   float scale;
 };
 
-// The three launches of one backward, each checked; kernel 0 = bf16 on
-// mma.sync, 1 = float32 on the CUDA cores.
+int tensor_map(CUtensorMap* map, const void* base, Strides st, int B, int S,
+               int heads, int D, int rows);
+
+// The wgmma backward kernels' dynamic shared memory, set once per device
+// (a bit each) and width: a training step makes 24 calls, and the host,
+// not the card, binds much of it.
 template <int D>
-int launch_bwd_d(int kernel, const BwdArgs& a, cudaStream_t stream) {
+int bwd_wgmma_smem(int smem) {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
+  if (bit != 0 && (done.load(std::memory_order_acquire) & bit) != 0) return 0;
+  e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  done.fetch_or(bit, std::memory_order_release);
+  return 0;
+}
+
+// The wgmma route's launches, each checked: delta (with lse2, padded to
+// 64 rows, into scratch), dQ, dK/dV, and with a GQA group the partials'
+// sum (scratch after lse2).  The tensor maps are encoded while the delta
+// pass runs.
+template <int D>
+int launch_bwd_wgmma(const BwdArgs& a, float* scratch, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const int group = a.H / a.Kh;
+  const int s_pad = (a.S + kBwdRows - 1) / kBwdRows * kBwdRows;
+  const long long rows = static_cast<long long>(a.B) * a.H * s_pad;
+  const long long d_blocks = delta_blocks<bf, D>(rows);
+  const long long blocks =
+      static_cast<long long>((a.S + kWgRows - 1) / kWgRows) * a.H * a.B;
+  const long long quads = static_cast<long long>(a.B) * a.Kh * a.S * D / 4;
+  if (d_blocks > 0x7fffffffLL || blocks > 0x7fffffffLL ||
+      (quads + 255) / 256 > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* lse2 = scratch;
+  float* part = group > 1 ? scratch + rows : nullptr;
+  const int smem = BwdLayout<D>::kBytes;
+  int err = bwd_wgmma_smem<D>(smem);
+  if (err != 0) return err;
+  flash_bwd_delta_kernel<bf, D>
+      <<<static_cast<unsigned>(d_blocks), kDeltaThreads, 0, stream>>>(
+          static_cast<const bf*>(a.o), static_cast<const bf*>(a.dout), a.lse,
+          a.delta, lse2, a.so, a.sdo, a.S, s_pad, a.H, rows);
+  if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+  CUtensorMap tq, tk, tv, tdo;
+  err = tensor_map(&tq, a.q, a.sq, a.B, a.S, a.H, D, kBwdRows);
+  if (err == 0) err = tensor_map(&tk, a.k, a.sk, a.B, a.S, a.Kh, D, kBwdRows);
+  if (err == 0) err = tensor_map(&tv, a.v, a.sv, a.B, a.S, a.Kh, D, kBwdRows);
+  if (err == 0)
+    err = tensor_map(&tdo, a.dout, a.sdo, a.B, a.S, a.H, D, kBwdRows);
+  if (err != 0) return err;
+  flash_bwd_dq_wgmma_kernel<D>
+      <<<static_cast<unsigned>(blocks), kWgThreads, smem, stream>>>(
+          tq, tk, tv, tdo, lse2, a.delta, static_cast<bf*>(a.dq), a.sdq, a.S,
+          a.H, a.B, group, a.causal, a.scale);
+  if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+  flash_bwd_dkdv_wgmma_kernel<D>
+      <<<static_cast<unsigned>(blocks), kWgThreads, smem, stream>>>(
+          tq, tk, tv, tdo, lse2, a.delta, static_cast<bf*>(a.dk),
+          static_cast<bf*>(a.dv), part, a.sdk, a.sdv, a.S, a.H, a.B, group,
+          a.causal, a.scale);
+  if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+  if (part != nullptr)
+    flash_bwd_gsum_kernel<<<dim3(static_cast<unsigned>((quads + 255) / 256),
+                                 2),
+                            256, 0, stream>>>(
+        part, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.sdk, a.sdv,
+        a.S, a.H, a.Kh, D, quads,
+        static_cast<long long>(a.B) * a.H * a.S * D, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launches of one backward, each checked; kernel 0 = bf16 on mma.sync
+// (D = 32), 1 = float32 on the CUDA cores, 2 = bf16 on wgmma + TMA (D in
+// {64, 128}).
+template <int D>
+int launch_bwd_d(int kernel, const BwdArgs& a, float* scratch,
+                 cudaStream_t stream) {
   const int group = a.H / a.Kh;
   const int n_t = (a.S + kTile - 1) / kTile;
   const long long rows = static_cast<long long>(a.B) * a.H * a.S;
-  const long long delta_blocks = (rows + kDeltaRows - 1) / kDeltaRows;
-  if (delta_blocks > 0x7fffffffLL)
+  if (delta_blocks<float, D>(rows) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 kv_grid(n_t, a.Kh, a.B), q_grid(n_t, a.H, a.B);
   int err;
   if (kernel == 1) {
-    flash_bwd_delta_kernel<float>
-        <<<static_cast<unsigned>(delta_blocks), kDeltaRows * 32, 0, stream>>>(
+    flash_bwd_delta_kernel<float, D>
+        <<<static_cast<unsigned>(delta_blocks<float, D>(rows)), kDeltaThreads,
+           0, stream>>>(
             static_cast<const float*>(a.o), static_cast<const float*>(a.dout),
-            a.delta, a.so, a.sdo, a.S, a.H, D, rows);
+            nullptr, a.delta, nullptr, a.so, a.sdo, a.S, a.S, a.H, rows);
     if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
     const int smem_kv = (4 * kTile * (D + 1) + 2 * kTile * (kTile + 1) +
                          2 * kTile) * static_cast<int>(sizeof(float));
@@ -1515,12 +2196,14 @@ int launch_bwd_d(int kernel, const BwdArgs& a, cudaStream_t stream) {
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         a.lse, a.delta, static_cast<float*>(a.dq), a.sq, a.sk, a.sv, a.sdo,
         a.sdq, a.S, group, a.causal, a.scale);
-  } else if (kernel == 0) {
+  } else if constexpr (D == 32) {
+    if (kernel != 0) return static_cast<int>(cudaErrorInvalidValue);
     using bf = __nv_bfloat16;
-    flash_bwd_delta_kernel<bf>
-        <<<static_cast<unsigned>(delta_blocks), kDeltaRows * 32, 0, stream>>>(
+    flash_bwd_delta_kernel<bf, D>
+        <<<static_cast<unsigned>(delta_blocks<bf, D>(rows)), kDeltaThreads, 0,
+           stream>>>(
             static_cast<const bf*>(a.o), static_cast<const bf*>(a.dout),
-            a.delta, a.so, a.sdo, a.S, a.H, D, rows);
+            nullptr, a.delta, nullptr, a.so, a.sdo, a.S, a.S, a.H, rows);
     if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
     const int smem_q = 4 * kTile * (D + 8) * static_cast<int>(sizeof(bf));
     const int smem_kv = smem_q + 2 * kTile * static_cast<int>(sizeof(float));
@@ -1541,7 +2224,8 @@ int launch_bwd_d(int kernel, const BwdArgs& a, cudaStream_t stream) {
         a.delta, static_cast<bf*>(a.dq), a.sq, a.sk, a.sv, a.sdo, a.sdq, a.S,
         group, a.causal, a.scale);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (kernel != 2) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bwd_wgmma<D>(a, scratch, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1577,10 +2261,10 @@ EncodeTiledFn encoder() {
 }
 
 // A 4-d map of a (batch, seq, head, D) bf16 tensor given by element
-// strides: boxes of 64 columns x 128 rows of one head, 128-byte swizzled,
-// rows past S filled with zeros.
+// strides: boxes of 64 columns x `rows` rows of one head, 128-byte
+// swizzled, rows past S filled with zeros.
 int tensor_map(CUtensorMap* map, const void* base, Strides st, int B, int S,
-               int heads, int D) {
+               int heads, int D, int rows) {
   const EncodeTiledFn fn = encoder();
   if (fn == nullptr) return kErrNoEncoder;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -1590,7 +2274,7 @@ int tensor_map(CUtensorMap* map, const void* base, Strides st, int B, int S,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
                                  static_cast<cuuint64_t>(st.h) * 2,
                                  static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {64, kWgRows, 1, 1};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(base), dims, strides, box, unit,
@@ -1607,9 +2291,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  int B, int S, int H, int Kh, float scale, int causal,
                  cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = tensor_map(&tq, q, sq, B, S, H, D);
-  if (err == 0) err = tensor_map(&tk, k, sk, B, S, Kh, D);
-  if (err == 0) err = tensor_map(&tv, v, sv, B, S, Kh, D);
+  int err = tensor_map(&tq, q, sq, B, S, H, D, kWgRows);
+  if (err == 0) err = tensor_map(&tk, k, sk, B, S, Kh, D, kWgRows);
+  if (err == 0) err = tensor_map(&tv, v, sv, B, S, Kh, D, kWgRows);
   if (err != 0) return err;
   const long long blocks =
       static_cast<long long>((S + kWgRows - 1) / kWgRows) * H * B;
@@ -1711,12 +2395,15 @@ extern "C" const char* flash_attention_error_string(int err) {
 
 // The backward of one forward: q, k, v, o (the forward's output), dout
 // (its gradient), lse (the forward's row log-sum-exp, a contiguous
-// (B, H, S) float32 array) in; delta, a contiguous (B, H, S) float32
-// scratch; dq, dk, dv out, in the inputs' dtype.  Each of the eight
-// tensors has element strides (batch, seq, head) and unit stride along D.
-// kernel 0 = bf16 on mma.sync, 1 = float32 on the CUDA cores; D in {32,
-// 64, 128}.  Three launches (delta, dK/dV, dQ), each checked; returns the
-// first error, or 0.
+// (B, H, S) float32 array) in; delta, a contiguous float32 scratch of
+// (B, H, S) rows (kernel 2: (B, H, S_pad), S_pad = S rounded up to 64);
+// dq, dk, dv out, in the inputs' dtype.  Each of the eight tensors has
+// element strides (batch, seq, head) and unit stride along D.  kernel 0 =
+// bf16 on mma.sync (D = 32), 1 = float32 on the CUDA cores (D in {32, 64,
+// 128}), 2 = bf16 on wgmma + TMA (D in {64, 128}); another kernel for a D
+// is an invalid value.  scratch, the last argument (kernel 2 only, else
+// unused): B * H * S_pad floats, then, when H > Kh, 2 * B * H * S * D
+// floats of partial dK and dV.  Returns the first launch's error, or 0.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -1727,9 +2414,9 @@ extern "C" int flash_attention_bwd_launch(
     long long sdqb, long long sdqs, long long sdqh, long long sdkb,
     long long sdks, long long sdkh, long long sdvb, long long sdvs,
     long long sdvh, int B, int S, int H, int Kh, int D, int causal,
-    float scale, void* stream) {
+    float scale, void* stream, float* scratch) {
   if (B < 1 || S < 1 || H < 1 || Kh < 1 || H % Kh != 0 || kernel < 0 ||
-      kernel > 1 || B > 65535 || H > 65535)
+      kernel > 2 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv,
                   Strides{sqb, sqs, sqh}, Strides{skb, sks, skh},
@@ -1740,11 +2427,11 @@ extern "C" int flash_attention_bwd_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch_bwd_d<32>(kernel, a, st);
+      return launch_bwd_d<32>(kernel, a, scratch, st);
     case 64:
-      return launch_bwd_d<64>(kernel, a, st);
+      return launch_bwd_d<64>(kernel, a, scratch, st);
     case 128:
-      return launch_bwd_d<128>(kernel, a, st);
+      return launch_bwd_d<128>(kernel, a, scratch, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

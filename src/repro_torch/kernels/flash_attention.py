@@ -8,11 +8,12 @@ an online softmax, p in float32 as the TPU kernel keeps it; asked for
 backward takes.  :func:`flash_attention_bwd` is its gradient, which the
 TPU package never had (JAX trains through autodiff of its plain
 attention): dq, dk and dv from q, k, v, the output, its gradient and the
-log-sum-exp (FlashAttention-2's scheme, three launches of the library).
+log-sum-exp (FlashAttention-2's scheme, one call of the library).
 A CPU tensor runs the plain versions (:func:`repro_torch.kernels.ref.
 flash_attention_ref`, :func:`~repro_torch.kernels.ref.
 flash_attention_bwd_ref`); a CUDA tensor launches the kernels (the
-forward's by :func:`route`, the backward's by dtype) or raises.
+forward's by :func:`route`, the backward's by :func:`bwd_route`) or
+raises.
 ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
 the calls that launched; each also charges its bytes and operations to
 an active ``roofline.analysis.RoundCounter``.
@@ -41,12 +42,14 @@ _SIGNATURES = {
         ctypes.c_void_p]),
     "flash_attention_bwd_launch": (ctypes.c_int, [ctypes.c_void_p] * 10 + [
         ctypes.c_int] + [_LL] * 24 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]),
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]),
     "flash_attention_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
-# the backward's kernels, by dtype: bf16 on mma.sync, float32 on the CUDA
-# cores (the codes flash_attention_bwd_launch takes)
-_BWD_KERNELS = {torch.bfloat16: 0, torch.float32: 1}
+# the wgmma backward's tiles (csrc/flash_attention.cu: kWgRows, kBwdRows):
+# a dK/dV block owns 128 keys and streams 64-row query tiles, a dQ block
+# owns 128 query rows and streams 64-key tiles; their schedule and its
+# balance are in the source's note
+BWD_BLOCK_ROWS, BWD_TILE_ROWS = 128, 64
 
 
 def _check(q, k, v):
@@ -95,14 +98,33 @@ def _check_cuda_layout(q, k, v, **more):
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a CUDA call takes: bf16 at ``D`` in (64, 128) runs on
-    ``wgmma`` fed by TMA, bf16 at ``D = 32`` on ``mma.sync`` (a 64-byte
-    row is narrower than the 128-byte swizzle the ``wgmma`` kernel's
-    tiles use), float32 on the CUDA cores (``simt``).  A rule on the
-    shape, not a fallback: a failed build or launch raises."""
+    """The kernel a CUDA call takes, forward and backward alike: bf16 at
+    ``D`` in (64, 128) runs on ``wgmma`` fed by TMA, bf16 at ``D = 32`` on
+    ``mma.sync`` (a 64-byte row is narrower than the 128-byte swizzle the
+    ``wgmma`` kernels' tiles use), float32 on the CUDA cores (``simt``).
+    A rule on the shape, not a fallback: a failed build or launch
+    raises."""
     if dtype == torch.float32:
         return "simt"
     return "wgmma" if head_dim in (64, 128) else "mma"
+
+
+# the backward follows the forward's rule
+bwd_route = route
+
+
+def bwd_scratch(kernel: str, B: int, H: int, Kh: int, S: int,
+                D: int) -> tuple:
+    """``(delta, scratch)``: the float32 elements of the two scratch
+    arrays a backward on ``kernel`` takes.  Every route keeps delta a row;
+    ``wgmma`` pads each head's rows to a whole 64-row tile and keeps
+    lse·log2(e) beside delta, and with a GQA group (``H > Kh``) the
+    float32 partial dK and dV of every query head, ``(B, H, S, D)``
+    each, that its group sum adds."""
+    if kernel != "wgmma":
+        return B * H * S, 0
+    rows = B * H * -(-S // BWD_TILE_ROWS) * BWD_TILE_ROWS
+    return rows, rows + (2 * B * H * S * D if H > Kh else 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -176,12 +198,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype, float32 accumulation.
 
     On the card: the forward's dtypes, head dims and layouts (``o`` and
-    ``do`` too); three launches, Δ = rowsum(dO ∘ O), dK/dV a (batch, kv
-    head, key tile) and dQ a (batch, head, query tile), with no float
-    atomics, so two calls give the same bits.  bf16 runs on ``mma.sync``
-    (p and ds rounded once to bf16 as operands), float32 on the CUDA
-    cores.  The gradients are transposed views of contiguous ``(B, S,
-    heads, D)`` tensors, as the forward's output."""
+    ``do`` too); the kernels by :func:`bwd_route`, with no float atomics,
+    so two calls give the same bits.  bf16 at ``D`` in (64, 128) runs on
+    ``wgmma``: Δ = rowsum(dO ∘ O), dQ a (batch, head, 128-row query
+    tile), dK/dV a (batch, query head, 128-key tile) and, with a GQA
+    group, the group's partials added in head order; bf16 at ``D = 32``
+    on ``mma.sync`` (dK/dV a (batch, kv head, 64-key tile) over the
+    group); float32 on the CUDA cores.  p and ds are rounded once to bf16
+    as operands.  The gradients are transposed views of contiguous ``(B,
+    S, heads, D)`` tensors, as the forward's output."""
     _check(q, k, v)
     B, H, S, D = q.shape
     for name, t in (("o", o), ("do", do)):
@@ -198,32 +223,53 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
                                            causal=causal)
     _check_cuda_layout(q, k, v, o=o, do=do)
-    lse = lse.contiguous()
+    grads = _launch_bwd(build.load("flash_attention", _SIGNATURES),
+                        bwd_route(q.dtype, D), q, k, v, o, do, lse, causal)
+    flash_attention_bwd.launches += 1
+    # the function's five products of 2·D a live (query, key) pair: s =
+    # q·kᵀ (p is not an input), dV = pᵀ·dO, dp = dO·vᵀ, dK = dsᵀ·q and dQ =
+    # ds·k.  The dQ kernel's second q·kᵀ and dO·vᵀ, and the partials of a
+    # GQA group, are this implementation's cost, not the function's, and
+    # are not charged.
+    analysis.charge(analysis.nbytes(q, k, v, o, do, lse, *grads),
+                    10 * D * B * H * _pairs(S, causal),
+                    analysis.op_kind(q.dtype))
+    return grads
+
+
+def _launch_bwd(lib, kernel: str, q, k, v, o, do, lse,
+                causal: bool) -> tuple:
+    """One backward on ``kernel`` from ``lib``, a build of
+    ``csrc/flash_attention.cu``, on tensors that passed the wrapper's
+    checks: the scratch of :func:`bwd_scratch` allocated, ``(dq, dk,
+    dv)`` returned.  Counts nothing: :func:`flash_attention_bwd` counts
+    its own calls, and ``tools/kernel_ab.py`` times other builds with it
+    (a library from before the ``wgmma`` route takes the scratch pointer,
+    its last argument, and ignores it)."""
+    B, H, S, D = q.shape
     Kh = k.shape[1]
-    grads = [torch.empty((B, S, heads, D), dtype=q.dtype, device=q.device
-                         ).transpose(1, 2) for heads in (H, Kh, Kh)]
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lse = lse.contiguous()
+    grads = tuple(torch.empty((B, S, heads, D), dtype=q.dtype,
+                              device=q.device).transpose(1, 2)
+                  for heads in (H, Kh, Kh))
+    n_delta, n_scratch = bwd_scratch(kernel, B, H, Kh, S, D)
+    # one allocation: delta, then the scratch (a whole number of 64-float
+    # rows after delta's on the wgmma route, so 16-byte aligned)
+    buf = torch.empty(n_delta + n_scratch, dtype=torch.float32,
+                      device=q.device)
     strides = []
     for t in (q, k, v, o, do, *grads):          # (batch, seq, head)
         strides += [t.stride(0), t.stride(2), t.stride(1)]
-    lib = build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            *(g.data_ptr() for g in grads), _BWD_KERNELS[q.dtype], *strides,
-            B, S, H, Kh, D, int(causal), 1.0 / D ** 0.5, stream)
+            do.data_ptr(), lse.data_ptr(), buf.data_ptr(),
+            *(g.data_ptr() for g in grads), _KERNELS[kernel], *strides,
+            B, S, H, Kh, D, int(causal), 1.0 / D ** 0.5, stream,
+            buf.data_ptr() + 4 * n_delta if n_scratch else None)
     build.check(lib, "flash_attention", err)
-    flash_attention_bwd.launches += 1
-    # the function's five products of 2·D a live (query, key) pair: s =
-    # q·kᵀ (p is not an input), dV = pᵀ·dO, dp = dO·vᵀ, dK = dsᵀ·q and dQ =
-    # ds·k.  The dQ kernel's second q·kᵀ and dO·vᵀ are this
-    # implementation's cost, not the function's, and are not charged.
-    analysis.charge(analysis.nbytes(q, k, v, o, do, lse, *grads),
-                    10 * D * B * H * _pairs(S, causal),
-                    analysis.op_kind(q.dtype))
-    return tuple(grads)
+    return grads
 
 
 flash_attention.launches = 0

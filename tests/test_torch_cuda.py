@@ -22,8 +22,8 @@ from repro_torch.core.mlalgos import (DecisionTree, KMeans,  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import dispatch, ref  # noqa: E402
 from repro_torch.kernels import split_hist as split_hist_mod  # noqa: E402
-from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
-                                                 flash_attention_bwd, route)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    bwd_route, flash_attention, flash_attention_bwd, route)
 from repro_torch.kernels.fxp_matmul import fxp_matmul  # noqa: E402
 from repro_torch.kernels.fxp_matmul import route as fxp_route  # noqa: E402
 from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
@@ -534,9 +534,22 @@ def _flash_bwd_case(dev, B, H, Kh, S, D, causal, dtype, seed=4):
     (2, 14, 2, 256, 64, False),
     (1, 8, 4, 200, 128, True),       # G = 2, D = 128
     (1, 8, 1, 64, 128, False),
-    (1, 3, 1, 1, 64, True)])         # one position
+    (1, 3, 1, 1, 64, True),          # one position
+    # the wgmma schedule's edges: one position, one short of and one past
+    # a 128-row block, a ragged last 128-key tile; the group sum skipped
+    # (G = 1) and taken (G = 2, 7); causal and full at D = 64 and 128
+    (2, 2, 2, 1, 128, True),
+    (1, 4, 2, 127, 64, True),
+    (1, 4, 4, 129, 128, True),
+    (1, 7, 1, 129, 64, False),
+    (2, 14, 2, 300, 64, True),
+    (1, 4, 2, 300, 128, False),
+    (1, 2, 2, 300, 64, False),
+    (4, 14, 2, 2048, 64, True)])     # qwen2-0.5b's training shape
 def test_flash_bwd_kernel_equals_plain(B, H, Kh, S, D, causal, dtype):
     dev = require_cuda()
+    if dtype == torch.bfloat16 and D in (64, 128):
+        assert bwd_route(dtype, D) == "wgmma"
     q, k, v, o, do, lse = _flash_bwd_case(dev, B, H, Kh, S, D, causal, dtype)
     before = flash_attention_bwd.launches
     got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)

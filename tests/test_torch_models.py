@@ -25,8 +25,8 @@ from repro.models import common as jcm  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
 from repro_torch import configs, interop  # noqa: E402
 from repro_torch.kernels import dispatch, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
-                                                 route)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    bwd_route, bwd_scratch, flash_attention, route)
 from repro_torch.launch.serve_lm import generate, main  # noqa: E402
 from repro_torch.models import attention as att  # noqa: E402
 from repro_torch.models import build  # noqa: E402
@@ -299,6 +299,38 @@ def test_flash_wrapper_rejects_what_it_does_not_take():
     (torch.float32, 32, "simt")])
 def test_flash_route_is_a_rule_on_dtype_and_head_dim(dtype, D, kernel):
     assert route(dtype, D) == kernel
+
+
+@pytest.mark.parametrize("dtype,D,kernel", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 32, "mma"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 32, "simt")])
+def test_flash_bwd_route_is_a_rule_on_dtype_and_head_dim(dtype, D, kernel):
+    assert bwd_route(dtype, D) == kernel
+
+
+@pytest.mark.parametrize("kernel,H,Kh,S,D,want", [
+    ("wgmma", 14, 2, 2048, 64, (4 * 14 * 2048,
+                                4 * 14 * 2048 * (1 + 2 * 64))),
+    ("wgmma", 4, 4, 129, 64, (4 * 4 * 192, 4 * 4 * 192)),
+    ("wgmma", 4, 2, 129, 128, (4 * 4 * 192,
+                               4 * 4 * 192 + 2 * 4 * 4 * 129 * 128)),
+    ("mma", 4, 2, 300, 32, (4 * 4 * 300, 0)),
+    ("simt", 14, 2, 130, 64, (4 * 14 * 130, 0)),
+    # one position, whole and ragged tiles, G = 1 and 7, D = 128
+    ("wgmma", 2, 2, 1, 64, (4 * 2 * 64, 4 * 2 * 64)),
+    ("wgmma", 2, 1, 1, 128, (4 * 2 * 64, 4 * 2 * 64 + 2 * 4 * 2 * 128)),
+    ("wgmma", 4, 4, 64, 128, (4 * 4 * 64, 4 * 4 * 64)),
+    ("wgmma", 4, 4, 65, 64, (4 * 4 * 128, 4 * 4 * 128)),
+    ("wgmma", 7, 1, 300, 128, (4 * 7 * 320,
+                               4 * 7 * 320 + 2 * 4 * 7 * 300 * 128)),
+    ("mma", 4, 4, 1, 32, (4 * 4 * 1, 0)),
+    ("simt", 8, 2, 2048, 128, (4 * 8 * 2048, 0))])
+def test_flash_bwd_scratch_sizes(kernel, H, Kh, S, D, want):
+    """delta a row on every route; the wgmma route pads rows to a whole
+    64-row tile, keeps lse·log2(e) beside delta and, with a GQA group, the
+    float32 partial dK and dV of every query head."""
+    assert bwd_scratch(kernel, 4, H, Kh, S, D) == want
 
 
 def test_cpu_tensors_never_move_the_flash_counter():

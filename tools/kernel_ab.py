@@ -10,6 +10,8 @@
         --against old/split_hist.cu --bins uint8,int32
     python3 tools/kernel_ab.py --kernel fxp_matmul \\
         --against old/fxp_matmul.cu --rounds 2
+    python3 tools/kernel_ab.py --kernel flash_attention_bwd \\
+        --against old/flash_attention.cu --rounds 2
 
 The cases run in turns, the list forward and then backward (A B B A),
 ``--rounds`` times, each reading the median over five runs of
@@ -92,6 +94,21 @@ a-limb, the float combination in PyTorch.  Its variants:
            kernel's function: it shows what the forward's float32
            output costs).
 
+``flash_attention_bwd`` runs one layer's gradient in qwen2-0.5b's
+training step: q, o and dO (4, 14, 2048, 64), k and v (4, 2, 2048, 64),
+and with ``--shapes phi4-mini`` at phi4-mini's heads (24 and 8 of D =
+128), bf16, causal, every tensor a (B, H, S, D) view of a (B, S, H, D)
+tensor as the step hands it over (dO too), the forward's o and lse from the
+checkout's library.  A source of ``flash_attention.cu`` from before the
+``wgmma`` backward (no ``flash_bwd_dkdv_wgmma_kernel``) is launched on its
+``mma.sync`` route through the same wrapper.  A line gives the error over
+max|grad| and the bit-equal share against the plain version, one call
+between its own events (``single_call_ms``), the host's time a call
+while the card works (``host_ms``: the same Python for every case, so
+it differs by the library's own), and each backward kernel's device time
+a launch (``torch.profiler``).  The whole training step of two
+checkouts is compared by ``tools/step_ab.py``.
+
 Prints one JSON line per reading, after the card's name and power limit.
 """
 
@@ -168,6 +185,7 @@ VARIANTS = {
         "u1": ([("constexpr int kU = 2;", "constexpr int kU = 1;")], None),
         "u3": ([("constexpr int kU = 2;", "constexpr int kU = 3;")], None),
     },
+    "flash_attention_bwd": {},
     "fxp_matmul": {
         "cw2": ([("constexpr int kColWarps = 4;",
                   "constexpr int kColWarps = 2;")], None),
@@ -199,7 +217,11 @@ VARIANTS = {
     },
 }
 WRAPPERS = {"flash_attention": fa, "kmeans_assign": km, "split_hist": sh,
-            "fxp_matmul": fxp}
+            "fxp_matmul": fxp, "flash_attention_bwd": fa}
+# the source each kernel is built from, where its name differs
+SOURCE_OF = {"flash_attention_bwd": "flash_attention"}
+# a flash_attention.cu whose backward has its wgmma route
+WGMMA_BWD_MARK = "flash_bwd_dkdv_wgmma_kernel"
 # the interface of the source before its redesign for whole-SM tiles
 PARENT_SH_MARK = "int ft, int n_chunks, void* H, void* stream"
 PARENT_SH_SIGNATURES = {
@@ -227,6 +249,11 @@ PARENT_FXP_SIGNATURES = {
 # the shapes of --kernel fxp_matmul: b's columns (N = 1 for logreg, C for
 # the multinomial)
 FXP_SHAPES = {"logreg": 1, "multinomial C=4": 4, "multinomial C=10": 10}
+# the shapes of --kernel flash_attention_bwd, (B, H, Kh, S, D) of one
+# layer's training step at 4 x 2048 tokens: qwen2-0.5b's, and phi4-mini's
+# heads at D = 128
+BWD_SHAPES = {"qwen2-0.5b": (4, 14, 2, 2048, 64),
+              "phi4-mini": (4, 24, 8, 2048, 128)}
 
 
 def parent_fxp_partials(lib, a, b, kc, limb):
@@ -318,6 +345,40 @@ def flash_readings(libs, kernels, cases, args, dev):
                    "max_abs_err": cs.max_abs_err(got, want)}
 
 
+def flash_bwd_readings(libs, kernels, cases, args, dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for shape in args.shapes:
+        yield from flash_bwd_shape(libs, kernels, cases, args, dev, gen,
+                                   shape)
+
+
+def flash_bwd_shape(libs, kernels, cases, args, dev, gen, shape):
+    B, H, Kh, S, D = BWD_SHAPES[shape]
+    q, k, v = cs.flash_inputs(gen, B, H, Kh, S, D, torch.bfloat16)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    do = torch.randn((B, S, H, D), generator=gen, device=dev
+                     ).to(q.dtype).transpose(1, 2)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse)
+    top = max(float(w.float().abs().max()) for w in want)
+    for case in (cases + cases[::-1]) * args.rounds:
+        def run():
+            return fa._launch_bwd(libs[case], kernels[case], q, k, v, o, do,
+                                  lse, True)
+        got = run()
+        yield {"shape": shape, "case": case, "kernel": kernels[case],
+               "ms": cs.median_ms(run, dev, args.iters),
+               "single_call_ms": cs.single_call_ms(run, dev, args.iters),
+               "host_ms": cs.host_ms(run, dev, args.iters),
+               "err_over_max_grad": max(cs.max_abs_err(g, w)
+                                        for g, w in zip(got, want)) / top,
+               "bit_equal_share": sum(int((g == w).sum())
+                                      for g, w in zip(got, want))
+               / sum(w.numel() for w in want),
+               "bit_equal_to_itself": all(torch.equal(a, b) for a, b in
+                                          zip(got, run())),
+               "split": cs.bwd_split(run, dev)}
+
+
 def kmeans_readings(libs, kernels, cases, args, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     x, c, w, scale, xf = cs.km_inputs(gen, 256, cs.FULL_ROWS // 256, 16, 8,
@@ -390,6 +451,7 @@ def split_hist_readings(libs, kernels, cases, args, dev):
 
 
 READINGS = {"flash_attention": flash_readings,
+            "flash_attention_bwd": flash_bwd_readings,
             "kmeans_assign": kmeans_readings,
             "split_hist": split_hist_readings,
             "fxp_matmul": fxp_readings}
@@ -408,23 +470,28 @@ def main(argv=None) -> int:
                         "(repeatable)")
     p.add_argument("--bins", default="uint8,int32",
                    help="split_hist: the bin types to read (uint8, int32)")
-    p.add_argument("--shapes", default=",".join(FXP_SHAPES),
+    p.add_argument("--shapes", default=None,
                    help="fxp_matmul: the shapes to read (" +
-                        ", ".join(FXP_SHAPES) + ")")
+                        ", ".join(FXP_SHAPES) + "); flash_attention_bwd: "
+                        "(" + ", ".join(BWD_SHAPES) + "; default the "
+                        "first)")
     p.add_argument("--rounds", type=int, default=1)
     p.add_argument("--iters", type=int, default=20)
     args = p.parse_args(argv)
     args.bins = args.bins.split(",")
-    args.shapes = args.shapes.split(",")
+    args.shapes = (args.shapes.split(",") if args.shapes else
+                   [next(iter(BWD_SHAPES))] if args.kernel ==
+                   "flash_attention_bwd" else list(FXP_SHAPES))
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     name, wrapper = args.kernel, WRAPPERS[args.kernel]
+    lib_name = SOURCE_OF.get(name, name)
     if args.variants is None:
         args.variants = "mma" if name == "flash_attention" else ""
     dev = torch.device("cuda")
     print(cs.device_line(), flush=True)
-    src = (build.CSRC / f"{name}.cu").read_text()
+    src = (build.CSRC / f"{lib_name}.cu").read_text()
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     sources, kernels = {}, {}
     for variant in filter(None, args.variants.split(",")):
@@ -435,7 +502,7 @@ def main(argv=None) -> int:
                 raise RuntimeError(f"variant {variant}: {old!r} not in the "
                                    f"source")
             text = text.replace(old, new)
-        sources[variant] = build.BUILD_DIR / f"{name}_ab_{variant}.cu"
+        sources[variant] = build.BUILD_DIR / f"{lib_name}_ab_{variant}.cu"
         sources[variant].write_text(text)
     for i, path in enumerate(args.against):
         label = f"against{i}"
@@ -444,6 +511,8 @@ def main(argv=None) -> int:
         if (name == "split_hist" and PARENT_SH_MARK in text
                 or name == "fxp_matmul" and PARENT_FXP_MARK in text):
             kernels[label] = "parent"
+        if name == "flash_attention_bwd":
+            kernels[label] = "wgmma" if WGMMA_BWD_MARK in text else "mma"
         print(json.dumps({"case": label, "source": path}), flush=True)
     for label, log in build.build_all(list(sources), sources).items():
         print(json.dumps({"case": label, "ptxas": cs.ptxas_summary(log)}),
@@ -455,7 +524,7 @@ def main(argv=None) -> int:
                               if kernels[label] == "parent"
                               else wrapper._SIGNATURES)
             for label, path in sources.items()}
-    libs["route"] = build.load(name, wrapper._SIGNATURES)
+    libs["route"] = build.load(lib_name, wrapper._SIGNATURES)
     kernels["route"] = "wgmma"
     cases = ["route", *sources]
     for reading in READINGS[name](libs, kernels, cases, args, dev):
