@@ -54,9 +54,10 @@ Phases, each printed as one JSON line:
                 of 1, 7, 8, 100, 512 and 1,300 rows from the card and the
                 host bit-equal to the eager predict (K-means off the
                 near-ties); (c) 4 captures a configuration, none after,
-                none for an equal configuration, and a profile of 20
-                replays a bucket with the port's kernels and no pageable
-                copy; (d) rows/s of run_stream against the eager loop
+                none for an equal configuration, and 20 replays a
+                bucket launching the port's kernels (the bucket graph's
+                kernel nodes times its replays), with no pageable copy
+                (profiler); (d) rows/s of run_stream against the eager loop
                 (512- and 8-row batches) and one 8-row request's latency,
                 in turns, the idle share; (e) MicroBatchQueue bursts of
                 4,096 single rows at 2,000, 8,000 and 32,000/s: fp32
@@ -100,6 +101,26 @@ Phases, each printed as one JSON line:
                 relative L2 under 5e-2), and float32 at full width cut to
                 2 layers and 2 x 512 tokens (every leaf within 1e-4 x
                 max|g|);
+ 6c. lm_recurrent — mamba2-370m and recurrentgemma-2b at their full
+                configs (bf16, random weights from --seed), through the
+                port's entry points, each launching none of the port's
+                kernels (every count 0): (a) ``Model.prefill`` of 4 x
+                4096 tokens, finite last logits, tokens/s, peak memory
+                and a profile by kernel class; (b) ``generate`` on 8
+                requests of 64 + 32 tokens, its captured decode step
+                against the eager decode in lockstep (logits bit for
+                bit, tokens equal), decode tokens/s graph against eager
+                in turns; (c) float32 at full width, one request of 2,176
+                tokens: the prefill's last logits against the replay
+                through the captured ``decode_step`` (1e-3 x max|logit|),
+                and the graph against the eager decode bit for bit over
+                16 positions on each side of recurrentgemma's ring wrap
+                (position 2,048; mamba2 at the request's middle); (d) 10
+                training steps of batch x 2048 tokens through
+                ``launch.train``'s step and the ``Trainer`` (REC_TRAIN:
+                the batch that fits, recurrentgemma cut in depth): finite
+                losses, the last below the first, tokens/s, peak memory
+                and one step's profile by kernel class;
   7. train_more — the slice's other workloads at 256 vDPUs x 2^24 rows,
                 d=64, each run with its launches, accuracy and steps/s
                 (median of 5 fits): LinearSVM int8 against fp32 (accuracy
@@ -252,8 +273,10 @@ Phases, each printed as one JSON line:
                 first fit (a graph a chunk length, and one for a trailing
                 round) and 0 for a second fit of the program, and two
                 ``api.fit`` calls capturing again each (new closures); (c)
-                the port's kernels the replays launch, counted by
-                torch.profiler, equal to the eager rounds' (2 fxp_* and 1
+                the port's kernels the replays launch, counted from the
+                captured graphs' kernel nodes times their replays
+                (``Graph.kernel_nodes``; the profiler lost events in a
+                long process), equal to the eager rounds' (2 fxp_* and 1
                 lut_kernel a step on the main path); (d) steps/s of the
                 graph, engine="python" and the eager chunk loop that scan
                 ran before the graphs (``merge_plan.run_rounds`` on the
@@ -330,6 +353,7 @@ from repro_torch.launch.serve_lm import (DecodeStep,  # noqa: E402
                                          Generation, generate)
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models import transformer as lm_tfm  # noqa: E402
+from repro_torch.models.common import LOCAL_ATTN  # noqa: E402
 from repro_torch.models.transformer import padded_vocab  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.data import StreamingDataset, TokenStream  # noqa: E402
@@ -3953,10 +3977,52 @@ def turns(contenders: dict, steps: int, fits: int, dev) -> dict:
                    "max": max(r), "fits": fits} for name, r in rates.items()}
 
 
-def device_launches(run, dev) -> tuple:
-    """``torch.profiler`` over one call of ``run()``: the port's kernels
-    the device ran (a replay runs no Python, so only the profiler sees
-    its launches), the host's CUDA launch calls and the idle share."""
+def graph_snapshot() -> tuple:
+    """The replays of every live captured graph and the wrappers'
+    counts, to be read again by :func:`launches_since`."""
+    return {g: g.replays for g in Graph.live()}, counts()
+
+
+def launches_since(snapshot: tuple, patterns: dict) -> dict:
+    """The launches of each kernel of ``patterns`` (name -> regex of its
+    CUDA function) since ``snapshot``, counted without the profiler: the
+    wrapper's own launches, plus, for each captured graph, its kernel
+    nodes of that kernel (``Graph.kernel_nodes``: the graph captured under
+    ``Graph.keep_nodes``) times the replays it made since; the wrappers'
+    launches alone for a snapshot without the graphs' replays."""
+    replays, before = snapshot
+    now = counts()
+    seen = {name: now.get(name, 0) - before.get(name, 0)
+            for name in patterns}
+    for g in Graph.live() if replays is not None else ():
+        n = g.replays - replays.get(g, 0)
+        if not n:
+            continue
+        nodes = g.kernel_nodes()
+        for name, pattern in patterns.items():
+            seen[name] += n * sum(bool(pattern.search(x)) for x in nodes)
+    return seen
+
+
+@contextlib.contextmanager
+def keeping_graph_nodes():
+    """Graphs captured in the block keep their nodes, so that
+    :func:`launches_since` can count what their replays launch."""
+    Graph.keep_nodes = True
+    try:
+        yield
+    finally:
+        Graph.keep_nodes = False
+
+
+def device_launches(run, dev, count_graphs: bool = True) -> tuple:
+    """One call of ``run()`` after a warm one: the port's kernels it put
+    on the card (:func:`launches_since`; a replay runs no Python, so the
+    wrappers' counters see only the kernels launched outside a graph,
+    and ``count_graphs=False`` counts those alone) and, from
+    ``torch.profiler`` over the same call, the host's CUDA launch calls,
+    the idle share and the profiler's own count of the kernels (which
+    lost events in a long process: 110 of 112 fxp launches once)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -3972,12 +4038,14 @@ def device_launches(run, dev) -> tuple:
         run()
         sync(dev)
         prof.step()
+        snap = graph_snapshot() if count_graphs else (None, counts())
         t0 = time.perf_counter()
         run()
         sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
+        seen = launches_since(snap, GRAPH_KERNELS)
         prof.step()
-    seen = {name: 0 for name in GRAPH_KERNELS}
+    by_profiler = {name: 0 for name in GRAPH_KERNELS}
     busy_us, host_launches = 0.0, 0
     for e in traced[0]:
         if e.key.startswith("ProfilerStep"):
@@ -3986,13 +4054,14 @@ def device_launches(run, dev) -> tuple:
             busy_us += e.self_device_time_total
             for name, pattern in GRAPH_KERNELS.items():
                 if pattern.search(e.key):
-                    seen[name] += e.count
+                    by_profiler[name] += e.count
         elif e.key.startswith("cuda") and "Launch" in e.key:
             host_launches += e.count
     return seen, {"traced_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
                   "idle_share": (max(0.0, 1.0 - busy_us / 1e3 / wall_ms)
                                  if busy_us else "not measured"),
-                  "host_launch_calls": host_launches}
+                  "host_launch_calls": host_launches,
+                  "profiler_launches": by_profiler}
 
 
 def graph_cell(name: str, program, kw: dict, steps: int, dev,
@@ -4002,7 +4071,8 @@ def graph_cell(name: str, program, kw: dict, steps: int, dev,
     every history entry (where the eager fit does not repeat itself, the
     spread it shows bounds the graph's gap); (b) the captures of a first
     and a second fit of the program; (c) the port's kernels the replays
-    launch, counted by the profiler, against the eager rounds'; (d)
+    launch, counted from the graphs' kernel nodes times their replays,
+    against the eager rounds'; (d)
     steps/s of the graph, ``engine="python"`` and the eager chunk loop,
     in turns, and their idle shares; (e) the graphs' pool bytes."""
     plan = fit_plan(kw)
@@ -4243,13 +4313,17 @@ def serve_ladder(name, runner, wl, state, rows) -> dict:
 
 
 def replay_profile(runner, rows_host: np.ndarray, dev) -> dict:
-    """(c): ``torch.profiler`` over ``SERVE_PIM_REPLAYS`` calls of each
-    bucket from host rows: the port's kernels and the host-to-device
-    copies, by name, as the device saw them (a replay runs no Python, so
-    the wrappers' counters cannot see it)."""
+    """(c): ``SERVE_PIM_REPLAYS`` calls of each bucket from host rows: the
+    port's kernels they launched, counted from the bucket graph's kernel
+    nodes times its replays (:func:`launches_since`; a replay runs no
+    Python, so the wrappers' counters cannot see it), and, by
+    ``torch.profiler``, every kernel and the host-to-device copies by
+    kind, as the device saw them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    patterns = {"fxp_matmul": GRAPH_KERNELS["fxp_matmul"],
+                "lut_activation": GRAPH_KERNELS["lut_activation"]}
     out = {}
     for b in runner.buckets:
         X = rows_host[:b]
@@ -4257,23 +4331,19 @@ def replay_profile(runner, rows_host: np.ndarray, dev) -> dict:
         sync(dev)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            # a profile started just before a burst of replays lost the
-            # first few (7 of 20 once, on an H100): let the tracer settle
             time.sleep(0.05)
+            snap = graph_snapshot()
             for _ in range(SERVE_PIM_REPLAYS):
                 runner.predict(X)
             sync(dev)
-        seen = {"fxp": 0, "lut": 0, "pinned_h2d": 0, "pageable_h2d": 0,
-                "kernels": 0}
+            nodes = launches_since(snap, patterns)
+        seen = {"fxp": nodes["fxp_matmul"], "lut": nodes["lut_activation"],
+                "pinned_h2d": 0, "pageable_h2d": 0, "kernels": 0}
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
                 continue
             seen["kernels"] += e.count
-            if re.search(r"fxp_\w+?_kernel", e.key):
-                seen["fxp"] += e.count
-            elif "lut_kernel" in e.key:
-                seen["lut"] += e.count
-            elif "HtoD" in e.key and "Pageable" in e.key:
+            if "HtoD" in e.key and "Pageable" in e.key:
                 seen["pageable_h2d"] += e.count
             elif "HtoD" in e.key:
                 seen["pinned_h2d"] += e.count
@@ -4716,12 +4786,13 @@ def eager_generate(model, params, prompts: torch.Tensor,
 
 
 def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
-                 dev, check: bool) -> dict:
+                 dev, check: bool, runs: int = TIMING_RUNS,
+                 n: int = 8) -> dict:
     """The captured decode step (``launch.serve_lm.DecodeStep``) against
     the eager decode: every step's logits and token compared in lockstep,
     bit for bit (the tokens must be equal); decode tokens/s of
-    ``generate`` against :func:`eager_generate` in turns; the idle share
-    and the host's CUDA launch calls a token over 8 decode tokens of
+    ``generate`` against :func:`eager_generate` in ``runs`` turns; the idle share
+    and the host's CUDA launch calls a token over ``n`` decode tokens of
     each."""
     B, P = prompts.shape
     V = model.cfg.vocab_size
@@ -4752,7 +4823,7 @@ def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
     require(torch.equal(graph.tokens, eager.tokens), "generate's tokens != "
             "the eager decode's")
     rates: dict = {"graph": [], "eager": []}
-    for i in range(TIMING_RUNS):
+    for i in range(runs):
         for name in (("graph", "eager") if i % 2 == 0
                      else ("eager", "graph")):
             fn = generate if name == "graph" else eager_generate
@@ -4761,7 +4832,6 @@ def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
     rates = {name: {"median": statistics.median(r), "min": min(r),
                     "max": max(r), "runs": len(r)}
              for name, r in rates.items()}
-    n = 8
     step.reset()
     for t in range(P):
         step(prompts[:, t:t + 1])
@@ -4771,7 +4841,7 @@ def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
         for _ in range(n):
             step()
 
-    _, prof_graph = device_launches(graph_steps, dev)
+    _, prof_graph = device_launches(graph_steps, dev, count_graphs=False)
     cache = model.init_cache(B, P + n)
     pos = torch.full((), P, dtype=torch.int32, device=dev)
 
@@ -4783,7 +4853,7 @@ def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
             pos.add_(1)
             tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None]
 
-    _, prof_eager = device_launches(eager_steps, dev)
+    _, prof_eager = device_launches(eager_steps, dev, count_graphs=False)
     for prof in (prof_graph, prof_eager):
         prof["host_launch_calls_per_token"] = prof["host_launch_calls"] / n
     return {"capture_s": capture_s, "pool_bytes": step.graph.pool_bytes,
@@ -4951,6 +5021,7 @@ FLASH_BWD_KERNELS = {"delta": re.compile(r"flash_bwd_delta_kernel"),
 STEP_CLASSES = (("flash_forward", FLASH_FWD_KERNELS),
                 ("flash_backward", re.compile(r"flash_bwd_")),
                 ("gemm", GEMM_KERNELS),
+                ("scans", re.compile(r"scan|cumsum", re.IGNORECASE)),
                 ("reductions", re.compile(r"reduce|softmax|logsumexp",
                                           re.IGNORECASE)),
                 ("gather_scatter", re.compile(
@@ -5155,13 +5226,15 @@ def step_profile(run, dev) -> dict:
     """``torch.profiler`` over one warm training step: device time by
     class of kernel (the flash forward and backward, cuBLAS GEMMs,
     reductions, gathers, elementwise passes), the flash kernels' launches
-    by name, and the device's idle share of the traced window."""
+    by name, and the device's idle share of the traced window.  The
+    device's activity alone: the host's op events would cost seconds of
+    post-processing a step (tens of thousands of kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA if dev.type == "cuda"
+                             else ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
         run()
         sync(dev)
@@ -5282,17 +5355,18 @@ def grad_twin(model, params, batch) -> dict:
             "worst_leaf_err_over_max": worst}
 
 
-def lm_trainer(model, opt, seed: int, seq: int, ckpt_dir=None) -> Trainer:
+def lm_trainer(model, opt, seed: int, seq: int, ckpt_dir=None,
+               batch: int = TRAIN_BATCH) -> Trainer:
     """``launch.train``'s pieces: the state from ``seed``, a TokenStream
-    batch of TRAIN_BATCH x ``seq`` tokens a step, the step function, the
+    batch of ``batch`` x ``seq`` tokens a step, the step function, the
     fault-tolerant Trainer."""
     cfg = model.cfg
-    stream = TokenStream(cfg.vocab_size, TRAIN_BATCH, seq, seed=seed,
+    stream = TokenStream(cfg.vocab_size, batch, seq, seed=seed,
                          device=model.device)
     # one checkpoint kept: a save of the full-width state is 6.9 GB
     return Trainer(lm_train.make_step_fn(model, opt),
                    lm_train.make_state(model, opt, seed),
-                   lm_train.make_batch_fn(cfg, stream, TRAIN_BATCH, seq),
+                   lm_train.make_batch_fn(cfg, stream, batch, seq),
                    TrainerConfig(ckpt_dir=ckpt_dir, ckpt_keep=1,
                                  log_every=10))
 
@@ -5433,6 +5507,229 @@ def train_lm(args, dev, card: str) -> tuple:
     return seen, times
 
 
+# -- lm_recurrent: mamba2-370m and recurrentgemma-2b at full width -----------
+
+REC_ARCHS = ("mamba2-370m", "recurrentgemma-2b")
+REC_PREFILL_BATCH, REC_PREFILL_SEQ = 4, 4096
+# decode tokens/s, graph against eager: REC_DECODE_RUNS turns, and
+# profiles of REC_PROFILE_TOKENS tokens of each (an eager recurrent decode
+# takes 45-60 ms and 1,800-2,700 launches a token)
+REC_DECODE_RUNS, REC_PROFILE_TOKENS = 2, 2
+# float32: one request of 17 x 128 tokens (a multiple of the SSD chunk,
+# past recurrentgemma's 2048-slot ring), the graph against the eager decode
+# in lockstep REC_WRAP_SIDE positions on each side of the ring's wrap
+REC_F32_TOKENS, REC_WRAP_SIDE = 2176, 16
+# training: batch x 2048 tokens a step, and the layers kept.  Peaks of two
+# steps (NVIDIA H100 80GB HBM3, 79.18 GiB): mamba2-370m 37.6 / 54.0 /
+# 70.2 GiB at batch 2 / 3 / 4; recurrentgemma-2b at batch 1 out of memory
+# at 26 layers, 75.9 GiB at 20, 59.4 at 14 (AdamW's out-of-place update
+# holds the old and new master, moments and parameters at once): 17 layers,
+# (rglru, rglru, local_attn) x 5 + (rglru, rglru), the full pattern's shape
+REC_TRAIN = {"mamba2-370m": {"batch": 4, "layers": 48},
+             "recurrentgemma-2b": {"batch": 1, "layers": 17}}
+REC_TRAIN_STEPS, REC_TRAIN_SEQ = 10, 2048
+
+
+def rec_prefill(model, params, tokens, dev) -> dict:
+    """(a) the prefill: zero launches of every port kernel (counts set to
+    0 just before, read just after), finite last logits of the padded
+    vocabulary, tokens/s of LM_RATE_REPS calls (warm), peak memory, a
+    profile by kernel class (:func:`step_profile`)."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    logits = model.prefill(params, {"tokens": tokens})
+    sync(dev)
+    seen = counts()
+    B, S = tokens.shape
+    require(seen == expected(), f"{model.cfg.name} prefill launched {seen}: "
+            "no port kernel lies on this path")
+    require(tuple(logits.shape) == (B, 1, padded_vocab(model.cfg))
+            and bool(torch.isfinite(logits).all()),
+            f"{model.cfg.name} prefill logits {tuple(logits.shape)} or not "
+            "finite")
+    times = [timed_prefill(model, params, tokens)
+             for _ in range(LM_RATE_REPS)]
+    out = {"batch": B, "seq": S, "launches": seen,
+           "tokens_per_s": {"median": B * S / statistics.median(times),
+                            "min": B * S / max(times),
+                            "max": B * S / min(times), "runs": len(times)}}
+    if dev.type == "cuda":
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["profile"] = step_profile(
+        lambda: model.prefill(params, {"tokens": tokens}), dev)
+    return out
+
+
+def rec_float32(model, params, request, dev) -> dict:
+    """(c) float32 at full width, one request: the prefill's last logits
+    against the replay of the request through the captured decode step,
+    within CROSS_PATH_TOL of max|logit|, and the graph against the eager
+    decode in lockstep, bit for bit, from REC_WRAP_SIDE positions before
+    the ring wraps (or the same place in a model without one) to as many
+    after: the eager decode takes the graph's caches there."""
+    cfg = model.cfg
+    T = request.shape[1]
+    ring = cfg.window if LOCAL_ATTN in cfg.pattern else 0
+    side = min(REC_WRAP_SIDE, (ring or T) // 4)
+    lo = (ring or T // 2) - side
+    step = DecodeStep(model, params, 1, T)
+    step.reset()
+    cache, pos = None, None
+    equal, compared, gap = True, 0, 0.0
+    for t in range(T):
+        if t == lo:
+            cache = [{k: v.clone() for k, v in layer.items()}
+                     for layer in step.cache]
+            pos = torch.full((), t, dtype=torch.int32, device=dev)
+        got = step(request[:, t:t + 1])
+        if lo <= t < lo + 2 * side:
+            want, cache = model.decode_step(params, cache,
+                                            request[:, t:t + 1], pos)
+            pos += 1
+            compared += 1
+            if not torch.equal(got, want):
+                equal = False
+                gap = max(gap, float((got - want).abs().max()))
+    last = got[:, -1].clone()
+    require(equal, f"{cfg.name} float32: the captured decode step != the "
+            f"eager decode at positions {lo}..{lo + 2 * side - 1} "
+            f"(max gap {gap})")
+    V = cfg.vocab_size                  # the padded columns hold -1e9
+    pre = model.prefill(params, {"tokens": request})[:, 0, :V]
+    cross = logits_gap(pre, last[:, :V])
+    require(cross["gap_over_max"] <= CROSS_PATH_TOL,
+            f"{cfg.name} float32 prefill vs the replay through decode_step: "
+            f"{cross}")
+    return {"tokens": T, "prefill_vs_replay": cross,
+            "lockstep": {"first": lo, "positions": compared,
+                         "ring_slots": ring or None,
+                         "wraps_at": ring or None, "bit_equal": equal}}
+
+
+def rec_train(model, seed: int, dev, batch: int, check: bool) -> dict:
+    """(d) REC_TRAIN_STEPS steps through ``launch.train``'s step and the
+    Trainer: finite losses, the last below the first, zero port-kernel
+    launches, tokens/s, peak memory and one warm step's profile."""
+    cfg = model.cfg
+    seq = REC_TRAIN_SEQ if check else 16
+    opt = adamw(TRAIN_LR)
+    trainer = lm_trainer(model, opt, seed, seq, batch=batch)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = trainer.run(REC_TRAIN_STEPS)
+    sync(dev)
+    run_s = time.perf_counter() - t0
+    seen = counts()
+    losses = [h["loss"] for h in trainer.history]
+    require(seen == expected(), f"{cfg.name} training launched {seen}: no "
+            "port kernel lies on this path")
+    require(len(losses) == REC_TRAIN_STEPS
+            and all(map(math.isfinite, losses)) and out["restarts"] == 0,
+            f"{cfg.name} training: losses {losses}, {out}")
+    if check:                        # a rehearsal's 2 x 16 tokens are noise
+        require(losses[-1] < losses[0], f"{cfg.name} training: the last "
+                f"loss {losses[-1]} is not below the first {losses[0]}")
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
+    state = trainer.state
+    step_fn = lm_train.make_step_fn(model, opt)
+    tokens = trainer.batch_fn(REC_TRAIN_STEPS)
+    steady = []
+    for _ in range(TRAIN_STEADY_STEPS):
+        sync(dev)
+        t1 = time.perf_counter()
+        step_fn(state, tokens)
+        sync(dev)
+        steady.append(time.perf_counter() - t1)
+    n_tok = batch * seq
+    return {"steps": REC_TRAIN_STEPS, "batch": batch, "seq": seq,
+            "layers": cfg.n_layers, "launches": seen, "losses": losses,
+            "run_s": run_s, "peak_memory_gib": peak,
+            "tokens_per_s": {"run": n_tok * REC_TRAIN_STEPS / run_s,
+                             "steady_median": n_tok / statistics.median(
+                                 steady), "steady_steps_s": steady},
+            "profile": step_profile(lambda: step_fn(state, tokens), dev)}
+
+
+def lm_recurrent(args, dev, card: str, arch: str) -> None:
+    """mamba2-370m or recurrentgemma-2b at full width, bf16, random weights
+    from ``--seed`` (the smoke config in a rehearsal), through the port's
+    entry points: (a) the prefill of 4 x 4096 tokens, (b) ``generate`` on
+    8 requests of 64 + 32 tokens through the captured decode step, held
+    against the eager decode in lockstep and timed against it in turns,
+    (c) float32 at full width (:func:`rec_float32`), (d) training
+    (:func:`rec_train`; recurrentgemma cut in depth).  No port kernel
+    lies on these paths: every count stays 0."""
+    cfg = (get_smoke_config if args.rehearse else get_config)(arch)
+    check = not args.rehearse
+    t0 = time.perf_counter()
+    seed = args.seed + 70 + 10 * REC_ARCHS.index(arch)
+    B, S = (REC_PREFILL_BATCH, REC_PREFILL_SEQ) if check else (2, 64)
+    n_req, prompt, new = ((SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW) if check
+                          else (2, 12, 6))
+    with torch.inference_mode():
+        model = build_model(cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = model.init(gen)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device=dev)
+        prompts = torch.randint(0, cfg.vocab_size, (n_req, prompt),
+                                generator=gen, device=dev)
+        n_params = model.param_count(params)
+        parts_s = {"init": time.perf_counter() - t0}
+        prefill = rec_prefill(model, params, tokens, dev)
+        parts_s["prefill"] = time.perf_counter() - t0 - sum(parts_s.values())
+        del tokens
+        reset_counts()
+        res = generate(model, params, prompts, new)
+        seen = counts()
+        require(seen == expected(), f"{arch} generate launched {seen}")
+        require(tuple(res.tokens.shape) == (n_req, new)
+                and int(res.tokens.min()) >= 0
+                and int(res.tokens.max()) < cfg.vocab_size,
+                f"{arch} generate gave {tuple(res.tokens.shape)}")
+        serve = {"requests": n_req, "prompt": prompt, "new_tokens": new,
+                 "launches": seen,
+                 "decode_tokens_per_s": n_req * (new - 1) / res.decode_s,
+                 "graph": decode_graph(model, params, prompts, new, dev,
+                                       check, REC_DECODE_RUNS,
+                                       REC_PROFILE_TOKENS)}
+        require(serve["graph"]["logits_bit_equal"], f"{arch}: the captured "
+                "decode step's logits != the eager decode's")
+        parts_s["serve"] = time.perf_counter() - t0 - sum(parts_s.values())
+        del params, model, res
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model = build_model(cfg32, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed + 1))
+        T = REC_F32_TOKENS if check else 3 * cfg.window or 24
+        request = torch.randint(0, cfg.vocab_size, (1, T), generator=gen,
+                                device=dev)
+        float32 = rec_float32(model, params, request, dev)
+        del params, model
+        parts_s["float32"] = time.perf_counter() - t0 - sum(parts_s.values())
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    cut = REC_TRAIN[arch]["layers"] if check else cfg.n_layers
+    tcfg = dataclasses.replace(cfg, n_layers=cut,
+                               block_pattern=cfg.pattern[:cut])
+    train = rec_train(build_model(tcfg, dev), seed + 2, dev,
+                      REC_TRAIN[arch]["batch"] if check else 2, check)
+    parts_s["train"] = time.perf_counter() - t0 - sum(parts_s.values())
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    emit("lm_recurrent", arch=arch, card=card, layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
+         params=n_params, prefill=prefill, serve=serve, float32=float32,
+         train=train, parts_s=parts_s, seconds=time.perf_counter() - t0)
+
+
+
 # -- main ------------------------------------------------------------------
 
 
@@ -5566,7 +5863,8 @@ def main(argv=None) -> int:
     predict("logreg", wl, state, requests,
             expected(fxp_matmul=1, lut_activation=1), on_card)
     emit("predict", pad_invariance=pad_invariance(state, requests))
-    serve_pim(args, dev, smi, wl, state, w_true)
+    with keeping_graph_nodes():
+        serve_pim(args, dev, smi, wl, state, w_true)
     del state, requests
     wl, state, requests, seen = train_kmeans(args, dev, smi)
     main_counts["kmeans_assign"] = seen["kmeans_assign"]
@@ -5585,6 +5883,8 @@ def main(argv=None) -> int:
     times["flash_attention_bwd"]["launches_per_train_step"] = \
         trained["flash_attention_bwd"] // TRAIN_STEPS
     torch.cuda.empty_cache() if dev.type == "cuda" else None
+    for arch in REC_ARCHS:
+        lm_recurrent(args, dev, smi, arch)
     train_more(args, dev, smi)
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     train_plans(args, dev, smi)
@@ -5601,7 +5901,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     train_stream(args, dev, smi)
     torch.cuda.empty_cache() if dev.type == "cuda" else None
-    replayed = train_graph(args, dev, smi)
+    with keeping_graph_nodes():
+        replayed = train_graph(args, dev, smi)
 
     kernels = []
     for name, t in times.items():
@@ -5615,9 +5916,10 @@ def main(argv=None) -> int:
                  "library_note": LIBRARY_NOTES[name], "per": PER[name]}
         for run, (seen, steps) in replayed.items():
             if name in seen:
-                # the main path's replays (train_graph, torch.profiler): the
-                # wrappers' "launches" count a captured chunk's warm-up
-                # round and capture, never a replay
+                # the main path's replays (train_graph, the graphs' kernel
+                # nodes times their replays): the wrappers' "launches"
+                # count a captured chunk's warm-up round and capture,
+                # never a replay
                 entry["replayed_launches"] = {"run": run, "steps": steps,
                                               "launches": seen[name]}
         for extra in ("single_call_ms", "host_ms", "parts", "multinomial", "int32_bins",

@@ -20,13 +20,13 @@ _ARCHS: Dict[str, str] = {
     "minitron-8b": "minitron_8b",
     "qwen2-0.5b": "qwen2_0_5b",
     "qwen1.5-110b": "qwen15_110b",
+    "mamba2-370m": "mamba2_370m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 # arch -> the ROADMAP item whose model family it needs
 _PENDING: Dict[str, str] = {
-    "recurrentgemma-2b": "A18.2 (LOCAL_ATTN ring buffer) and A18.5 (RG-LRU)",
     "qwen3-moe-235b-a22b": "A18.3 (MoE)",
     "phi3.5-moe-42b-a6.6b": "A18.3 (MoE)",
-    "mamba2-370m": "A18.4 (Mamba-2)",
     "whisper-tiny": "A18.6 (enc-dec)",
     "llava-next-mistral-7b": "A18.6 (VLM prefix)",
 }

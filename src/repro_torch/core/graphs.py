@@ -20,8 +20,10 @@ On the card a :class:`Graph` is one ``torch.cuda.CUDAGraph``:
   replayed from several threads, so they share none;
 * :meth:`Graph.replay` re-runs every kernel on what the static buffers
   hold.  No Python runs, so the kernel wrappers' launch counters count
-  the warm-up and the capture, never a replay (``torch.profiler`` counts
-  replays).
+  the warm-up and the capture, never a replay.  A replay's kernels are
+  counted from the graph itself: with ``Graph.keep_nodes`` set before
+  the capture, :meth:`Graph.kernel_nodes` lists the captured graph's
+  kernel nodes, and ``Graph.replays`` counts the replays.
 
 A captured function may not synchronise or copy from pageable host
 memory.  A capture that fails raises (``RuntimeError``, or the kernel
@@ -34,6 +36,9 @@ a caller's copy-in, copy-out and aliasing rules run in the CPU tests.
 
 from __future__ import annotations
 
+import os
+import re
+import tempfile
 import threading
 import weakref
 from collections import OrderedDict
@@ -74,14 +79,20 @@ class Graph:
 
     captures = 0
     _count_lock = threading.Lock()
+    # set before a capture to keep the captured graph's nodes for
+    # kernel_nodes() (PyTorch drops them at instantiation otherwise)
+    keep_nodes = False
+    _live: "weakref.WeakSet[Graph]" = weakref.WeakSet()
 
     def __init__(self, device):
         self.device = torch.device(device)
         self._card = self.device.type == "cuda"
         self.outputs: Any = None
         self.pool_bytes: Optional[int] = None
+        self.replays = 0
         self._fn: Optional[Callable[[], Any]] = None
         self._graph = None
+        self._nodes: Optional[list] = None
         if self._card:
             self._stream = _side_stream(self.device)
 
@@ -107,11 +118,17 @@ class Graph:
         reserved memory: the segments of the graph's own pool."""
         with Graph._count_lock:
             Graph.captures += 1
+            Graph._live.add(self)
         if not self._card:
             self._fn = fn
             return None
         dev = self.device
-        graph = torch.cuda.CUDAGraph()
+        keep = Graph.keep_nodes
+        # keep_graph: the captured cudaGraph_t outlives the instantiation
+        graph = torch.cuda.CUDAGraph(keep_graph=True) if keep \
+            else torch.cuda.CUDAGraph()
+        if keep:
+            graph.enable_debug_mode()          # lets debug_dump print it
         with _CAPTURE_LOCK:
             self._stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.graph(graph, stream=self._stream,
@@ -121,11 +138,15 @@ class Graph:
                 self.outputs = fn()
                 self.pool_bytes = torch.cuda.memory_reserved(dev) - before
             torch.cuda.current_stream(dev).wait_stream(self._stream)
+        if keep:
+            graph.instantiate()
+            self._nodes = []
         self._graph = graph
         return self.outputs
 
     def replay(self) -> None:
         """Recompute ``outputs`` from the static buffers."""
+        self.replays += 1
         if self._card:
             self._graph.replay()
             return
@@ -136,6 +157,51 @@ class Graph:
         for out, new in zip(tree_leaves(self.outputs), tree_leaves(res)):
             if out is not new:
                 out.copy_(new)
+
+    @classmethod
+    def live(cls) -> list:
+        """The captured graphs still alive in this process."""
+        with cls._count_lock:
+            return list(cls._live)
+
+    def kernel_nodes(self) -> list:
+        """The kernels one replay launches: the label of each kernel node
+        of the captured graph (its function's name among its launch
+        parameters), read from ``CUDAGraph.debug_dump``'s DOT text once
+        and kept.  Needs ``Graph.keep_nodes`` at the capture.  On the CPU
+        a replay launches none: ``[]``."""
+        if not self._card:
+            return []
+        if self._nodes is None:
+            raise RuntimeError("captured without Graph.keep_nodes: the "
+                               "graph's nodes are gone")
+        if not self._nodes and self._graph is not None:
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "graph.dot")
+                self._graph.debug_dump(path)
+                with open(path) as f:
+                    self._nodes = dot_kernel_nodes(f.read())
+        return self._nodes
+
+
+_DOT_NODE = re.compile(r'"(\w*node_\d+)"\s*\[')
+
+
+def dot_kernel_nodes(dot: str) -> list:
+    """The labels of the kernel nodes in a graph's DOT text
+    (``cudaGraphDebugDotPrint``): each node statement ``"<id>"[...]``
+    up to the next, an edge's ``"a" -> "b"[...]`` skipped, one entry a
+    node id whose statement names a ``KERNEL``."""
+    starts = [m for m in _DOT_NODE.finditer(dot)
+              if "->" not in dot[dot.rfind("\n", 0, m.start()) + 1:
+                                 m.start()]]
+    seen, out = set(), []
+    for m, nxt in zip(starts, starts[1:] + [None]):
+        text = dot[m.start():nxt.start() if nxt else len(dot)]
+        if m.group(1) not in seen and "KERNEL" in text:
+            seen.add(m.group(1))
+            out.append(text)
+    return out
 
 
 # -- chunks of rounds ------------------------------------------------------

@@ -135,7 +135,11 @@ def lm_params_from_numpy(params: dict, cfg: ModelConfig,
     ["stack"]["scan"]`` holds one layer dict per layer of the unit, each
     leaf with a leading ``reps`` dim, and ``["tail"]`` the unrolled rest.
     The port's ``"layers"`` list takes them in model order: repeat 0's
-    unit, repeat 1's unit, ..., then the tail."""
+    unit, repeat 1's unit, ..., then the tail.  A unit may mix kinds
+    (recurrentgemma's ``(rglru, rglru, local_attn)`` x 8 + ``(rglru,
+    rglru)``), each layer keeps its own keys, and a float32 leaf of a
+    bf16 model (Mamba-2's ``A_log``, ``dt_bias``, ``D``; the RG-LRU's
+    ``lambda``, ``b_a``, ``b_i``) stays float32."""
     dev = resolve_device(device)
     unit = list(params["stack"]["scan"])
     reps = np.asarray(unit[0]["norm1"]["scale"]).shape[0]

@@ -12,7 +12,9 @@ every prefill layer of a dense decoder -- to
 ``kernels.dispatch.flash_attention``, the CUDA kernel that replaces the
 TPU kernel this module is the reference of; decode (``kv_valid_len``),
 windows and cross-attention stay on ``mha``, as the TPU kernel computes
-none of them.
+none of them.  A local-attention layer decodes into a ring buffer of
+``window`` slots (``init_cache(..., window=)``, ``attn_decode(...,
+window=)``).
 """
 
 from __future__ import annotations
@@ -185,11 +187,14 @@ def attn_full(cfg: cm.ModelConfig, p: dict, x: torch.Tensor,
     return out_proj(p, o)
 
 
-def init_cache(cfg: cm.ModelConfig, batch: int, max_len: int,
-               device) -> dict:
-    """KV cache of one full-attention layer: ``k``/``v`` (batch, max_len,
-    Kh, Dh), zeros in the compute dtype."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+def init_cache(cfg: cm.ModelConfig, batch: int, max_len: int, device, *,
+               window: int = 0) -> dict:
+    """KV cache of one attention layer: ``k``/``v`` (batch, size, Kh,
+    Dh), zeros in the compute dtype.  ``size`` is ``max_len``, or with
+    ``window > 0`` a ring buffer of ``min(window, max_len)`` slots (local
+    attention: O(window) state however long the decode)."""
+    size = min(window, max_len) if window > 0 else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.hd)
     return {name: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
             for name in ("k", "v")}
 
@@ -204,15 +209,19 @@ def decode_pos(pos, device) -> torch.Tensor:
 
 
 def attn_decode(cfg: cm.ModelConfig, p: dict, x: torch.Tensor, cache: dict,
-                pos) -> Tuple[torch.Tensor, dict]:
+                pos, *, window: int = 0) -> Tuple[torch.Tensor, dict]:
     """One-token decode: x (B, 1, d) at absolute position ``pos``, a 0-dim
     int32 tensor on the device (JAX's traced ``pos``; an int is filled
     there), so a captured decode step reads it from the card.
 
-    RoPE is applied before insertion.  The new key and value are written
-    into the cache in place at ``pos`` (``index_copy_``; JAX returns an
-    updated copy), and the query attends over the whole ``max_len`` cache
-    with positions ``>= pos + 1`` masked, as JAX does."""
+    RoPE is applied before insertion, so every entry carries its absolute
+    rotation.  The new key and value are written into the cache in place
+    (``index_copy_``; JAX returns an updated copy) at slot ``pos``, or
+    with ``window > 0`` at ``pos % size`` of the ring buffer.  The query
+    attends over the whole cache with slots ``>= pos + 1`` masked, as JAX
+    does; in a ring buffer every filled slot is a past position within
+    the window, so only the ``min(pos + 1, size)`` filled slots count,
+    without a causal mask."""
     B = x.shape[0]
     pos = decode_pos(pos, x.device)
     q, k, v = qkv_proj(cfg, p, x)
@@ -220,8 +229,14 @@ def attn_decode(cfg: cm.ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     if cfg.pos_emb == "rope":
         q = cm.rope(q, posb, cfg.rope_base, cfg.rope_dim)
         k = cm.rope(k, posb, cfg.rope_base, cfg.rope_dim)
-    slot = pos.reshape(1).long()
+    size = cache["k"].shape[1]
+    if window > 0:
+        slot, valid = torch.remainder(pos, size), torch.clamp(pos + 1,
+                                                              max=size)
+    else:
+        slot, valid = pos, pos + 1
+    slot = slot.reshape(1).long()
     cache["k"].index_copy_(1, slot, k)
     cache["v"].index_copy_(1, slot, v)
-    o = mha(q, cache["k"], cache["v"], causal=False, kv_valid_len=pos + 1)
+    o = mha(q, cache["k"], cache["v"], causal=False, kv_valid_len=valid)
     return out_proj(p, o), cache

@@ -2,8 +2,10 @@
 ``loss``, ``prefill``, ``init_cache`` and ``decode_step``.
 
 Port of ``repro/models/model_api.py`` for the decoder-only families the
-port runs (dense attention).  ``build`` raises ``NotImplementedError``
-for a family that is not ported, naming its ROADMAP item.
+port runs: dense and local attention, Mamba-2 and RG-LRU layers in any
+pattern (``transformer``).  ``build`` raises ``NotImplementedError``
+for a family that is not ported (MoE, encoder-decoder, prefix
+embeddings), naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -50,6 +52,10 @@ class Model:
         return tfm.lm_prefill(self.cfg, params, batch["tokens"])
 
     def init_cache(self, batch: int, max_len: int) -> List[dict]:
+        """One dict of zero tensors a layer, in model order: a KV cache
+        (a ring of ``window`` slots for a local-attention layer) or a
+        recurrent state (``conv`` and ``ssm`` / ``h``).  ``decode_step``
+        writes into them in place."""
         return tfm.lm_init_cache(self.cfg, batch, max_len, self.device)
 
     def decode_step(self, params: dict, cache: List[dict],

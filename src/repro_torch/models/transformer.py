@@ -1,15 +1,21 @@
 """Decoder-only LM stack: the training loss, prefill and single-token
-decode over dense attention layers.
+decode over layers dispatched by kind.
 
 Port of ``repro/models/transformer.py`` for one device.  JAX
 ``lax.scan``s the smallest repeating unit of the layer pattern and
 rematerialises it; the port keeps the parameters as a list with one dict
-per layer and loops over it, and caches mirror that list.  Autograd
-keeps every layer's activations (no rematerialisation); the attention's
-gradient is the ``flash_attention_bwd`` kernel
-(``kernels.dispatch.FlashAttention``).  Only dense ``ATTN`` layers are
-ported: ``LOCAL_ATTN``, ``MAMBA2``, ``RGLRU`` and MoE channel mixers
-raise ``NotImplementedError`` naming their ROADMAP items.
+per layer, in model order, and loops over it, and caches mirror that
+list (a dict of tensors a layer, written in place by decode).  Autograd
+keeps every layer's activations (no rematerialisation); the dense
+attention's gradient is the ``flash_attention_bwd`` kernel
+(``kernels.dispatch.FlashAttention``).
+
+A layer is one of the pattern's kinds: ``ATTN`` (causal attention and
+the MLP), ``LOCAL_ATTN`` (sliding-window attention, a ring-buffer cache,
+and the MLP), ``MAMBA2`` (the SSD mixer alone: no channel mixer, no
+``norm2``) and ``RGLRU`` (the RG-LRU block and the MLP).  MoE channel
+mixers, encoders and prefix embeddings raise ``NotImplementedError``
+naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -22,22 +28,16 @@ import torch.nn.functional as F
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 
-_PENDING = {
-    cm.LOCAL_ATTN: "A18.2 (LOCAL_ATTN ring buffer)",
-    cm.MAMBA2: "A18.4 (Mamba-2)",
-    cm.RGLRU: "A18.5 (RG-LRU)",
-}
+_KINDS = (cm.ATTN, cm.LOCAL_ATTN, cm.MAMBA2, cm.RGLRU)
 
 
 def check_supported(cfg: cm.ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot run."""
     for kind in cfg.pattern:
-        if kind in _PENDING:
-            raise NotImplementedError(
-                f"{cfg.name}: {kind!r} layers are not ported yet: ROADMAP "
-                f"queue A, item {_PENDING[kind]}")
-        if kind != cm.ATTN:
+        if kind not in _KINDS:
             raise ValueError(kind)
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
@@ -53,35 +53,75 @@ def check_supported(cfg: cm.ModelConfig) -> None:
 # single layer
 # ---------------------------------------------------------------------------
 
-def init_layer(cfg: cm.ModelConfig, gen: torch.Generator) -> dict:
-    return {"norm1": cm.init_norm(cfg, gen.device),
-            "norm2": cm.init_norm(cfg, gen.device),
-            "mixer": att.init_attn(cfg, gen),
-            "mlp": mlp_mod.init_mlp(cfg, gen)}
+def init_layer(cfg: cm.ModelConfig, kind: str, gen: torch.Generator
+               ) -> dict:
+    dev = gen.device
+    if kind == cm.MAMBA2:
+        return {"norm1": cm.init_norm(cfg, dev),
+                "mixer": ssm_mod.init_mamba2(cfg, gen)}
+    p = {"norm1": cm.init_norm(cfg, dev), "norm2": cm.init_norm(cfg, dev)}
+    if kind in (cm.ATTN, cm.LOCAL_ATTN):
+        p["mixer"] = att.init_attn(cfg, gen)
+    elif kind == cm.RGLRU:
+        p["mixer"] = rglru_mod.init_rglru(cfg, gen)
+    else:
+        raise ValueError(kind)
+    p["mlp"] = mlp_mod.init_mlp(cfg, gen)
+    return p
 
 
 def _channel_mix(cfg, p, x):
     return mlp_mod.mlp(cfg, p["mlp"], cm.apply_norm(cfg, p["norm2"], x))
 
 
-def layer_forward(cfg: cm.ModelConfig, p: dict, x: torch.Tensor,
+def layer_forward(cfg: cm.ModelConfig, kind: str, p: dict, x: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence layer: causal attention, then the MLP, each on a
-    residual branch."""
+    """Full-sequence layer: the mixer of ``kind`` on a residual branch,
+    then (but for ``MAMBA2``) the MLP on another."""
     h = cm.apply_norm(cfg, p["norm1"], x)
-    x = x + att.attn_full(cfg, p["mixer"], h, positions, causal=True)
+    if kind == cm.ATTN:
+        mix = att.attn_full(cfg, p["mixer"], h, positions, causal=True)
+    elif kind == cm.LOCAL_ATTN:
+        mix = att.attn_full(cfg, p["mixer"], h, positions, causal=True,
+                            window=cfg.window)
+    elif kind == cm.MAMBA2:
+        return x + ssm_mod.mamba2_forward(cfg, p["mixer"], h)
+    elif kind == cm.RGLRU:
+        mix = rglru_mod.rglru_forward(cfg, p["mixer"], h)
+    else:
+        raise ValueError(kind)
+    x = x + mix
     return x + _channel_mix(cfg, p, x)
 
 
-def init_layer_cache(cfg: cm.ModelConfig, batch: int, max_len: int,
-                     device) -> dict:
-    return att.init_cache(cfg, batch, max_len, device)
+def init_layer_cache(cfg: cm.ModelConfig, kind: str, batch: int,
+                     max_len: int, device) -> dict:
+    if kind == cm.ATTN:
+        return att.init_cache(cfg, batch, max_len, device)
+    if kind == cm.LOCAL_ATTN:
+        return att.init_cache(cfg, batch, max_len, device, window=cfg.window)
+    if kind == cm.MAMBA2:
+        return ssm_mod.init_mamba2_cache(cfg, batch, device)
+    if kind == cm.RGLRU:
+        return rglru_mod.init_rglru_cache(cfg, batch, device)
+    raise ValueError(kind)
 
 
-def layer_decode(cfg: cm.ModelConfig, p: dict, x: torch.Tensor, cache: dict,
-                 pos) -> Tuple[torch.Tensor, dict]:
+def layer_decode(cfg: cm.ModelConfig, kind: str, p: dict, x: torch.Tensor,
+                 cache: dict, pos) -> Tuple[torch.Tensor, dict]:
     h = cm.apply_norm(cfg, p["norm1"], x)
-    mix, cache = att.attn_decode(cfg, p["mixer"], h, cache, pos)
+    if kind == cm.ATTN:
+        mix, cache = att.attn_decode(cfg, p["mixer"], h, cache, pos)
+    elif kind == cm.LOCAL_ATTN:
+        mix, cache = att.attn_decode(cfg, p["mixer"], h, cache, pos,
+                                     window=cfg.window)
+    elif kind == cm.MAMBA2:
+        mix, cache = ssm_mod.mamba2_decode(cfg, p["mixer"], h, cache)
+        return x + mix, cache
+    elif kind == cm.RGLRU:
+        mix, cache = rglru_mod.rglru_decode(cfg, p["mixer"], h, cache)
+    else:
+        raise ValueError(kind)
     x = x + mix
     return x + _channel_mix(cfg, p, x), cache
 
@@ -103,7 +143,7 @@ def init_lm(cfg: cm.ModelConfig, gen: torch.Generator) -> dict:
     params = {
         "embed": cm.dense_init(gen, (V, cfg.d_model), cfg.compute_dtype,
                                fan_in=cfg.d_model),
-        "layers": [init_layer(cfg, gen) for _ in range(cfg.n_layers)],
+        "layers": [init_layer(cfg, kind, gen) for kind in cfg.pattern],
         "final_norm": cm.init_norm(cfg, gen.device),
     }
     if not cfg.tie_embeddings:
@@ -137,8 +177,8 @@ def _stack(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
     x = _embed(cfg, params, tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    for p in params["layers"]:
-        x = layer_forward(cfg, p, x, positions)
+    for kind, p in zip(cfg.pattern, params["layers"]):
+        x = layer_forward(cfg, kind, p, x, positions)
     return x
 
 
@@ -187,8 +227,9 @@ def lm_prefill(cfg: cm.ModelConfig, params: dict, tokens: torch.Tensor
 
 def lm_init_cache(cfg: cm.ModelConfig, batch: int, max_len: int,
                   device) -> List[dict]:
-    return [init_layer_cache(cfg, batch, max_len, device)
-            for _ in range(cfg.n_layers)]
+    """One cache dict a layer, in model order."""
+    return [init_layer_cache(cfg, kind, batch, max_len, device)
+            for kind in cfg.pattern]
 
 
 def lm_decode_step(cfg: cm.ModelConfig, params: dict, cache: List[dict],
@@ -199,7 +240,7 @@ def lm_decode_step(cfg: cm.ModelConfig, params: dict, cache: List[dict],
     Vp), cache).  The cache is updated in place."""
     x = _embed(cfg, params, token)
     pos = att.decode_pos(pos, x.device)
-    for i, p in enumerate(params["layers"]):
-        x, cache[i] = layer_decode(cfg, p, x, cache[i], pos)
+    for i, (kind, p) in enumerate(zip(cfg.pattern, params["layers"])):
+        x, cache[i] = layer_decode(cfg, kind, p, x, cache[i], pos)
     x = cm.apply_norm(cfg, params["final_norm"], x)
     return _head(cfg, params, x), cache

@@ -932,3 +932,69 @@ def test_generate_replays_one_decode_step_a_token():
     assert torch.equal(res.tokens, torch.cat(want, 1))
     step = DecodeStep(model, params, 2, 11)
     assert step.graph.pool_bytes is not None
+
+
+def test_graph_kernel_nodes_count_a_replays_launches():
+    """``Graph.kernel_nodes`` of a capture that calls ``fxp_matmul``
+    twice and ``lut_activation`` once: two fxp kernel nodes and one LUT
+    node, whatever else the capture holds; ``replays`` counts replays."""
+    import re
+
+    from repro_torch.core.graphs import Graph
+
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(11)
+    a = torch.randint(-128, 128, (2, 300, 64), generator=g,
+                      device=dev).to(I8)
+    b = torch.randint(-2 ** 15, 2 ** 15, (64, 4), generator=g,
+                      device=dev).to(I16)
+    t = lut.sigmoid_lut(device=dev)
+
+    def fn():
+        y = fxp_matmul(a, b) + fxp_matmul(a, b)
+        return lut_activation(y * 1e-6, t.table, x_min=t.x_min,
+                              x_max=t.x_max)
+
+    graph = Graph(dev)
+    graph.warm(fn)
+    keep = Graph.keep_nodes
+    Graph.keep_nodes = True
+    try:
+        graph.capture(fn)
+    finally:
+        Graph.keep_nodes = keep
+    for _ in range(3):
+        graph.replay()
+    nodes = graph.kernel_nodes()
+    assert graph.replays == 3 and graph.kernel_nodes() == nodes
+    assert sum(bool(re.search(r"fxp_\w+?_kernel", n)) for n in nodes) == 2
+    assert sum("lut_kernel" in n for n in nodes) == 1
+    assert torch.equal(graph.outputs, fn())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-2b"])
+def test_recurrent_decode_step_on_the_card(arch):
+    """The smoke Mamba-2 and recurrentgemma models on the card: the
+    captured decode step against the eager decode in lockstep, bit for
+    bit, past the ring's wrap, launching none of the port's kernels;
+    the decode's last logits near the prefill's (float32, 2e-4)."""
+    from repro_torch.launch.serve_lm import DecodeStep
+
+    dev = require_cuda()
+    cfg = get_smoke_config(arch)
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(2))
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    wrappers = (fxp_matmul, lut_activation, kmeans_assign, split_hist,
+                flash_attention, flash_attention_bwd)
+    before = [fn.launches for fn in wrappers]
+    step = DecodeStep(model, params, 2, 16)
+    cache = model.init_cache(2, 16)
+    for t in range(16):
+        logits, cache = model.decode_step(params, cache, toks[:, t:t + 1], t)
+        assert torch.equal(step(toks[:, t:t + 1]), logits), t
+    pre = model.prefill(params, {"tokens": toks})
+    assert float((pre - logits).abs().max()) <= 2e-4 * float(
+        pre.abs().max())
+    assert [fn.launches for fn in wrappers] == before

@@ -580,6 +580,32 @@ def test_decode_step_equals_the_eager_decode(qwen):
         assert int(step.pos) == P + n_new - 1
 
 
+def test_dot_kernel_nodes_reads_kernel_statements_once():
+    """``Graph.kernel_nodes``' parser: one entry a kernel node, however
+    long its label, memsets and edges (with attributes) skipped."""
+    dot = ('digraph dot {\nsubgraph cluster_1 {\n'
+           '"graph_1_node_0"[style="solid" label="0\nKERNEL\nID: 0\n'
+           'void fxp_rows16_kernel(signed char const*, int)\n"];\n'
+           '"graph_1_node_1"[label="1\nMEMSET\n"];\n'
+           '"graph_1_node_2" [label="2\nKERNEL\nlut_kernel(float*)"];\n'
+           '"graph_1_node_0" -> "graph_1_node_1"[arrowhead=normal];\n'
+           '"graph_1_node_1" -> "graph_1_node_2";\n}\n}\n')
+    nodes = graphs.dot_kernel_nodes(dot)
+    assert len(nodes) == 2
+    assert "fxp_rows16_kernel" in nodes[0] and "lut_kernel" in nodes[1]
+    assert graphs.dot_kernel_nodes("digraph dot {\n}\n") == []
+
+
+def test_graph_counts_replays_and_launches_no_kernel_on_the_cpu():
+    g = graphs.Graph("cpu")
+    box = torch.zeros(())
+    g.capture(lambda: box.add_(1))
+    for _ in range(3):
+        g.replay()
+    assert g.replays == 3 and float(box) == 3.0
+    assert g.kernel_nodes() == [] and g in graphs.Graph.live()
+
+
 def test_doc_examples():
     failures, _ = doctest.testmod(repro_torch.core.graphs)
     assert failures == 0

@@ -54,7 +54,8 @@ def test_qwen2_config_copied_field_for_field():
     assert configs.get_config(ARCH).compute_dtype == torch.bfloat16
     assert configs.get_smoke_config(ARCH).compute_dtype == torch.float32
     assert configs.list_archs() == ["phi4-mini-3.8b", "minitron-8b", ARCH,
-                                    "qwen1.5-110b"]
+                                    "qwen1.5-110b", "mamba2-370m",
+                                    "recurrentgemma-2b"]
 
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.list_archs()
@@ -67,9 +68,26 @@ def test_unported_archs_raise_naming_their_roadmap_item(arch):
 
 
 @pytest.mark.parametrize("change", [
-    {"block_pattern": (cm.ATTN, cm.LOCAL_ATTN)},
-    {"block_pattern": (cm.MAMBA2, cm.MAMBA2)},
-    {"block_pattern": (cm.RGLRU, cm.ATTN)},
+    {"block_pattern": (cm.ATTN, cm.LOCAL_ATTN), "window": 4},
+    {"block_pattern": (cm.MAMBA2, cm.MAMBA2),
+     "ssm": cm.SSMConfig(d_state=16, head_dim=16, chunk=4)},
+    {"block_pattern": (cm.RGLRU, cm.ATTN), "rglru": cm.RGLRUConfig()}])
+def test_mixed_patterns_build_and_run(change):
+    """Local attention, Mamba-2 and RG-LRU layers, alone or beside dense
+    attention, build and give finite logits of the padded vocabulary."""
+    cfg = dataclasses.replace(configs.get_smoke_config(ARCH), **change)
+    model = build(cfg, "cpu")
+    params = model.init(0)
+    assert [sorted(p) for p in params["layers"]] == [
+        ["mixer", "norm1"] if kind == cm.MAMBA2
+        else ["mixer", "mlp", "norm1", "norm2"] for kind in cfg.pattern]
+    logits = model.prefill(params, {"tokens": torch.zeros((2, 8),
+                                                          dtype=torch.long)})
+    assert logits.shape == (2, 1, tfm.padded_vocab(cfg))
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("change", [
     {"moe": cm.MoEConfig(n_experts=4, top_k=2, d_ff=64)},
     {"encoder": cm.EncoderConfig(n_layers=2, n_ctx=16)},
     {"n_prefix_embeds": 8}])
