@@ -23,7 +23,10 @@ Phases, each printed as one JSON line:
                 flash_attention within float32 2e-5 / bf16 1e-2 (and
                 >= 99 % of bf16 outputs bit-equal) at qwen2-0.5b's
                 prefill shape (4 x 14 heads, 2 KV heads, S = 4096, D =
-                64), ragged S, D = 32, D = 128 and a packed view, two
+                64), ragged S, D = 32, D = 128, a packed view, and
+                whisper-tiny's encoder (16 x 6 heads, S = 1,500, D = 64,
+                full) and llava's backbone (32 heads, 8 KV heads, S =
+                4,096, D = 128, causal) on ``wgmma`` in bf16, two
                 launches bit-equal; then their times (the median over
                 runs of launches enqueued back to back, CUDA events;
                 the single-call reading beside it) and bounds,
@@ -84,7 +87,8 @@ Phases, each printed as one JSON line:
                 kernel ``flash_attention_bwd`` against its plain version
                 in bf16 and float32 at D = 32, 64, 128, G = 1, 2, 7,
                 causal and full, a ragged S and the training shape (4 x
-                14 heads, 2 KV heads, S = 2048, D = 64): float32 within
+                14 heads, 2 KV heads, S = 2048, D = 64), and whisper's
+                encoder's and llava's shapes: float32 within
                 2e-5 and bf16 within 1e-2 of max|grad| (the bit-equal
                 share printed), two launches bit-equal, the forward with
                 lse bit-equal to the forward without it; (b) its times,
@@ -121,6 +125,41 @@ Phases, each printed as one JSON line:
                 the batch that fits, recurrentgemma cut in depth): finite
                 losses, the last below the first, tokens/s, peak memory
                 and one step's profile by kernel class;
+ 6d. lm_encdec — whisper-tiny at its full config (4 + 4 layers, bf16,
+                random weights and frames from --seed), both flash kernels
+                timed at its encoder's shape (16 x 6 heads, S = 1,500, D =
+                64, full) against bf16 SDPA: (a) ``Model.prefill`` of 16 x
+                (1,500 frames + 448 tokens), 8 flash launches (the encoder
+                alone: 4, full), within 3e-2 x max|logit| of its twin,
+                frames/s and tokens/s, peak memory and a profile; (b)
+                ``generate`` on 8 requests of 64 + 32 tokens over 1,500
+                frames each, 4 launches (the encoder once, none in the
+                decode replays), the captured step against the eager
+                decode in lockstep (logits bit for bit), decode tokens/s in
+                turns; (c) float32 at full width, one request's prefill
+                against its replay through ``decode_step`` after
+                ``encdec_build_cross`` (1e-3 x max|logit|); (d) 10 training
+                steps of 16 x 448 tokens with zero frames through
+                ``launch.train``'s step, batch function and the Trainer, 8
+                forward and 8 backward launches a step, the last loss below
+                the first, tokens/s, peak memory, a profile; (e) one step's
+                gradients with random frames against its
+                ``use_kernels(False)`` twin (loss 1e-2, gradients' relative
+                L2 5e-2);
+ 6e. lm_vlm  — llava-next-mistral-7b at its full config (32 layers, bf16,
+                random weights and prefix embeddings from --seed), both
+                flash kernels timed at its shape (32 heads, 8 KV heads, S =
+                4,096, D = 128, causal): (a) ``Model.prefill`` of 4 x
+                (2,880 prefix embeddings + 1,216 tokens), 32 launches,
+                positions/s and tokens/s, peak memory, a profile, and the
+                prefill of embedded tokens as the prefix bit-equal to the
+                token prefill of the whole sequence; (b) ``generate`` on 8
+                requests of 64 + 32 tokens (tokens only, as JAX decodes),
+                no launch, the captured step against the eager decode; (c)
+                10 training steps of 1 x (2,880 zero prefix embeddings +
+                1,216 tokens), cut to VLM_TRAIN's layers, a forward and a
+                backward launch a layer a step, the last loss below the
+                first, peak memory;
   7. train_more — the slice's other workloads at 256 vDPUs x 2^24 rows,
                 d=64, each run with its launches, accuracy and steps/s
                 (median of 5 fits): LinearSVM int8 against fp32 (accuracy
@@ -286,8 +325,10 @@ Phases, each printed as one JSON line:
                 replay (:func:`fit_expect`);
  16. the ``kernels`` line (fxp_matmul's entry also times the
      multinomial's two dots at C = 4 and 10, with their byte bound; the
-     main path's replayed launches from train_graph), the nvidia-smi line,
-     and last ``{"ok": true, "device": {...}}``.
+     main path's replayed launches from train_graph; the flash kernels'
+     entries their times at whisper's and llava's shapes and the two
+     archs' launches a prefill, a ``generate`` and a train step), the
+     nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any mismatch, missing launch or exception (a rank's included) ends the
 run with a non-zero exit code and without the ``ok`` line.  Without CUDA (and without
@@ -354,6 +395,8 @@ from repro_torch.launch.serve_lm import (DecodeStep,  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models import transformer as lm_tfm  # noqa: E402
 from repro_torch.models.common import LOCAL_ATTN  # noqa: E402
+from repro_torch.models.encdec import encdec_build_cross  # noqa: E402
+from repro_torch.models.encdec import encode as encdec_encode  # noqa: E402
 from repro_torch.models.transformer import padded_vocab  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.data import StreamingDataset, TokenStream  # noqa: E402
@@ -4679,19 +4722,27 @@ def flash_check(name, q, k, v, causal) -> dict:
     return out
 
 
-def compare_flash(gen, seq: int) -> list:
+def compare_flash(gen, seq: int, slice_cases: dict) -> list:
     """At qwen2-0.5b's prefill shape, ragged S, the smoke config's D = 32,
-    MQA at D = 128 without the causal mask, and q, k, v sliced from one
-    packed (B, S, H + 2 Kh, D) tensor; in bf16 and float32."""
+    MQA at D = 128 without the causal mask, whisper-tiny's encoder and
+    llava's backbone (``slice_cases``: each bf16 case on ``wgmma``), and
+    q, k, v sliced from one packed (B, S, H + 2 Kh, D) tensor; in bf16
+    and float32."""
     out = []
     for dtype in (torch.bfloat16, torch.float32):
         for name, shape, causal in (
                 ("qwen2 prefill", (LM_BATCH, 14, 2, seq, 64), True),
                 ("ragged S", (2, 14, 2, 1000, 64), True),
                 ("smoke heads, D=32", (2, 2, 1, 128, 32), True),
-                ("MQA, D=128, full", (1, 8, 1, 512, 128), False)):
+                ("MQA, D=128, full", (1, 8, 1, 512, 128), False),
+                *((name, shape, causal)
+                  for name, (shape, causal) in slice_cases.items())):
             out.append(flash_check(name, *flash_inputs(gen, *shape, dtype),
                                    causal))
+            if dtype == torch.bfloat16 and name in slice_cases:
+                require(out[-1]["kernel"] == "wgmma",
+                        f"flash_attention took {out[-1]['kernel']} at "
+                        f"{shape}")
         packed = torch.randn((2, 300, 18, 64), generator=gen,
                              device=gen.device).to(dtype).transpose(1, 2)
         out.append(flash_check("packed (B, S, H, D) view", packed[:, :14],
@@ -4699,11 +4750,11 @@ def compare_flash(gen, seq: int) -> list:
     return out
 
 
-def sdpa(q, k, v):
+def sdpa(q, k, v, causal: bool = True):
     """PyTorch's fused attention on the same views: the yardstick of
     ``library_ms``, never called by the port."""
     import torch.nn.functional as F
-    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                           enable_gqa=True)
 
 
@@ -4746,22 +4797,32 @@ def logits_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
             "gap_over_max": gap / max(top, 1e-30)}
 
 
-def timed_prefill(model, params, tokens) -> float:
+def timed_prefill(model, params, batch: dict) -> float:
     sync(model.device)
     t0 = time.perf_counter()
-    model.prefill(params, {"tokens": tokens})
+    model.prefill(params, batch)
     sync(model.device)
     return time.perf_counter() - t0
 
 
+def decode_cache(model, params, batch: int, max_len: int, frames=None):
+    """``Model.init_cache``, with an encoder-decoder's cross K/V built
+    from ``frames`` (``encdec_build_cross``, in place)."""
+    cache = model.init_cache(batch, max_len)
+    if frames is not None:
+        encdec_build_cross(model.cfg, params, frames, cache)
+    return cache
+
+
 def eager_generate(model, params, prompts: torch.Tensor,
-                   new_tokens: int) -> Generation:
+                   new_tokens: int, frames=None) -> Generation:
     """``generate`` on the eager decode: ``Model.decode_step`` called a
     step at a time, ``pos`` a tensor stepped on the card, the argmax
-    taken after each step, the same clocks."""
+    taken after each step, the same clocks (an encoder-decoder's cross
+    K/V built before them, as ``generate`` builds it)."""
     B, P = prompts.shape
     V, dev = model.cfg.vocab_size, model.device
-    cache = model.init_cache(B, P + new_tokens)
+    cache = decode_cache(model, params, B, P + new_tokens, frames)
     pos = torch.zeros((), dtype=torch.int32, device=dev)
     sync(dev)
     t0 = time.perf_counter()
@@ -4787,21 +4848,28 @@ def eager_generate(model, params, prompts: torch.Tensor,
 
 def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
                  dev, check: bool, runs: int = TIMING_RUNS,
-                 n: int = 8) -> dict:
+                 n: int = 8, frames=None) -> dict:
     """The captured decode step (``launch.serve_lm.DecodeStep``) against
     the eager decode: every step's logits and token compared in lockstep,
     bit for bit (the tokens must be equal); decode tokens/s of
     ``generate`` against :func:`eager_generate` in ``runs`` turns; the idle share
     and the host's CUDA launch calls a token over ``n`` decode tokens of
-    each."""
+    each.  An encoder-decoder decodes over ``frames``, its cross K/V
+    built after each reset of the step and into each eager cache."""
     B, P = prompts.shape
     V = model.cfg.vocab_size
     t0 = time.perf_counter()
     step = DecodeStep(model, params, B, P + new_tokens)
     sync(dev)
     capture_s = time.perf_counter() - t0
-    step.reset()
-    cache = model.init_cache(B, P + new_tokens)
+
+    def reset():
+        step.reset()
+        if frames is not None:
+            encdec_build_cross(model.cfg, params, frames, step.cache)
+
+    reset()
+    cache = decode_cache(model, params, B, P + new_tokens, frames)
     pos = torch.zeros((), dtype=torch.int32, device=dev)
     tok = None
     logits_equal, tokens_equal, gap, first_diff = True, True, 0.0, None
@@ -4818,8 +4886,8 @@ def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
         tokens_equal = tokens_equal and bool(torch.equal(step.tok, tok))
     require(tokens_equal, "the captured decode step's tokens != the eager "
             "decode's")
-    eager = eager_generate(model, params, prompts, new_tokens)
-    graph = generate(model, params, prompts, new_tokens)
+    eager = eager_generate(model, params, prompts, new_tokens, frames)
+    graph = generate(model, params, prompts, new_tokens, frames)
     require(torch.equal(graph.tokens, eager.tokens), "generate's tokens != "
             "the eager decode's")
     rates: dict = {"graph": [], "eager": []}
@@ -4827,12 +4895,12 @@ def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
         for name in (("graph", "eager") if i % 2 == 0
                      else ("eager", "graph")):
             fn = generate if name == "graph" else eager_generate
-            res = fn(model, params, prompts, new_tokens)
+            res = fn(model, params, prompts, new_tokens, frames)
             rates[name].append(B * (new_tokens - 1) / res.decode_s)
     rates = {name: {"median": statistics.median(r), "min": min(r),
                     "max": max(r), "runs": len(r)}
              for name, r in rates.items()}
-    step.reset()
+    reset()
     for t in range(P):
         step(prompts[:, t:t + 1])
 
@@ -4842,7 +4910,7 @@ def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
             step()
 
     _, prof_graph = device_launches(graph_steps, dev, count_graphs=False)
-    cache = model.init_cache(B, P + n)
+    cache = decode_cache(model, params, B, P + n, frames)
     pos = torch.full((), P, dtype=torch.int32, device=dev)
 
     def eager_steps():
@@ -4902,7 +4970,7 @@ def serve_lm(args, dev, card: str) -> dict:
         require(twin_gap["gap_over_max"] <= PREFILL_TWIN_TOL[cfg.dtype],
                 f"prefill vs its plain twin: {twin_gap}")
         del twin
-        times = [timed_prefill(model, params, tokens)
+        times = [timed_prefill(model, params, {"tokens": tokens})
                  for _ in range(LM_RATE_REPS)]
         n_tok = LM_BATCH * args.lm_seq
         prefill = {"batch": LM_BATCH, "seq": args.lm_seq,
@@ -5068,12 +5136,13 @@ def flash_bwd_check(name, q, k, v, causal) -> dict:
     return out
 
 
-def compare_flash_bwd(gen, seq: int) -> list:
+def compare_flash_bwd(gen, seq: int, slice_cases: dict) -> list:
     """bf16 and float32; D = 32, 64, 128; G = 1, 2, 7; causal and full; a
     ragged S; qwen2-0.5b's training shape (4 x 14 heads, 2 KV heads,
-    ``seq``, D = 64); and the wgmma schedule's edges: S = 1, 127, 129 and
+    ``seq``, D = 64); the wgmma schedule's edges: S = 1, 127, 129 and
     300 (a ragged last 128-key tile), the group sum skipped (G = 1) and
-    taken (G = 2, 7)."""
+    taken (G = 2, 7); and whisper-tiny's encoder and llava's backbone
+    (``slice_cases``)."""
     out = []
     for dtype in (torch.bfloat16, torch.float32):
         for name, shape, causal in (
@@ -5090,7 +5159,9 @@ def compare_flash_bwd(gen, seq: int) -> list:
                 ("S=129 full, G=7", (1, 7, 1, 129, 64), False),
                 ("S=300, G=7", (2, 14, 2, 300, 64), True),
                 ("S=300 full, G=2, D=128", (1, 4, 2, 300, 128), False),
-                ("S=300, G=1, D=128", (1, 2, 2, 300, 128), True)):
+                ("S=300, G=1, D=128", (1, 2, 2, 300, 128), True),
+                *((name, shape, causal)
+                  for name, (shape, causal) in slice_cases.items())):
             out.append(flash_bwd_check(
                 name, *flash_inputs(gen, *shape, dtype), causal))
             if dtype == torch.bfloat16 and shape[-1] in (64, 128):
@@ -5161,12 +5232,12 @@ def bwd_design(B: int, H: int, Kh: int, seq: int, D: int, dev) -> dict:
                          "sms": sms}}
 
 
-def sdpa_grads(q, k, v, do):
+def sdpa_grads(q, k, v, do, causal: bool = True):
     """The gradient of PyTorch's fused attention on the same views: the
     yardstick of the backward's ``library_ms`` (bf16) and
     ``library_fp32_ms``, never called by the port."""
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    return torch.autograd.grad(sdpa(*leaves), leaves, do)
+    return torch.autograd.grad(sdpa(*leaves, causal), leaves, do)
 
 
 def time_flash_bwd(gen, seq: int, iters: int) -> dict:
@@ -5385,7 +5456,7 @@ def train_lm(args, dev, card: str) -> tuple:
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(args.seed + 40)
     emit("compare", flash_attention_bwd=compare_flash_bwd(
-        gen, seq if check else 130))
+        gen, seq if check else 130, args.flash_slice))
     times = time_flash_bwd(gen, seq if check else 130, args.iters)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -5530,34 +5601,38 @@ REC_TRAIN = {"mamba2-370m": {"batch": 4, "layers": 48},
 REC_TRAIN_STEPS, REC_TRAIN_SEQ = 10, 2048
 
 
-def rec_prefill(model, params, tokens, dev) -> dict:
-    """(a) the prefill: zero launches of every port kernel (counts set to
-    0 just before, read just after), finite last logits of the padded
-    vocabulary, tokens/s of LM_RATE_REPS calls (warm), peak memory, a
-    profile by kernel class (:func:`step_profile`)."""
+def prefill_run(model, params, batch: dict, dev, want: dict,
+                units: dict) -> dict:
+    """(a) the prefill of ``batch``: the port's kernels launched as
+    ``want`` says (counts set to 0 just before, read just after), finite
+    last logits of the padded vocabulary, each of ``units`` (its count a
+    call: tokens, frames, positions) a second over LM_RATE_REPS calls
+    (warm), peak memory, a profile by kernel class
+    (:func:`step_profile`)."""
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    logits = model.prefill(params, {"tokens": tokens})
+    logits = model.prefill(params, batch)
     sync(dev)
     seen = counts()
-    B, S = tokens.shape
-    require(seen == expected(), f"{model.cfg.name} prefill launched {seen}: "
-            "no port kernel lies on this path")
+    B, S = batch["tokens"].shape
+    # a CPU tensor runs the plain versions, which count nothing
+    require(seen == want or dev.type == "cpu", f"{model.cfg.name} prefill "
+            f"launched {seen}, the design implies {want}")
     require(tuple(logits.shape) == (B, 1, padded_vocab(model.cfg))
             and bool(torch.isfinite(logits).all()),
             f"{model.cfg.name} prefill logits {tuple(logits.shape)} or not "
             "finite")
-    times = [timed_prefill(model, params, tokens)
+    times = [timed_prefill(model, params, batch)
              for _ in range(LM_RATE_REPS)]
-    out = {"batch": B, "seq": S, "launches": seen,
-           "tokens_per_s": {"median": B * S / statistics.median(times),
-                            "min": B * S / max(times),
-                            "max": B * S / min(times), "runs": len(times)}}
+    out = {"batch": B, "seq": S, "launches": seen}
+    for unit, n in units.items():
+        out[f"{unit}_per_s"] = {"median": n / statistics.median(times),
+                                "min": n / max(times), "max": n / min(times),
+                                "runs": len(times)}
     if dev.type == "cuda":
         out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    out["profile"] = step_profile(
-        lambda: model.prefill(params, {"tokens": tokens}), dev)
+    out["profile"] = step_profile(lambda: model.prefill(params, batch), dev)
     return out
 
 
@@ -5607,12 +5682,14 @@ def rec_float32(model, params, request, dev) -> dict:
                          "wraps_at": ring or None, "bit_equal": equal}}
 
 
-def rec_train(model, seed: int, dev, batch: int, check: bool) -> dict:
-    """(d) REC_TRAIN_STEPS steps through ``launch.train``'s step and the
-    Trainer: finite losses, the last below the first, zero port-kernel
-    launches, tokens/s, peak memory and one warm step's profile."""
+def short_train(model, seed: int, dev, batch: int, seq: int, check: bool,
+                per_step: dict | None = None) -> dict:
+    """(d) REC_TRAIN_STEPS steps of ``batch`` x ``seq`` tokens through
+    ``launch.train``'s step, batch function and the Trainer: finite
+    losses, the last below the first, the port's kernels launched
+    ``per_step`` times a step (none when not given), tokens/s, peak
+    memory and one warm step's profile."""
     cfg = model.cfg
-    seq = REC_TRAIN_SEQ if check else 16
     opt = adamw(TRAIN_LR)
     trainer = lm_trainer(model, opt, seed, seq, batch=batch)
     if dev.type == "cuda":
@@ -5624,9 +5701,11 @@ def rec_train(model, seed: int, dev, batch: int, check: bool) -> dict:
     sync(dev)
     run_s = time.perf_counter() - t0
     seen = counts()
+    want = expected(**{k: n * REC_TRAIN_STEPS
+                       for k, n in (per_step or {}).items()})
     losses = [h["loss"] for h in trainer.history]
-    require(seen == expected(), f"{cfg.name} training launched {seen}: no "
-            "port kernel lies on this path")
+    require(seen == want or dev.type == "cpu", f"{cfg.name} training "
+            f"launched {seen}, the design implies {want}")
     require(len(losses) == REC_TRAIN_STEPS
             and all(map(math.isfinite, losses)) and out["restarts"] == 0,
             f"{cfg.name} training: losses {losses}, {out}")
@@ -5637,12 +5716,12 @@ def rec_train(model, seed: int, dev, batch: int, check: bool) -> dict:
             if dev.type == "cuda" else None)
     state = trainer.state
     step_fn = lm_train.make_step_fn(model, opt)
-    tokens = trainer.batch_fn(REC_TRAIN_STEPS)
+    step_batch = trainer.batch_fn(REC_TRAIN_STEPS)
     steady = []
     for _ in range(TRAIN_STEADY_STEPS):
         sync(dev)
         t1 = time.perf_counter()
-        step_fn(state, tokens)
+        step_fn(state, step_batch)
         sync(dev)
         steady.append(time.perf_counter() - t1)
     n_tok = batch * seq
@@ -5652,7 +5731,7 @@ def rec_train(model, seed: int, dev, batch: int, check: bool) -> dict:
             "tokens_per_s": {"run": n_tok * REC_TRAIN_STEPS / run_s,
                              "steady_median": n_tok / statistics.median(
                                  steady), "steady_steps_s": steady},
-            "profile": step_profile(lambda: step_fn(state, tokens), dev)}
+            "profile": step_profile(lambda: step_fn(state, step_batch), dev)}
 
 
 def lm_recurrent(args, dev, card: str, arch: str) -> None:
@@ -5662,15 +5741,14 @@ def lm_recurrent(args, dev, card: str, arch: str) -> None:
     8 requests of 64 + 32 tokens through the captured decode step, held
     against the eager decode in lockstep and timed against it in turns,
     (c) float32 at full width (:func:`rec_float32`), (d) training
-    (:func:`rec_train`; recurrentgemma cut in depth).  No port kernel
+    (:func:`short_train`; recurrentgemma cut in depth).  No port kernel
     lies on these paths: every count stays 0."""
     cfg = (get_smoke_config if args.rehearse else get_config)(arch)
     check = not args.rehearse
     t0 = time.perf_counter()
     seed = args.seed + 70 + 10 * REC_ARCHS.index(arch)
     B, S = (REC_PREFILL_BATCH, REC_PREFILL_SEQ) if check else (2, 64)
-    n_req, prompt, new = ((SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW) if check
-                          else (2, 12, 6))
+    n_req, prompt = (SERVE_REQUESTS, SERVE_PROMPT) if check else (2, 12)
     with torch.inference_mode():
         model = build_model(cfg, dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -5681,27 +5759,13 @@ def lm_recurrent(args, dev, card: str, arch: str) -> None:
                                 generator=gen, device=dev)
         n_params = model.param_count(params)
         parts_s = {"init": time.perf_counter() - t0}
-        prefill = rec_prefill(model, params, tokens, dev)
+        prefill = prefill_run(model, params, {"tokens": tokens}, dev,
+                              expected(), {"tokens": B * S})
         parts_s["prefill"] = time.perf_counter() - t0 - sum(parts_s.values())
         del tokens
-        reset_counts()
-        res = generate(model, params, prompts, new)
-        seen = counts()
-        require(seen == expected(), f"{arch} generate launched {seen}")
-        require(tuple(res.tokens.shape) == (n_req, new)
-                and int(res.tokens.min()) >= 0
-                and int(res.tokens.max()) < cfg.vocab_size,
-                f"{arch} generate gave {tuple(res.tokens.shape)}")
-        serve = {"requests": n_req, "prompt": prompt, "new_tokens": new,
-                 "launches": seen,
-                 "decode_tokens_per_s": n_req * (new - 1) / res.decode_s,
-                 "graph": decode_graph(model, params, prompts, new, dev,
-                                       check, REC_DECODE_RUNS,
-                                       REC_PROFILE_TOKENS)}
-        require(serve["graph"]["logits_bit_equal"], f"{arch}: the captured "
-                "decode step's logits != the eager decode's")
+        serve = serve_run(model, params, prompts, dev, check, expected())
         parts_s["serve"] = time.perf_counter() - t0 - sum(parts_s.values())
-        del params, model, res
+        del params, model
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -5718,8 +5782,9 @@ def lm_recurrent(args, dev, card: str, arch: str) -> None:
     cut = REC_TRAIN[arch]["layers"] if check else cfg.n_layers
     tcfg = dataclasses.replace(cfg, n_layers=cut,
                                block_pattern=cfg.pattern[:cut])
-    train = rec_train(build_model(tcfg, dev), seed + 2, dev,
-                      REC_TRAIN[arch]["batch"] if check else 2, check)
+    train = short_train(build_model(tcfg, dev), seed + 2, dev,
+                        REC_TRAIN[arch]["batch"] if check else 2,
+                        REC_TRAIN_SEQ if check else 16, check)
     parts_s["train"] = time.perf_counter() - t0 - sum(parts_s.values())
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -5728,6 +5793,302 @@ def lm_recurrent(args, dev, card: str, arch: str) -> None:
          params=n_params, prefill=prefill, serve=serve, float32=float32,
          train=train, parts_s=parts_s, seconds=time.perf_counter() - t0)
 
+
+
+# -- lm_encdec and lm_vlm: whisper-tiny and llava-next-mistral-7b ------------
+
+ENCDEC_ARCH, VLM_ARCH = "whisper-tiny", "llava-next-mistral-7b"
+# the flash kernels at the slice's shapes, in the compare cases and timed
+# (name -> ((B, H, Kh, S, D), causal)): whisper's encoder, full attention
+# over 1,500 frames, and llava's backbone, causal over 2,880 prefix + 1,216
+# token positions; the rehearsal's are cut to the CPU
+FLASH_SLICE = {"whisper encoder": ((16, 6, 6, 1500, 64), False),
+               "llava": ((1, 32, 8, 4096, 128), True)}
+FLASH_SLICE_REHEARSE = {"whisper encoder": ((2, 6, 6, 150, 64), False),
+                        "llava": ((1, 8, 2, 256, 128), True)}
+# whisper: prefill and training of 16 requests of 1,500 frames + 448
+# tokens (its text context); llava: prefill of 4 x (2,880 + 1,216)
+ENCDEC_BATCH, ENCDEC_TOKENS = 16, 448
+VLM_BATCH, VLM_TOKENS = 4, 1216
+# llava trains at 1 x (2,880 + 1,216) positions, cut to the layers that
+# fit.  Peaks of two steps (NVIDIA H100 80GB HBM3, 79.18 GiB;
+# tools/lm_train_memory.py): 52.8 / 60.1 / 64.6 / 70.5 GiB at 6 / 7 / 8 / 9
+# layers, ~6 GiB a layer (AdamW's out-of-place update holds the old and
+# new master, moments and parameters at once); 9 keeps 8.6 GiB free
+VLM_TRAIN = {"batch": 1, "layers": 9}
+
+
+def time_flash_case(gen, shape: tuple, causal: bool, iters: int) -> dict:
+    """flash_attention at ``shape`` in bf16: ms, the bound (the wrapper's
+    charge: q, k, v and o once; 6·D a live (query, key) pair at the bf16
+    peak) and bf16 SDPA's ms with ``is_causal`` as the case."""
+    dev = gen.device
+    B, H, Kh, S, D = shape
+    q, k, v = flash_inputs(gen, *shape, torch.bfloat16)
+    o = flash_attention(q, k, v, causal=causal)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    t = {"shape": list(shape), "causal": causal,
+         "kernel": route(q.dtype, D),
+         "ms": median_ms(lambda: flash_attention(q, k, v, causal=causal),
+                         dev, iters),
+         "library_bf16_ms": median_ms(lambda: sdpa(q, k, v, causal), dev,
+                                      iters),
+         "library_bf16_max_abs_err": max_abs_err(sdpa(q, k, v, causal), o),
+         "bytes": nbytes(q, k, v, o), "ops": 6 * B * H * D * pairs}
+    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
+                                         hw.PEAK_FLOPS_BF16)
+    return t
+
+
+def time_flash_bwd_case(gen, shape: tuple, causal: bool, iters: int) -> dict:
+    """flash_attention_bwd at ``shape`` in bf16, dO in the step's layout:
+    ms, the bound (q, k, v, o, dO and lse read once, the gradients
+    written once; the function's 10·D a live pair) and bf16 SDPA's
+    backward's ms."""
+    dev = gen.device
+    B, H, Kh, S, D = shape
+    q, k, v = flash_inputs(gen, *shape, torch.bfloat16)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    do = torch.randn((B, S, H, D), generator=gen, device=dev
+                     ).to(o.dtype).transpose(1, 2)
+    grads = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    t = {"shape": list(shape), "causal": causal,
+         "kernel": bwd_route(q.dtype, D),
+         "ms": median_ms(lambda: flash_attention_bwd(
+             q, k, v, o, do, lse, causal=causal), dev, iters),
+         "library_bf16_ms": median_ms(lambda: sdpa_grads(q, k, v, do,
+                                                         causal), dev, iters),
+         "library_bf16_max_abs_err": max(max_abs_err(a, b) for a, b in zip(
+             sdpa_grads(q, k, v, do, causal), grads)),
+         "bytes": nbytes(q, k, v, o, do, lse, *grads),
+         "ops": 10 * B * H * D * pairs}
+    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
+                                         hw.PEAK_FLOPS_BF16)
+    return t
+
+
+def slice_kernels(gen, args, name: str) -> dict:
+    """Both flash kernels timed at the slice case ``name``."""
+    shape, causal = args.flash_slice[name]
+    out = {"flash_attention": time_flash_case(gen, shape, causal, args.iters),
+           "flash_attention_bwd": time_flash_bwd_case(gen, shape, causal,
+                                                      args.iters)}
+    if gen.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_run(model, params, prompts, dev, check: bool, want: dict,
+              frames=None) -> dict:
+    """(b) ``generate`` on ``prompts`` (an encoder-decoder over ``frames``)
+    after a warm-up, its launches as ``want`` (counts set to 0 just
+    before, read just after), then :func:`decode_graph`: the captured
+    step bit-equal to the eager decode, timed against it in turns."""
+    cfg = model.cfg
+    n_req, new = prompts.shape[0], SERVE_NEW if check else 6
+    generate(model, params, prompts, new, frames)                # warm-up
+    reset_counts()
+    res = generate(model, params, prompts, new, frames)
+    seen = counts()
+    require(seen == want or dev.type == "cpu", f"{cfg.name} generate "
+            f"launched {seen}, the design implies {want}")
+    require(tuple(res.tokens.shape) == (n_req, new)
+            and int(res.tokens.min()) >= 0
+            and int(res.tokens.max()) < cfg.vocab_size,
+            f"{cfg.name} generate gave {tuple(res.tokens.shape)}")
+    graph = decode_graph(model, params, prompts, new, dev, check,
+                         REC_DECODE_RUNS, REC_PROFILE_TOKENS, frames)
+    require(graph["logits_bit_equal"], f"{cfg.name}: the captured decode "
+            "step's logits != the eager decode's")
+    return {"requests": n_req, "prompt": prompts.shape[1], "new_tokens": new,
+            "launches": seen,
+            "decode_tokens_per_s": n_req * (new - 1) / res.decode_s,
+            "first_tokens": res.tokens[0, :8].tolist(), "graph": graph}
+
+
+def lm_encdec(args, dev, card: str) -> dict:
+    """whisper-tiny at full width, bf16, random weights and frames from
+    ``--seed`` (the smoke config in a rehearsal), through the port's entry
+    points: (a) ``Model.prefill`` of 16 x (1,500 frames + 448 tokens), a
+    flash launch a layer (4 full in the encoder, 4 causal in the
+    decoder), against its ``use_kernels(False)`` twin, frames/s and
+    tokens/s; (b) ``generate`` on 8 requests of 64 + 32 tokens over 1,500
+    frames each (the encoder once: 4 launches; none in the decode
+    replays), the captured step against the eager decode; (c) float32 at
+    full width, one request's prefill against its replay through
+    ``decode_step`` after ``encdec_build_cross``; (d) 10 training steps of
+    16 x 448 tokens with zero frames (``launch.train.make_batch_fn``), a
+    forward and a backward launch a layer; (e) one step's gradients with
+    random frames against its ``use_kernels(False)`` twin.  Returns the
+    kernels at the encoder's shape and the slice's launches."""
+    cfg = (get_smoke_config if args.rehearse else get_config)(ENCDEC_ARCH)
+    check = not args.rehearse
+    t0 = time.perf_counter()
+    seed = args.seed + 90
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kernels = slice_kernels(gen, args, "whisper encoder")
+    parts_s = {"kernels": time.perf_counter() - t0}
+    B, T = (ENCDEC_BATCH, ENCDEC_TOKENS) if check else (2, 24)
+    n_req, prompt = (SERVE_REQUESTS, SERVE_PROMPT) if check else (2, 12)
+    n_ctx, d, V = cfg.encoder.n_ctx, cfg.d_model, cfg.vocab_size
+    L = cfg.encoder.n_layers + cfg.n_layers
+    with torch.inference_mode():
+        model = build_model(cfg, dev)
+        params = model.init(gen)
+        batch = {"tokens": torch.randint(0, V, (B, T), generator=gen,
+                                         device=dev),
+                 "frames": torch.randn((B, n_ctx, d), generator=gen,
+                                       device=dev)}
+        n_params = model.param_count(params)
+        reset_counts()
+        encdec_encode(cfg, params["encoder"], batch["frames"])
+        encoder_seen = counts()
+        require(encoder_seen == expected(
+            flash_attention=cfg.encoder.n_layers) or not check,
+            f"the encoder launched {encoder_seen}")
+        prefill = prefill_run(model, params, batch, dev,
+                              expected(flash_attention=L),
+                              {"frames": B * n_ctx, "tokens": B * T})
+        prefill["encoder_launches"] = encoder_seen
+        logits = model.prefill(params, batch)[..., :V]
+        with dispatch.use_kernels(False):
+            twin = model.prefill(params, batch)[..., :V]
+        # on the vocabulary: the padded columns hold -1e9
+        prefill["twin"] = logits_gap(logits, twin)
+        require(prefill["twin"]["gap_over_max"] <= PREFILL_TWIN_TOL[
+            cfg.dtype], f"whisper prefill vs its plain twin: "
+            f"{prefill['twin']}")
+        del logits, twin
+        parts_s["prefill"] = time.perf_counter() - t0 - sum(parts_s.values())
+        prompts = torch.randint(0, V, (n_req, prompt), generator=gen,
+                                device=dev)
+        frames = torch.randn((n_req, n_ctx, d), generator=gen, device=dev)
+        serve = serve_run(model, params, prompts, dev, check,
+                          expected(flash_attention=cfg.encoder.n_layers),
+                          frames)
+        parts_s["serve"] = time.perf_counter() - t0 - sum(parts_s.values())
+        del params, model, frames
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        model = build_model(dataclasses.replace(cfg, dtype="float32"), dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed + 1))
+        request = {"tokens": batch["tokens"][:1],
+                   "frames": batch["frames"][:1]}
+        pre = model.prefill(params, request)[:, 0, :V]
+        res = generate(model, params, request["tokens"], 1,
+                       request["frames"])
+        float32 = {"tokens": T, "frames": n_ctx,
+                   "prefill_vs_replay": logits_gap(pre,
+                                                   res.prompt_logits[:, :V])}
+        require(float32["prefill_vs_replay"]["gap_over_max"]
+                <= CROSS_PATH_TOL, f"whisper float32 prefill vs the replay "
+                f"through decode_step: {float32}")
+        del params, model, pre, res
+        parts_s["float32"] = time.perf_counter() - t0 - sum(parts_s.values())
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    model = build_model(cfg, dev)
+    per_step = {"flash_attention": L, "flash_attention_bwd": L}
+    train = short_train(model, seed + 2, dev, B, T, check, per_step)
+    parts_s["train"] = time.perf_counter() - t0 - sum(parts_s.values())
+    # random frames; tensors made outside inference mode, which autograd
+    # may save
+    twin = grad_twin(model, model.init(seed + 3),
+                     {k: v.clone() for k, v in batch.items()})
+    require(twin["loss_rel_gap"] <= TRAIN_TWIN_LOSS_RTOL
+            and twin["grad_rel_l2"] < TRAIN_TWIN_GRAD_L2,
+            f"whisper: a bf16 step != its plain twin: {twin}")
+    parts_s["twin"] = time.perf_counter() - t0 - sum(parts_s.values())
+    del model, batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    emit("lm_encdec", arch=cfg.name, card=card, layers=[
+        cfg.encoder.n_layers, cfg.n_layers], d_model=d, frames=n_ctx,
+        vocab=V, dtype=cfg.dtype, params=n_params, prefill=prefill,
+        serve=serve, float32=float32, train=train, grad_twin=twin,
+        kernels=kernels, parts_s=parts_s, seconds=time.perf_counter() - t0)
+    return {"kernels": kernels, "launches": {
+        "prefill": prefill["launches"]["flash_attention"],
+        "generate": serve["launches"]["flash_attention"],
+        "train_step": {k: n // REC_TRAIN_STEPS
+                       for k, n in train["launches"].items() if n}}}
+
+
+def lm_vlm(args, dev, card: str) -> dict:
+    """llava-next-mistral-7b at full width, bf16, random weights and
+    prefix embeddings from ``--seed`` (the smoke config in a rehearsal),
+    through the port's entry points: (a) ``Model.prefill`` of 4 x (2,880
+    prefix embeddings + 1,216 tokens), a causal flash launch a layer,
+    positions/s and tokens/s, and the prefill of embedded tokens as the
+    prefix bit-equal to the token prefill of the whole sequence; (b)
+    ``generate`` on 8 requests of 64 + 32 tokens (tokens only, as JAX
+    decodes), the captured step against the eager decode; (c) 10
+    training steps of 1 x (2,880 + 1,216) with a zero prefix, cut to
+    VLM_TRAIN's layers.  Returns the kernels at its shape and the
+    slice's launches."""
+    cfg = (get_smoke_config if args.rehearse else get_config)(VLM_ARCH)
+    check = not args.rehearse
+    t0 = time.perf_counter()
+    seed = args.seed + 100
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kernels = slice_kernels(gen, args, "llava")
+    parts_s = {"kernels": time.perf_counter() - t0}
+    P, d, V = cfg.n_prefix_embeds, cfg.d_model, cfg.vocab_size
+    B, T = (VLM_BATCH, VLM_TOKENS) if check else (2, 24)
+    n_req, prompt = (SERVE_REQUESTS, SERVE_PROMPT) if check else (2, 12)
+    with torch.inference_mode():
+        model = build_model(cfg, dev)
+        params = model.init(gen)
+        n_params = model.param_count(params)
+        parts_s["init"] = time.perf_counter() - t0 - sum(parts_s.values())
+        tokens = torch.randint(0, V, (B, T), generator=gen, device=dev)
+        batch = {"tokens": tokens, "prefix_embeds": torch.randn(
+            (B, P, d), generator=gen, device=dev) * d ** -0.5}
+        prefill = prefill_run(model, params, batch, dev,
+                              expected(flash_attention=cfg.n_layers),
+                              {"positions": B * (P + T), "tokens": B * T})
+        head = torch.randint(0, V, (B, P), generator=gen, device=dev)
+        embedded = model.prefill(params, {
+            "tokens": tokens,
+            "prefix_embeds": torch.nn.functional.embedding(
+                head, params["embed"])})
+        joined = model.prefill(params, {"tokens": torch.cat([head, tokens],
+                                                            dim=1)})
+        prefill["embedded_prefix_bit_equal"] = bool(torch.equal(embedded,
+                                                                joined))
+        require(prefill["embedded_prefix_bit_equal"], "llava: the prefill of "
+                "embedded tokens as the prefix != the token prefill")
+        del embedded, joined, batch
+        parts_s["prefill"] = time.perf_counter() - t0 - sum(parts_s.values())
+        prompts = torch.randint(0, V, (n_req, prompt), generator=gen,
+                                device=dev)
+        serve = serve_run(model, params, prompts, dev, check, expected())
+        parts_s["serve"] = time.perf_counter() - t0 - sum(parts_s.values())
+        del params, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    cut = VLM_TRAIN["layers"] if check else cfg.n_layers
+    tcfg = dataclasses.replace(cfg, n_layers=cut,
+                               block_pattern=cfg.pattern[:cut])
+    train = short_train(build_model(tcfg, dev), seed + 2, dev,
+                        VLM_TRAIN["batch"] if check else 2, T, check,
+                        {"flash_attention": cut, "flash_attention_bwd": cut})
+    train["prefix"] = P
+    parts_s["train"] = time.perf_counter() - t0 - sum(parts_s.values())
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    emit("lm_vlm", arch=cfg.name, card=card, layers=cfg.n_layers,
+         d_model=d, heads=[cfg.n_heads, cfg.n_kv_heads], prefix=P, vocab=V,
+         dtype=cfg.dtype, params=n_params, prefill=prefill, serve=serve,
+         train=train, kernels=kernels, parts_s=parts_s,
+         seconds=time.perf_counter() - t0)
+    return {"kernels": kernels, "launches": {
+        "prefill": prefill["launches"]["flash_attention"],
+        "generate": serve["launches"]["flash_attention"],
+        "train_step": {k: n // REC_TRAIN_STEPS
+                       for k, n in train["launches"].items() if n},
+        "train_layers": cut}}
 
 
 # -- main ------------------------------------------------------------------
@@ -5803,6 +6164,7 @@ def main(argv=None) -> int:
     args.dt_features, args.dt_classes = cfg.dt_features, cfg.dt_classes
     args.dt_depth, args.dt_bins = cfg.dt_depth, cfg.dt_bins
     args.lm_seq = 256 if args.rehearse else LM_SEQ
+    args.flash_slice = FLASH_SLICE_REHEARSE if args.rehearse else FLASH_SLICE
 
     if args.rehearse:
         dev = torch.device("cpu")
@@ -5839,7 +6201,8 @@ def main(argv=None) -> int:
         gen, args.lanes, per_lane, args.km_features, args.km_clusters),
          split_hist=compare_sh(gen, args.lanes, per_lane, args.dt_features,
                                args.dt_bins, args.dt_classes))
-    emit("compare", flash_attention=compare_flash(gen, args.lm_seq))
+    emit("compare", flash_attention=compare_flash(gen, args.lm_seq,
+                                                  args.flash_slice))
     times = time_kernels(gen, args.lanes, per_lane, args.features,
                          args.iters)
     times["fxp_matmul"]["multinomial"] = {
@@ -5885,6 +6248,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     for arch in REC_ARCHS:
         lm_recurrent(args, dev, smi, arch)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    slices = {ENCDEC_ARCH: lm_encdec(args, dev, smi),
+              VLM_ARCH: lm_vlm(args, dev, smi)}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        times[name]["slice_shapes"] = {
+            case: slices[arch]["kernels"][name] for case, arch in (
+                ("whisper encoder", ENCDEC_ARCH), ("llava", VLM_ARCH))}
+        times[name]["slice_launches"] = {
+            arch: out["launches"] for arch, out in slices.items()}
     train_more(args, dev, smi)
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     train_plans(args, dev, smi)
@@ -5928,7 +6300,8 @@ def main(argv=None) -> int:
                       "library_max_abs_err", "library_fp32_max_abs_err",
                       "bit_equal_share",
                       "err_over_max_grad", "train_lm_launches",
-                      "launches_per_train_step"):
+                      "launches_per_train_step", "slice_shapes",
+                      "slice_launches"):
             if extra in t:
                 entry[extra] = t[extra]
         kernels.append(entry)

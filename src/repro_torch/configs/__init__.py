@@ -22,13 +22,13 @@ _ARCHS: Dict[str, str] = {
     "qwen1.5-110b": "qwen15_110b",
     "mamba2-370m": "mamba2_370m",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "whisper-tiny": "whisper_tiny",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
 # arch -> the ROADMAP item whose model family it needs
 _PENDING: Dict[str, str] = {
     "qwen3-moe-235b-a22b": "A18.3 (MoE)",
     "phi3.5-moe-42b-a6.6b": "A18.3 (MoE)",
-    "whisper-tiny": "A18.6 (enc-dec)",
-    "llava-next-mistral-7b": "A18.6 (VLM prefix)",
 }
 
 

@@ -10,7 +10,8 @@ outer optimizer or a compressed merge, with its momentum
 (:func:`momentum_from_numpy`) and error-feedback buffer
 (:func:`error_from_numpy`) in ``merge_state``, a JAX resident
 placement feeds the port's step functions, and a JAX LM's parameters
-serve in the port (:func:`lm_params_from_numpy`).
+serve in the port (:func:`lm_params_from_numpy`,
+:func:`encdec_params_from_numpy`).
 """
 
 from __future__ import annotations
@@ -155,3 +156,33 @@ def lm_params_from_numpy(params: dict, cfg: ModelConfig,
     if "head" in params:
         out["head"] = tensor_from_numpy(params["head"], dev)
     return out
+
+
+def _stacked_layers(stacked: dict, dev) -> list:
+    """A ``lax.scan`` stack (leaves with a leading layer dim) as one
+    layer dict a layer, in order."""
+    n = np.asarray(stacked["norm1"]["scale"]).shape[0]
+    return [_tree_from_numpy(stacked, dev, i) for i in range(n)]
+
+
+def encdec_params_from_numpy(params: dict, cfg: ModelConfig,
+                             device=None) -> dict:
+    """A JAX encoder-decoder's ``Model.init`` pytree
+    (``repro.models.encdec.init_encdec``: ``{"encoder": {"scan",
+    "final_norm"}, "decoder": {"scan"}, "embed", "pos_emb",
+    "final_norm"}``, each ``scan`` a stack of layers along a leading dim)
+    as the port's parameters, ``"layers"`` lists in model order, every
+    dtype kept."""
+    dev = resolve_device(device)
+    enc = _stacked_layers(params["encoder"]["scan"], dev)
+    dec = _stacked_layers(params["decoder"]["scan"], dev)
+    if len(enc) != cfg.encoder.n_layers or len(dec) != cfg.n_layers:
+        raise ValueError(f"{len(enc)} encoder and {len(dec)} decoder layers "
+                         f"in the pytree, {cfg.name} has "
+                         f"{cfg.encoder.n_layers} and {cfg.n_layers}")
+    return {"encoder": {"layers": enc, "final_norm": _tree_from_numpy(
+                params["encoder"]["final_norm"], dev)},
+            "decoder": {"layers": dec},
+            "embed": tensor_from_numpy(params["embed"], dev),
+            "pos_emb": tensor_from_numpy(params["pos_emb"], dev),
+            "final_norm": _tree_from_numpy(params["final_norm"], dev)}

@@ -15,8 +15,10 @@ Port of ``repro.kernels.dispatch``:
                                              multinomial LUT exp
   ``kmeans_partials``   ``kmeans_assign``    kmeans Lloyd iteration
   ``level_histogram``   ``split_hist``       dtree level statistics
-  ``flash_attention``   ``flash_attention``  LM causal self-attention
-                                             (``models.attention.attn_full``)
+  ``flash_attention``   ``flash_attention``  LM self-attention, causal
+                                             (decoders) or full (an
+                                             encoder;
+                                             ``models.attention.attn_full``)
   ``nearest_centroid``  — (matmul + argmin)  kmeans eval / predict
   ====================  ===================  ============================
 

@@ -11,7 +11,10 @@ from seed 0 at the published shapes; ``--smoke`` takes the reduced
 config.  As in the JAX script, the cache is filled by replaying each
 prompt token through ``decode_step``; JAX jits that step once with a
 traced ``pos``, and the port captures it once as a CUDA graph
-(:class:`DecodeStep`).
+(:class:`DecodeStep`).  An encoder-decoder (``--arch whisper-tiny``)
+serves random frames drawn from the seed, encoded once into the cache's
+cross K/V before the prompt (``encdec.encdec_build_cross``); a model
+with a prefix (llava) decodes tokens only, as JAX's ``decode_step``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.core.graphs import Graph
 from repro_torch.models import Model, build
+from repro_torch.models import encdec
+from repro_torch.tree import tree_leaves
 
 
 @dataclasses.dataclass
@@ -71,10 +76,12 @@ class DecodeStep:
         self.graph.capture(lambda: step(self.cache, self.tok, self.pos))
 
     def reset(self) -> None:
-        """Position 0 and an empty cache, as ``init_cache`` makes it."""
-        for layer in self.cache:
-            for t in layer.values():
-                t.zero_()
+        """Position 0 and every cache tensor zero, as ``init_cache`` makes
+        it: an encoder-decoder's cross K/V too, so build it
+        (``encdec.encdec_build_cross`` on ``self.cache``) after a
+        reset."""
+        for t in tree_leaves(self.cache):
+            t.zero_()
         self.pos.zero_()
 
     def __call__(self, token: torch.Tensor | None = None) -> torch.Tensor:
@@ -88,11 +95,15 @@ class DecodeStep:
 
 
 def generate(model: Model, params: dict, prompts: torch.Tensor,
-             new_tokens: int) -> Generation:
-    """Greedy continuation of ``prompts`` (B, P) by ``new_tokens`` tokens.
+             new_tokens: int, frames: torch.Tensor | None = None
+             ) -> Generation:
+    """Greedy continuation of ``prompts`` (B, P) by ``new_tokens`` tokens,
+    over ``frames`` (B, n_ctx, d) for an encoder-decoder.
 
     One :class:`DecodeStep` is captured for ``(B, P + new_tokens)``
-    before the clocks start.  The cache is filled by replaying it over
+    before the clocks start; after its reset, an encoder-decoder's
+    encoder runs once on ``frames`` into the step's cross K/V (before
+    the prefill clock).  The cache is filled by replaying it over
     the prompt, each prompt token copied into its static token on the
     card; the first new token is the argmax of the last prompt
     position's logits, each later one that of the step before, written
@@ -101,8 +112,14 @@ def generate(model: Model, params: dict, prompts: torch.Tensor,
     synchronise."""
     B, P = prompts.shape
     dev = model.device
+    if (frames is None) != (model.cfg.encoder is None):
+        raise ValueError(f"{model.cfg.name}: frames are "
+                         f"{'needed' if frames is None else 'not taken'}")
     step = DecodeStep(model, params, B, P + new_tokens)
     step.reset()
+    if frames is not None:
+        encdec.encdec_build_cross(model.cfg, params, frames.to(dev),
+                                  step.cache)
     prompts = prompts.to(dev)
     _sync(dev)
     t0 = time.perf_counter()
@@ -141,7 +158,12 @@ def main(argv=None) -> None:
         prompts = torch.randint(0, cfg.vocab_size,
                                 (args.batch, args.prompt_len), generator=gen,
                                 device=model.device)
-        res = generate(model, params, prompts, args.new_tokens)
+        frames = None
+        if cfg.encoder is not None:
+            frames = torch.randn((args.batch, cfg.encoder.n_ctx,
+                                  cfg.d_model), generator=gen,
+                                 device=model.device)
+        res = generate(model, params, prompts, args.new_tokens, frames)
     B, P, n = args.batch, args.prompt_len, res.tokens.shape[1]
     print(f"arch={args.arch} ({'smoke' if args.smoke else 'full'} config, "
           f"{model.param_count(params):,} params) on {model.device}  "

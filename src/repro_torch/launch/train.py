@@ -78,16 +78,25 @@ def make_step_fn(model: Model, opt: Optimizer) -> Callable:
 def make_batch_fn(cfg: cm.ModelConfig, stream: TokenStream, batch: int,
                   seq: int) -> Callable[[int], dict]:
     """``step -> {"tokens": (batch, seq)}`` from ``stream``, pure in the
-    step.  JAX's launcher also adds zero encoder frames and prefix
-    embeddings for enc-dec and VLM configs, which the port does not build
-    yet (ROADMAP item A18.6): ``cfg`` must be a decoder the port runs."""
+    step, plus what JAX's launcher adds: zero ``"frames"`` (batch, n_ctx,
+    d_model) for an encoder-decoder and zero ``"prefix_embeds"`` (batch,
+    n_prefix_embeds, d_model) for a config with a prefix, in the compute
+    dtype on the stream's device (made once, read by every step)."""
     if (stream.batch, stream.seq) != (batch, seq):
         raise ValueError(f"the stream gives ({stream.batch}, {stream.seq}) "
                          f"batches, asked for ({batch}, {seq})")
     if stream.vocab != cfg.vocab_size:
         raise ValueError(f"the stream draws from {stream.vocab} tokens, "
                          f"{cfg.name} has {cfg.vocab_size}")
-    return stream.batch_at
+    shapes = {}
+    if cfg.encoder is not None:
+        shapes["frames"] = (batch, cfg.encoder.n_ctx, cfg.d_model)
+    if cfg.n_prefix_embeds:
+        shapes["prefix_embeds"] = (batch, cfg.n_prefix_embeds, cfg.d_model)
+    extra = {k: torch.zeros(shape, dtype=cfg.compute_dtype,
+                            device=stream.device)
+             for k, shape in shapes.items()}
+    return lambda step: {**stream.batch_at(step), **extra}
 
 
 def main(argv=None) -> dict:

@@ -7,14 +7,16 @@ hints).  Parameters keep JAX's shapes: ``wq`` (d, H, Dh), ``wk``/``wv``
 
 ``mha`` is the plain path, with JAX's direct softmax and its chunked
 online-softmax branch (one function; the chunked branch only bounds
-memory).  ``attn_full`` sends causal self-attention without a window --
-every prefill layer of a dense decoder -- to
-``kernels.dispatch.flash_attention``, the CUDA kernel that replaces the
-TPU kernel this module is the reference of; decode (``kv_valid_len``),
-windows and cross-attention stay on ``mha``, as the TPU kernel computes
-none of them.  A local-attention layer decodes into a ring buffer of
-``window`` slots (``init_cache(..., window=)``, ``attn_decode(...,
-window=)``).
+memory).  ``attn_full`` sends self-attention without a window, causal
+(every prefill and training layer of a decoder) or full (an encoder's
+layers), to ``kernels.dispatch.flash_attention``, the CUDA kernel that
+replaces the TPU kernel this module is the reference of, which takes
+both (``_flash_kernel``'s ``causal`` flag); decode (``kv_valid_len``),
+windows and cross-attention (queries and keys of different lengths,
+``cross_cache`` / ``cross_attend``) stay on ``mha``, as the TPU kernel
+computes none of them.  A local-attention layer decodes into a ring
+buffer of ``window`` slots (``init_cache(..., window=)``,
+``attn_decode(..., window=)``).
 """
 
 from __future__ import annotations
@@ -172,15 +174,16 @@ def attn_full(cfg: cm.ModelConfig, p: dict, x: torch.Tensor,
               positions: torch.Tensor, *, causal: bool = True,
               window: int = 0, kv_x: torch.Tensor | None = None,
               kv_positions: torch.Tensor | None = None) -> torch.Tensor:
-    """Full-sequence attention (prefill).  Causal self-attention without
-    a window goes to the flash kernel; the rest to ``mha``."""
+    """Full-sequence attention (prefill, training, an encoder).
+    Self-attention without a window, causal or full, goes to the flash
+    kernel; the rest to ``mha``."""
     q, k, v = qkv_proj(cfg, p, x, kv_x)
     if cfg.pos_emb == "rope":
         q = cm.rope(q, positions, cfg.rope_base, cfg.rope_dim)
         kp = positions if kv_positions is None else kv_positions
         k = cm.rope(k, kp, cfg.rope_base, cfg.rope_dim)
-    if causal and window == 0 and kv_x is None:
-        o = dispatch.flash_attention(q, k, v, causal=True)
+    if window == 0 and kv_x is None:
+        o = dispatch.flash_attention(q, k, v, causal=causal)
     else:
         o = mha(q, k, v, causal=causal, window=window,
                 chunk=cfg.attn_chunk if k.shape[1] > cfg.attn_chunk else 0)
@@ -240,3 +243,25 @@ def attn_decode(cfg: cm.ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     cache["v"].index_copy_(1, slot, v)
     o = mha(q, cache["k"], cache["v"], causal=False, kv_valid_len=valid)
     return out_proj(p, o), cache
+
+
+def cross_cache(cfg: cm.ModelConfig, p: dict, enc_out: torch.Tensor
+                ) -> dict:
+    """The encoder's keys and values of one cross-attention layer,
+    ``k``/``v`` (B, n_ctx, Kh, Dh), computed once (whisper's decoder)."""
+    k = _project(enc_out, p["wk"])
+    v = _project(enc_out, p["wv"])
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return {"k": k, "v": v}
+
+
+def cross_attend(cfg: cm.ModelConfig, p: dict, x: torch.Tensor,
+                 cc: dict) -> torch.Tensor:
+    """Queries of ``x`` (B, S, d) over every key of ``cc`` (no mask), on
+    ``mha``'s direct softmax as JAX's, then the output projection."""
+    q = _project(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    o = mha(q, cc["k"], cc["v"], causal=False)
+    return out_proj(p, o)

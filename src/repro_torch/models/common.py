@@ -171,6 +171,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, base: float,
     return rot.to(x.dtype)
 
 
+def sinusoidal_pos_emb(n_pos: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal embeddings ``(n_pos, d)`` in
+    float32 (cast at use): ``[sin(p·f), cos(p·f)]`` with ``f =
+    exp(−log(1e4)·i / (d/2 − 1))``, the products in JAX's order."""
+    half = d // 2
+    i = torch.arange(half, dtype=torch.float32, device=device)
+    freq = torch.exp(-math.log(10000.0) * i / (half - 1))
+    ang = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None] \
+        * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------

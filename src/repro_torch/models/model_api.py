@@ -1,11 +1,12 @@
 """Model facade: one object per architecture config exposing ``init``,
 ``loss``, ``prefill``, ``init_cache`` and ``decode_step``.
 
-Port of ``repro/models/model_api.py`` for the decoder-only families the
-port runs: dense and local attention, Mamba-2 and RG-LRU layers in any
-pattern (``transformer``).  ``build`` raises ``NotImplementedError``
-for a family that is not ported (MoE, encoder-decoder, prefix
-embeddings), naming its ROADMAP item.
+Port of ``repro/models/model_api.py``: decoders with dense and local
+attention, Mamba-2 and RG-LRU layers in any pattern, with an optional
+prefix of precomputed embeddings (``transformer``), and the whisper-style
+encoder-decoder (``encdec``, chosen by ``cfg.encoder``).  ``build``
+raises ``NotImplementedError`` for MoE, which is not ported, naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
+from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tfm
 
 
@@ -34,48 +36,58 @@ class Model:
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on "
                              f"{self.device}")
+        if self.cfg.encoder is not None:
+            return ed.init_encdec(self.cfg, gen)
         return tfm.init_lm(self.cfg, gen)
 
     def loss(self, params: dict, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, dict]:
-        """Next-token training loss of ``batch["tokens"]`` (B, S): ``(loss,
-        {"ce", "aux"})``, float32 scalars (``transformer.lm_loss``).
-        Differentiable in every parameter leaf that requires grad."""
-        _no_prefix(batch)
+        """Next-token training loss of ``batch["tokens"]`` (B, S), with
+        ``"frames"`` (B, n_ctx, d) for an encoder-decoder
+        (``encdec.encdec_loss``) or an optional ``"prefix_embeds"`` (B,
+        P, d) for a decoder (``transformer.lm_loss``): ``(loss, {"ce",
+        "aux"})``, float32 scalars.  Differentiable in every parameter
+        leaf that requires grad."""
+        if self.cfg.encoder is not None:
+            return ed.encdec_loss(self.cfg, params, batch)
         return tfm.lm_loss(self.cfg, params, batch)
 
     def prefill(self, params: dict, batch: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
-        """Full-context forward of ``batch["tokens"]`` (B, S); returns the
-        last position's logits (B, 1, Vp)."""
-        _no_prefix(batch)
-        return tfm.lm_prefill(self.cfg, params, batch["tokens"])
+        """Full-context forward of ``batch["tokens"]`` (B, S) (with its
+        ``"frames"``, or after its ``"prefix_embeds"``, as :meth:`loss`);
+        returns the last position's logits (B, 1, Vp)."""
+        if self.cfg.encoder is not None:
+            return ed.encdec_prefill(self.cfg, params, batch["tokens"],
+                                     batch["frames"])
+        return tfm.lm_prefill(self.cfg, params, batch["tokens"],
+                              batch.get("prefix_embeds"))
 
-    def init_cache(self, batch: int, max_len: int) -> List[dict]:
-        """One dict of zero tensors a layer, in model order: a KV cache
-        (a ring of ``window`` slots for a local-attention layer) or a
-        recurrent state (``conv`` and ``ssm`` / ``h``).  ``decode_step``
-        writes into them in place."""
+    def init_cache(self, batch: int, max_len: int) -> List[dict] | dict:
+        """Zero tensors that ``decode_step`` writes into in place.  A
+        decoder: one dict a layer, in model order, a KV cache (a ring of
+        ``window`` slots for a local-attention layer) or a recurrent state
+        (``conv`` and ``ssm`` / ``h``).  An encoder-decoder: ``{"self",
+        "cross"}``, a KV dict a decoder layer each, the cross K/V filled
+        by ``encdec.encdec_build_cross``."""
+        if self.cfg.encoder is not None:
+            return ed.encdec_init_cache(self.cfg, batch, max_len,
+                                        self.device)
         return tfm.lm_init_cache(self.cfg, batch, max_len, self.device)
 
-    def decode_step(self, params: dict, cache: List[dict],
-                    token: torch.Tensor, pos
-                    ) -> Tuple[torch.Tensor, List[dict]]:
+    def decode_step(self, params: dict, cache, token: torch.Tensor, pos
+                    ) -> Tuple[torch.Tensor, List[dict] | dict]:
         """token (B, 1) at absolute position ``pos`` -> (logits (B, 1,
         Vp), cache updated in place).  ``pos`` is a 0-dim int32 tensor on
         the model's device, as JAX's traced ``pos`` (an int is filled
-        there), so the step can be captured (``launch.serve_lm``)."""
+        there), so the step can be captured (``launch.serve_lm``).  A
+        decoder decodes tokens only, with no prefix, as JAX's."""
+        if self.cfg.encoder is not None:
+            return ed.encdec_decode_step(self.cfg, params, cache, token, pos)
         return tfm.lm_decode_step(self.cfg, params, cache, token, pos)
 
     def param_count(self, params: dict) -> int:
         return sum(t.numel() for t in _leaves(params))
-
-
-def _no_prefix(batch: dict) -> None:
-    if "prefix_embeds" in batch:
-        raise NotImplementedError(
-            "prefix embeddings are not ported yet: ROADMAP queue A, "
-            "item A18.6 (enc-dec and VLM prefix)")
 
 
 def _leaves(tree):

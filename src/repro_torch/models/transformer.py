@@ -13,9 +13,11 @@ attention's gradient is the ``flash_attention_bwd`` kernel
 A layer is one of the pattern's kinds: ``ATTN`` (causal attention and
 the MLP), ``LOCAL_ATTN`` (sliding-window attention, a ring-buffer cache,
 and the MLP), ``MAMBA2`` (the SSD mixer alone: no channel mixer, no
-``norm2``) and ``RGLRU`` (the RG-LRU block and the MLP).  MoE channel
-mixers, encoders and prefix embeddings raise ``NotImplementedError``
-naming their ROADMAP items.
+``norm2``) and ``RGLRU`` (the RG-LRU block and the MLP).  A prefix of
+precomputed embeddings (llava's image patches, ``n_prefix_embeds``)
+enters before the token embeddings; the encoder-decoder is
+``models.encdec``.  MoE channel mixers raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -42,11 +44,6 @@ def check_supported(cfg: cm.ModelConfig) -> None:
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
                                   "yet: ROADMAP queue A, item A18.3 (MoE)")
-    if cfg.encoder is not None or cfg.n_prefix_embeds:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and prefix-embedding models are "
-            "not ported yet: ROADMAP queue A, item A18.6 (enc-dec and VLM "
-            "prefix)")
 
 
 # ---------------------------------------------------------------------------
@@ -173,30 +170,44 @@ def _head(cfg, params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _stack(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
+def _stack(cfg, params, tokens: torch.Tensor,
+           prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """The layers' output (B, P + S, d): ``prefix_embeds`` (B, P, d), cast
+    to the compute dtype, before the token embeddings, and positions over
+    the whole sequence, as JAX's ``lm_forward``."""
     x = _embed(cfg, params, tokens)
-    B, S = tokens.shape
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     for kind, p in zip(cfg.pattern, params["layers"]):
         x = layer_forward(cfg, kind, p, x, positions)
     return x
 
 
-def lm_forward(cfg: cm.ModelConfig, params: dict, tokens: torch.Tensor
-               ) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, Vp)."""
-    x = _stack(cfg, params, tokens)
+def lm_forward(cfg: cm.ModelConfig, params: dict, tokens: torch.Tensor,
+               prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens (B, S) [+ prefix (B, P, d) precomputed embeddings] ->
+    logits (B, P + S, Vp)."""
+    x = _stack(cfg, params, tokens, prefix_embeds)
     return _head(cfg, params, cm.apply_norm(cfg, params["final_norm"], x))
 
 
 def lm_loss(cfg: cm.ModelConfig, params: dict, batch: dict,
             aux_weight: float = 0.01) -> Tuple[torch.Tensor, dict]:
-    """``batch["tokens"]`` (B, S) -> ``(loss, {"ce", "aux"})``: next-token
-    cross entropy over the full logits, ``loss = ce + aux_weight · aux``
-    with ``aux`` a float32 zero (dense stacks have no router loss), as
-    ``repro/models/transformer.py::lm_loss``."""
+    """``batch["tokens"]`` (B, S) [+ ``"prefix_embeds"`` (B, P, d)] ->
+    ``(loss, {"ce", "aux"})``: next-token cross entropy over the token
+    positions' logits, ``loss = ce + aux_weight · aux`` with ``aux`` a
+    float32 zero (dense stacks have no router loss), as
+    ``repro/models/transformer.py::lm_loss``.  JAX computes the prefix
+    positions' logits too and slices them off; the port drops the prefix
+    positions' hidden states before the final norm and the head, which
+    act on each position alone: the same function, without the (B, P,
+    Vp) logits."""
     tokens = batch["tokens"]
-    logits = lm_forward(cfg, params, tokens)
+    x = _stack(cfg, params, tokens, batch.get("prefix_embeds"))
+    x = x[:, x.shape[1] - tokens.shape[1]:]
+    logits = _head(cfg, params, cm.apply_norm(cfg, params["final_norm"], x))
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     ce = cross_entropy(logits, tokens)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
@@ -216,12 +227,13 @@ def cross_entropy(logits: torch.Tensor, tokens: torch.Tensor
     return (lse - gold).mean()
 
 
-def lm_prefill(cfg: cm.ModelConfig, params: dict, tokens: torch.Tensor
-               ) -> torch.Tensor:
-    """Full-sequence forward returning the last position's logits (B, 1,
-    Vp).  Only that position goes through the final norm and the head:
-    the (B, S, Vp) logits are never made."""
-    x = _stack(cfg, params, tokens)[:, -1:]
+def lm_prefill(cfg: cm.ModelConfig, params: dict, tokens: torch.Tensor,
+               prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence forward (``prefix_embeds`` first, as
+    :func:`lm_forward`) returning the last position's logits (B, 1, Vp).
+    Only that position goes through the final norm and the head: the (B,
+    S, Vp) logits are never made."""
+    x = _stack(cfg, params, tokens, prefix_embeds)[:, -1:]
     return _head(cfg, params, cm.apply_norm(cfg, params["final_norm"], x))
 
 

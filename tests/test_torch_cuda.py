@@ -634,6 +634,100 @@ def test_small_training_step_near_its_plain_twin(dtype):
     assert bool(torch.isfinite(met["loss"]))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,S,D", [(2, 6, 1500, 64), (1, 2, 77, 32),
+                                     (1, 4, 300, 128)])
+def test_flash_function_full_attention_gradient(B, H, S, D, dtype):
+    """The ``FlashAttention`` Function without the causal mask (an
+    encoder's self-attention, whisper's heads at its 1,500 frames, a
+    ragged S): one forward and one backward launch, the gradients of q, k
+    and v within FLASH_BWD_TOL of max|grad| of the use_kernels(False)
+    twin's (the plain forward and backward)."""
+    dev = require_cuda()
+    q, k, v = _flash_inputs(dev, B, H, H, S, D, dtype, seed=6)
+    g = torch.Generator(device=dev).manual_seed(7)
+    do = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+
+    def grads():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = dispatch.flash_attention(*(t.transpose(1, 2) for t in leaves),
+                                       causal=False)
+        return torch.autograd.grad(out, leaves, do)
+
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    got = grads()
+    assert flash_attention.launches == flash_attention_bwd.launches == 1
+    with dispatch.use_kernels(False):
+        want = grads()
+    scale = max(float(w.float().abs().max()) for w in want)
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert float((a.float() - w.float()).abs().max()) <= \
+            FLASH_BWD_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_small_whisper_near_its_plain_twin(dtype):
+    """The whisper-tiny smoke model on the card: the prefill launches the
+    flash kernel once a layer (full in the encoder, causal in the
+    decoder), ``generate`` once an encoder layer (the decode replays
+    none); the last logits within 1e-4 (float32) or 3e-2 (bf16) x
+    max|logit| of the use_kernels(False) twin, and the loss's gradients,
+    a forward and a backward launch a layer, within 1e-4 of each leaf's
+    max|g| (float32) or a relative L2 gap under 5e-2 (bf16), as the
+    qwen2 smoke model's."""
+    from repro_torch.launch.serve_lm import generate
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.tree import tree_flatten_with_names
+
+    dev = require_cuda()
+    cfg = dataclasses.replace(get_smoke_config("whisper-tiny"), dtype=dtype)
+    model = build(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    params = model.init(gen)
+    toks = torch.randint(0, cfg.vocab_size, (3, 40), generator=gen,
+                         device=dev)
+    frames = torch.randn((3, cfg.encoder.n_ctx, cfg.d_model), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks, "frames": frames}
+    layers = cfg.encoder.n_layers + cfg.n_layers
+    flash_attention.launches = 0
+    got = model.prefill(params, batch).float()
+    assert flash_attention.launches == layers
+    with dispatch.use_kernels(False):
+        want = model.prefill(params, batch).float()
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+    flash_attention.launches = 0
+    res = generate(model, params, toks[:, :6], 4, frames)
+    assert flash_attention.launches == cfg.encoder.n_layers
+    assert res.tokens.shape == (3, 4)
+
+    def grads():
+        loss, _, g = loss_and_grads(model, params, batch)
+        return loss, tree_flatten_with_names(g)
+
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    loss, (names, got) = grads()
+    assert flash_attention.launches == flash_attention_bwd.launches == layers
+    with dispatch.use_kernels(False):
+        twin_loss, (_, want) = grads()
+    torch.testing.assert_close(loss, twin_loss, atol=0.0, rtol=1e-2)
+    if dtype == "float32":
+        top = max(float(w.abs().max()) for w in want)
+        for name, a, w in zip(names, got, want):
+            # a key bias's true gradient is 0 (q·bk shifts every score of
+            # a query alike): rounding noise on both sides, held against
+            # the tree's largest gradient
+            scale = top if name.endswith("['bk']") else float(w.abs().max())
+            assert float((a - w).abs().max()) <= 1e-4 * scale, name
+    else:
+        num = sum(float((a.float() - w.float()).norm()) ** 2
+                  for a, w in zip(got, want))
+        den = sum(float(w.float().norm()) ** 2 for w in want)
+        assert (num / den) ** 0.5 < 5e-2
+
+
 # (a dtype, b dtype, N, per-lane b): N = 1, 4, 8, 10, 16 and 20 (a
 # launch per 16 columns), int8 and int16 a and b
 @pytest.mark.parametrize("adt,bdt,N,per_lane", [

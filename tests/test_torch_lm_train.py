@@ -160,14 +160,6 @@ def test_loss_gradients_match_jax(arch):
         assert float((g - w).abs().max()) <= 1e-4 * scale, name
 
 
-def test_loss_with_prefix_embeddings_raises():
-    model = build(configs.get_smoke_config("qwen2-0.5b"), "cpu")
-    params = model.init(0)
-    with pytest.raises(NotImplementedError, match="A18.6"):
-        model.loss(params, {"tokens": torch.zeros((1, 4), dtype=torch.long),
-                            "prefix_embeds": torch.zeros((1, 2, 64))})
-
-
 # ---------------------------------------------------------------------------
 # three AdamW steps against JAX's jitted step_fn (repro/launch/train.py)
 # ---------------------------------------------------------------------------

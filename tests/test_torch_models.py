@@ -55,7 +55,8 @@ def test_qwen2_config_copied_field_for_field():
     assert configs.get_smoke_config(ARCH).compute_dtype == torch.float32
     assert configs.list_archs() == ["phi4-mini-3.8b", "minitron-8b", ARCH,
                                     "qwen1.5-110b", "mamba2-370m",
-                                    "recurrentgemma-2b"]
+                                    "recurrentgemma-2b", "whisper-tiny",
+                                    "llava-next-mistral-7b"]
 
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.list_archs()
@@ -88,21 +89,11 @@ def test_mixed_patterns_build_and_run(change):
 
 
 @pytest.mark.parametrize("change", [
-    {"moe": cm.MoEConfig(n_experts=4, top_k=2, d_ff=64)},
-    {"encoder": cm.EncoderConfig(n_layers=2, n_ctx=16)},
-    {"n_prefix_embeds": 8}])
+    {"moe": cm.MoEConfig(n_experts=4, top_k=2, d_ff=64)}])
 def test_unported_families_raise(change):
     cfg = dataclasses.replace(configs.get_smoke_config(ARCH), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(cfg, "cpu")
-
-
-def test_prefix_embeddings_raise():
-    model = build(configs.get_smoke_config(ARCH), "cpu")
-    params = model.init(0)
-    with pytest.raises(NotImplementedError, match="A18.6"):
-        model.prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.long),
-                               "prefix_embeds": torch.zeros((1, 2, 64))})
 
 
 def test_build_raises_without_cuda():

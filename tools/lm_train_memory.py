@@ -2,11 +2,16 @@
 
     python3 tools/lm_train_memory.py --arch mamba2-370m --batch 2,3,4
     python3 tools/lm_train_memory.py --arch recurrentgemma-2b --layers 26,20,17,14
+    python3 tools/lm_train_memory.py --arch llava-next-mistral-7b --seq 1216 \
+        --layers 9,8,7,6
 
 For each (batch, layers) the arch's full config, cut to its first
 ``layers`` layers, takes ``--steps`` steps of ``batch`` x ``--seq`` tokens
-through ``launch.train``'s state, step and ``TokenStream`` (bf16
-parameters, AdamW with a float32 master), and one JSON line gives the
+through ``launch.train``'s state, step and batch function (bf16
+parameters, AdamW with a float32 master; ``TokenStream`` tokens, and the
+zero frames or prefix embeddings an encoder-decoder or a VLM's batch
+carries: llava's 2,880 prefix positions come before ``--seq`` tokens),
+and one JSON line gives the
 peak of ``torch.cuda.max_memory_allocated`` or the out-of-memory error,
 with the card's name and power limit.  Runs on the card only.
 """
@@ -60,7 +65,8 @@ def main(argv=None) -> int:
                                   block_pattern=full.pattern[:layers])
         for batch in args.batch:
             out = {"arch": args.arch, "layers": layers, "batch": batch,
-                   "seq": args.seq, "card": card}
+                   "seq": args.seq, "prefix": cfg.n_prefix_embeds,
+                   "card": card}
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -72,15 +78,16 @@ def main(argv=None) -> int:
                 step = train.make_step_fn(model, opt)
                 stream = TokenStream(cfg.vocab_size, batch, args.seq,
                                      seed=1, device=model.device)
+                batch_fn = train.make_batch_fn(cfg, stream, batch, args.seq)
                 for i in range(args.steps):
-                    state, metrics = step(state, stream.batch_at(i))
+                    state, metrics = step(state, batch_fn(i))
                 torch.cuda.synchronize()
                 out.update(peak_gib=torch.cuda.max_memory_allocated()
                            / 2 ** 30, loss=float(metrics["loss"]))
             except torch.OutOfMemoryError as e:
                 out["out_of_memory"] = str(e).splitlines()[0][:160]
             out["seconds"] = time.perf_counter() - t0
-            state = metrics = model = opt = step = None
+            state = metrics = model = opt = step = batch_fn = None
             print(json.dumps(out), flush=True)
     return 0
 
