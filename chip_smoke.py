@@ -25,8 +25,10 @@ Phases, each printed as one JSON line:
                 prefill shape (4 x 14 heads, 2 KV heads, S = 4096, D =
                 64), ragged S, D = 32, D = 128, a packed view, and
                 whisper-tiny's encoder (16 x 6 heads, S = 1,500, D = 64,
-                full) and llava's backbone (32 heads, 8 KV heads, S =
-                4,096, D = 128, causal) on ``wgmma`` in bf16, two
+                full), llava's backbone (32 heads, 8 KV heads, S =
+                4,096, D = 128, causal) and the MoE backbones (4 x 32
+                heads over 8 and 4 x 64 heads over 4, S = 4,096, D = 128,
+                causal: GQA groups 4 and 16) on ``wgmma`` in bf16, two
                 launches bit-equal; then their times (the median over
                 runs of launches enqueued back to back, CUDA events;
                 the single-call reading beside it) and bounds,
@@ -160,6 +162,27 @@ Phases, each printed as one JSON line:
                 1,216 tokens), cut to VLM_TRAIN's layers, a forward and a
                 backward launch a layer a step, the last loss below the
                 first, peak memory;
+ 6f. lm_moe  — phi3.5-moe-42b-a6.6b and qwen3-moe-235b-a22b at full width
+                (bf16, random weights from --seed), cut in depth
+                (MOE_SERVE_LAYERS: neither fits the card whole), both
+                flash kernels timed at their prefill shapes (GQA groups 4
+                and 16): (a) ``Model.prefill`` of 4 x 4096 tokens, a
+                launch a layer, tokens/s, peak memory, a profile, the
+                share of (token, choice) pairs dropped by capacity (1.25)
+                and one MoE layer's routing, dispatch, expert GEMMs and
+                combine timed apart; (b) ``generate`` on 8 requests of 64
+                + 32 tokens, no launch, the captured step against the
+                eager decode in lockstep, and the decode's drop share (one
+                slot an expert at 8 tokens); (c) float32 cut to 3 layers
+                at capacity_factor = n_experts (no drop): one request's
+                prefill against its replay through the captured
+                ``decode_step`` (1e-3 x max|logit|), the graph against the
+                eager decode bit for bit, the share of experts flipped
+                between the prefill and an eager replay; (d) phi3.5-moe
+                only: 10 training steps at MOE_TRAIN (one layer), a
+                forward and a backward launch a step, the last loss below
+                the first, two gradients of one batch bit-equal, the
+                routers' gradients finite and non-zero;
   7. train_more — the slice's other workloads at 256 vDPUs x 2^24 rows,
                 d=64, each run with its launches, accuracy and steps/s
                 (median of 5 fits): LinearSVM int8 against fp32 (accuracy
@@ -393,6 +416,7 @@ from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.launch.serve_lm import (DecodeStep,  # noqa: E402
                                          Generation, generate)
 from repro_torch.models import build as build_model  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as lm_tfm  # noqa: E402
 from repro_torch.models.common import LOCAL_ATTN  # noqa: E402
 from repro_torch.models.encdec import encdec_build_cross  # noqa: E402
@@ -4725,7 +4749,8 @@ def flash_check(name, q, k, v, causal) -> dict:
 def compare_flash(gen, seq: int, slice_cases: dict) -> list:
     """At qwen2-0.5b's prefill shape, ragged S, the smoke config's D = 32,
     MQA at D = 128 without the causal mask, whisper-tiny's encoder and
-    llava's backbone (``slice_cases``: each bf16 case on ``wgmma``), and
+    llava's and the MoE backbones (``slice_cases``: each bf16 case on
+    ``wgmma``; qwen3-moe's GQA group of 16), and
     q, k, v sliced from one packed (B, S, H + 2 Kh, D) tensor; in bf16
     and float32."""
     out = []
@@ -4852,7 +4877,8 @@ def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
     """The captured decode step (``launch.serve_lm.DecodeStep``) against
     the eager decode: every step's logits and token compared in lockstep,
     bit for bit (the tokens must be equal); decode tokens/s of
-    ``generate`` against :func:`eager_generate` in ``runs`` turns; the idle share
+    ``generate`` against :func:`eager_generate` in ``runs`` turns, their
+    tokens equal; the idle share
     and the host's CUDA launch calls a token over ``n`` decode tokens of
     each.  An encoder-decoder decodes over ``frames``, its cross K/V
     built after each reset of the step and into each eager cache."""
@@ -4886,17 +4912,17 @@ def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
         tokens_equal = tokens_equal and bool(torch.equal(step.tok, tok))
     require(tokens_equal, "the captured decode step's tokens != the eager "
             "decode's")
-    eager = eager_generate(model, params, prompts, new_tokens, frames)
-    graph = generate(model, params, prompts, new_tokens, frames)
-    require(torch.equal(graph.tokens, eager.tokens), "generate's tokens != "
-            "the eager decode's")
     rates: dict = {"graph": [], "eager": []}
+    tokens = {}
     for i in range(runs):
         for name in (("graph", "eager") if i % 2 == 0
                      else ("eager", "graph")):
             fn = generate if name == "graph" else eager_generate
             res = fn(model, params, prompts, new_tokens, frames)
             rates[name].append(B * (new_tokens - 1) / res.decode_s)
+            tokens[name] = res.tokens
+    require(torch.equal(tokens["graph"], tokens["eager"]), "generate's "
+            "tokens != the eager decode's")
     rates = {name: {"median": statistics.median(r), "min": min(r),
                     "max": max(r), "runs": len(r)}
              for name, r in rates.items()}
@@ -5141,7 +5167,8 @@ def compare_flash_bwd(gen, seq: int, slice_cases: dict) -> list:
     ragged S; qwen2-0.5b's training shape (4 x 14 heads, 2 KV heads,
     ``seq``, D = 64); the wgmma schedule's edges: S = 1, 127, 129 and
     300 (a ragged last 128-key tile), the group sum skipped (G = 1) and
-    taken (G = 2, 7); and whisper-tiny's encoder and llava's backbone
+    taken (G = 2, 7); and whisper-tiny's encoder, llava's backbone and
+    the MoE backbones at G = 4 and 16
     (``slice_cases``)."""
     out = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -5601,6 +5628,12 @@ REC_TRAIN = {"mamba2-370m": {"batch": 4, "layers": 48},
 REC_TRAIN_STEPS, REC_TRAIN_SEQ = 10, 2048
 
 
+def cut_depth(cfg, layers: int):
+    """``cfg`` with its first ``layers`` layers."""
+    return dataclasses.replace(cfg, n_layers=layers,
+                               block_pattern=cfg.pattern[:layers])
+
+
 def prefill_run(model, params, batch: dict, dev, want: dict,
                 units: dict) -> dict:
     """(a) the prefill of ``batch``: the port's kernels launched as
@@ -5780,10 +5813,8 @@ def lm_recurrent(args, dev, card: str, arch: str) -> None:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     cut = REC_TRAIN[arch]["layers"] if check else cfg.n_layers
-    tcfg = dataclasses.replace(cfg, n_layers=cut,
-                               block_pattern=cfg.pattern[:cut])
-    train = short_train(build_model(tcfg, dev), seed + 2, dev,
-                        REC_TRAIN[arch]["batch"] if check else 2,
+    train = short_train(build_model(cut_depth(cfg, cut), dev), seed + 2,
+                        dev, REC_TRAIN[arch]["batch"] if check else 2,
                         REC_TRAIN_SEQ if check else 16, check)
     parts_s["train"] = time.perf_counter() - t0 - sum(parts_s.values())
     if dev.type == "cuda":
@@ -5802,10 +5833,16 @@ ENCDEC_ARCH, VLM_ARCH = "whisper-tiny", "llava-next-mistral-7b"
 # (name -> ((B, H, Kh, S, D), causal)): whisper's encoder, full attention
 # over 1,500 frames, and llava's backbone, causal over 2,880 prefix + 1,216
 # token positions; the rehearsal's are cut to the CPU
+# and the MoE backbones' prefill, causal over 4 x 4,096 tokens: phi3.5-moe
+# at a GQA group of 4, qwen3-moe at 16 (the rehearsal keeps both groups)
 FLASH_SLICE = {"whisper encoder": ((16, 6, 6, 1500, 64), False),
-               "llava": ((1, 32, 8, 4096, 128), True)}
+               "llava": ((1, 32, 8, 4096, 128), True),
+               "phi3.5-moe": ((4, 32, 8, 4096, 128), True),
+               "qwen3-moe": ((4, 64, 4, 4096, 128), True)}
 FLASH_SLICE_REHEARSE = {"whisper encoder": ((2, 6, 6, 150, 64), False),
-                        "llava": ((1, 8, 2, 256, 128), True)}
+                        "llava": ((1, 8, 2, 256, 128), True),
+                        "phi3.5-moe": ((1, 8, 2, 256, 128), True),
+                        "qwen3-moe": ((1, 16, 1, 256, 128), True)}
 # whisper: prefill and training of 16 requests of 1,500 frames + 448
 # tokens (its text context); llava: prefill of 4 x (2,880 + 1,216)
 ENCDEC_BATCH, ENCDEC_TOKENS = 16, 448
@@ -5880,11 +5917,12 @@ def slice_kernels(gen, args, name: str) -> dict:
 
 
 def serve_run(model, params, prompts, dev, check: bool, want: dict,
-              frames=None) -> dict:
+              frames=None, runs: int = REC_DECODE_RUNS) -> dict:
     """(b) ``generate`` on ``prompts`` (an encoder-decoder over ``frames``)
     after a warm-up, its launches as ``want`` (counts set to 0 just
     before, read just after), then :func:`decode_graph`: the captured
-    step bit-equal to the eager decode, timed against it in turns."""
+    step bit-equal to the eager decode, timed against it in ``runs``
+    turns."""
     cfg = model.cfg
     n_req, new = prompts.shape[0], SERVE_NEW if check else 6
     generate(model, params, prompts, new, frames)                # warm-up
@@ -5897,8 +5935,8 @@ def serve_run(model, params, prompts, dev, check: bool, want: dict,
             and int(res.tokens.min()) >= 0
             and int(res.tokens.max()) < cfg.vocab_size,
             f"{cfg.name} generate gave {tuple(res.tokens.shape)}")
-    graph = decode_graph(model, params, prompts, new, dev, check,
-                         REC_DECODE_RUNS, REC_PROFILE_TOKENS, frames)
+    graph = decode_graph(model, params, prompts, new, dev, check, runs,
+                         REC_PROFILE_TOKENS, frames)
     require(graph["logits_bit_equal"], f"{cfg.name}: the captured decode "
             "step's logits != the eager decode's")
     return {"requests": n_req, "prompt": prompts.shape[1], "new_tokens": new,
@@ -6069,10 +6107,8 @@ def lm_vlm(args, dev, card: str) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     cut = VLM_TRAIN["layers"] if check else cfg.n_layers
-    tcfg = dataclasses.replace(cfg, n_layers=cut,
-                               block_pattern=cfg.pattern[:cut])
-    train = short_train(build_model(tcfg, dev), seed + 2, dev,
-                        VLM_TRAIN["batch"] if check else 2, T, check,
+    train = short_train(build_model(cut_depth(cfg, cut), dev), seed + 2,
+                        dev, VLM_TRAIN["batch"] if check else 2, T, check,
                         {"flash_attention": cut, "flash_attention_bwd": cut})
     train["prefix"] = P
     parts_s["train"] = time.perf_counter() - t0 - sum(parts_s.values())
@@ -6089,6 +6125,249 @@ def lm_vlm(args, dev, card: str) -> dict:
         "train_step": {k: n // REC_TRAIN_STEPS
                        for k, n in train["launches"].items() if n},
         "train_layers": cut}}
+
+
+# -- lm_moe: phi3.5-moe-42b-a6.6b and qwen3-moe-235b-a22b --------------------
+
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b")
+MOE_CASES = {"phi3.5-moe-42b-a6.6b": "phi3.5-moe",
+             "qwen3-moe-235b-a22b": "qwen3-moe"}
+# neither fits the card at full depth (bf16: 83.75 and 470 GB): the
+# prefill of 4 x 4096 runs the deepest cut that keeps 6 GiB of the card's
+# 79.18 GiB free at its peak.  Peaks of one prefill (NVIDIA H100 80GB HBM3,
+# 700.00 W; tools/lm_train_memory.py --prefill): phi3.5-moe 68.81 / 71.23 /
+# 73.66 GiB at 27 / 28 / 29 layers (weights 65.92 / 68.34 / 70.73);
+# qwen3-moe 67.44 / 72.05 GiB at 13 / 14, out of memory at 15
+MOE_SERVE_LAYERS = {"phi3.5-moe-42b-a6.6b": 28, "qwen3-moe-235b-a22b": 14}
+# float32 at full width, cut to MOE_F32_LAYERS layers, one request of
+# MOE_F32_TOKENS tokens at capacity_factor = n_experts, where neither the
+# prefill nor the replay drops a pair
+MOE_F32_LAYERS, MOE_F32_TOKENS = 3, 128
+MOE_DECODE_RUNS = 1
+# phi3.5-moe trains at batch x 2048 tokens, cut to 1 of 32 layers (1.57 B
+# parameters).  Peaks of six steps (NVIDIA H100 80GB HBM3, 700.00 W;
+# tools/lm_train_memory.py): 49.75 GiB at batch 16 (AdamW's out-of-place
+# step, whatever the batch), out of memory at 24 and 32.  qwen3-moe trains
+# at no depth on one card: cut to one layer it is 3.73 B parameters, ~127
+# GB at the ~34 B a parameter AdamW's out-of-place step holds at its peak
+MOE_TRAIN = {"batch": 16, "layers": 1}
+
+
+def drop_share(routes: list) -> dict:
+    """The (token, choice) pairs of ``moe.log_routes``' calls and the share
+    of them capacity dropped, read from the slots the body computed."""
+    pairs = sum(kept.numel() for _, kept in routes)
+    kept = sum(int(kept.sum()) for _, kept in routes)
+    return {"calls": len(routes), "pairs": pairs,
+            "dropped_share": (pairs - kept) / max(pairs, 1)}
+
+
+def flip_share(a: list, b: list) -> float:
+    """The share of (token, choice) pairs of the routes ``a`` whose expert
+    is not among the same token's experts in ``b`` (one (T, k) tensor a
+    layer each)."""
+    differ = sum(int((~(x[:, :, None] == y[:, None, :]).any(-1)).sum())
+                 for x, y in zip(a, b))
+    return differ / max(sum(x.numel() for x in a), 1)
+
+
+def moe_layer_ms(cfg, p: dict, T: int, gen, iters: int) -> dict:
+    """One MoE layer's parts at ``T`` tokens (random (T, d) inputs in the
+    compute dtype, ``p`` the model's first layer): the router, top-k and
+    slots (``moe.route``, ``aux_loss``, ``slots``); the dispatch gather;
+    the experts' cuBLAS products and SwiGLU; the combine -- each the median
+    ms of runs of ``iters`` calls.  Beside them, the places of the pairs
+    from the one-hot held as JAX holds it, (T·k, E), its cumsum along the
+    outer dim, against ``moe.route``'s expert-major layout, its cumsum
+    along the inner dim: the same places, each layout's ms."""
+    dev = gen.device
+    x = torch.randn((T, cfg.d_model), generator=gen, device=dev
+                    ).to(cfg.compute_dtype)
+    E, C = cfg.moe.n_experts, moe.capacity(cfg, T)
+
+    def routing():
+        probs, topw, topi, pos = moe.route(cfg, p, x)
+        moe.aux_loss(probs, topi)
+        return topw, moe.slots(topi, pos, C, 0, E)
+
+    flat = moe.route(cfg, p, x)[2].reshape(-1)
+    experts = torch.arange(E, device=dev)
+
+    def places(dim: int):
+        oh = (flat[:, None] == experts if dim == 0
+              else experts[:, None] == flat).to(torch.int32)
+        return (torch.cumsum(oh, dim, dtype=torch.int32) * oh).sum(1 - dim)
+
+    require(torch.equal(places(0), places(1)), f"{cfg.name}: the slots' "
+            "cumsum differs between the one-hot's layouts")
+    topw, (kept, slot) = routing()
+    buf = moe.dispatch(x, kept, slot, E, C)
+    out = moe.experts(p, buf)
+    parts = {"route_ms": median_ms(routing, dev, iters),
+             "places_outer_dim_ms": median_ms(lambda: places(0), dev, iters),
+             "places_inner_dim_ms": median_ms(lambda: places(1), dev, iters),
+             "dispatch_ms": median_ms(
+                 lambda: moe.dispatch(x, kept, slot, E, C), dev, iters),
+             "experts_ms": median_ms(lambda: moe.experts(p, buf), dev,
+                                     iters),
+             "combine_ms": median_ms(
+                 lambda: moe.combine(out, kept, slot, topw), dev, iters)}
+    f = cfg.moe.d_ff
+    return {"tokens": T, "capacity": C, "slots": E * C, **parts,
+            "experts_tflops": 6 * E * C * cfg.d_model * f
+            / (parts["experts_ms"] * 1e9)}
+
+
+def lm_moe(args, dev, card: str, arch: str) -> dict:
+    """phi3.5-moe-42b-a6.6b or qwen3-moe-235b-a22b at full width, bf16,
+    random weights from ``--seed`` (the smoke config in a rehearsal), cut
+    in depth (MOE_SERVE_LAYERS), through the port's entry points: (a)
+    both flash kernels timed at its prefill shape (qwen3-moe: GQA group
+    16); (b) ``Model.prefill`` of 4 x 4096 tokens, a flash launch a
+    layer, tokens/s, peak memory, a profile, the share of (token, choice)
+    pairs capacity dropped and one layer's MoE parts timed apart; (c)
+    ``generate`` on 8 requests of 64 + 32 tokens, no launch, the captured
+    step against the eager decode, and the drop share of the eager decode
+    (C = 1 at 8 tokens a step, JAX's rule); (d) float32, cut to
+    MOE_F32_LAYERS layers, at capacity_factor = n_experts (no drop on
+    either path): one request's prefill against its replay through the
+    captured ``decode_step`` and the graph against the eager decode
+    (:func:`rec_float32`), with the share of pairs whose expert differs
+    between the prefill and an eager replay; (e) phi3.5-moe only: 10
+    training steps of MOE_TRAIN's batch x 2048 tokens at MOE_TRAIN's
+    depth, a forward and a backward launch a layer a step, the last loss
+    below the first, and a second gradient of one batch bit-equal to the
+    first, the routers' gradients finite and not all zero.  Returns the
+    kernels at its shape and the slice's launches."""
+    full = (get_smoke_config if args.rehearse else get_config)(arch)
+    check = not args.rehearse
+    t0 = time.perf_counter()
+    seed = args.seed + 110 + 10 * MOE_ARCHS.index(arch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kernels = slice_kernels(gen, args, MOE_CASES[arch])
+    parts_s = {"kernels": time.perf_counter() - t0}
+    depth = MOE_SERVE_LAYERS[arch] if check else full.n_layers
+    cfg = cut_depth(full, depth)
+    V, E = cfg.vocab_size, cfg.moe.n_experts
+    B, S = (LM_BATCH, LM_SEQ) if check else (2, 64)
+    n_req, prompt = (SERVE_REQUESTS, SERVE_PROMPT) if check else (2, 12)
+    with torch.inference_mode():
+        model = build_model(cfg, dev)
+        params = model.init(gen)
+        n_params = model.param_count(params)
+        in_layers = sum(t.numel() for layer in params["layers"]
+                        for t in tree_leaves(layer))
+        sizes = {"params": n_params,
+                 "active_params": model.active_param_count(params),
+                 "params_full_depth": n_params - in_layers
+                 + in_layers // depth * full.n_layers}
+        parts_s["init"] = time.perf_counter() - t0 - sum(parts_s.values())
+        tokens = torch.randint(0, V, (B, S), generator=gen, device=dev)
+        prefill = prefill_run(model, params, {"tokens": tokens}, dev,
+                              expected(flash_attention=depth),
+                              {"tokens": B * S})
+        with moe.log_routes() as routes:
+            model.prefill(params, {"tokens": tokens})
+        prefill["capacity"] = moe.capacity(cfg, B * S)
+        prefill["drops"] = drop_share(routes)
+        prefill["moe_layer"] = moe_layer_ms(
+            cfg, params["layers"][0]["moe"], B * S, gen,
+            5 if check else 1)
+        del tokens, routes
+        parts_s["prefill"] = time.perf_counter() - t0 - sum(parts_s.values())
+        prompts = torch.randint(0, V, (n_req, prompt), generator=gen,
+                                device=dev)
+        # one turn of graph and eager: an eager MoE decode step takes ~0.1 s
+        serve = serve_run(model, params, prompts, dev, check, expected(),
+                          runs=MOE_DECODE_RUNS)
+        # the drops of the prompts' eager replay: 8 tokens a step, as
+        # every decode step
+        with moe.log_routes() as routes:
+            eager_generate(model, params, prompts, 1)
+        serve["capacity"] = moe.capacity(cfg, n_req)
+        serve["drops"] = drop_share(routes)
+        del params, model, routes
+        parts_s["serve"] = time.perf_counter() - t0 - sum(parts_s.values())
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(
+            cut_depth(full, min(MOE_F32_LAYERS, full.n_layers)),
+            dtype="float32", moe=dataclasses.replace(
+                full.moe, capacity_factor=float(E)))
+        model = build_model(cfg32, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed + 1))
+        T = MOE_F32_TOKENS if check else 24
+        request = torch.randint(0, V, (1, T), generator=gen, device=dev)
+        float32 = rec_float32(model, params, request, dev)
+        with moe.log_routes() as pre:
+            model.prefill(params, {"tokens": request})
+        cache = model.init_cache(1, T)
+        with moe.log_routes() as steps:
+            for t in range(T):
+                model.decode_step(params, cache, request[:, t:t + 1], t)
+        L = cfg32.n_layers
+        replay = [torch.cat([steps[t * L + i][0] for t in range(T)])
+                  for i in range(L)]
+        float32.update(layers=L, capacity_factor=cfg32.moe.capacity_factor,
+                       drops={"prefill": drop_share(pre),
+                              "replay": drop_share(steps)},
+                       prefill_vs_replay_expert_flips=flip_share(
+                           [r for r, _ in pre], replay))
+        require(float32["drops"]["prefill"]["dropped_share"] == 0
+                and float32["drops"]["replay"]["dropped_share"] == 0,
+                f"{arch} float32 at capacity_factor = n_experts dropped "
+                f"pairs: {float32['drops']}")
+        del params, model, cache, pre, steps, replay
+        parts_s["float32"] = time.perf_counter() - t0 - sum(parts_s.values())
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    train = None
+    launches = {"prefill": prefill["launches"]["flash_attention"],
+                "generate": serve["launches"]["flash_attention"],
+                "prefill_layers": depth}
+    if arch == MOE_ARCHS[0]:
+        cut = MOE_TRAIN["layers"] if check else full.n_layers
+        model = build_model(cut_depth(full, cut), dev)
+        batch = MOE_TRAIN["batch"] if check else 2
+        seq = REC_TRAIN_SEQ if check else 16
+        train = short_train(model, seed + 2, dev, batch, seq, check,
+                            {"flash_attention": cut,
+                             "flash_attention_bwd": cut})
+        params = model.init(seed + 3)
+        one = {"tokens": torch.randint(0, V, (batch, seq), generator=gen,
+                                       device=dev)}
+        loss, first = grads_of(model, params, one)
+        loss2, second = grads_of(model, params, one)
+        names = tree_flatten_with_names(params)[0]
+        routers = [g for n, g in zip(names, first) if "['router']" in n]
+        train["grad_twice"] = leaves_equal(first, second)
+        train["grad_twice"]["loss_equal"] = bool(torch.equal(loss, loss2))
+        train["router_grad_max_abs"] = [float(g.abs().max())
+                                        for g in routers]
+        require(train["grad_twice"]["bit_equal"]
+                and train["grad_twice"]["loss_equal"],
+                f"{arch}: two gradients of one batch differ: "
+                f"{train['grad_twice']}")
+        require(len(routers) == cut and all(
+            bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+            for g in routers), f"{arch}: router gradients "
+            f"{train['router_grad_max_abs']}")
+        del model, params, first, second, routers, one
+        launches.update(train_step={k: n // REC_TRAIN_STEPS for k, n in
+                                    train["launches"].items() if n},
+                        train_layers=cut)
+        parts_s["train"] = time.perf_counter() - t0 - sum(parts_s.values())
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    emit("lm_moe", arch=arch, card=card, layers=depth,
+         layers_full=full.n_layers, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads], experts=E,
+         top_k=cfg.moe.top_k, expert_d_ff=cfg.moe.d_ff,
+         capacity_factor=cfg.moe.capacity_factor, vocab=V, dtype=cfg.dtype,
+         **sizes, prefill=prefill, serve=serve, float32=float32,
+         train=train, kernels=kernels, parts_s=parts_s,
+         seconds=time.perf_counter() - t0)
+    return {"kernels": kernels, "launches": launches}
 
 
 # -- main ------------------------------------------------------------------
@@ -6251,10 +6530,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     slices = {ENCDEC_ARCH: lm_encdec(args, dev, smi),
               VLM_ARCH: lm_vlm(args, dev, smi)}
+    for arch in MOE_ARCHS:
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+        slices[arch] = lm_moe(args, dev, smi, arch)
+    cases = {"whisper encoder": ENCDEC_ARCH, "llava": VLM_ARCH,
+             **{case: arch for arch, case in MOE_CASES.items()}}
     for name in ("flash_attention", "flash_attention_bwd"):
         times[name]["slice_shapes"] = {
-            case: slices[arch]["kernels"][name] for case, arch in (
-                ("whisper encoder", ENCDEC_ARCH), ("llava", VLM_ARCH))}
+            case: slices[arch]["kernels"][name]
+            for case, arch in cases.items()}
         times[name]["slice_launches"] = {
             arch: out["launches"] for arch, out in slices.items()}
     train_more(args, dev, smi)

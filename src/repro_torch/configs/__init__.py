@@ -3,9 +3,7 @@
 Port of ``repro/configs/__init__.py``.  Each ported module defines
 ``CONFIG`` (the published full-size config) and ``smoke_config()`` (a
 reduced same-family config for CPU tests); ``pim_ml`` holds the paper's
-own workloads.  The JAX package's other architectures need model
-families the port does not have yet: asking for one raises
-``NotImplementedError`` naming its ROADMAP item.
+own workloads.  Every architecture of the JAX package is here.
 """
 
 from __future__ import annotations
@@ -24,11 +22,8 @@ _ARCHS: Dict[str, str] = {
     "recurrentgemma-2b": "recurrentgemma_2b",
     "whisper-tiny": "whisper_tiny",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
-}
-# arch -> the ROADMAP item whose model family it needs
-_PENDING: Dict[str, str] = {
-    "qwen3-moe-235b-a22b": "A18.3 (MoE)",
-    "phi3.5-moe-42b-a6.6b": "A18.3 (MoE)",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
 }
 
 
@@ -38,10 +33,6 @@ def list_archs() -> List[str]:
 
 
 def _module(name: str):
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet: ROADMAP queue A, item "
-            f"{_PENDING[name]}")
     if name not in _ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {list(_ARCHS)}")
     return importlib.import_module(f"repro_torch.configs.{_ARCHS[name]}")

@@ -2,16 +2,16 @@
 ``loss``, ``prefill``, ``init_cache`` and ``decode_step``.
 
 Port of ``repro/models/model_api.py``: decoders with dense and local
-attention, Mamba-2 and RG-LRU layers in any pattern, with an optional
-prefix of precomputed embeddings (``transformer``), and the whisper-style
-encoder-decoder (``encdec``, chosen by ``cfg.encoder``).  ``build``
-raises ``NotImplementedError`` for MoE, which is not ported, naming its
-ROADMAP item.
+attention, Mamba-2 and RG-LRU layers in any pattern, MLP or
+Mixture-of-Experts channel mixers, with an optional prefix of
+precomputed embeddings (``transformer``), and the whisper-style
+encoder-decoder (``encdec``, chosen by ``cfg.encoder``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict, List, Tuple
 
 import torch
@@ -20,6 +20,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tfm
+from repro_torch.tree import tree_flatten_with_names
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +89,23 @@ class Model:
 
     def param_count(self, params: dict) -> int:
         return sum(t.numel() for t in _leaves(params))
+
+    def active_param_count(self, params: dict) -> int:
+        """The parameters a token uses: the total, less the MoE experts'
+        weights (a leaf named ``w_gate``, ``w_up`` or ``w_down`` under a
+        ``moe`` key) but for ``top_k / n_experts`` of them, as JAX's."""
+        total = self.param_count(params)
+        mc = self.cfg.moe
+        if mc is None:
+            return total
+        moe_leaves = 0
+        for name, leaf in zip(*tree_flatten_with_names(params)):
+            keys = re.findall(r"\['(\w+)'\]", name)
+            if "moe" in keys and any(k in ("w_gate", "w_up", "w_down")
+                                     for k in keys):
+                moe_leaves += leaf.numel()
+        return total - moe_leaves + int(moe_leaves * mc.top_k
+                                        / mc.n_experts)
 
 
 def _leaves(tree):

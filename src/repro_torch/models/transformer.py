@@ -16,8 +16,9 @@ and the MLP), ``MAMBA2`` (the SSD mixer alone: no channel mixer, no
 ``norm2``) and ``RGLRU`` (the RG-LRU block and the MLP).  A prefix of
 precomputed embeddings (llava's image patches, ``n_prefix_embeds``)
 enters before the token embeddings; the encoder-decoder is
-``models.encdec``.  MoE channel mixers raise ``NotImplementedError``
-naming their ROADMAP item.
+``models.encdec``.  With ``cfg.moe`` every layer's channel mixer is the
+Mixture-of-Experts (``models.moe``) in place of the MLP, and the stack
+sums its layers' router losses into the training loss.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 
@@ -37,13 +39,10 @@ _KINDS = (cm.ATTN, cm.LOCAL_ATTN, cm.MAMBA2, cm.RGLRU)
 
 
 def check_supported(cfg: cm.ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run."""
+    """Raise ``ValueError`` for a layer kind the stack does not know."""
     for kind in cfg.pattern:
         if kind not in _KINDS:
             raise ValueError(kind)
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
-                                  "yet: ROADMAP queue A, item A18.3 (MoE)")
 
 
 # ---------------------------------------------------------------------------
@@ -63,18 +62,28 @@ def init_layer(cfg: cm.ModelConfig, kind: str, gen: torch.Generator
         p["mixer"] = rglru_mod.init_rglru(cfg, gen)
     else:
         raise ValueError(kind)
-    p["mlp"] = mlp_mod.init_mlp(cfg, gen)
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.init_moe(cfg, gen)
+    else:
+        p["mlp"] = mlp_mod.init_mlp(cfg, gen)
     return p
 
 
 def _channel_mix(cfg, p, x):
-    return mlp_mod.mlp(cfg, p["mlp"], cm.apply_norm(cfg, p["norm2"], x))
+    """The second residual branch: ``(delta, aux)``, ``aux`` the MoE's
+    router loss, ``None`` for an MLP (no router, JAX's float32 zero)."""
+    h = cm.apply_norm(cfg, p["norm2"], x)
+    if cfg.moe is not None:
+        return moe_mod.moe_ffn(cfg, p["moe"], h)
+    return mlp_mod.mlp(cfg, p["mlp"], h), None
 
 
 def layer_forward(cfg: cm.ModelConfig, kind: str, p: dict, x: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor | None]:
     """Full-sequence layer: the mixer of ``kind`` on a residual branch,
-    then (but for ``MAMBA2``) the MLP on another."""
+    then (but for ``MAMBA2``) the channel mixer on another.  Returns
+    ``(x, aux)``, ``aux`` as :func:`_channel_mix` gives it."""
     h = cm.apply_norm(cfg, p["norm1"], x)
     if kind == cm.ATTN:
         mix = att.attn_full(cfg, p["mixer"], h, positions, causal=True)
@@ -82,13 +91,14 @@ def layer_forward(cfg: cm.ModelConfig, kind: str, p: dict, x: torch.Tensor,
         mix = att.attn_full(cfg, p["mixer"], h, positions, causal=True,
                             window=cfg.window)
     elif kind == cm.MAMBA2:
-        return x + ssm_mod.mamba2_forward(cfg, p["mixer"], h)
+        return x + ssm_mod.mamba2_forward(cfg, p["mixer"], h), None
     elif kind == cm.RGLRU:
         mix = rglru_mod.rglru_forward(cfg, p["mixer"], h)
     else:
         raise ValueError(kind)
     x = x + mix
-    return x + _channel_mix(cfg, p, x)
+    delta, aux = _channel_mix(cfg, p, x)
+    return x + delta, aux
 
 
 def init_layer_cache(cfg: cm.ModelConfig, kind: str, batch: int,
@@ -120,7 +130,8 @@ def layer_decode(cfg: cm.ModelConfig, kind: str, p: dict, x: torch.Tensor,
     else:
         raise ValueError(kind)
     x = x + mix
-    return x + _channel_mix(cfg, p, x), cache
+    delta, _ = _channel_mix(cfg, p, x)          # decode drops the router loss
+    return x + delta, cache
 
 
 # ---------------------------------------------------------------------------
@@ -171,25 +182,31 @@ def _head(cfg, params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _stack(cfg, params, tokens: torch.Tensor,
-           prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
-    """The layers' output (B, P + S, d): ``prefix_embeds`` (B, P, d), cast
-    to the compute dtype, before the token embeddings, and positions over
-    the whole sequence, as JAX's ``lm_forward``."""
+           prefix_embeds: torch.Tensor | None = None
+           ) -> Tuple[torch.Tensor, torch.Tensor | None]:
+    """``(x, aux)``: the layers' output (B, P + S, d), ``prefix_embeds``
+    (B, P, d), cast to the compute dtype, before the token embeddings, and
+    positions over the whole sequence, as JAX's ``lm_forward``; ``aux``
+    the MoE layers' router losses summed in layer order (``None``
+    without MoE layers)."""
     x = _embed(cfg, params, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    aux = None
     for kind, p in zip(cfg.pattern, params["layers"]):
-        x = layer_forward(cfg, kind, p, x, positions)
-    return x
+        x, a = layer_forward(cfg, kind, p, x, positions)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def lm_forward(cfg: cm.ModelConfig, params: dict, tokens: torch.Tensor,
                prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """tokens (B, S) [+ prefix (B, P, d) precomputed embeddings] ->
     logits (B, P + S, Vp)."""
-    x = _stack(cfg, params, tokens, prefix_embeds)
+    x, _ = _stack(cfg, params, tokens, prefix_embeds)
     return _head(cfg, params, cm.apply_norm(cfg, params["final_norm"], x))
 
 
@@ -197,18 +214,19 @@ def lm_loss(cfg: cm.ModelConfig, params: dict, batch: dict,
             aux_weight: float = 0.01) -> Tuple[torch.Tensor, dict]:
     """``batch["tokens"]`` (B, S) [+ ``"prefix_embeds"`` (B, P, d)] ->
     ``(loss, {"ce", "aux"})``: next-token cross entropy over the token
-    positions' logits, ``loss = ce + aux_weight · aux`` with ``aux`` a
-    float32 zero (dense stacks have no router loss), as
-    ``repro/models/transformer.py::lm_loss``.  JAX computes the prefix
-    positions' logits too and slices them off; the port drops the prefix
-    positions' hidden states before the final norm and the head, which
+    positions' logits, ``loss = ce + aux_weight · aux`` with ``aux`` the
+    MoE layers' summed router losses (a float32 zero for a stack without
+    them), as ``repro/models/transformer.py::lm_loss``.  JAX computes the
+    prefix positions' logits too and slices them off; the port drops the
+    prefix positions' hidden states before the final norm and the head, which
     act on each position alone: the same function, without the (B, P,
     Vp) logits."""
     tokens = batch["tokens"]
-    x = _stack(cfg, params, tokens, batch.get("prefix_embeds"))
+    x, aux = _stack(cfg, params, tokens, batch.get("prefix_embeds"))
     x = x[:, x.shape[1] - tokens.shape[1]:]
     logits = _head(cfg, params, cm.apply_norm(cfg, params["final_norm"], x))
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     ce = cross_entropy(logits, tokens)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
@@ -233,7 +251,7 @@ def lm_prefill(cfg: cm.ModelConfig, params: dict, tokens: torch.Tensor,
     :func:`lm_forward`) returning the last position's logits (B, 1, Vp).
     Only that position goes through the final norm and the head: the (B,
     S, Vp) logits are never made."""
-    x = _stack(cfg, params, tokens, prefix_embeds)[:, -1:]
+    x = _stack(cfg, params, tokens, prefix_embeds)[0][:, -1:]
     return _head(cfg, params, cm.apply_norm(cfg, params["final_norm"], x))
 
 

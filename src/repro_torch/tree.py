@@ -55,37 +55,42 @@ def tree_flatten_with_names(tree) -> tuple[list[str], list[Any]]:
     """
     names: list[str] = []
     leaves: list[Any] = []
-
-    def visit(t, path: str) -> None:
-        if isinstance(t, (tuple, list)):
-            fields = getattr(t, "_fields", None)
-            for i, x in enumerate(t):
-                visit(x, f"{path}.{fields[i]}" if fields else f"{path}[{i}]")
-        elif isinstance(t, dict):
-            for k in sorted(t):
-                visit(t[k], f"{path}[{k!r}]")
-        else:
-            names.append(path)
-            leaves.append(t)
-
-    visit(tree, "")
+    _visit(tree, "", names, leaves)
     return names, leaves
+
+
+# The walks below are module functions, not closures: a nested function
+# that calls itself sits in a reference cycle (the function, its closure
+# cell), which would keep what it reaches -- a training step's gradients
+# -- alive until the cyclic garbage collector runs.
+
+def _visit(t, path: str, names: list, leaves: list) -> None:
+    if isinstance(t, (tuple, list)):
+        fields = getattr(t, "_fields", None)
+        for i, x in enumerate(t):
+            _visit(x, f"{path}.{fields[i]}" if fields else f"{path}[{i}]",
+                   names, leaves)
+    elif isinstance(t, dict):
+        for k in sorted(t):
+            _visit(t[k], f"{path}[{k!r}]", names, leaves)
+    else:
+        names.append(path)
+        leaves.append(t)
 
 
 def tree_unflatten(tree, leaves) -> Any:
     """A tree of ``tree``'s structure holding ``leaves``, given in
     :func:`tree_leaves`' order."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(t):
-        if isinstance(t, (tuple, list)):
-            return _rebuild(t, [build(x) for x in t])
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        return next(it)
 
-    return build(tree)
+def _build(t, it):
+    if isinstance(t, (tuple, list)):
+        return _rebuild(t, [_build(x, it) for x in t])
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    return next(it)
 
 
 def _rebuild(node, children: list):

@@ -388,7 +388,9 @@ def _flash_inputs(dev, B, H, Kh, S, D, dtype, seed=0):
     (1, 3, 1, 1, 64, True),          # one position
     (2, 14, 2, 77, 64, False),
     (1, 8, 1, 512, 128, False),      # MQA, D = 128
-    (1, 4, 2, 200, 128, True)])
+    (1, 4, 2, 200, 128, True),
+    (2, 16, 1, 300, 128, True),      # G = 16: qwen3-moe's group
+    (1, 32, 2, 129, 64, False)])
 def test_flash_kernel_equals_plain(B, H, Kh, S, D, causal, dtype):
     dev = require_cuda()
     q, k, v = _flash_inputs(dev, B, H, Kh, S, D, dtype)
@@ -545,6 +547,9 @@ def _flash_bwd_case(dev, B, H, Kh, S, D, causal, dtype, seed=4):
     (2, 14, 2, 300, 64, True),
     (1, 4, 2, 300, 128, False),
     (1, 2, 2, 300, 64, False),
+    # G = 16 (qwen3-moe's group): 16 partials a KV head in the group sum
+    (2, 16, 1, 300, 128, True),
+    (1, 32, 2, 129, 64, False),
     (4, 14, 2, 2048, 64, True)])     # qwen2-0.5b's training shape
 def test_flash_bwd_kernel_equals_plain(B, H, Kh, S, D, causal, dtype):
     dev = require_cuda()
@@ -1092,3 +1097,106 @@ def test_recurrent_decode_step_on_the_card(arch):
     assert float((pre - logits).abs().max()) <= 2e-4 * float(
         pre.abs().max())
     assert [fn.launches for fn in wrappers] == before
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts (models/moe.py) on the card
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b")
+
+
+def _moe_layer(dev, arch, dtype, T, seed=11):
+    """The smoke config's MoE parameters and a skewed (T, d) input, so that
+    capacity drops pairs."""
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = moe.init_moe(cfg, gen)
+    x = (torch.randn((T, cfg.d_model), generator=gen, device=dev)
+         + 1.5 * torch.randn(cfg.d_model, generator=gen, device=dev)
+         ).to(cfg.compute_dtype)
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_layer_and_decode_step_never_sync(arch):
+    """moe_ffn over a batch and a model's decode step (``pos`` on the card)
+    under ``set_sync_debug_mode("error")``: the dispatch reads nothing on
+    the host, so the decode step can be captured."""
+    from repro_torch.models import moe
+
+    dev = require_cuda()
+    cfg, p, x = _moe_layer(dev, arch, "bfloat16", 64)
+    model = build(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(3))
+    cache = model.init_cache(4, 8)
+    tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe.moe_ffn(cfg, p, x.reshape(2, 32, -1))
+        logits, _ = model.decode_step(params, cache, tok, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert y.shape == (2, 32, cfg.d_model) and aux.shape == ()
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_backward_twice_bit_equal(arch):
+    """Two gradients of one bf16 MoE layer with capacity drops, in x and in
+    every parameter, the router's included, bit-equal: no atomics in the
+    dispatch or the combine."""
+    from repro_torch.models import moe
+
+    dev = require_cuda()
+    cfg, p, x = _moe_layer(dev, arch, "bfloat16", 256)
+    kept, _ = moe.slots(*moe.route(cfg, p, x)[2:], moe.capacity(cfg, 256),
+                        0, cfg.moe.n_experts)
+    assert not bool(kept.all())
+
+    def grads():
+        leaves = [x.detach().requires_grad_()] + [
+            p[k].detach().requires_grad_() for k in sorted(p)]
+        y, aux = moe.moe_body(cfg, dict(zip(sorted(p), leaves[1:])),
+                              leaves[0], 0, cfg.moe.n_experts)
+        loss = y.float().square().mean() + 0.01 * aux
+        return torch.autograd.grad(loss, leaves)
+
+    a, b = grads(), grads()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    router = a[1 + sorted(p).index("router")]
+    assert bool(torch.isfinite(router).all()) and float(
+        router.abs().max()) > 0
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_model_on_the_card_near_its_cpu_run(arch):
+    """The float32 smoke model, at head dim 32 (the kernels take 32, 64
+    and 128), its logits on the card (the flash kernels, cuBLAS) within
+    1e-4 of max|logit| of the same parameters' CPU run (the plain
+    versions): the prefill twin's bar of test_small_prefill; the routes
+    of every layer equal."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_map
+
+    dev = require_cuda()
+    cfg = dataclasses.replace(get_smoke_config(arch), head_dim=32)
+    cpu = build(cfg, "cpu")
+    params = cpu.init(5)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(6))
+    with moe.log_routes() as want_routes:
+        want = tfm.lm_forward(cfg, params, toks)
+    on_card = tree_map(lambda t: t.to(dev), params)
+    with moe.log_routes() as got_routes:
+        got = tfm.lm_forward(cfg, on_card, toks.to(dev))
+    assert len(got_routes) == len(want_routes) == cfg.n_layers
+    for (gi, gk), (wi, wk) in zip(got_routes, want_routes):
+        assert torch.equal(gi.cpu(), wi) and torch.equal(gk.cpu(), wk)
+    gap = float((got.cpu() - want).abs().max())
+    assert gap <= 1e-4 * float(want.abs().max())
