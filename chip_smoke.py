@@ -4749,8 +4749,9 @@ def flash_check(name, q, k, v, causal) -> dict:
 def compare_flash(gen, seq: int, slice_cases: dict) -> list:
     """At qwen2-0.5b's prefill shape, ragged S, the smoke config's D = 32,
     MQA at D = 128 without the causal mask, whisper-tiny's encoder and
-    llava's and the MoE backbones (``slice_cases``: each bf16 case on
-    ``wgmma``; qwen3-moe's GQA group of 16), and
+    llava's and the MoE backbones, phi3.5-moe's training step included
+    (``slice_cases``: each bf16 case on ``wgmma``; qwen3-moe's GQA group
+    of 16), and
     q, k, v sliced from one packed (B, S, H + 2 Kh, D) tensor; in bf16
     and float32."""
     out = []
@@ -4873,7 +4874,8 @@ def eager_generate(model, params, prompts: torch.Tensor,
 
 def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
                  dev, check: bool, runs: int = TIMING_RUNS,
-                 n: int = 8, frames=None) -> dict:
+                 n: int = 8, frames=None, routes: list | None = None
+                 ) -> dict:
     """The captured decode step (``launch.serve_lm.DecodeStep``) against
     the eager decode: every step's logits and token compared in lockstep,
     bit for bit (the tokens must be equal); decode tokens/s of
@@ -4881,7 +4883,9 @@ def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
     tokens equal; the idle share
     and the host's CUDA launch calls a token over ``n`` decode tokens of
     each.  An encoder-decoder decodes over ``frames``, its cross K/V
-    built after each reset of the step and into each eager cache."""
+    built after each reset of the step and into each eager cache.
+    ``routes``, where given, gets the MoE routes (``moe.log_routes``) of
+    the lockstep's eager decode steps."""
     B, P = prompts.shape
     V = model.cfg.vocab_size
     t0 = time.perf_counter()
@@ -4901,7 +4905,10 @@ def decode_graph(model, params, prompts: torch.Tensor, new_tokens: int,
     logits_equal, tokens_equal, gap, first_diff = True, True, 0.0, None
     for t in range(P + new_tokens - 1):
         given = prompts[:, t:t + 1] if t < P else tok
-        logits, cache = model.decode_step(params, cache, given, pos)
+        with moe.log_routes() as log:
+            logits, cache = model.decode_step(params, cache, given, pos)
+        if routes is not None:
+            routes.extend(log)
         pos += 1
         tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None]
         got = step(prompts[:, t:t + 1] if t < P else None)
@@ -5168,8 +5175,8 @@ def compare_flash_bwd(gen, seq: int, slice_cases: dict) -> list:
     ``seq``, D = 64); the wgmma schedule's edges: S = 1, 127, 129 and
     300 (a ragged last 128-key tile), the group sum skipped (G = 1) and
     taken (G = 2, 7); and whisper-tiny's encoder, llava's backbone and
-    the MoE backbones at G = 4 and 16
-    (``slice_cases``)."""
+    the MoE backbones at G = 4 and 16, phi3.5-moe's training step
+    included (``slice_cases``)."""
     out = []
     for dtype in (torch.bfloat16, torch.float32):
         for name, shape, causal in (
@@ -5483,7 +5490,7 @@ def train_lm(args, dev, card: str) -> tuple:
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(args.seed + 40)
     emit("compare", flash_attention_bwd=compare_flash_bwd(
-        gen, seq if check else 130, args.flash_slice))
+        gen, seq if check else 130, args.flash_compare))
     times = time_flash_bwd(gen, seq if check else 130, args.iters)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -5635,19 +5642,23 @@ def cut_depth(cfg, layers: int):
 
 
 def prefill_run(model, params, batch: dict, dev, want: dict,
-                units: dict) -> dict:
+                units: dict, routes: list | None = None) -> dict:
     """(a) the prefill of ``batch``: the port's kernels launched as
     ``want`` says (counts set to 0 just before, read just after), finite
     last logits of the padded vocabulary, each of ``units`` (its count a
     call: tokens, frames, positions) a second over LM_RATE_REPS calls
     (warm), peak memory, a profile by kernel class
-    (:func:`step_profile`)."""
+    (:func:`step_profile`).  ``routes``, where given, gets the MoE routes
+    of the counted call (``moe.log_routes``)."""
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    logits = model.prefill(params, batch)
+    with moe.log_routes() as log:
+        logits = model.prefill(params, batch)
     sync(dev)
     seen = counts()
+    if routes is not None:
+        routes.extend(log)
     B, S = batch["tokens"].shape
     # a CPU tensor runs the plain versions, which count nothing
     require(seen == want or dev.type == "cpu", f"{model.cfg.name} prefill "
@@ -5669,13 +5680,18 @@ def prefill_run(model, params, batch: dict, dev, want: dict,
     return out
 
 
-def rec_float32(model, params, request, dev) -> dict:
+def rec_float32(model, params, request, dev,
+                routes: dict | None = None) -> dict:
     """(c) float32 at full width, one request: the prefill's last logits
     against the replay of the request through the captured decode step,
     within CROSS_PATH_TOL of max|logit|, and the graph against the eager
     decode in lockstep, bit for bit, from REC_WRAP_SIDE positions before
     the ring wraps (or the same place in a model without one) to as many
-    after: the eager decode takes the graph's caches there."""
+    after: the eager decode takes the graph's caches there.  ``routes``,
+    where given, gets the MoE routes (``moe.log_routes``) of the prefill
+    (``"prefill"``) and of the eager lockstep (``"lockstep"``, a step's
+    layers after another's) and the lockstep's first position
+    (``"first"``)."""
     cfg = model.cfg
     T = request.shape[1]
     ring = cfg.window if LOCAL_ATTN in cfg.pattern else 0
@@ -5685,6 +5701,7 @@ def rec_float32(model, params, request, dev) -> dict:
     step.reset()
     cache, pos = None, None
     equal, compared, gap = True, 0, 0.0
+    lockstep: list = []
     for t in range(T):
         if t == lo:
             cache = [{k: v.clone() for k, v in layer.items()}
@@ -5692,8 +5709,10 @@ def rec_float32(model, params, request, dev) -> dict:
             pos = torch.full((), t, dtype=torch.int32, device=dev)
         got = step(request[:, t:t + 1])
         if lo <= t < lo + 2 * side:
-            want, cache = model.decode_step(params, cache,
-                                            request[:, t:t + 1], pos)
+            with moe.log_routes() as log:
+                want, cache = model.decode_step(params, cache,
+                                                request[:, t:t + 1], pos)
+            lockstep.extend(log)
             pos += 1
             compared += 1
             if not torch.equal(got, want):
@@ -5704,7 +5723,10 @@ def rec_float32(model, params, request, dev) -> dict:
             f"eager decode at positions {lo}..{lo + 2 * side - 1} "
             f"(max gap {gap})")
     V = cfg.vocab_size                  # the padded columns hold -1e9
-    pre = model.prefill(params, {"tokens": request})[:, 0, :V]
+    with moe.log_routes() as log:
+        pre = model.prefill(params, {"tokens": request})[:, 0, :V]
+    if routes is not None:
+        routes.update(prefill=log, lockstep=lockstep, first=lo)
     cross = logits_gap(pre, last[:, :V])
     require(cross["gap_over_max"] <= CROSS_PATH_TOL,
             f"{cfg.name} float32 prefill vs the replay through decode_step: "
@@ -5917,12 +5939,13 @@ def slice_kernels(gen, args, name: str) -> dict:
 
 
 def serve_run(model, params, prompts, dev, check: bool, want: dict,
-              frames=None, runs: int = REC_DECODE_RUNS) -> dict:
+              frames=None, runs: int = REC_DECODE_RUNS,
+              routes: list | None = None) -> dict:
     """(b) ``generate`` on ``prompts`` (an encoder-decoder over ``frames``)
     after a warm-up, its launches as ``want`` (counts set to 0 just
     before, read just after), then :func:`decode_graph`: the captured
     step bit-equal to the eager decode, timed against it in ``runs``
-    turns."""
+    turns (``routes`` as :func:`decode_graph`'s)."""
     cfg = model.cfg
     n_req, new = prompts.shape[0], SERVE_NEW if check else 6
     generate(model, params, prompts, new, frames)                # warm-up
@@ -5936,7 +5959,7 @@ def serve_run(model, params, prompts, dev, check: bool, want: dict,
             and int(res.tokens.max()) < cfg.vocab_size,
             f"{cfg.name} generate gave {tuple(res.tokens.shape)}")
     graph = decode_graph(model, params, prompts, new, dev, check, runs,
-                         REC_PROFILE_TOKENS, frames)
+                         REC_PROFILE_TOKENS, frames, routes)
     require(graph["logits_bit_equal"], f"{cfg.name}: the captured decode "
             "step's logits != the eager decode's")
     return {"requests": n_req, "prompt": prompts.shape[1], "new_tokens": new,
@@ -6151,6 +6174,13 @@ MOE_DECODE_RUNS = 1
 # at no depth on one card: cut to one layer it is 3.73 B parameters, ~127
 # GB at the ~34 B a parameter AdamW's out-of-place step holds at its peak
 MOE_TRAIN = {"batch": 16, "layers": 1}
+# the flash kernels at phi3.5-moe's training step (MOE_TRAIN's batch x
+# 2048, G = 4), held against their plain versions in both compare lists
+# beside FLASH_SLICE's cases (the rehearsal's cut to the CPU)
+FLASH_MOE_TRAIN = {"phi3.5-moe training": (
+    (MOE_TRAIN["batch"], 32, 8, REC_TRAIN_SEQ, 128), True)}
+FLASH_MOE_TRAIN_REHEARSE = {"phi3.5-moe training": ((2, 8, 2, 16, 128),
+                                                    True)}
 
 
 def drop_share(routes: list) -> dict:
@@ -6176,10 +6206,7 @@ def moe_layer_ms(cfg, p: dict, T: int, gen, iters: int) -> dict:
     compute dtype, ``p`` the model's first layer): the router, top-k and
     slots (``moe.route``, ``aux_loss``, ``slots``); the dispatch gather;
     the experts' cuBLAS products and SwiGLU; the combine -- each the median
-    ms of runs of ``iters`` calls.  Beside them, the places of the pairs
-    from the one-hot held as JAX holds it, (T·k, E), its cumsum along the
-    outer dim, against ``moe.route``'s expert-major layout, its cumsum
-    along the inner dim: the same places, each layout's ms."""
+    ms of runs of ``iters`` calls."""
     dev = gen.device
     x = torch.randn((T, cfg.d_model), generator=gen, device=dev
                     ).to(cfg.compute_dtype)
@@ -6190,22 +6217,10 @@ def moe_layer_ms(cfg, p: dict, T: int, gen, iters: int) -> dict:
         moe.aux_loss(probs, topi)
         return topw, moe.slots(topi, pos, C, 0, E)
 
-    flat = moe.route(cfg, p, x)[2].reshape(-1)
-    experts = torch.arange(E, device=dev)
-
-    def places(dim: int):
-        oh = (flat[:, None] == experts if dim == 0
-              else experts[:, None] == flat).to(torch.int32)
-        return (torch.cumsum(oh, dim, dtype=torch.int32) * oh).sum(1 - dim)
-
-    require(torch.equal(places(0), places(1)), f"{cfg.name}: the slots' "
-            "cumsum differs between the one-hot's layouts")
     topw, (kept, slot) = routing()
     buf = moe.dispatch(x, kept, slot, E, C)
     out = moe.experts(p, buf)
     parts = {"route_ms": median_ms(routing, dev, iters),
-             "places_outer_dim_ms": median_ms(lambda: places(0), dev, iters),
-             "places_inner_dim_ms": median_ms(lambda: places(1), dev, iters),
              "dispatch_ms": median_ms(
                  lambda: moe.dispatch(x, kept, slot, E, C), dev, iters),
              "experts_ms": median_ms(lambda: moe.experts(p, buf), dev,
@@ -6233,7 +6248,7 @@ def lm_moe(args, dev, card: str, arch: str) -> dict:
     either path): one request's prefill against its replay through the
     captured ``decode_step`` and the graph against the eager decode
     (:func:`rec_float32`), with the share of pairs whose expert differs
-    between the prefill and an eager replay; (e) phi3.5-moe only: 10
+    between the prefill and the eager lockstep; (e) phi3.5-moe only: 10
     training steps of MOE_TRAIN's batch x 2048 tokens at MOE_TRAIN's
     depth, a forward and a backward launch a layer a step, the last loss
     below the first, and a second gradient of one batch bit-equal to the
@@ -6263,11 +6278,10 @@ def lm_moe(args, dev, card: str, arch: str) -> dict:
                  + in_layers // depth * full.n_layers}
         parts_s["init"] = time.perf_counter() - t0 - sum(parts_s.values())
         tokens = torch.randint(0, V, (B, S), generator=gen, device=dev)
+        routes: list = []
         prefill = prefill_run(model, params, {"tokens": tokens}, dev,
                               expected(flash_attention=depth),
-                              {"tokens": B * S})
-        with moe.log_routes() as routes:
-            model.prefill(params, {"tokens": tokens})
+                              {"tokens": B * S}, routes)
         prefill["capacity"] = moe.capacity(cfg, B * S)
         prefill["drops"] = drop_share(routes)
         prefill["moe_layer"] = moe_layer_ms(
@@ -6277,13 +6291,11 @@ def lm_moe(args, dev, card: str, arch: str) -> dict:
         parts_s["prefill"] = time.perf_counter() - t0 - sum(parts_s.values())
         prompts = torch.randint(0, V, (n_req, prompt), generator=gen,
                                 device=dev)
-        # one turn of graph and eager: an eager MoE decode step takes ~0.1 s
+        # one turn of graph and eager: an eager MoE decode step takes ~0.1 s;
+        # the drops are the eager lockstep's, 8 tokens a step
+        routes = []
         serve = serve_run(model, params, prompts, dev, check, expected(),
-                          runs=MOE_DECODE_RUNS)
-        # the drops of the prompts' eager replay: 8 tokens a step, as
-        # every decode step
-        with moe.log_routes() as routes:
-            eager_generate(model, params, prompts, 1)
+                          runs=MOE_DECODE_RUNS, routes=routes)
         serve["capacity"] = moe.capacity(cfg, n_req)
         serve["drops"] = drop_share(routes)
         del params, model, routes
@@ -6298,26 +6310,26 @@ def lm_moe(args, dev, card: str, arch: str) -> dict:
         params = model.init(torch.Generator(device=dev).manual_seed(seed + 1))
         T = MOE_F32_TOKENS if check else 24
         request = torch.randint(0, V, (1, T), generator=gen, device=dev)
-        float32 = rec_float32(model, params, request, dev)
-        with moe.log_routes() as pre:
-            model.prefill(params, {"tokens": request})
-        cache = model.init_cache(1, T)
-        with moe.log_routes() as steps:
-            for t in range(T):
-                model.decode_step(params, cache, request[:, t:t + 1], t)
-        L = cfg32.n_layers
-        replay = [torch.cat([steps[t * L + i][0] for t in range(T)])
-                  for i in range(L)]
+        logged: dict = {}
+        float32 = rec_float32(model, params, request, dev, logged)
+        # the prefill's routes at the lockstep's positions against the
+        # eager decode's there
+        L, lo = cfg32.n_layers, logged["first"]
+        steps = logged["lockstep"]
+        n = len(steps) // L
+        lockstep = [torch.cat([steps[t * L + i][0] for t in range(n)])
+                    for i in range(L)]
         float32.update(layers=L, capacity_factor=cfg32.moe.capacity_factor,
-                       drops={"prefill": drop_share(pre),
-                              "replay": drop_share(steps)},
-                       prefill_vs_replay_expert_flips=flip_share(
-                           [r for r, _ in pre], replay))
+                       drops={"prefill": drop_share(logged["prefill"]),
+                              "lockstep": drop_share(steps)},
+                       prefill_vs_lockstep_expert_flips=flip_share(
+                           [r[lo:lo + n] for r, _ in logged["prefill"]],
+                           lockstep))
         require(float32["drops"]["prefill"]["dropped_share"] == 0
-                and float32["drops"]["replay"]["dropped_share"] == 0,
+                and float32["drops"]["lockstep"]["dropped_share"] == 0,
                 f"{arch} float32 at capacity_factor = n_experts dropped "
                 f"pairs: {float32['drops']}")
-        del params, model, cache, pre, steps, replay
+        del params, model, logged, steps, lockstep
         parts_s["float32"] = time.perf_counter() - t0 - sum(parts_s.values())
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -6444,6 +6456,8 @@ def main(argv=None) -> int:
     args.dt_depth, args.dt_bins = cfg.dt_depth, cfg.dt_bins
     args.lm_seq = 256 if args.rehearse else LM_SEQ
     args.flash_slice = FLASH_SLICE_REHEARSE if args.rehearse else FLASH_SLICE
+    args.flash_compare = {**args.flash_slice, **(
+        FLASH_MOE_TRAIN_REHEARSE if args.rehearse else FLASH_MOE_TRAIN)}
 
     if args.rehearse:
         dev = torch.device("cpu")
@@ -6481,7 +6495,7 @@ def main(argv=None) -> int:
          split_hist=compare_sh(gen, args.lanes, per_lane, args.dt_features,
                                args.dt_bins, args.dt_classes))
     emit("compare", flash_attention=compare_flash(gen, args.lm_seq,
-                                                  args.flash_slice))
+                                                  args.flash_compare))
     times = time_kernels(gen, args.lanes, per_lane, args.features,
                          args.iters)
     times["fxp_matmul"]["multinomial"] = {

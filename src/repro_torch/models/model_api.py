@@ -11,7 +11,6 @@ encoder-decoder (``encdec``, chosen by ``cfg.encoder``).
 from __future__ import annotations
 
 import dataclasses
-import re
 from typing import Dict, List, Tuple
 
 import torch
@@ -20,7 +19,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tfm
-from repro_torch.tree import tree_flatten_with_names
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,20 +90,15 @@ class Model:
 
     def active_param_count(self, params: dict) -> int:
         """The parameters a token uses: the total, less the MoE experts'
-        weights (a leaf named ``w_gate``, ``w_up`` or ``w_down`` under a
-        ``moe`` key) but for ``top_k / n_experts`` of them, as JAX's."""
+        weights (each layer's ``moe`` ``w_gate``, ``w_up`` and ``w_down``)
+        but for ``top_k / n_experts`` of them, as JAX's."""
         total = self.param_count(params)
         mc = self.cfg.moe
         if mc is None:
             return total
-        moe_leaves = 0
-        for name, leaf in zip(*tree_flatten_with_names(params)):
-            keys = re.findall(r"\['(\w+)'\]", name)
-            if "moe" in keys and any(k in ("w_gate", "w_up", "w_down")
-                                     for k in keys):
-                moe_leaves += leaf.numel()
-        return total - moe_leaves + int(moe_leaves * mc.top_k
-                                        / mc.n_experts)
+        experts = sum(layer["moe"][k].numel() for layer in params["layers"]
+                      if "moe" in layer for k in ("w_gate", "w_up", "w_down"))
+        return total - experts + int(experts * mc.top_k / mc.n_experts)
 
 
 def _leaves(tree):
