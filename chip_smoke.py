@@ -346,7 +346,31 @@ Phases, each printed as one JSON line:
                 pool bytes.  Phases 4-14 count a captured chunk's warm-up
                 round and capture in the wrappers' counters, never a
                 replay (:func:`fit_expect`);
- 16. the ``kernels`` line (fxp_matmul's entry also times the
+ 15b. autotune — the launch layouts (``tuning.autotune``) with
+                ``$REPRO_TORCH_AUTOTUNE_CACHE`` at a temp file for the
+                whole phase (the default path is never written): every
+                candidate of fxp_matmul (LogReg's forward and gradient
+                dots and the multinomial's at C = 10, 256 lanes x 65,536
+                rows x 64, int8), kmeans_assign (int16, K = 8, D = 16) and
+                split_hist (uint8, 32 bins, 4 classes, at 1, 8 and 32
+                nodes) against its plain version (fxp_matmul and
+                split_hist bit for bit, kmeans_assign's counts bit for
+                bit and sums and sse within 1e-5 of their mass), each
+                one's ms (a call: the median of its 10 runs of 20, the
+                candidates in turns, forward and back), the
+                heuristic's and the winner, the winners stored; then the
+                main path under the tuned table against the heuristic, a
+                fresh grid each, in turns: LogReg int8 + LUT at cadence 1
+                and 8 (steps/s; accuracy within 0.01 of fp32), KMeans
+                int16 (iterations/s; SSE at most 1.05 x fp32's) and the
+                tree (seconds per tree; equal to the heuristic's);
+ 15c. ops    — each ``kernels.ops`` entry point against its plain
+                version: fxp_matmul's int32 product equal to ``a.int() @
+                b.int()`` (K > 4,096 and N > 16 too), split_hist and
+                lut_activation bit for bit, kmeans_assign within 1e-5 of
+                its mass, flash_attention within its tolerances;
+ 16. the ``kernels`` line (the tuned kernels' entries add ``tuned``, each
+     case's winner with its ms and the heuristic's; fxp_matmul's entry also times the
      multinomial's two dots at C = 4 and 10, with their byte bound; the
      main path's replayed launches from train_graph; the flash kernels'
      entries their times at whisper's and llava's shapes and the two
@@ -363,10 +387,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import pickle
 import subprocess
@@ -400,7 +426,7 @@ from repro_torch.core.graphs import Graph  # noqa: E402
 from repro_torch.distributed import merge_plan as mp  # noqa: E402
 from repro_torch.distributed.merge_plan import (  # noqa: E402
     AdaptiveCadence, MergePlan, Nesterov, SlowMo)
-from repro_torch.kernels import build, dispatch, ref  # noqa: E402
+from repro_torch.kernels import build, dispatch, ops, ref  # noqa: E402
 from repro_torch.kernels import split_hist as split_hist_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BWD_BLOCK_ROWS, BWD_TILE_ROWS, bwd_route, bwd_scratch, flash_attention,
@@ -434,6 +460,7 @@ from repro_torch.serving import (MicroBatchQueue, ModelRegistry,  # noqa: E402
 from repro_torch.tree import (tree_flatten_with_names,  # noqa: E402
                               tree_leaves, tree_map)
 from repro_torch.tuning import AutoTune, PlanController  # noqa: E402
+from repro_torch.tuning import autotune as at  # noqa: E402
 
 # PimMLConfig's workloads at a size the card holds for real (its reg_rows,
 # km_rows and dt_rows were cut to fit the JAX package's CPU container):
@@ -4241,6 +4268,304 @@ def train_graph(args, dev, card: str) -> dict:
     return replayed
 
 
+# -- phases 15b and 15c ----------------------------------------------------
+
+TUNE_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
+TUNE_FITS = 3
+TUNE_NODES = (1, 8, 32)
+TUNE_CLASSES = 10
+
+
+@contextlib.contextmanager
+def block_table(path: str):
+    """``tuning.autotune``'s table at ``path`` while the block runs; the
+    variable as it was after it."""
+    old = os.environ.get(TUNE_ENV)
+    os.environ[TUNE_ENV] = path
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(TUNE_ENV, None)
+        else:
+            os.environ[TUNE_ENV] = old
+
+
+def sweep_summary(case: str, sweep) -> dict:
+    """A sweep's candidates with their ms (a call each), the refused
+    ones, the heuristic (candidate 0) and the winner."""
+    ms = [m.seconds * 1e3 for m in sweep.measured]
+    best = min(range(len(ms)), key=ms.__getitem__)
+    return {"case": case, "key": sweep.measured[0].key[1],
+            "candidates": [{"blocks": dict(m.key[2]), "ms": t}
+                           for m, t in zip(sweep.measured, ms)],
+            "refused": [{"blocks": b, "why": why}
+                        for b, why in sweep.refused],
+            "heuristic": dict(sweep.measured[0].key[2]),
+            "heuristic_ms": ms[0],
+            "winner": dict(sweep.measured[best].key[2]), "winner_ms": ms[best]}
+
+
+def tune_sweeps(args, dev) -> dict:
+    """Every candidate of the three tuned kernels at the main path's
+    shapes, each held against the plain version (fxp_matmul and
+    split_hist bit for bit; kmeans_assign's counts bit for bit, its sums
+    and sse within KM_REL_TOL of their mass), timed, and the winners
+    stored in the current table."""
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 50)
+    L, R, d = args.lanes, args.rows // args.lanes, args.features
+    out: dict = {"fxp_matmul": [], "kmeans_assign": [], "split_hist": []}
+
+    def keep(kernel, case, sweep):
+        at.store_best(sweep)
+        out[kernel].append(sweep_summary(case, sweep))
+
+    X = rand_int(gen, (L, R, d), -128, 128, torch.int8)
+    dots = {"logreg forward": (X, int16s(gen, (d, 1))),
+            "logreg gradient": (X.transpose(-1, -2),
+                                int16s(gen, (L, R, 1))),
+            f"multinomial C={TUNE_CLASSES} forward":
+                (X, int16s(gen, (d, TUNE_CLASSES))),
+            f"multinomial C={TUNE_CLASSES} gradient":
+                (X.transpose(-1, -2), int16s(gen, (L, R, TUNE_CLASSES)))}
+    for case, (a, b) in dots.items():
+        want = ref.fxp_matmul_ref(a, b)
+
+        def same(blocks, got, want=want, case=case):
+            require(bool(torch.equal(got, want)),
+                    f"fxp_matmul {case} at {blocks} != plain version")
+
+        keep("fxp_matmul", case, at.measure_candidates(
+            "fxp_matmul", dispatch.fxp_shape(a, b), device=dev,
+            inputs=(a, b), check=same))
+        del want
+    del X, dots
+
+    k = args.km_clusters
+    x, c, w, scale, xf = km_inputs(gen, L, R, args.km_features, k,
+                                   torch.int16, False)
+    want = ref.kmeans_assign_ref(x, c, w, scale, return_assign=True)
+    onehot = (want[3].long()[..., None] == torch.arange(k, device=dev)
+              ).double() * w.double()[..., None]
+    mass = onehot.transpose(-1, -2) @ xf.abs().double()
+    del onehot, xf
+
+    def near(blocks, got):
+        sums_ok = bool(((got[0].double() - want[0].double()).abs()
+                        <= KM_REL_TOL * mass + 1e-30).all())
+        sse_ok = bool(((got[2].double() - want[2].double()).abs()
+                       <= KM_REL_TOL * (want[2].double().abs() + 1)).all())
+        require(bool(torch.equal(got[1], want[1])) and sums_ok and sse_ok,
+                f"kmeans_assign at {blocks}: counts, sums or sse off the "
+                "plain version")
+
+    keep("kmeans_assign", f"int16, K = {k}, D = {args.km_features}",
+         at.measure_candidates("kmeans_assign", (L, R, args.km_features, k),
+                               device=dev, inputs=(x, c, w, scale),
+                               check=near))
+    del x, c, w, scale, want, mass
+
+    bins, classes = args.dt_bins, args.dt_classes
+    for nodes in TUNE_NODES:
+        node, xbin, y, w = sh_inputs(gen, L, R, args.dt_features, nodes,
+                                     bins, classes, torch.uint8)
+        kw = {"n_nodes": nodes, "n_bins": bins, "n_classes": classes}
+        H = ref.split_hist_ref(node, xbin, y, w, **kw)
+
+        def same_h(blocks, got, H=H, nodes=nodes):
+            require(bool(torch.equal(got, H)),
+                    f"split_hist at {nodes} nodes, {blocks} != plain version")
+
+        keep("split_hist", f"uint8, {nodes} nodes", at.measure_candidates(
+            "split_hist", (L, R, args.dt_features, nodes * bins * classes),
+            device=dev, hist=(nodes, bins, classes),
+            inputs=(node, xbin, y, w), check=same_h))
+        del node, xbin, y, w, H
+    return out
+
+
+def tuned_turns(args, dev, card: str, tables: dict) -> dict:
+    """The main path under the tuned table against the heuristic
+    (``tables``: name -> table path), each on a fresh grid, in turns:
+    LogReg int8 + LUT at cadence 1 and 8 (steps/s), KMeans int16
+    (iterations/s) and the tree (seconds per tree); the tuned fits
+    within PERF.md's bars (accuracy within 0.01 of fp32, SSE at most
+    1.05 x fp32's, the tree equal to the heuristic's)."""
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    out: dict = {}
+    X, y, _ = datasets.binary_classification(gen, args.rows, args.features)
+    grid = make_grid(args.lanes, device=dev)
+    acc_ref = accuracy(api.fit(LogReg(lr=0.5), grid, X, y,
+                               steps=args.steps).state, X, y)
+    wl = LogReg(lr=0.5, precision="int8", sigmoid="lut")
+    for k, steps in ((1, args.steps), (args.cadence, args.cadence_steps)):
+        progs = {name: wl.bind(make_grid(args.lanes, device=dev), X, y)
+                 for name in tables}
+
+        def fit(name, progs=progs, steps=steps, k=k):
+            with block_table(tables[name]):
+                return progs[name].fit(steps=steps, merge_every=k)
+
+        rates = turns({name: functools.partial(fit, name)
+                       for name in tables}, steps, TUNE_FITS, dev)
+        states = {name: fit(name).state for name in tables}
+        acc = {name: accuracy(s, X, y) for name, s in states.items()}
+        require(abs(acc["tuned"] - acc_ref) <= 0.01, f"tuned LogReg at "
+                f"cadence {k}: accuracy {acc['tuned']} not within 0.01 of "
+                f"fp32 {acc_ref}")
+        out[f"logreg int8 lut, cadence {k}"] = {
+            "steps_per_s": rates, "accuracy": acc, "accuracy_fp32": acc_ref,
+            "bit_equal": bool(torch.equal(states["tuned"],
+                                          states["heuristic"]))}
+        del progs, states
+    del X, y, grid
+
+    kk, iters = args.km_clusters, args.km_iters
+    Xk, _, _ = datasets.blobs(gen, args.rows, args.km_features, kk)
+    grid = make_grid(args.lanes, device=dev)
+    sse_ref = api.fit(KMeans(k=kk), grid, Xk, None, steps=iters).eval(
+        Xk)["sse"]
+    km = KMeans(k=kk, precision="int16")
+    progs = {name: km.bind(make_grid(args.lanes, device=dev), Xk, None)
+             for name in tables}
+
+    def km_fit(name):
+        with block_table(tables[name]):
+            return progs[name].fit(steps=iters)
+
+    rates = turns({name: functools.partial(km_fit, name) for name in tables},
+                  iters, TUNE_FITS, dev)
+    sse = {name: km_fit(name).eval(Xk)["sse"] for name in tables}
+    require(sse["tuned"] <= 1.05 * sse_ref, f"tuned K-means SSE "
+            f"{sse['tuned']} above 1.05 x fp32 {sse_ref}")
+    out["kmeans int16"] = {"iterations_per_s": rates, "eval_sse": sse,
+                           "eval_sse_fp32": sse_ref}
+    del Xk, progs, grid
+
+    Xt, yt = datasets.mixture_classification(gen, args.rows,
+                                             args.dt_features,
+                                             args.dt_classes)
+    tree = DecisionTree(max_depth=args.dt_depth, n_bins=args.dt_bins,
+                        n_classes=args.dt_classes)
+    grids = {name: make_grid(args.lanes, device=dev) for name in tables}
+
+    def tree_fit(name):
+        with block_table(tables[name]):
+            return api.fit(tree, grids[name], Xt, yt, steps=tree.max_depth)
+
+    rates = turns({name: functools.partial(tree_fit, name)
+                   for name in tables}, 1, TUNE_FITS, dev)
+    states = {name: tree_fit(name).state for name in tables}
+    equal = {f: bool(torch.equal(getattr(states["tuned"], f),
+                                 getattr(states["heuristic"], f)))
+             for f in ("feature", "threshold", "leaf_value", "bin_edges")}
+    require(all(equal.values()), f"tuned tree != the heuristic's: {equal}")
+    out["dtree"] = {"seconds_per_tree": {
+        name: {"median": 1.0 / r["median"], "min": 1.0 / r["max"],
+               "max": 1.0 / r["min"], "trees": r["fits"]}
+        for name, r in rates.items()}, "equal_to_heuristic": equal}
+    emit("autotune_turns", card=card, **out)
+    return out
+
+
+def autotune_phase(args, dev, card: str) -> dict:
+    """Phase 15b: the launch layouts measured, stored under a temp table
+    only (``$REPRO_TORCH_AUTOTUNE_CACHE`` points there for the whole
+    phase, then back), and the main path timed under the tuned table
+    against the heuristic, in turns.  Returns, per tuned kernel, each
+    case's winner and its and the heuristic's ms."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    tables = {"tuned": os.path.join(tmp, "tuned.json"),
+              "heuristic": os.path.join(tmp, "none.json")}
+    try:
+        with block_table(tables["tuned"]):
+            sweeps = tune_sweeps(args, dev)
+            emit("autotune", card=card, table=tables["tuned"],
+                 entries=sorted(at._load_cache()), **sweeps)
+        turned = tuned_turns(args, dev, card, tables)
+        require(not os.path.exists(tables["heuristic"]),
+                "the heuristic's table was written")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("autotune", seconds=time.perf_counter() - t0,
+         default_table_untouched=not os.path.exists(at.cache_path())
+         or os.path.getmtime(at.cache_path()) < t0, turns=list(turned))
+    return {kernel: [{key: s[key] for key in ("case", "winner", "winner_ms",
+                                             "heuristic", "heuristic_ms")}
+                     for s in cases] for kernel, cases in sweeps.items()}
+
+
+def ops_phase(args, dev) -> dict:
+    """Phase 15c: each ``kernels.ops`` entry point on the device against
+    its plain version: ``fxp_matmul`` equal to ``a.int() @ b.int()`` bit
+    for bit (K over several chunks and N over one launch's 16 columns
+    too), ``split_hist`` and ``lut_activation`` bit for bit,
+    ``kmeans_assign``'s counts bit for bit and sums within KM_REL_TOL of
+    their mass, ``flash_attention`` within FLASH_TOL."""
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 60)
+    out: dict = {"fxp_matmul": []}
+    for M, K, N in ((args.rows // args.lanes, args.features, TUNE_CLASSES),
+                    (1000, 9000, 19), (333, 4097, 1)):
+        a = rand_int(gen, (M, K), -128, 128, torch.int8)
+        b = rand_int(gen, (K, N), -128, 128, torch.int8)
+        got = ops.fxp_matmul(a, b)
+        want = a.cpu().int() @ b.cpu().int()
+        equal = got.dtype == torch.int32 and bool(torch.equal(got.cpu(),
+                                                              want))
+        require(equal, f"ops.fxp_matmul ({M}, {K}) x ({K}, {N}) != the "
+                "int32 product")
+        out["fxp_matmul"].append({"M": M, "K": K, "N": N, "equal": equal})
+    N, D, K = args.rows // args.lanes, args.km_features, args.km_clusters
+    x = torch.randn((N, D), generator=gen, device=dev) * 2
+    c = x[:K].clone()
+    got = ops.kmeans_assign(x, c)
+    want = ref.kmeans_assign_ref(x[None], c, torch.ones((1, N), device=dev),
+                                 return_assign=True)
+    onehot = (want[3][0].long()[:, None] == torch.arange(K, device=dev)
+              ).double()
+    mass = onehot.T @ x.abs().double()
+    sums_err = float(((got[0].double() - want[0][0].double()).abs()
+                      / (mass + 1e-30)).max())
+    require(bool(torch.equal(got[1], want[1][0])) and sums_err <= KM_REL_TOL,
+            f"ops.kmeans_assign off its plain version ({sums_err})")
+    out["kmeans_assign"] = {"N": N, "D": D, "K": K,
+                            "sums_err_over_mass": sums_err}
+    F, bins, classes, nodes = args.dt_features, args.dt_bins, \
+        args.dt_classes, 8
+    node = rand_int(gen, (N,), 0, nodes, torch.int32)
+    xbin = rand_int(gen, (N, F), 0, bins, torch.uint8)
+    yy = rand_int(gen, (N,), 0, classes, torch.int32)
+    kw = {"n_nodes": nodes, "n_bins": bins, "n_classes": classes}
+    H = ops.split_hist(node, xbin, yy, **kw)
+    require(bool(torch.equal(H, ref.split_hist_ref(
+        node[None], xbin[None], yy[None], torch.ones((1, N), device=dev),
+        **kw)[0])), "ops.split_hist != its plain version")
+    out["split_hist"] = {"N": N, "F": F, **kw, "equal": True}
+    table = lut_mod.sigmoid_lut(device=dev)
+    z = torch.randn((64, 1000), generator=gen, device=dev) * 6
+    require(bool(torch.equal(
+        ops.lut_activation(z.T, table.table, x_min=table.x_min,
+                           x_max=table.x_max),
+        ref.lut_activation_ref(z.T.contiguous(), table.table, table.x_min,
+                               table.x_max))),
+        "ops.lut_activation != its plain version")
+    out["lut_activation"] = {"shape": [1000, 64], "equal": True}
+    out["flash_attention"] = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = flash_inputs(gen, 2, 8, 2, 512, 64, dtype)
+        got = ops.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        atol, rtol = FLASH_TOL[dtype]
+        err = (got.double() - want.double()).abs()
+        require(bool((err <= atol + rtol * want.double().abs()).all()),
+                f"ops.flash_attention {dtype} off its plain version")
+        out["flash_attention"].append({"dtype": str(dtype)[6:],
+                                       "max_abs_err": float(err.max())})
+    emit("ops", **out)
+    return out
+
+
 def predict(name, wl, state, requests, launches: dict,
             check_counts: bool) -> None:
     """Requests of 1, 7 and 512 rows through ``Workload.predict``, equal
@@ -6573,6 +6898,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     with keeping_graph_nodes():
         replayed = train_graph(args, dev, smi)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    tuned = autotune_phase(args, dev, smi)
+    ops_phase(args, dev)
 
     kernels = []
     for name, t in times.items():
@@ -6584,6 +6912,10 @@ def main(argv=None) -> int:
                  "bound_by": t["bound_by"],
                  "library_ms": t.get("library_ms"),
                  "library_note": LIBRARY_NOTES[name], "per": PER[name]}
+        if name in tuned:
+            # phase 15b: each tuned case's winner, its ms and the
+            # heuristic's (a call each)
+            entry["tuned"] = tuned[name]
         for run, (seen, steps) in replayed.items():
             if name in seen:
                 # the main path's replays (train_graph, the graphs' kernel

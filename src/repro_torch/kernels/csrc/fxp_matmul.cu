@@ -50,7 +50,15 @@
 //     to finish (an integer counter, no float atomics) sums them in chunk
 //     order;
 //   * ragged M and K, unaligned views and other strides take predicated
-//     element loads inside the same kernels.
+//     element loads inside the same kernels;
+//   * the row groups a rows block walks are a launch argument (the
+//     wrapper's block_m, chosen by tuning.autotune.block_shapes; 8 by
+//     default): fewer groups, more blocks.  Each group's rows, and so each
+//     output bit, are the same at any count;
+//   * int32_out (int8 x int8 only, one limb pair): the output is the int32
+//     sum itself, the chunks' partials added in int32 in chunk order with
+//     two's-complement wrap, as an int32 accumulator (the TPU kernel's
+//     own output; kernels.ops.fxp_matmul).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,7 +67,6 @@ namespace {
 
 constexpr int kMaxN = 16;          // columns of b a launch takes
 constexpr int kRowWarps = 8;       // rows kernel: warps a block
-constexpr int kRowGroups = 8;      //   row groups a block walks
 constexpr int kColWarps = 4;       // cols kernel: warps a block
 
 // m16 tiles a warp owns: rows, 32 (int8) or 16 (int16) rows; cols, 64 or
@@ -82,6 +89,8 @@ struct Args {
   int M, K, N, kc, n_chunks;
   long long sAl, sAm, sAk, sBl, sBk, sBn, sOl, sOm;
   int vec;                         // A's pieces may be loaded whole
+  int groups;                      // rows kernel: row groups a block walks
+  int int32_out;                   // out holds int32 sums (one limb pair)
 };
 
 // Limb i of a T value: weight and whether it is signed.  An int8 value is
@@ -225,10 +234,19 @@ __device__ __forceinline__ float combine_one(const int* parts, int stride) {
 
 // The same from every chunk's partials in the scratch; s points at chunk 0,
 // pair 0 of the element, `stride` elements apart from one pair to the next.
+// With int32_out (one pair) the int32 sum of the chunks, in chunk order with
+// two's-complement wrap, as float bits.
 template <typename TA, typename TB>
 __device__ __forceinline__ float combine_chunks(const int32_t* s, int n_chunks,
-                                                long long stride) {
+                                                long long stride,
+                                                bool int32_out) {
   constexpr int P = sizeof(TA) * sizeof(TB);
+  if (int32_out) {
+    uint32_t acc = 0u;
+    for (int c = 0; c < n_chunks; ++c)
+      acc += static_cast<uint32_t>(__ldcg(s + c * P * stride));
+    return __int_as_float(static_cast<int>(acc));
+  }
   float sums[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
@@ -276,7 +294,7 @@ __device__ __forceinline__ bool last_of_tile(const Args& a, int* flag) {
 
 // ---------------------------------------------------------------------------
 // rows: A[l, m, k] read along k.  Warp w of the block owns 16 * MT rows of
-// each of kRowGroups row groups; for each 64-k block a thread loads 16
+// each of a.groups row groups; for each 64-k block a thread loads 16
 // bytes (int8) or 32 (int16) of each of its rows, k = kb + 16 * tig + [0,
 // 16): step s of the block uses k + 8 s + [0, 4) as its fragment's low k
 // half and k + 8 s + [4, 8) as the high one.
@@ -301,7 +319,7 @@ fxp_rows_kernel(const Args a) {
   const int nkb = (k1 - k0 + 63) / 64;
   const TA* Al = static_cast<const TA*>(a.A) + blockIdx.z * a.sAl;
   const TB* Bl = static_cast<const TB*>(a.B) + blockIdx.z * a.sBl;
-  const int mw = blockIdx.x * kRowGroups * GROWS + warp * 16 * MT;
+  const int mw = blockIdx.x * a.groups * GROWS + warp * 16 * MT;
   const bool vec = a.vec != 0;
 
   auto row_of = [&](int grp, int t, int h) {
@@ -370,7 +388,7 @@ fxp_rows_kernel(const Args a) {
 
   int acc[MT][P][NB][4];
   uint4 cur[MT][2][SEG], nxt[MT][2][SEG];
-  const int iters = kRowGroups * nkb;
+  const int iters = a.groups * nkb;
   load_a(0, nxt);
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
@@ -432,7 +450,8 @@ fxp_rows_kernel(const Args a) {
 #pragma unroll
               for (int p = 0; p < P; ++p) parts[p] = acc[t][p][nb][2 * h + e];
               if (a.n_chunks == 1) {
-                const float v = combine_one<TA, TB>(parts, 1);
+                const float v = a.int32_out ? __int_as_float(parts[0])
+                                            : combine_one<TA, TB>(parts, 1);
                 if (NB > 1)
                   os[warp][(m - r0) * a.N + n] = v;
                 else if (m < a.M)
@@ -453,7 +472,7 @@ fxp_rows_kernel(const Args a) {
   }
   if (a.n_chunks == 1 || !last_of_tile(a, &flag)) return;
   const long long stride = static_cast<long long>(a.M) * a.N;
-  for (int grp = 0; grp < kRowGroups; ++grp)
+  for (int grp = 0; grp < a.groups; ++grp)
 #pragma unroll
     for (int t = 0; t < MT; ++t)
 #pragma unroll
@@ -468,7 +487,7 @@ fxp_rows_kernel(const Args a) {
                   a.scratch + (static_cast<long long>(blockIdx.z) *
                                a.n_chunks * P) * stride +
                       static_cast<long long>(m) * a.N + n,
-                  a.n_chunks, stride);
+                  a.n_chunks, stride, a.int32_out != 0);
           }
 }
 
@@ -611,7 +630,8 @@ fxp_cols_kernel(const Args a) {
     if (m >= a.M) continue;
     if (a.n_chunks == 1) {
       a.out[blockIdx.z * a.sOl + m * a.sOm + n] =
-          combine_one<TA, TB>(&red[0][ml][n], BM * NB * 8);
+          a.int32_out ? __int_as_float(red[0][ml][n])
+                      : combine_one<TA, TB>(&red[0][ml][n], BM * NB * 8);
     } else {
 #pragma unroll
       for (int p = 0; p < P; ++p)
@@ -625,20 +645,20 @@ fxp_cols_kernel(const Args a) {
     if (m < a.M)
       a.out[blockIdx.z * a.sOl + m * a.sOm + n] = combine_chunks<TA, TB>(
           a.scratch + lane_chunks + static_cast<long long>(m) * a.N + n,
-          a.n_chunks, stride);
+          a.n_chunks, stride, a.int32_out != 0);
   }
 }
 
 template <typename TA>
-int blocks_m(int M, int cols) {
+int blocks_m(int M, int cols, int groups) {
   const int bm = cols ? 16 * col_tiles<TA>()
-                      : kRowGroups * kRowWarps * 16 * row_tiles<TA>();
+                      : groups * kRowWarps * 16 * row_tiles<TA>();
   return (M + bm - 1) / bm;
 }
 
 template <typename TA, typename TB, int NB>
 void launch(const Args& a, int L, int cols, cudaStream_t stream) {
-  const dim3 grid(blocks_m<TA>(a.M, cols), a.n_chunks, L);
+  const dim3 grid(blocks_m<TA>(a.M, cols, a.groups), a.n_chunks, L);
   if (cols)
     fxp_cols_kernel<TA, TB, NB><<<grid, kColWarps * 32, 0, stream>>>(a);
   else
@@ -655,31 +675,36 @@ void launch_nb(const Args& a, int L, int cols, cudaStream_t stream) {
 
 }  // namespace
 
-// Blocks along m of a launch: the wrapper sizes the counters with it.
-extern "C" int fxp_matmul_blocks(int M, int a_bytes, int cols) {
-  return a_bytes == 1 ? blocks_m<int8_t>(M, cols) : blocks_m<int16_t>(M, cols);
+// Blocks along m of a launch at `groups` row groups a rows block: the
+// wrapper sizes the counters with it, at the groups it launches with.
+extern "C" int fxp_matmul_blocks(int M, int a_bytes, int cols, int groups) {
+  return a_bytes == 1 ? blocks_m<int8_t>(M, cols, groups)
+                      : blocks_m<int16_t>(M, cols, groups);
 }
 
 // a_bytes, b_bytes: 1 for int8, 2 for int16.  cols: 1 when A is read along m
 // (sAm = 1), 0 along k.  vec: A's pieces may be loaded whole (16 bytes along
 // k, or 8 along m, aligned).  scratch and counters are used only when K
-// takes more than one chunk.  Strides are in elements; the output's column
-// stride is 1.  Returns cudaGetLastError() after the launch.
+// takes more than one chunk.  groups: row groups a rows block walks (>= 1;
+// kernels/fxp_matmul.py's ROW_GROUPS, 8, by default).  int32_out: out is int32 (int8 a and b only).
+// Strides are in elements; the output's column stride is 1.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int fxp_matmul_launch(
     const void* A, int a_bytes, const void* B, int b_bytes, void* out,
     void* scratch, void* counters, int L, int M, int K, int N, int kc,
     long long sAl, long long sAm, long long sAk, long long sBl, long long sBk,
     long long sBn, long long sOl, long long sOm, int cols, int vec,
-    void* stream) {
+    int groups, int int32_out, void* stream) {
   if (N < 1 || N > kMaxN || kc < 1 || K < 1 || (a_bytes != 1 && a_bytes != 2)
-      || (b_bytes != 1 && b_bytes != 2) || (cols && sAm != 1))
+      || (b_bytes != 1 && b_bytes != 2) || (cols && sAm != 1) || groups < 1
+      || (int32_out && (a_bytes != 1 || b_bytes != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_chunks = (K + kc - 1) / kc;
   if (n_chunks > 1 && (scratch == nullptr || counters == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{A, B, static_cast<float*>(out), static_cast<int32_t*>(scratch),
          static_cast<int32_t*>(counters), M, K, N, kc, n_chunks,
-         sAl, sAm, sAk, sBl, sBk, sBn, sOl, sOm, vec};
+         sAl, sAm, sAk, sBl, sBk, sBn, sOl, sOm, vec, groups, int32_out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a_bytes == 1 && b_bytes == 1) launch_nb<int8_t, int8_t>(a, L, cols, s);
   if (a_bytes == 1 && b_bytes == 2) launch_nb<int8_t, int16_t>(a, L, cols, s);

@@ -32,6 +32,17 @@ When autograd records (LM training), ``flash_attention`` goes through
 it.  With kernels on, each wrapper launches its kernel on a CUDA tensor and
 runs its plain version on a CPU tensor.
 
+Launch layouts are not constants: ``hybrid_matmul``, ``kmeans_partials``
+and ``level_histogram`` ask ``tuning.autotune.block_shapes`` for theirs
+at every call, keyed on ``(kernel, dtype, shape bucket, device)``, as
+JAX's dispatch asks for its block shapes.  A measured entry of the
+on-disk table wins; otherwise the heuristic, which on the card is the
+layout the kernels had before they were tuned.  The lookup is pure
+Python (no launch, no sync).  ``PimGrid.make_runner``'s CUDA graphs
+keep the launch arguments of their capture, as JAX's jit keeps its
+trace: a table changed after a capture serves only runners built
+afterwards (``api.fit`` binds, and captures, anew each call).
+
 Example — the kernel path equals the plain path on an integer product:
 
 >>> import torch
@@ -59,6 +70,7 @@ from repro_torch.kernels import kmeans_assign as _km
 from repro_torch.kernels import lut_activation as _lut
 from repro_torch.kernels import ref
 from repro_torch.kernels import split_hist as _sh
+from repro_torch.tuning import autotune as _at
 
 _ENABLED = [True]
 
@@ -80,15 +92,25 @@ def use_kernels(enabled: bool):
         _ENABLED[0] = prev
 
 
-def hybrid_launches(n_cols: int) -> int:
+def hybrid_launches(n_cols: int, block_n: int = _fxp.MAX_N) -> int:
     """``fxp_matmul`` launches of one :func:`hybrid_matmul` with an
-    ``n_cols``-column ``b``: one per ``MAX_N`` = 16 columns, whatever the
-    types of ``a`` and ``b`` (the kernel splits both into limbs itself).
+    ``n_cols``-column ``b``: one per ``block_n`` columns (``MAX_N`` = 16
+    but where a tuned table says 8), whatever the types of ``a`` and
+    ``b`` (the kernel splits both into limbs itself).
 
     >>> hybrid_launches(10), hybrid_launches(16), hybrid_launches(20)
     (1, 1, 2)
+    >>> hybrid_launches(10, block_n=8)
+    2
     """
-    return -(-n_cols // _fxp.MAX_N)
+    return -(-n_cols // block_n)
+
+
+def fxp_shape(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """``fxp_matmul``'s key shape ``(L, M, K, N)`` of ``a`` ``(M, K)``
+    or ``(L, M, K)`` by ``b``'s N columns."""
+    return ((a.shape[0] if a.dim() == 3 else 1), *a.shape[-2:],
+            b.shape[-1])
 
 
 def hybrid_matmul(a: torch.Tensor, b: torch.Tensor, *,
@@ -96,18 +118,19 @@ def hybrid_matmul(a: torch.Tensor, b: torch.Tensor, *,
     """Drop-in for ``quantize.hybrid_dot``: ``(..., M, K)`` int8/int16 x
     ``(..., K, N)`` int8/int16 -> float32 ``(..., M, N)``, for any N.
 
-    Each group of at most ``MAX_N`` = 16 columns of ``b`` is one
-    ``fxp_matmul`` launch (:func:`hybrid_launches`), which splits both
-    operands into limbs, sums each (limb pair, K-chunk) partial in int32
-    and combines them in float32 in ``hybrid_dot``'s order.  An output
-    column's float operations are its own, so grouping the columns
-    leaves every bit as ``hybrid_dot`` gives it.
+    Each group of ``block_n`` (16, or 8 where a tuned table says so)
+    columns of ``b`` is one ``fxp_matmul`` launch
+    (:func:`hybrid_launches`) with the table's ``block_m``; the kernel
+    splits both operands into limbs, sums each (limb pair, K-chunk)
+    partial in int32 and combines them in float32 in ``hybrid_dot``'s
+    order.  An output column's float operations are its own, so neither
+    the grouping nor the blocks change a bit of ``hybrid_dot``'s result.
     """
     if not kernels_enabled():
         return qz.hybrid_dot(a, b, k_chunk=k_chunk)
-    outs = [_fxp.fxp_matmul(a, b[..., j:j + _fxp.MAX_N], k_chunk=k_chunk)
-            for j in range(0, b.shape[-1], _fxp.MAX_N)]
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+    blocks = _at.block_shapes("fxp_matmul", a.dtype, fxp_shape(a, b),
+                              device=a.device)
+    return _fxp.grouped(a, b, k_chunk=k_chunk, **blocks)
 
 
 def lut_apply(table: lut_mod.LutTable, x: torch.Tensor) -> torch.Tensor:
@@ -136,7 +159,11 @@ def kmeans_partials(x: torch.Tensor, centroids: torch.Tensor,
     ([[1.0, 1.0]], [0.0])
     """
     if kernels_enabled():
-        return _km.kmeans_assign(x, centroids, w, x_scale)
+        L, R, D = x.shape
+        blocks = _at.block_shapes("kmeans_assign", x.dtype,
+                                  (L, R, D, centroids.shape[-2]),
+                                  device=x.device)
+        return _km.kmeans_assign(x, centroids, w, x_scale, **blocks)
     return ref.kmeans_assign_ref(x, centroids, w, x_scale)
 
 
@@ -157,8 +184,12 @@ def level_histogram(node_idx: torch.Tensor, xbin: torch.Tensor,
     """Per-lane ``H[lane, node, feature, bin, class]`` weighted counts
     for one tree level (``map_reduce`` sums the lanes)."""
     if kernels_enabled():
+        blocks = _at.block_shapes(
+            "split_hist", xbin.dtype,
+            (*xbin.shape, n_nodes * n_bins * n_classes), device=xbin.device,
+            n_nodes=n_nodes)
         return _sh.split_hist(node_idx, xbin, y, w, n_nodes=n_nodes,
-                              n_bins=n_bins, n_classes=n_classes)
+                              n_bins=n_bins, n_classes=n_classes, **blocks)
     return ref.split_hist_ref(node_idx, xbin, y, w, n_nodes=n_nodes,
                               n_bins=n_bins, n_classes=n_classes)
 

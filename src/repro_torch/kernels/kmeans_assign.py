@@ -7,7 +7,10 @@ dequantizing int16/int8 rows in registers.  A CPU tensor runs the plain
 version (:func:`repro_torch.kernels.ref.kmeans_assign_ref`); a CUDA
 tensor launches the kernel or raises.  ``kmeans_assign.launches`` counts
 the launches; each launch also charges its bytes and operations to an
-active ``roofline.analysis.RoundCounter``.
+active ``roofline.analysis.RoundCounter``.  ``block_n``, the rows a block
+takes, is a keyword (``tuning.autotune.block_shapes`` chooses it for
+``dispatch.kmeans_partials`` and ``ops.kmeans_assign``); its default is
+:func:`default_block_n`, the layout before tuning.
 """
 
 from __future__ import annotations
@@ -78,6 +81,33 @@ def max_blocks(L: int, R: int, K: int, D: int, sms: int) -> int:
                       -(-BLOCKS_PER_SM * sms // L)))
 
 
+def block_rows(R: int, K: int, D: int, blocks: int) -> int:
+    """Rows a block takes when a lane may take ``blocks`` blocks: an even
+    share rounded up to the tile (the source's ``rows``)."""
+    tile = layout(K, D)["tile"]
+    return -(-(-(-R // blocks)) // tile) * tile
+
+
+def default_block_n(L: int, R: int, K: int, D: int, sms: int) -> int:
+    """``block_n`` before tuning: the rows of :func:`max_blocks`'s
+    blocks."""
+    return block_rows(R, K, D, max_blocks(L, R, K, D, sms))
+
+
+def grid_blocks(R: int, K: int, D: int, block_n: int) -> tuple:
+    """``(rows, blocks)`` a lane launches at ``block_n``: ``block_n``
+    rounded up to the tile, then the source's own rounding of the
+    ``ceil(R / block_n)`` blocks it is given (which may take fewer rows
+    a block, never more blocks).
+
+    >>> grid_blocks(65536, 8, 16, 4096), grid_blocks(1000, 8, 16, 1)
+    ((4096, 16), (256, 4))
+    """
+    tile = layout(K, D)["tile"]
+    rows = block_rows(R, K, D, -(-R // (-(-block_n // tile) * tile)))
+    return rows, -(-R // rows)
+
+
 def _check(x, centroids, w, x_scale):
     if x.dtype not in _X_DTYPES:
         raise TypeError(f"x must be float32, int16 or int8, got {x.dtype}")
@@ -109,7 +139,7 @@ def _check(x, centroids, w, x_scale):
 
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, w: torch.Tensor,
                   x_scale: torch.Tensor | None = None, *,
-                  return_assign: bool = False):
+                  return_assign: bool = False, block_n: int | None = None):
     """Per-lane K-means partials of the rows ``x`` against ``centroids``.
 
     ``x``: ``(L, R, D)`` float32, or int16/int8 with ``x_scale`` (``D``
@@ -120,8 +150,15 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, w: torch.Tensor,
     ``sums (L, K, D)``, ``counts (L, K)``, ``sse (L,)`` =
     Σ w·|x − c_a|², and with ``return_assign`` the int32 nearest centroid of every row
     ``(L, R)`` (first index on ties).
+
+    ``block_n``: the rows a block takes (:func:`grid_blocks`; None is
+    :func:`default_block_n`).  The blocks' partials are added in block
+    order, so the sums' and sse's float order moves with it (within
+    1e-5 of their mass); the assignments and 0/1 counts do not.
     """
     _check(x, centroids, w, x_scale)
+    if block_n is not None and block_n < 1:
+        raise ValueError(f"block_n must be >= 1, got {block_n}")
     if x.device.type == "cpu":
         return ref.kmeans_assign_ref(x, centroids, w, x_scale,
                                      return_assign=return_assign)
@@ -136,7 +173,7 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"K={K} x D={D} needs {smem} B of shared memory "
                          f"per block, above the {MAX_SMEM_BYTES} B limit")
     out = _launch(build.load("kmeans_assign", _SIGNATURES), x, centroids, w,
-                  x_scale, return_assign)
+                  x_scale, return_assign, block_n)
     kmeans_assign.launches += 1
     # a row's K distances of 2D + 2 operations, |x|^2, the dequantize and
     # the accumulation
@@ -146,9 +183,11 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def _launch(lib, x, centroids, w, x_scale, return_assign: bool):
+def _launch(lib, x, centroids, w, x_scale, return_assign: bool,
+            block_n: int | None = None):
     """One launch of ``lib``, a build of ``csrc/kmeans_assign.cu``, on
-    tensors that passed the wrapper's checks.  Counts nothing:
+    tensors that passed the wrapper's checks, its blocks taking
+    ``block_n`` rows (None: :func:`default_block_n`).  Counts nothing:
     :func:`kmeans_assign` counts its own calls, and ``tools/kernel_ab.py``
     times other versions of the source with it (the scratch is sized for
     this one, which needs more than the parent's)."""
@@ -164,8 +203,12 @@ def _launch(lib, x, centroids, w, x_scale, return_assign: bool):
     sse = torch.empty((L,), dtype=torch.float32, device=dev)
     assign = (torch.empty((L, R), dtype=torch.int32, device=dev)
               if return_assign else None)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max_blocks(L, R, K, D, sms)
+    if block_n is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        block_n = default_block_n(L, R, K, D, sms)
+    # the blocks the source launches, after its rounding: it takes
+    # ceil(R / rows) of them and lays their partials out at that stride
+    _, blocks = grid_blocks(R, K, D, block_n)
     part = torch.empty((L, blocks, layout(K, D)["cells"]),
                        dtype=torch.float32, device=dev)
     scale = (x_scale.reshape(-1).contiguous() if x_scale is not None

@@ -24,6 +24,18 @@ def fxp_matmul_ref(a: torch.Tensor, b: torch.Tensor, *,
     return qz.hybrid_dot(a, b, k_chunk=k_chunk)
 
 
+def fxp_matmul_int32_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The int32 product of int8 ``a`` ``(..., M, K)`` and ``b`` ``(..., K,
+    N)``, as an int32 accumulator gives it (the TPU kernel's output): the
+    exact sum, wrapped to int32.  On the CPU in int64; on the card, where
+    no integer matmul exists, in float64, exact while K < 2^38."""
+    if a.device.type == "cpu":
+        exact = torch.matmul(a.long(), b.long())
+    else:
+        exact = torch.matmul(a.double(), b.double()).long()
+    return exact.to(torch.int32)
+
+
 def lut_activation_ref(x: torch.Tensor, table: torch.Tensor, x_min: float,
                        x_max: float) -> torch.Tensor:
     """Nearest-entry lookup, ``repro_torch.core.lut.lut_lookup``."""

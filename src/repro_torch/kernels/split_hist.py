@@ -7,7 +7,10 @@ tensor runs the plain version
 (:func:`repro_torch.kernels.ref.split_hist_ref`); a CUDA tensor launches
 the kernel or raises.  ``split_hist.launches`` counts the launches;
 each launch also charges its bytes to an active
-``roofline.analysis.RoundCounter``.
+``roofline.analysis.RoundCounter``.  ``block_n``, the rows a block takes,
+is a keyword (``tuning.autotune.block_shapes`` chooses it for
+``dispatch.level_histogram`` and ``ops.split_hist``); None is the layout
+before tuning.
 """
 
 from __future__ import annotations
@@ -79,7 +82,7 @@ def _tiles(F: int, fits) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def layout(L: int, R: int, F: int, n_nodes: int, n_bins: int,
-           n_classes: int, sms: int) -> dict:
+           n_classes: int, sms: int, block_n: int | None = None) -> dict:
     """How a launch cuts the work (mirrors the source's ``Level``): the
     features a block holds (``nf``, in ``tiles`` tiles), the row chunks a
     lane is cut into (``chunks``), the shared strides of cell (node,
@@ -93,7 +96,11 @@ def layout(L: int, R: int, F: int, n_nodes: int, n_bins: int,
     waves, and each block adds its tile into a zeroed H by bulk
     reduce-adds (``bulk`` True), in H's own order with each node's run
     ``sN`` words apart (congruent to H's mod 4, so both runs share their
-    16-byte phase; ``s0`` < 4 sets it)."""
+    16-byte phase; ``s0`` < 4 sets it).
+
+    ``block_n`` (rows a block takes) chooses instead of that rule:
+    ``block_n >= R`` is one block a (lane, tile), a smaller one the bulk
+    layout with ``chunks = ceil(R / block_n)`` (at most 65,535)."""
     bc = n_bins * n_classes
     one = 4 * (3 + n_nodes * (bc + 3))      # one feature, either layout
     if one > MAX_SMEM_BYTES:
@@ -104,7 +111,14 @@ def layout(L: int, R: int, F: int, n_nodes: int, n_bins: int,
                        <= MAX_SMEM_BYTES)
     blocks = L * tiles
     waves = -(-blocks // sms)
-    if blocks >= WAVE_SHARE * waves * sms or R <= MIN_ROWS_PER_BLOCK:
+    if block_n is not None:
+        whole = block_n >= R
+        if not whole and -(-R // block_n) > 65535:
+            raise ValueError(f"block_n={block_n} cuts {R} rows into more "
+                             f"than 65535 chunks")
+    else:
+        whole = blocks >= WAVE_SHARE * waves * sms or R <= MIN_ROWS_PER_BLOCK
+    if whole:
         sc = nf | 1
         return {"tiles": tiles, "nf": nf, "chunks": 1, "bulk": False,
                 "sN": bc * sc, "sF": 1, "sC": sc,
@@ -115,8 +129,9 @@ def layout(L: int, R: int, F: int, n_nodes: int, n_bins: int,
 
     tiles, nf = _tiles(F, lambda nf: 4 * (3 + n_nodes * node_words(nf))
                        <= MAX_SMEM_BYTES)
-    chunks = max(2, min(-(-CHUNK_WAVES * sms // (L * tiles)),
-                        -(-R // MIN_ROWS_PER_BLOCK), 65535))
+    chunks = (-(-R // block_n) if block_n is not None else
+              max(2, min(-(-CHUNK_WAVES * sms // (L * tiles)),
+                         -(-R // MIN_ROWS_PER_BLOCK), 65535)))
     return {"tiles": tiles, "nf": nf, "chunks": chunks, "bulk": True,
             "sN": node_words(nf), "sF": bc, "sC": 1,
             "smem": 4 * (3 + n_nodes * node_words(nf))}
@@ -144,9 +159,24 @@ def row_vectors(xbin: torch.Tensor) -> int:
                and xbin.stride(1) * size % 16 == 0)
 
 
+def default_block_n(L: int, R: int, F: int, n_nodes: int, n_bins: int,
+                    n_classes: int, sms: int) -> int:
+    """``block_n`` of the layout before tuning: ``R`` where it is one
+    block a (lane, tile), else a chunk's rows, ``ceil(R / chunks)``,
+    which gives back the same chunks (and the source's grid).
+
+    >>> default_block_n(256, 65536, 16, 1, 32, 4, 132)
+    65536
+    >>> default_block_n(4, 65536, 16, 1, 32, 4, 132)
+    1024
+    """
+    lay = layout(L, R, F, n_nodes, n_bins, n_classes, sms)
+    return -(-R // lay["chunks"])
+
+
 def split_hist(node: torch.Tensor, xbin: torch.Tensor, y: torch.Tensor,
                w: torch.Tensor, *, n_nodes: int, n_bins: int,
-               n_classes: int) -> torch.Tensor:
+               n_classes: int, block_n: int | None = None) -> torch.Tensor:
     """Per-lane weighted counts ``H[lane, node, feature, bin, class]``.
 
     ``node``, ``y``: int32 ``(L, R)``; ``xbin``: ``(L, R, F)`` int32,
@@ -156,8 +186,11 @@ def split_hist(node: torch.Tensor, xbin: torch.Tensor, y: torch.Tensor,
     n_nodes, F, n_bins, n_classes)``; with 0/1 weights and ``R <= 2^24``
     every count is exact, so the result does not depend on the order of
     the additions (other weights are added in float, in any order).
+    ``block_n``: the rows a block takes (:func:`layout`).
     """
     _check(node, xbin, y, w, n_nodes, n_bins, n_classes)
+    if block_n is not None and block_n < 1:
+        raise ValueError(f"block_n must be >= 1, got {block_n}")
     if xbin.device.type == "cpu":
         return ref.split_hist_ref(node, xbin, y, w, n_nodes=n_nodes,
                                   n_bins=n_bins, n_classes=n_classes)
@@ -165,7 +198,8 @@ def split_hist(node: torch.Tensor, xbin: torch.Tensor, y: torch.Tensor,
         raise ValueError("xbin must have unit stride along F")
     if xbin.shape[0] > 65535:
         raise ValueError(f"at most 65535 lanes, got {xbin.shape[0]}")
-    H = _launch(_library(), node, xbin, y, w, n_nodes, n_bins, n_classes)
+    H = _launch(_library(), node, xbin, y, w, n_nodes, n_bins, n_classes,
+                block_n)
     split_hist.launches += 1
     # bytes only: the adds are one a row of nonzero weight and feature,
     # which only the weights' values tell (reading them would stop the
@@ -175,7 +209,7 @@ def split_hist(node: torch.Tensor, xbin: torch.Tensor, y: torch.Tensor,
 
 
 def _launch(lib, node, xbin, y, w, n_nodes: int, n_bins: int,
-            n_classes: int) -> torch.Tensor:
+            n_classes: int, block_n: int | None = None) -> torch.Tensor:
     """One launch of ``lib``, a build of ``csrc/split_hist.cu``, on
     tensors that passed the wrapper's checks, cut as :func:`layout`
     says.  Counts nothing: :func:`split_hist` counts its own calls, and
@@ -184,7 +218,7 @@ def _launch(lib, node, xbin, y, w, n_nodes: int, n_bins: int,
     dev = xbin.device
     lay = layout(L, R, F, n_nodes, n_bins, n_classes,
                  _sm_count(dev.index if dev.index is not None
-                           else torch.cuda.current_device()))
+                           else torch.cuda.current_device()), block_n)
     shape = (L, n_nodes, F, n_bins, n_classes)
     H = (torch.zeros if lay["bulk"] else torch.empty)(
         shape, dtype=torch.float32, device=dev)

@@ -1,5 +1,6 @@
-"""repro_torch.tuning — the plan controller and its cost model (port of
-``repro.tuning``, ROADMAP item 16a).
+"""repro_torch.tuning — the plan controller, its cost model and the kernels'
+block-shape autotuner (port of ``repro.tuning``, ROADMAP items 16a and
+16b).
 
 * ``tuning.cost`` — :class:`CostModel`, the roofline prior: per-round
   time and wire bytes of a candidate ``(cadence, compression,
@@ -10,11 +11,14 @@
 * ``tuning.measurement`` — :class:`Measurement`, the one record every
   measured or predicted timing speaks.
 
-The JAX package's kernel block-shape autotuner (``block_shapes``,
-``measure_candidates``, ``register_candidates``, ``autotune``) is item
-16b and is not ported yet.  ``cost`` and ``controller`` load lazily (PEP
-562): the controller imports the merge plan, whose ``resolve("auto")``
-imports this package.
+* ``tuning.autotune`` — the kernels' launch layouts (item 16b):
+  ``block_shapes`` (a measured table entry or the heuristic, at every
+  kernel call of ``kernels.dispatch`` and ``kernels.ops``),
+  ``measure_candidates``, ``register_candidates`` and ``autotune``.
+
+``cost``, ``controller`` and ``autotune`` load lazily (PEP 562): the
+controller imports the merge plan, whose ``resolve("auto")`` imports
+this package, and ``autotune`` imports the kernel wrappers.
 """
 
 from repro_torch.tuning.measurement import Measurement  # noqa: F401
@@ -33,6 +37,11 @@ _LAZY = {
     "run_controlled_fit": ("repro_torch.tuning.controller",
                            "run_controlled_fit"),
     "shrink_k": ("repro_torch.tuning.controller", "shrink_k"),
+    "block_shapes": ("repro_torch.tuning.autotune", "block_shapes"),
+    "measure_candidates": ("repro_torch.tuning.autotune",
+                           "measure_candidates"),
+    "register_candidates": ("repro_torch.tuning.autotune",
+                            "register_candidates"),
 }
 
 __all__ = ["Measurement", *sorted(_LAZY)]

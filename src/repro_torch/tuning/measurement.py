@@ -4,7 +4,8 @@ A copy of ``repro.tuning.measurement`` (the port imports nothing of the
 JAX package).
 
 The tuning layer has two measured channels — kernel-level candidate
-timings (``tuning.autotune``, ROADMAP item 16b, not ported yet) and
+timings (``tuning.autotune``, ROADMAP item 16b: one record a kernel
+call) and
 merge-round wall times observed by the plan controller
 (``tuning.controller``) — plus the cost model's analytic priors.  They
 all report through :class:`Measurement`, so a controller trace, an

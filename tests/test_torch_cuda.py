@@ -1200,3 +1200,151 @@ def test_moe_model_on_the_card_near_its_cpu_run(arch):
         assert torch.equal(gi.cpu(), wi) and torch.equal(gk.cpu(), wk)
     gap = float((got.cpu() - want).abs().max())
     assert gap <= 1e-4 * float(want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# tuned launch layouts (tuning.autotune) and the int32 ops.fxp_matmul
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def tmp_table(tmp_path, monkeypatch):
+    """A temp block table, so no stored entry steers a test (and none is
+    left at the default path)."""
+    from repro_torch.tuning import autotune as at
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    at.reset_cache_for_tests()
+    yield at
+    at.reset_cache_for_tests()
+
+
+def _card_candidates(at, dev, kernel, dtype, shape, **kw):
+    backend, sms = at._device_info(dev)
+    refused = []
+    cands = at._candidates(kernel, dtype, shape, backend, sms=sms,
+                           refused=refused, **kw)
+    assert refused == [] and len(cands) >= 2
+    return cands
+
+
+# (L, M, K, N, a dtype, transposed): the rows route at ragged M, K past
+# one 4,096-k chunk (the last block of a tile sums the chunks, with
+# counters sized by the launch's groups), N over one launch's 16 columns,
+# and the gradient's transposed view
+@pytest.mark.parametrize("L,M,K,N,adt,transposed", [
+    (3, 1000, 64, 1, I8, False), (2, 5000, 9000, 10, I8, False),
+    (2, 3001, 4500, 19, I16, False), (3, 777, 64, 4, I16, False),
+    (2, 64, 9000, 10, I8, True)])
+def test_every_fxp_candidate_equals_plain(tmp_table, L, M, K, N, adt,
+                                          transposed):
+    """Every block_m and block_n the tuner offers gives hybrid_dot's
+    bits, K over several chunks included."""
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(M + K)
+    info = torch.iinfo(adt)
+    shape = (L, K, M) if transposed else (L, M, K)
+    a = torch.randint(info.min, info.max + 1, shape, generator=g,
+                      device=dev).to(adt)
+    a = a.transpose(-1, -2) if transposed else a
+    b = torch.randint(-32768, 32768, (K, N), generator=g, device=dev
+                      ).to(I16)
+    want = ref.fxp_matmul_ref(a, b)
+    from repro_torch.kernels import fxp_matmul as fxp_mod
+    for blocks in _card_candidates(tmp_table, dev, "fxp_matmul", adt,
+                                   (L, M, K, N)):
+        before = fxp_matmul.launches
+        got = fxp_mod.grouped(a, b, **blocks)
+        assert fxp_matmul.launches == before + dispatch.hybrid_launches(
+            N, blocks["block_n"])
+        assert torch.equal(got, want), blocks
+
+
+@pytest.mark.parametrize("L,R,D,K,dtype", [
+    (3, 1001, 5, 3, torch.float32), (4, 65536, 16, 8, torch.int16),
+    (2, 4099, 16, 64, torch.int8), (256, 2000, 16, 8, torch.int16)])
+def test_every_kmeans_candidate_equals_plain(tmp_table, L, R, D, K, dtype):
+    """Assignments and counts bit-equal and sums and sse within 1e-5 of
+    their mass at every block_n the tuner offers."""
+    dev = require_cuda()
+    x, c, w, scale, xf = _km_inputs(dev, L, R, D, K, False, dtype,
+                                    seed=L + R)
+    want = ref.kmeans_assign_ref(x, c, w, scale, return_assign=True)
+    mass = _mass(xf, want[3], w, K)
+    for blocks in _card_candidates(tmp_table, dev, "kmeans_assign", dtype,
+                                   (L, R, D, K)):
+        got = kmeans_assign(x, c, w, scale, return_assign=True, **blocks)
+        assert torch.equal(got[3], want[3]) and torch.equal(got[1], want[1])
+        assert ((got[0].double() - want[0].double()).abs()
+                <= 1e-5 * mass + 1e-30).all(), blocks
+        assert ((got[2].double() - want[2].double()).abs()
+                <= 1e-5 * (want[2].double().abs() + 1.0)).all(), blocks
+
+
+@pytest.mark.parametrize("L,R,F,nodes,bins,classes", [
+    (4, 65536, 16, 1, 32, 4), (256, 20000, 16, 8, 32, 4),
+    (3, 100003, 7, 3, 9, 5), (160, 3001, 40, 96, 16, 3)])
+def test_every_split_hist_candidate_equals_plain(tmp_table, L, R, F, nodes,
+                                                 bins, classes):
+    """The same histogram, bit for bit, at every block_n the tuner offers
+    (one block a lane, and the bulk layout's chunks)."""
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(R + nodes)
+    node = torch.randint(0, nodes, (L, R), generator=g, device=dev,
+                         dtype=torch.int32)
+    xbin = torch.randint(0, bins, (L, R, F), generator=g, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    y = torch.randint(0, classes, (L, R), generator=g, device=dev,
+                      dtype=torch.int32)
+    w = (torch.rand((L, R), generator=g, device=dev) < 0.9).float()
+    kw = dict(n_nodes=nodes, n_bins=bins, n_classes=classes)
+    want = ref.split_hist_ref(node, xbin, y, w, **kw)
+    cands = _card_candidates(tmp_table, dev, "split_hist", torch.uint8,
+                             (L, R, F, nodes * bins * classes),
+                             n_nodes=nodes)
+    for blocks in cands:
+        assert torch.equal(split_hist(node, xbin, y, w, **kw, **blocks),
+                           want), blocks
+
+
+@pytest.mark.parametrize("M,K,N", [(1000, 64, 1), (333, 9000, 19),
+                                   (5, 7, 3), (4096, 20000, 16)])
+def test_ops_fxp_matmul_is_the_int32_product(tmp_table, M, K, N):
+    """``ops.fxp_matmul`` on the card equals ``a.int() @ b.int()`` bit for
+    bit, K over several chunks (summed in int32) included."""
+    dev = require_cuda()
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(M * N)
+    a = torch.randint(-128, 128, (M, K), generator=g, device=dev).to(I8)
+    b = torch.randint(-128, 128, (K, N), generator=g, device=dev).to(I8)
+    got = ops.fxp_matmul(a, b)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), a.cpu().int() @ b.cpu().int())
+    assert torch.equal(got, ref.fxp_matmul_int32_ref(a, b))
+
+
+def test_ops_entry_points_equal_plain(tmp_table):
+    dev = require_cuda()
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((3000, 16), generator=g, device=dev)
+    c = x[:8].clone()
+    got = ops.kmeans_assign(x, c)
+    want = ref.kmeans_assign_ref(x[None], c, torch.ones((1, 3000),
+                                                         device=dev))
+    assert torch.equal(got[1], want[1][0])
+    assert torch.allclose(got[0], want[0][0], rtol=1e-5, atol=1e-4)
+    node = torch.randint(0, 4, (3000,), generator=g, device=dev,
+                         dtype=torch.int32)
+    xbin = torch.randint(0, 32, (3000, 16), generator=g, device=dev,
+                         dtype=torch.int32)
+    y = torch.randint(0, 4, (3000,), generator=g, device=dev,
+                      dtype=torch.int32)
+    H = ops.split_hist(node, xbin, y, n_nodes=4, n_bins=32, n_classes=4)
+    assert torch.equal(H, ref.split_hist_ref(
+        node[None], xbin[None], y[None], torch.ones((1, 3000), device=dev),
+        n_nodes=4, n_bins=32, n_classes=4)[0])
+    q = torch.randn((2, 4, 300, 64), generator=g, device=dev)
+    k = torch.randn((2, 2, 300, 64), generator=g, device=dev)
+    v = torch.randn((2, 2, 300, 64), generator=g, device=dev)
+    assert (ops.flash_attention(q, k, v) - ref.flash_attention_ref(
+        q, k, v, causal=True)).abs().max() <= 2e-5

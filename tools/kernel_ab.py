@@ -86,7 +86,6 @@ a-limb, the float combination in PyTorch.  Its variants:
 
   cw2, cw8 two or eight warps a cols block instead of four;
   clb2     the cols kernel held to two blocks an SM (128 registers);
-  rg4      four row groups a rows block instead of eight;
   nostage  the rows kernel stores its output from the fragments at
            every N (the staged store is for N > 8);
   stageall the output staged in shared memory at every N;
@@ -194,8 +193,6 @@ VARIANTS = {
         "clb2": ([("__launch_bounds__(kColWarps * 32)\nfxp_cols_kernel",
                    "__launch_bounds__(kColWarps * 32, 2)\nfxp_cols_kernel")],
                  None),
-        "rg4": ([("constexpr int kRowGroups = 8;",
-                  "constexpr int kRowGroups = 4;")], None),
         "nostage": ([("                if (NB > 1)\n"
                       "                  os[warp][(m - r0) * a.N + n] = v;\n"
                       "                else if (m < a.M)",
