@@ -369,6 +369,25 @@ Phases, each printed as one JSON line:
                 b.int()`` (K > 4,096 and N > 16 too), split_hist and
                 lut_activation bit for bit, kmeans_assign within 1e-5 of
                 its mass, flash_attention within its tolerances;
+ 15d. shard  — the logical sharding rules (``distributed.sharding``,
+                ``launch.shardings``): (a) qwen2-0.5b's training step, 4 x
+                2048 tokens, 3 steps on a (1, 1) ``("data", "model")``
+                NCCL mesh under ``make_rules`` with the state as DTensors,
+                the losses and every state leaf bit-equal to the plain
+                steps from the same seed, 24 + 24 flash launches a step
+                (counters and profiler), the step's ms against the plain
+                step's in turns; (b) phi3.5-moe at full width, one layer,
+                a float32 prefill of 4 x 4096 with its experts over
+                ``model`` = 2 on two spawned ranks over gloo: routes equal
+                to the one-rank ``moe_ffn``'s, the logits within 1e-5 of
+                max|y|, and bf16 at its bar where gloo takes bf16; (c)
+                ``launch.dryrun`` cells (qwen2-0.5b train_4k on both
+                production meshes, phi3.5-moe prefill_32k, qwen1.5-110b
+                decode_32k and mamba2-370m long_500k on (16, 16)) each
+                ``OK``, and (a)'s cell on a (1, 1) fake mesh: its state
+                bytes equal (a)'s on the card, its predicted peak beside
+                (a)'s; (d) ``launch.dryrun_pim`` logreg at cadence 1 and
+                8, one merge collective a round;
  16. the ``kernels`` line (the tuned kernels' entries add ``tuned``, each
      case's winner with its ms and the heuristic's; fxp_matmul's entry also times the
      multinomial's two dots at C = 4 and 10, with their byte bound; the
@@ -407,6 +426,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
 
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.pim_ml import CONFIG  # noqa: E402
@@ -436,7 +456,11 @@ from repro_torch.kernels.fxp_matmul import route as fxp_route  # noqa: E402
 from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: E402
 from repro_torch.kernels.lut_activation import lut_activation  # noqa: E402
 from repro_torch.kernels.split_hist import split_hist  # noqa: E402
-from repro_torch.launch.mesh import init_world, make_pim_mesh  # noqa: E402
+from repro_torch.distributed.sharding import make_rules, use_rules  # noqa: E402
+from repro_torch.launch import dryrun, dryrun_pim  # noqa: E402
+from repro_torch.launch import shardings  # noqa: E402
+from repro_torch.launch.mesh import (init_world, make_host_mesh,  # noqa: E402
+                                     make_pim_mesh)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.launch.serve_lm import (DecodeStep,  # noqa: E402
@@ -2533,7 +2557,7 @@ def run_ranks(fn, world: int, store: str, out_dir: str, opts: dict) -> list:
             if time.perf_counter() >= deadline:
                 raise SmokeFailure(f"the {world}-rank world did not end "
                                    f"within {MESH_JOIN_S} s")
-    except tmp.ProcessException as e:
+    except tmp.spawn.ProcessException as e:
         raise SmokeFailure(f"a rank of the {world}-rank world failed: "
                            f"{e}") from e
     finally:
@@ -6710,6 +6734,408 @@ def lm_moe(args, dev, card: str, arch: str) -> dict:
 # -- main ------------------------------------------------------------------
 
 
+# -- shard: the logical sharding rules, expert parallelism, the dry runs ------
+
+SHARD_STEPS = 3
+SHARD_TURNS = 3
+SHARD_MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+SHARD_MOE = {"batch": 4, "seq": 4096, "layers": 1}
+SHARD_MOE_REHEARSE = {"batch": 2, "seq": 64, "layers": 1}
+# (b): float32 prefill logits within 1e-5 of max|y| of the one-rank run;
+# bf16 within the bf16 step bar (TRAIN_TWIN_LOSS_RTOL) of max|y|
+SHARD_MOE_TOL = {"float32": 1e-5, "bfloat16": TRAIN_TWIN_LOSS_RTOL}
+SHARD_DRYRUNS = (("qwen2-0.5b", "train_4k", False),
+                 ("qwen2-0.5b", "train_4k", True),
+                 ("phi3.5-moe-42b-a6.6b", "prefill_32k", False),
+                 ("qwen1.5-110b", "decode_32k", False),
+                 ("mamba2-370m", "long_500k", False))
+SHARD_PIM_CADENCES = (1, 8)
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value (a plain tensor as it is)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def card_bytes(dev) -> dict | None:
+    """The caching allocator's live bytes on the card after a sync:
+    ``requested`` as the tensors asked for them, ``allocated`` as its
+    blocks hold them (each rounded up to a multiple of 512 bytes, a
+    large-pool block possibly up to 1 MiB more where a cached block was
+    not split); ``None`` off the card."""
+    if dev.type != "cuda":
+        return None
+    sync(dev)
+    stats = torch.cuda.memory_stats(dev)
+    return {"requested": stats["requested_bytes.all.current"],
+            "allocated": stats["allocated_bytes.all.current"]}
+
+
+def shard_train(args, dev, card: str, store_dir: str) -> dict:
+    """(a) qwen2-0.5b's training step (``launch.train.make_step_fn``, 4 x
+    2048 tokens, AdamW with a float32 master) for ``SHARD_STEPS`` steps on
+    a (1, 1) ``("data", "model")`` mesh over a world of one process
+    (NCCL), under ``make_rules``, with every state leaf and batch a
+    DTensor placed by ``launch.shardings``: the losses and every state
+    leaf bit-equal to the same steps on plain tensors from the same seed,
+    the flash kernels launched 24 + 24 times a step (the counters over
+    the steps, the profiler over one), the step's ms against the plain
+    step's in turns (DTensor's host cost, no bar), and the state's bytes
+    and peak for (c)."""
+    cfg = (get_smoke_config if args.rehearse else get_config)(LM_ARCH)
+    check = not args.rehearse
+    seq = TRAIN_SEQ if check else 64
+    model = build_model(cfg, dev)
+    opt = adamw(TRAIN_LR)
+    seed = args.seed + 300
+    stream = TokenStream(cfg.vocab_size, TRAIN_BATCH, seq, seed=seed,
+                         device=dev)
+    batch_fn = lm_train.make_batch_fn(cfg, stream, TRAIN_BATCH, seq)
+    step = lm_train.make_step_fn(model, opt)
+    plain = lm_train.make_state(model, opt, seed)
+    ref, ref_losses = plain, []
+    for i in range(SHARD_STEPS):
+        ref, m = step(ref, batch_fn(i))
+        ref_losses.append(float(m["loss"]))
+    init_world("nccl" if dev.type == "cuda" else "gloo",
+               dist.FileStore(os.path.join(store_dir, "shard1"), 1))
+    try:
+        mesh = make_host_mesh(1, 1, device_type=dev.type)
+        rules = make_rules(mesh, n_heads=cfg.n_heads,
+                           n_kv_heads=cfg.n_kv_heads)
+        with use_rules(rules):
+            held0 = card_bytes(dev)
+            s0 = lm_train.make_state(model, opt, seed)
+            s0 = {"params": shardings.distribute_tree(
+                      rules, s0["params"], shardings.param_axes),
+                  "opt": shardings.distribute_tree(
+                      rules, s0["opt"], shardings.param_axes)}
+            held = card_bytes(dev)
+            state_held = (None if held is None else
+                          {k: held[k] - held0[k] for k in held})
+            state_bytes = dryrun.local_bytes(s0)
+            batches = [shardings.distribute_tree(rules, batch_fn(i),
+                                                 shardings.batch_axes)
+                       for i in range(SHARD_STEPS)]
+            sync(dev)
+            before = (torch.cuda.memory_allocated(dev)
+                      if dev.type == "cuda" else 0)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            st, losses = s0, []
+            for b in batches:
+                st, m = step(st, b)
+                losses.append(float(whole(m["loss"])))
+            sync(dev)
+            seen = counts()
+            peak = (torch.cuda.max_memory_allocated(dev)
+                    if dev.type == "cuda" else None)
+            want = expected(flash_attention=cfg.n_layers * SHARD_STEPS,
+                            flash_attention_bwd=cfg.n_layers * SHARD_STEPS)
+            if check:
+                require(seen == want, f"shard (a) launched {seen}, the "
+                        f"design implies {want}")
+            local = tree_map(lambda t: t.to_local() if isinstance(
+                t, DTensor) else t, st)
+            same = leaves_equal(local, ref)
+            require(losses == ref_losses and same["bit_equal"],
+                    f"shard (a): the DTensor steps != the plain steps: "
+                    f"losses {losses} against {ref_losses}, {same}")
+            del st, local, ref
+            prof = step_profile(lambda: step(s0, batches[0]), dev)
+            if check and "flash_launches" in prof:
+                per = dict(prof["flash_launches"])
+                require(all(n == cfg.n_layers for n in per.values()),
+                        f"shard (a): a profiled DTensor step launched the "
+                        f"flash kernels {per}, the design implies "
+                        f"{cfg.n_layers} each")
+            b_plain = batch_fn(0)
+            rates = turns({"plain": lambda: step(plain, b_plain),
+                           "dtensor": lambda: step(s0, batches[0])},
+                          1, SHARD_TURNS, dev)
+    finally:
+        dist.destroy_process_group()
+    step_ms = {k: 1e3 / v["median"] for k, v in rates.items()}
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+           "seq": seq, "steps": SHARD_STEPS, "mesh": [1, 1],
+           "losses": losses, "launches": seen, "expected_launches": want,
+           **same, "state_bytes": state_bytes, "state_held": state_held,
+           "peak_bytes": peak, "allocated_before_bytes": before,
+           "profile": prof, "step_ms_in_turns": step_ms,
+           "dtensor_over_plain": step_ms["dtensor"] / step_ms["plain"],
+           "turns": rates}
+    emit("shard", card=card, part="(a) qwen2-0.5b training on a (1, 1) "
+         "mesh, DTensor state", **out)
+    return out
+
+
+def moe_prefill_case(args, dev, dtype: str, seed: int):
+    """(b)'s model and request: phi3.5-moe cut to ``layers`` layers in
+    ``dtype``, its parameters from ``seed`` and a prompt of batch x seq
+    tokens."""
+    shape = SHARD_MOE_REHEARSE if args["rehearse"] else SHARD_MOE
+    cfg = (get_smoke_config if args["rehearse"] else get_config)(
+        SHARD_MOE_ARCH)
+    cfg = dataclasses.replace(cut_depth(cfg, shape["layers"]), dtype=dtype)
+    model = build_model(cfg, dev)
+    params = model.init(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (shape["batch"],
+                                               shape["seq"]),
+                           generator=gen, device=dev)
+    return cfg, model, params, tokens
+
+
+def moe_prefill(model, params, tokens) -> tuple:
+    """The prefill's last logits over the vocabulary (not the padding's
+    -1e9 columns) and its routes ``(topi, kept)``, whole and on the
+    CPU."""
+    with torch.no_grad(), moe.log_routes() as routes:
+        logits = model.prefill(params, {"tokens": tokens})
+    logits = whole(logits)[..., :model.cfg.vocab_size]
+    return (logits.float().cpu().numpy(),
+            [(t.cpu().numpy(), k.cpu().numpy()) for t, k in routes])
+
+
+# gloo's refusal of a tensor's dtype (its type switch's message)
+GLOO_DTYPE_REFUSAL = re.compile(r"invalid scalar type|unsupported (scalar "
+                                r"type|dtype)", re.IGNORECASE)
+
+
+def gloo_refuses(dtype: torch.dtype, dev) -> str | None:
+    """``None`` where the world's gloo group all-reduces a one-element
+    tensor of ``dtype`` on ``dev``, else gloo's message refusing the
+    dtype.  Any other error is raised."""
+    try:
+        dist.all_reduce(torch.ones(1, dtype=dtype, device=dev))
+    except RuntimeError as e:
+        if GLOO_DTYPE_REFUSAL.search(str(e)) is None:
+            raise
+        return f"{type(e).__name__}: {e}"[:400]
+    return None
+
+
+def shard_moe_rank(rank: int, world: int, store: str, out_dir: str,
+                   opts: dict) -> None:
+    """(b) One rank of the expert-parallel world: the same model and
+    request from the seed on every rank, the prefill under ``make_rules``
+    on a (1, ``world``) ``("data", "model")`` mesh, so that ``moe_ffn``
+    takes its expert-parallel branch (this rank's experts by
+    ``local_map``, the partials summed by ``sharding.all_sum``).  The rest
+    of the model runs whole on every rank, on plain tensors: DTensor's
+    all-gather over gloo crashes on CUDA tensors (a card probe), its
+    all-reduce does not.  Float32, then bf16 where gloo takes it
+    (:func:`gloo_refuses`, probed before the prefill; the prefill itself
+    catches nothing)."""
+    dev = torch.device(opts["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    init_world("gloo", dist.FileStore(store, world), rank=rank,
+               world_size=world)
+    out = {}
+    try:
+        mesh = make_host_mesh(1, world, device_type=dev.type)
+        for dtype in SHARD_MOE_TOL:
+            refused = gloo_refuses(getattr(torch, dtype), dev)
+            if refused is not None:
+                require(dtype != "float32", f"shard (b): {refused}")
+                out[dtype] = {"refused": refused}
+                continue
+            cfg, model, params, tokens = moe_prefill_case(
+                opts, dev, dtype, opts["seed"])
+            rules = make_rules(mesh, n_heads=cfg.n_heads,
+                               n_kv_heads=cfg.n_kv_heads)
+            t0 = time.perf_counter()
+            try:
+                with use_rules(rules):
+                    logits, routes = moe_prefill(model, params, tokens)
+            finally:
+                del model, params
+            out[dtype] = {"logits": logits, "routes": routes,
+                          "prefill_s": time.perf_counter() - t0,
+                          "local_experts": cfg.moe.n_experts // world}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def shard_moe(args, dev, card: str, store_dir: str) -> dict:
+    """(b) phi3.5-moe at full width, one layer, a prefill of 4 x 4096
+    tokens with its 16 experts over ``model`` = 2: two spawned ranks share
+    the card over gloo (:func:`shard_moe_rank`).  The one-rank
+    ``moe_ffn`` (no rules, this process) is the reference: each rank's
+    routes equal its, the kept pairs those of the rank's own experts, and
+    the logits within ``SHARD_MOE_TOL`` of max|y|; the ranks' logits
+    equal.  Float32, then bf16 (at the bf16 bar) where gloo takes it."""
+    opts = {"device": "cuda:0" if dev.type == "cuda" else "cpu",
+            "rehearse": args.rehearse, "seed": args.seed + 310}
+    refs = {}
+    for dtype in SHARD_MOE_TOL:
+        cfg, model, params, tokens = moe_prefill_case(opts, dev, dtype,
+                                                      opts["seed"])
+        refs[dtype] = moe_prefill(model, params, tokens)
+        del model, params
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+    t0 = time.perf_counter()
+    ranks = run_ranks(shard_moe_rank, MESH_RANKS,
+                      os.path.join(store_dir, "shard2"), store_dir, opts)
+    out = {"world_s": time.perf_counter() - t0}
+    E = cfg.moe.n_experts
+    for dtype, tol in SHARD_MOE_TOL.items():
+        got = [r[dtype] for r in ranks]
+        if "refused" in got[0]:
+            out[dtype] = {"gloo_refused": got[0]["refused"]}
+            continue
+        ref_logits, ref_routes = refs[dtype]
+        require(np.array_equal(got[0]["logits"], got[1]["logits"]),
+                f"shard (b) {dtype}: the ranks' logits differ")
+        scale = float(np.abs(ref_logits).max())
+        err = float(np.abs(got[0]["logits"] - ref_logits).max())
+        routes_equal, kept_local = True, True
+        for rank, g in enumerate(got):
+            lo, hi = rank * E // MESH_RANKS, (rank + 1) * E // MESH_RANKS
+            for (topi, kept), (rtopi, rkept) in zip(g["routes"],
+                                                    ref_routes):
+                routes_equal &= bool(np.array_equal(topi, rtopi))
+                kept_local &= bool(np.array_equal(
+                    kept, rkept & (topi >= lo) & (topi < hi)))
+        out[dtype] = {"max_abs_err": err, "max_abs_logit": scale,
+                      "err_over_max": err / scale, "tolerance": tol,
+                      "routes_equal": routes_equal,
+                      "kept_are_local": kept_local,
+                      "experts_a_rank": got[0]["local_experts"],
+                      "prefill_s": [g["prefill_s"] for g in got]}
+        require(routes_equal and kept_local and err <= tol * scale,
+                f"shard (b) {dtype}: expert parallelism != one rank: "
+                f"{out[dtype]}")
+    emit("shard", card=card, part="(b) phi3.5-moe prefill, experts over "
+         "model = 2 (two ranks, gloo)", arch=cfg.name, layers=cfg.n_layers,
+         ranks=MESH_RANKS, **out)
+    return out
+
+
+def shard_dryruns(args, card: str, trained: dict) -> dict:
+    """(c) ``launch.dryrun`` cells on fake worlds of 256 (512) ranks, each
+    ``OK``, with GB, FLOPs and collectives a rank; then (a)'s cell on a
+    (1, 1) fake mesh: its parameter, master and moment bytes equal the
+    bytes (a)'s state took from the card's allocator (as requested) and
+    (a)'s local shards, its predicted peak beside (a)'s (no bar).  (d)
+    ``launch.dryrun_pim`` logreg on the (16, 16) mesh at cadence 1 and
+    8: ``OK``, one merge collective a round of k local steps."""
+    cells = {}
+    for arch, shape, multi in SHARD_DRYRUNS:
+        kw = {}
+        if args.rehearse:
+            kw = dict(cfg=get_smoke_config(arch), batch=8, seq_len=64)
+        r = dryrun.run_cell(arch, shape, multi, **kw)
+        require(r["status"] == "OK", f"shard (c) {arch} {shape}: "
+                f"{r.get('error')} {r.get('trace', '')[-1500:]}")
+        cells[f"{arch} {shape} {r['mesh']}"] = {
+            "gb_per_rank": r["memory"]["peak_per_device_gb"],
+            "argument_gb": r["memory"]["argument_bytes"] / 2 ** 30,
+            "flops_per_rank": r["cost_analysis"]["flops"],
+            "collectives": r["collectives"],
+            "bottleneck": r["roofline"]["bottleneck"],
+            "step_time_bound_s": r["roofline"]["step_time_bound_s"],
+            "mesh_device_type": r["mesh_device_type"],
+            "trace_s": r["trace_s"]}
+    cfg = (get_smoke_config if args.rehearse else get_config)(LM_ARCH)
+    one = dryrun.run_cell(LM_ARCH, "train_4k", cfg=cfg, mesh_shape=(1, 1),
+                          mesh_names=("data", "model"),
+                          batch=trained["batch"], seq_len=trained["seq"])
+    require(one["status"] == "OK", f"shard (c) (1, 1): {one.get('error')}")
+    mem = one["memory"]
+    predicted = mem["argument_bytes"] + mem["temp_bytes"]
+    step_peak = None
+    if trained["peak_bytes"] is not None:
+        # the card's peak less what was allocated before the steps,
+        # plus the step's own arguments (state and batch)
+        batch_bytes = mem["argument_bytes"] - mem["state_bytes"]
+        step_peak = (trained["peak_bytes"] - trained["allocated_before_bytes"]
+                     + trained["state_bytes"] + batch_bytes)
+    # the dry run's bytes against what (a)'s state holds on the card: the
+    # allocator's requested bytes over the state's making and placing
+    # (a copy kept by DTensor, or any state beyond the shards, would show)
+    held = trained["state_held"]
+    if held is not None:
+        require(held["requested"] == mem["state_bytes"]
+                and held["allocated"] >= held["requested"],
+                f"shard (c): the dry run's state bytes {mem['state_bytes']} "
+                f"!= the card's {held}")
+    same_bytes = mem["state_bytes"] == trained["state_bytes"]
+    require(same_bytes, f"shard (c): the dry run's state bytes "
+            f"{mem['state_bytes']} != (a)'s local shards' "
+            f"{trained['state_bytes']}")
+    pim = {}
+    for k in SHARD_PIM_CADENCES:
+        r = dryrun_pim.build(False, merge_every=k, chunk=2,
+                             rows=(1 << 24) if not args.rehearse else 1 << 16)
+        per_round = r["collectives_per_round"]
+        require(r["status"] == "OK" and sum(
+            c["count"] for c in per_round.values()) == 1
+            and r["merge_overlap"]["dots"] == 3 * k,
+            f"shard (d) cadence {k}: {per_round} {r['merge_overlap']}")
+        pim[f"cadence {k}"] = {
+            "gb_per_rank": r["memory_gb_per_device"],
+            "collectives_per_round": per_round,
+            "kernels_per_round": r["merge_overlap"]["dots"],
+            "collectives_of_the_chunk": r["collectives"],
+            "roofline": {key: r["roofline"][key] for key in (
+                "compute_s", "memory_s", "collective_s", "bottleneck")}}
+    out = {"cells": cells, "one_by_one": {
+        "state_bytes": mem["state_bytes"],
+        "local_shard_bytes": trained["state_bytes"],
+        "card_state_requested_bytes": held and held["requested"],
+        "card_state_allocated_bytes": held and held["allocated"],
+        "state_bytes_equal": same_bytes,
+        "predicted_peak_bytes": predicted,
+        "card_peak_bytes": trained["peak_bytes"],
+        "card_step_peak_bytes": step_peak,
+        "predicted_over_card_step_peak": (predicted / step_peak
+                                          if step_peak else None)},
+        "pim": pim}
+    emit("shard", card=card, part="(c) dry runs and (d) dryrun_pim", **out)
+    return out
+
+
+def shard_train_rank(rank: int, world: int, store: str, out_dir: str,
+                     opts: dict) -> None:
+    """(a) in a process of its own: ``torch.profiler`` lost a kernel event
+    at the end of this long process (23 flash forwards of 24 in a step
+    the counters saw whole), never in a fresh one."""
+    dev = torch.device(opts["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    args = argparse.Namespace(rehearse=opts["rehearse"], seed=opts["seed"])
+    out = shard_train(args, dev, opts["card"], out_dir)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def shard_phase(args, dev, card: str) -> dict:
+    """Phase ``shard``: (a) :func:`shard_train` (in a child process), (b)
+    :func:`shard_moe`, (c) and (d) :func:`shard_dryruns`; each
+    ``require`` ends the run."""
+    t0 = time.perf_counter()
+    store_dir = tempfile.mkdtemp(prefix="shard_")
+    try:
+        opts = {"device": "cuda:0" if dev.type == "cuda" else "cpu",
+                "rehearse": args.rehearse, "seed": args.seed, "card": card}
+        trained = run_ranks(shard_train_rank, 1, os.path.join(
+            store_dir, "child"), store_dir, opts)[0]
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+        shard_moe(args, dev, card, store_dir)
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+        shard_dryruns(args, card, trained)
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    emit("shard", card=card, seconds=time.perf_counter() - t0)
+    return trained
+
+
 def device_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6901,6 +7327,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache() if dev.type == "cuda" else None
     tuned = autotune_phase(args, dev, smi)
     ops_phase(args, dev)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    shard_phase(args, dev, smi)
 
     kernels = []
     for name, t in times.items():

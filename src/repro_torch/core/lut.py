@@ -99,9 +99,16 @@ def shared_lut(fn: Callable[[np.ndarray], np.ndarray], x_min: float,
     key = (fn, float(x_min), float(x_max), int(n_entries), dev)
     lut = _SHARED.get(key)
     if lut is None:
-        lut = _SHARED.setdefault(key, build_lut(fn, x_min, x_max,
-                                                n_entries, dev))
+        lut = build_lut(fn, x_min, x_max, n_entries, dev)
+        if _is_fake(lut.table):          # a dry run's trace: not shared
+            return lut
+        lut = _SHARED.setdefault(key, lut)
     return lut
+
+
+def _is_fake(t: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor) or t.is_meta
 
 
 def sigmoid_lut(n_entries: int = 1024, bound: float = 8.0,

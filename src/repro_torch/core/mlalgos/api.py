@@ -54,6 +54,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
+import torch
+
 from repro_torch.core import minibatch as mb
 from repro_torch.core.pim import PimGrid
 from repro_torch.distributed import merge_plan as mp
@@ -143,6 +145,29 @@ class Workload:
         ``eval``); pad-invariant, like the JAX package's."""
         raise NotImplementedError(
             f"workload {self.name!r} does not implement predict")
+
+    # -- spec-level step functions (``launch.dryrun_pim``) ---------------
+
+    def spec_consts(self, device) -> Optional[dict]:
+        """The constants :meth:`spec_fns` adds to ``n``, ``d`` and a unit
+        ``x_scale`` (an activation); ``None``, the default, means the
+        workload has no spec-level step functions."""
+        return None
+
+    def spec_fns(self, *, features: int, rows: int, device="cpu"):
+        """``(local_fn, update_fn, state0)`` over spec-level constants,
+        with no resident data: unit quantization scales for an int
+        resident dataset and :meth:`spec_consts`.  Under a
+        ``FakeTensorMode`` nothing is allocated."""
+        extra = self.spec_consts(device)
+        if extra is None:
+            raise NotImplementedError(
+                f"workload {self.name!r} has no spec-level step functions")
+        consts = {"n": rows, "d": features, "device": torch.device(device),
+                  "x_scale": torch.ones((1, features), dtype=torch.float32,
+                                        device=device), **extra}
+        program = Program.assemble(self, None, None, rows, consts)
+        return program.local_fn, program.update_fn, program.state0
 
     # -- out-of-core streaming (opt-in) ----------------------------------
 

@@ -79,6 +79,9 @@ class LogReg(api.Workload):
         consts["n"] = n
         return data, n, consts
 
+    def spec_consts(self, device) -> dict:
+        return {"sig": make_sigmoid(self.sigmoid, self.lut_entries, device)}
+
     def stream_consts(self, stream, grid: PimGrid):
         consts = {"n": stream.n_rows, "d": stream.n_features,
                   "device": grid.device,

@@ -117,6 +117,9 @@ class MultinomialLogReg(api.Workload):
         consts["n"] = n
         return data, n, consts
 
+    def spec_consts(self, device) -> dict:
+        return {"sm": make_softmax(self.softmax, self.lut_entries, device)}
+
     def stream_consts(self, stream, grid: PimGrid):
         consts = {"n": stream.n_rows, "d": stream.n_features,
                   "device": grid.device,

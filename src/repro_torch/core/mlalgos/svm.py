@@ -67,6 +67,9 @@ class LinearSVM(api.Workload):
         consts["n"] = n
         return data, n, consts
 
+    def spec_consts(self, device) -> dict:
+        return {}
+
     def stream_consts(self, stream, grid: PimGrid):
         consts = {"n": stream.n_rows, "d": stream.n_features,
                   "device": grid.device}

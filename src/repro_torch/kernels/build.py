@@ -10,6 +10,12 @@ per missing library, all at once, and waits for them together.
 The flags target Hopper only (``sm_90a``) and leave out
 ``--use_fast_math``: the LUT index must be an IEEE float32 divide.
 
+A traced call (:func:`traced`: a fake or ``meta`` tensor, which the dry
+runs make) launches nothing: each wrapper returns empty outputs of its
+kernel's shapes and dtypes and charges what a launch charges.  A
+``DTensor`` never reaches a wrapper (:func:`traced` raises on one):
+``kernels.dispatch`` runs each rank's shard through ``local_map``.
+
 A kernel that cannot be built or launched raises :class:`KernelError`,
 a ``RuntimeError``, so that a caller which retries failed steps (the
 ``Trainer``'s restore-and-replay) can tell it from a step that merely
@@ -123,3 +129,20 @@ def check(lib: ctypes.CDLL, name: str, err: int) -> None:
         msg = getattr(lib, f"{name}_error_string")(err)
         raise KernelError(f"{name} launch failed: CUDA error {err} "
                            f"({msg.decode() if msg else '?'})")
+
+
+def traced(*tensors) -> bool:
+    """True when the tensors are fake (``FakeTensorMode``) or ``meta``:
+    a trace that holds no data, which the wrappers answer with empty
+    outputs and no launch.  A real CPU or CUDA tensor is not traced.
+    Raises ``TypeError`` on a ``DTensor``: a wrapper takes a rank's local
+    tensors, never the sharded ones."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import DTensor
+
+    ts = [t for t in tensors if t is not None]
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError("a kernel wrapper takes local tensors, not "
+                        "DTensors: call it through kernels.dispatch, which "
+                        "runs each rank's shard by local_map")
+    return any(isinstance(t, FakeTensor) or t.is_meta for t in ts)

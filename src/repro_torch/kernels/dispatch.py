@@ -64,6 +64,7 @@ import torch
 
 from repro_torch.core import lut as lut_mod
 from repro_torch.core import quantize as qz
+from repro_torch.distributed import sharding
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fxp_matmul as _fxp
 from repro_torch.kernels import kmeans_assign as _km
@@ -201,7 +202,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``(B, H, S, D)`` views, by strides, with no copy.  When autograd
     records (grad mode on and any of q, k, v requiring grad) the call goes
     through :class:`FlashAttention`, whose backward is the
-    ``flash_attention_bwd`` kernel; otherwise it is the forward alone."""
+    ``flash_attention_bwd`` kernel; otherwise it is the forward alone.
+
+    ``DTensor`` inputs (a sharded model under ``distributed.sharding``'s
+    rules) run each rank's heads through ``local_map``
+    (``distributed.sharding.map_heads``): the kernel only ever sees local
+    tensors."""
+    if sharding.is_dtensor(q):
+        return sharding.map_heads(
+            lambda ql, kl, vl: flash_attention(ql, kl, vl, causal=causal),
+            q, k, v)
     args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         out = FlashAttention.apply(*args, causal)

@@ -13,7 +13,8 @@ A CPU tensor runs the plain versions (:func:`repro_torch.kernels.ref.
 flash_attention_ref`, :func:`~repro_torch.kernels.ref.
 flash_attention_bwd_ref`); a CUDA tensor launches the kernels (the
 forward's by :func:`route`, the backward's by :func:`bwd_route`) or
-raises.
+raises; a fake or ``meta`` tensor (``build.traced``) returns empty
+outputs of the kernels' shapes and layouts and charges their work.
 ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
 the calls that launched; each also charges its bytes and operations to
 an active ``roofline.analysis.RoundCounter``.
@@ -69,7 +70,7 @@ def _check(q, k, v):
                         f"{k.dtype}, {v.dtype}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("q, k and v must share a device")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention runs on CPU or CUDA, got "
                          f"{q.device}")
 
@@ -141,16 +142,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``(B, S, H, D)`` tensor, the layout the output projection reads.
     Writing ``lse`` changes nothing else: the output is the same bits."""
     _check(q, k, v)
-    if q.device.type == "cpu":
+    traced = build.traced(q, k, v)
+    if q.device.type == "cpu" and not traced:
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        return_lse=return_lse)
-    _check_cuda_layout(q, k, v)
     B, H, S, D = q.shape
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    o = _launch(build.load("flash_attention", _SIGNATURES),
-                route(q.dtype, q.shape[-1]), q, k, v, causal, lse)
-    flash_attention.launches += 1
+    if traced:
+        o = torch.empty((B, S, H, D), dtype=q.dtype,
+                        device=q.device).transpose(1, 2)
+    else:
+        _check_cuda_layout(q, k, v)
+        o = _launch(build.load("flash_attention", _SIGNATURES),
+                    route(q.dtype, q.shape[-1]), q, k, v, causal, lse)
+        flash_attention.launches += 1
     # q·kᵀ once and p·v (in bf16 as two products, p's hi and lo terms)
     # per (query, key) pair, key <= query when causal
     wide = q.dtype == torch.float32
@@ -219,13 +225,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lse must be float32 (B, H, S) = ({B}, {H}, {S}) "
                          f"on q's device, got {tuple(lse.shape)} "
                          f"{lse.dtype} on {lse.device}")
-    if q.device.type == "cpu":
+    traced = build.traced(q, k, v, o, do, lse)
+    if q.device.type == "cpu" and not traced:
         return ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
                                            causal=causal)
-    _check_cuda_layout(q, k, v, o=o, do=do)
-    grads = _launch_bwd(build.load("flash_attention", _SIGNATURES),
-                        bwd_route(q.dtype, D), q, k, v, o, do, lse, causal)
-    flash_attention_bwd.launches += 1
+    if traced:
+        grads = tuple(torch.empty((B, S, t.shape[1], D), dtype=q.dtype,
+                                  device=q.device).transpose(1, 2)
+                      for t in (q, k, v))
+    else:
+        _check_cuda_layout(q, k, v, o=o, do=do)
+        grads = _launch_bwd(build.load("flash_attention", _SIGNATURES),
+                            bwd_route(q.dtype, D), q, k, v, o, do, lse,
+                            causal)
+        flash_attention_bwd.launches += 1
     # the function's five products of 2·D a live (query, key) pair: s =
     # q·kᵀ (p is not an input), dV = pᵀ·dO, dp = dO·vᵀ, dK = dsᵀ·q and dQ =
     # ds·k.  The dQ kernel's second q·kᵀ and dO·vᵀ, and the partials of a

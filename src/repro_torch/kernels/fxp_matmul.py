@@ -96,7 +96,7 @@ def _check(a: torch.Tensor, b: torch.Tensor, k_chunk: int,
         raise ValueError(f"k_chunk must be >= 1, got {k_chunk}")
     if a.device != b.device:
         raise ValueError(f"a on {a.device}, b on {b.device}")
-    if a.device.type not in ("cpu", "cuda"):
+    if a.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"fxp_matmul runs on CPU or CUDA, got {a.device}")
 
 
@@ -149,17 +149,23 @@ def fxp_matmul(a: torch.Tensor, b: torch.Tensor, *, k_chunk: int = 4096,
     output.
     """
     _check(a, b, k_chunk, block_m, block_n, out_dtype)
-    if a.device.type == "cpu":
+    traced = build.traced(a, b)
+    if a.device.type == "cpu" and not traced:
         if out_dtype == torch.int32:
             return ref.fxp_matmul_int32_ref(a, b)
         return ref.fxp_matmul_ref(a, b, k_chunk=k_chunk)
 
-    groups = (ROW_GROUPS if block_m is None
-              else block_m // group_rows(a.dtype))
-    out = _launch(build.load("fxp_matmul", _SIGNATURES), a, b, k_chunk,
-                  groups=groups, out_dtype=out_dtype)
+    if traced:                           # the kernel's output, unlaunched
+        out = torch.empty((*a.shape[:-1], b.shape[-1]), dtype=out_dtype,
+                          device=a.device)
+    else:
+        groups = (ROW_GROUPS if block_m is None
+                  else block_m // group_rows(a.dtype))
+        out = _launch(build.load("fxp_matmul", _SIGNATURES), a, b, k_chunk,
+                      groups=groups, out_dtype=out_dtype)
     if a.numel():                        # a launch ran (K >= 1)
-        fxp_matmul.launches += 1
+        if not traced:
+            fxp_matmul.launches += 1
         # a multiply-add of every limb pair
         analysis.charge(analysis.nbytes(a, b, out),
                         2 * a.numel() * b.shape[-1] * a.element_size()

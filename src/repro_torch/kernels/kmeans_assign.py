@@ -133,7 +133,7 @@ def _check(x, centroids, w, x_scale):
     tensors = [x, centroids, w] + ([x_scale] if x_scale is not None else [])
     if any(t.device != x.device for t in tensors):
         raise ValueError("x, centroids, w and x_scale must share a device")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"kmeans_assign runs on CPU or CUDA, got {x.device}")
 
 
@@ -159,7 +159,8 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, w: torch.Tensor,
     _check(x, centroids, w, x_scale)
     if block_n is not None and block_n < 1:
         raise ValueError(f"block_n must be >= 1, got {block_n}")
-    if x.device.type == "cpu":
+    traced = build.traced(x, centroids, w, x_scale)
+    if x.device.type == "cpu" and not traced:
         return ref.kmeans_assign_ref(x, centroids, w, x_scale,
                                      return_assign=return_assign)
     if x.stride(-1) != 1:
@@ -172,9 +173,17 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, w: torch.Tensor,
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"K={K} x D={D} needs {smem} B of shared memory "
                          f"per block, above the {MAX_SMEM_BYTES} B limit")
-    out = _launch(build.load("kmeans_assign", _SIGNATURES), x, centroids, w,
-                  x_scale, return_assign, block_n)
-    kmeans_assign.launches += 1
+    if traced:                           # the kernel's outputs, unlaunched
+        f32 = dict(dtype=torch.float32, device=x.device)
+        out = (torch.empty((L, K, D), **f32), torch.empty((L, K), **f32),
+               torch.empty((L,), **f32))
+        if return_assign:
+            out += (torch.empty((L, R), dtype=torch.int32,
+                                device=x.device),)
+    else:
+        out = _launch(build.load("kmeans_assign", _SIGNATURES), x,
+                      centroids, w, x_scale, return_assign, block_n)
+        kmeans_assign.launches += 1
     # a row's K distances of 2D + 2 operations, |x|^2, the dequantize and
     # the accumulation
     scale = [] if x_scale is None else [x_scale]

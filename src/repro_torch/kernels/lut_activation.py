@@ -56,14 +56,15 @@ def lut_activation(x: torch.Tensor, table: torch.Tensor, *, x_min: float,
         raise ValueError("x and table must be contiguous")
     if x.device != table.device:
         raise ValueError(f"x on {x.device}, table on {table.device}")
-    if x.device.type == "cpu":
+    traced = build.traced(x, table)
+    if x.device.type == "cpu" and not traced:
         return ref.lut_activation_ref(x, table, x_min, x_max)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta") and not traced:
         raise ValueError(f"lut_activation runs on CPU or CUDA, got "
                          f"{x.device}")
 
     out = torch.empty_like(x)
-    if x.numel():
+    if x.numel() and not traced:        # traced: the output, unlaunched
         n_entries = int(table.shape[0])
         # rounded from the double to float32 once, here (ctypes.c_float)
         step = (x_max - x_min) / (n_entries - 1)
@@ -77,6 +78,7 @@ def lut_activation(x: torch.Tensor, table: torch.Tensor, *, x_min: float,
                 n_entries, x_min, step, sms * BLOCKS_PER_SM, stream)
         build.check(lib, "lut_activation", err)
         lut_activation.launches += 1
+    if x.numel():
         # subtract, divide, round, clamp
         analysis.charge(2 * analysis.nbytes(x) + analysis.nbytes(table),
                         4 * x.numel(), "fp32")

@@ -65,7 +65,7 @@ def _check(node, xbin, y, w, n_nodes, n_bins, n_classes):
                          f"is an exact float32), got {xbin.shape[1]}")
     if any(t.device != xbin.device for t in (node, y, w)):
         raise ValueError("node, xbin, y and w must share a device")
-    if xbin.device.type not in ("cpu", "cuda"):
+    if xbin.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"split_hist runs on CPU or CUDA, got "
                          f"{xbin.device}")
 
@@ -191,16 +191,21 @@ def split_hist(node: torch.Tensor, xbin: torch.Tensor, y: torch.Tensor,
     _check(node, xbin, y, w, n_nodes, n_bins, n_classes)
     if block_n is not None and block_n < 1:
         raise ValueError(f"block_n must be >= 1, got {block_n}")
-    if xbin.device.type == "cpu":
+    traced = build.traced(node, xbin, y, w)
+    if xbin.device.type == "cpu" and not traced:
         return ref.split_hist_ref(node, xbin, y, w, n_nodes=n_nodes,
                                   n_bins=n_bins, n_classes=n_classes)
     if xbin.stride(-1) != 1:
         raise ValueError("xbin must have unit stride along F")
     if xbin.shape[0] > 65535:
         raise ValueError(f"at most 65535 lanes, got {xbin.shape[0]}")
-    H = _launch(_library(), node, xbin, y, w, n_nodes, n_bins, n_classes,
-                block_n)
-    split_hist.launches += 1
+    if traced:                           # the kernel's output, unlaunched
+        H = torch.empty((xbin.shape[0], n_nodes, xbin.shape[2], n_bins,
+                         n_classes), dtype=torch.float32, device=xbin.device)
+    else:
+        H = _launch(_library(), node, xbin, y, w, n_nodes, n_bins,
+                    n_classes, block_n)
+        split_hist.launches += 1
     # bytes only: the adds are one a row of nonzero weight and feature,
     # which only the weights' values tell (reading them would stop the
     # host), and take a few percent of the bytes' time

@@ -15,9 +15,11 @@ this module starts nothing.
   Rank ``r`` sits at ``(pod, data) = divmod(r, data)``, the pod-major
   order of JAX's ``P(("pod", "data"))``.
 * :func:`make_host_mesh` — a small ``("data", "model")`` mesh.
-
-The JAX package's ``make_production_mesh`` (its TPU pod shapes, 256 and
-512 chips) is not ported (ROADMAP item 17.2, with the dry runs).
+* :func:`make_production_mesh` — the production shapes: ``(16, 16)``
+  ``("data", "model")`` over 256 ranks, or ``(2, 16, 16)`` ``("pod",
+  "data", "model")`` over 512, the ``pod`` axis the slow hop between
+  nodes (the dry runs build them over a fake world,
+  ``launch.dryrun.fake_mesh``).
 """
 
 from __future__ import annotations
@@ -106,3 +108,33 @@ def make_host_mesh(data: int = 1, model: int = 1,
     init_world(device_type=device_type)
     return init_device_mesh(_device_type(device_type), (data, model),
                             mesh_dim_names=("data", "model"))
+
+
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(multi_pod: bool = False,
+                         device_type: str | None = None):
+    """The ``(16, 16)`` ``("data", "model")`` mesh, or with ``multi_pod``
+    the ``(2, 16, 16)`` ``("pod", "data", "model")`` mesh, over the world
+    (JAX's ``make_production_mesh``).  Raises ``ValueError`` naming both
+    numbers when the world does not have 256 (512) ranks, as
+    ``jax.make_mesh`` does with too few devices, before starting any
+    world (none is left behind); otherwise starts the launcher's world
+    (:func:`init_world`) when none exists."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = PRODUCTION_SHAPES[bool(multi_pod)]
+    need = 1
+    for n in shape:
+        need *= n
+    have = (dist.get_world_size() if dist.is_initialized()
+            else int(os.environ.get("WORLD_SIZE", 1)))
+    if have != need:
+        raise ValueError(
+            f"the {shape} production mesh needs a world of {need} ranks; "
+            f"this world has {have}")
+    init_world(device_type=device_type)
+    return init_device_mesh(_device_type(device_type), shape,
+                            mesh_dim_names=axes)

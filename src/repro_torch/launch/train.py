@@ -16,8 +16,12 @@ directory resumes.  A step is ``Model.loss``, ``torch.autograd.grad``
 over the parameter leaves (the attention's gradient is the
 ``flash_attention_bwd`` kernel on the card), then the optimizer's update
 out of place under ``torch.no_grad()``.  JAX jits the step; the port runs
-it eagerly.  The production meshes (``--production-mesh``,
-``--multi-pod``) are not ported: they raise.
+it eagerly.  ``--production-mesh`` (``--multi-pod``) builds the (16, 16)
+((2, 16, 16)) mesh over a launcher's world of 256 (512) ranks, makes the
+arch's rules table (``distributed.sharding.make_rules``) and places the
+parameters, the optimizer state and each batch as ``DTensor``s by it
+(``launch.shardings``); a checkpoint directory on a mesh raises (item
+12b).
 """
 
 from __future__ import annotations
@@ -29,6 +33,10 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.data import TokenStream
+from repro_torch.distributed.sharding import (current_rules, make_rules,
+                                              use_rules)
+from repro_torch.launch import shardings as sh
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import Model, build
 from repro_torch.models import common as cm
 from repro_torch.optim import Optimizer, adamw
@@ -61,11 +69,16 @@ def loss_and_grads(model: Model, params, batch: dict):
 
 def make_step_fn(model: Model, opt: Optimizer) -> Callable:
     """``step_fn(state, batch) -> (state, metrics)``: ``loss_and_grads``,
-    then ``opt.update``.  The metrics (``loss``, ``ce``, ``aux``) stay on
-    the device; the state handed in is not changed."""
+    then ``opt.update`` (under active rules with each gradient first
+    redistributed to its parameter's placements,
+    ``launch.shardings.pin_to``).  The
+    metrics (``loss``, ``ce``, ``aux``) stay on the device; the state
+    handed in is not changed."""
 
     def step_fn(state: dict, batch: dict):
         loss, metrics, grads = loss_and_grads(model, state["params"], batch)
+        if current_rules() is not None:
+            grads = sh.pin_to(grads, state["params"])
         with torch.no_grad():
             new_p, new_o = opt.update(grads, state["opt"], state["params"])
         return ({"params": new_p, "opt": new_o},
@@ -112,26 +125,44 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the (16, 16) mesh (not ported)")
+                    help="the (16, 16) mesh (a world of 256 ranks)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the (2, 16, 16) mesh (not ported)")
+                    help="the (2, 16, 16) mesh (a world of 512 ranks)")
     args = ap.parse_args(argv)
-    if args.production_mesh or args.multi_pod:
-        raise NotImplementedError(
-            "the production meshes are not ported yet: ROADMAP queue A, "
-            "items 17.2 (make_production_mesh) and A18.8 "
-            "(distributed/sharding.py, launch/shardings.py)")
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    rules = None
+    if args.production_mesh or args.multi_pod:
+        if args.ckpt_dir is not None:
+            raise NotImplementedError(
+                "--ckpt-dir on a mesh: a sharded checkpoint is multi-rank "
+                "work, ROADMAP item 12b")
+        mesh = make_production_mesh(
+            multi_pod=args.multi_pod,
+            device_type=None if args.device is None
+            else torch.device(args.device).type)
+        rules = make_rules(mesh, n_heads=cfg.n_heads,
+                           n_kv_heads=cfg.n_kv_heads)
     model = build(cfg, args.device)
     opt = adamw(args.lr)
     stream = TokenStream(cfg.vocab_size, args.batch, args.seq, seed=0,
                          device=model.device)
-    trainer = Trainer(make_step_fn(model, opt), make_state(model, opt),
-                      make_batch_fn(cfg, stream, args.batch, args.seq),
-                      TrainerConfig(ckpt_dir=args.ckpt_dir, log_every=10))
-    out = trainer.run(args.steps, callback=lambda s, m: print(
-        f"step {s}: loss={float(m['loss']):.4f}"))
+    with use_rules(rules):
+        state = make_state(model, opt)
+        batch_fn = make_batch_fn(cfg, stream, args.batch, args.seq)
+        if rules is not None:
+            state = {"params": sh.distribute_tree(rules, state["params"],
+                                                  sh.param_axes),
+                     "opt": sh.distribute_tree(rules, state["opt"],
+                                               sh.param_axes)}
+            plain_batch = batch_fn
+            batch_fn = lambda step: sh.distribute_tree(  # noqa: E731
+                rules, plain_batch(step), sh.batch_axes)
+        trainer = Trainer(make_step_fn(model, opt), state, batch_fn,
+                          TrainerConfig(ckpt_dir=args.ckpt_dir,
+                                        log_every=10))
+        out = trainer.run(args.steps, callback=lambda s, m: print(
+            f"step {s}: loss={float(m['loss']):.4f}"))
     print(f"done: {out['final_step']} steps, restarts={out['restarts']}")
     return out
 

@@ -1,9 +1,13 @@
 """Attention: GQA + RoPE + optional QKV bias + sliding window, with a KV
 cache for serving.
 
-Port of ``repro/models/attention.py`` for one device (no sharding
-hints).  Parameters keep JAX's shapes: ``wq`` (d, H, Dh), ``wk``/``wv``
-(d, Kh, Dh), ``wo`` (H, Dh, d), biases (H|Kh, Dh).
+Port of ``repro/models/attention.py``, with JAX's ``shard_hint`` sites
+(no-ops unless sharding rules are active).  Parameters keep JAX's
+shapes: ``wq`` (d, H, Dh), ``wk``/``wv`` (d, Kh, Dh), ``wo`` (H, Dh, d),
+biases (H|Kh, Dh).  Under rules, ``DTensor`` attention runs a rank's
+heads at a time (``distributed.sharding.map_heads``) and a decode cache
+split along its sequence is written by the rank holding the slot
+(:func:`write_slot`).
 
 ``mha`` is the plain path, with JAX's direct softmax and its chunked
 online-softmax branch (one function; the chunked branch only bounds
@@ -25,6 +29,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import (is_dtensor, map_heads,
+                                               shard_coordinate, shard_hint)
 from repro_torch.kernels import dispatch
 from repro_torch.models import common as cm
 
@@ -88,11 +94,17 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     ``q_offset`` is the absolute position of q[0] (decode / windowed).
     ``chunk`` > 0 and Skv > chunk selects the online-softmax path.
     """
+    if is_dtensor(q):                   # a rank's heads at a time
+        return map_heads(lambda ql, kl, vl: mha(
+            ql, kl, vl, causal=causal, window=window, q_offset=q_offset,
+            kv_valid_len=kv_valid_len, chunk=chunk), q, k, v)
     B, Sq, H, Dh = q.shape
     G = H // k.shape[2]
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
+    k = shard_hint(k, "batch", None, "heads", None)
+    v = shard_hint(v, "batch", None, "heads", None)
     dev = q.device
     # 1/sqrt(Dh) in float32 as JAX rounds it, as a Python float: a tensor
     # made on the card from a host value would wait for the card
@@ -144,22 +156,29 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
 # block-level forward (projections + rope + cache plumbing)
 # ---------------------------------------------------------------------------
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk")``: one matmul over the flattened heads."""
+def _project(x: torch.Tensor, w: torch.Tensor, heads: str) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk")``: one matmul over the flattened heads.
+    ``heads`` (``"heads"`` or ``"kv_heads"``) names the logical axis of
+    the flattened dim, so that under sharding rules the product is split
+    only between whole heads before it is viewed per head."""
     B, S, _ = x.shape
-    return (x @ w.reshape(w.shape[0], -1)).view(B, S, *w.shape[1:])
+    y = shard_hint(x @ w.reshape(w.shape[0], -1), "batch", "seq", heads)
+    return y.view(B, S, *w.shape[1:])
 
 
 def qkv_proj(cfg: cm.ModelConfig, p: dict, x: torch.Tensor,
              kv_x: torch.Tensor | None = None):
     kv_x = x if kv_x is None else kv_x
-    q = _project(x, p["wq"])
-    k = _project(kv_x, p["wk"])
-    v = _project(kv_x, p["wv"])
+    q = _project(x, p["wq"], "heads")
+    k = _project(kv_x, p["wk"], "kv_heads")
+    v = _project(kv_x, p["wv"], "kv_heads")
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    q = shard_hint(q, "batch", "seq", "heads", "head_dim")
+    k = shard_hint(k, "batch", "seq", "kv_heads", "head_dim")
+    v = shard_hint(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
@@ -167,7 +186,9 @@ def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd")``."""
     B, S = o.shape[:2]
     wo = p["wo"]
-    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    o = shard_hint(o.reshape(B, S, -1), "batch", "seq", "heads")
+    y = o @ wo.reshape(-1, wo.shape[-1])
+    return shard_hint(y, "batch", "seq", "embed_act")
 
 
 def attn_full(cfg: cm.ModelConfig, p: dict, x: torch.Tensor,
@@ -211,6 +232,35 @@ def decode_pos(pos, device) -> torch.Tensor:
     return torch.full((), int(pos), dtype=torch.int32, device=device)
 
 
+def write_slot(cache: torch.Tensor, slot: torch.Tensor, new: torch.Tensor
+               ) -> None:
+    """``cache[:, slot] = new[:, 0]`` in place: ``cache`` (B, S, Kh, D),
+    ``slot`` a 1-element long tensor on the device, ``new`` (B, 1, Kh, D).
+    A ``DTensor`` cache whose sequence is split (``kv_seq``) is written a
+    rank at a time: the rank holding ``slot`` writes it, the others write
+    back what they hold, with no read of ``slot`` on the host."""
+    if not is_dtensor(cache):
+        cache.index_copy_(1, slot, new)
+        return
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    r, _ = shard_coordinate(mesh, pl, 1)
+    new_pl = tuple(Replicate() if p.is_shard(1) else p for p in pl)
+
+    def local(cl, nl):
+        size = cl.shape[1]
+        at = slot.to(cl.device) - r * size
+        idx = at.clamp(0, size - 1)
+        ok = ((at >= 0) & (at < size)).reshape(1, 1, 1, 1)
+        cl.index_copy_(1, idx, torch.where(ok, nl, cl.index_select(1, idx)))
+        return cl
+
+    local_map(local, out_placements=list(pl), in_placements=(pl, new_pl),
+              device_mesh=mesh, redistribute_inputs=True)(cache, new)
+
+
 def attn_decode(cfg: cm.ModelConfig, p: dict, x: torch.Tensor, cache: dict,
                 pos, *, window: int = 0) -> Tuple[torch.Tensor, dict]:
     """One-token decode: x (B, 1, d) at absolute position ``pos``, a 0-dim
@@ -239,9 +289,11 @@ def attn_decode(cfg: cm.ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     else:
         slot, valid = pos, pos + 1
     slot = slot.reshape(1).long()
-    cache["k"].index_copy_(1, slot, k)
-    cache["v"].index_copy_(1, slot, v)
-    o = mha(q, cache["k"], cache["v"], causal=False, kv_valid_len=valid)
+    write_slot(cache["k"], slot, k)
+    write_slot(cache["v"], slot, v)
+    ck = shard_hint(cache["k"], "batch", "kv_seq", "kv_heads", "head_dim")
+    cv = shard_hint(cache["v"], "batch", "kv_seq", "kv_heads", "head_dim")
+    o = mha(q, ck, cv, causal=False, kv_valid_len=valid)
     return out_proj(p, o), cache
 
 
@@ -249,8 +301,8 @@ def cross_cache(cfg: cm.ModelConfig, p: dict, enc_out: torch.Tensor
                 ) -> dict:
     """The encoder's keys and values of one cross-attention layer,
     ``k``/``v`` (B, n_ctx, Kh, Dh), computed once (whisper's decoder)."""
-    k = _project(enc_out, p["wk"])
-    v = _project(enc_out, p["wv"])
+    k = _project(enc_out, p["wk"], "kv_heads")
+    v = _project(enc_out, p["wv"], "kv_heads")
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
     return {"k": k, "v": v}
@@ -260,7 +312,7 @@ def cross_attend(cfg: cm.ModelConfig, p: dict, x: torch.Tensor,
                  cc: dict) -> torch.Tensor:
     """Queries of ``x`` (B, S, d) over every key of ``cc`` (no mask), on
     ``mha``'s direct softmax as JAX's, then the output projection."""
-    q = _project(x, p["wq"])
+    q = _project(x, p["wq"], "heads")
     if cfg.qkv_bias:
         q = q + p["bq"]
     o = mha(q, cc["k"], cc["v"], causal=False)

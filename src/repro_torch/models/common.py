@@ -16,6 +16,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import shard_hint
+
 # block kinds
 ATTN = "attn"             # full (causal for decoder) attention + channel mixer
 LOCAL_ATTN = "local_attn"  # sliding-window attention + channel mixer
@@ -132,9 +134,16 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The config's norm of ``x`` (B, S, d), hinted whole along the
+    sequence: under sharding rules the residual stream between blocks is
+    sequence-parallel (``seq_act``), and each block's input is gathered
+    here (GSPMD inserts that all-gather itself; DTensor cannot run the
+    projections on a sequence-sharded, batch-flattened input)."""
     if cfg.norm == "rmsnorm":
-        return rmsnorm(x, p["scale"], cfg.norm_eps)
-    return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
+        out = rmsnorm(x, p["scale"], cfg.norm_eps)
+    else:
+        out = layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return shard_hint(out, "batch", "seq", "embed_act")
 
 
 def init_norm(cfg: ModelConfig, device) -> dict:

@@ -1,6 +1,7 @@
 """Whisper-style encoder-decoder.
 
-Port of ``repro/models/encdec.py`` for one device.  The audio frontend
+Port of ``repro/models/encdec.py``, with JAX's ``shard_hint`` sites
+(no-ops unless sharding rules are active).  The audio frontend
 (the mel conv stack) is a stub, as in JAX: the encoder takes
 precomputed frame embeddings (B, n_ctx, d_model).  The encoder is a
 non-causal transformer over them, with sinusoidal positions; the decoder
@@ -25,6 +26,7 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import shard_hint
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_mod
@@ -60,13 +62,15 @@ def encode(cfg: cm.ModelConfig, params: dict, frames: torch.Tensor
                          f"{cfg.d_model}), got {tuple(frames.shape)}")
     x = frames.to(cfg.compute_dtype)
     x = x + cm.sinusoidal_pos_emb(n_ctx, cfg.d_model, x.device).to(x.dtype)
+    x = shard_hint(x, "batch", "seq", "embed_act")
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     for p in params["layers"]:
         h = cm.apply_norm(cfg, p["norm1"], x)
         x = x + att.attn_full(cfg, p["attn"], h, positions, causal=False)
         h = cm.apply_norm(cfg, p["norm2"], x)
-        x = x + mlp_mod.mlp(cfg, p["mlp"], h)
+        x = shard_hint(x + mlp_mod.mlp(cfg, p["mlp"], h), "batch", "seq_act",
+                       None)
     return cm.apply_norm(cfg, params["final_norm"], x)
 
 
@@ -93,7 +97,8 @@ def _dec_layer(cfg, p, x, positions, enc_out):
     cc = att.cross_cache(cfg, p["cross_attn"], enc_out)
     x = x + att.cross_attend(cfg, p["cross_attn"], h, cc)
     h = cm.apply_norm(cfg, p["norm2"], x)
-    return x + mlp_mod.mlp(cfg, p["mlp"], h)
+    return shard_hint(x + mlp_mod.mlp(cfg, p["mlp"], h), "batch", "seq_act",
+                      None)
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +133,7 @@ def _dec_embed(cfg, params, tokens: torch.Tensor, pos=None) -> torch.Tensor:
         pe = params["pos_emb"][:S]
     else:
         pe = params["pos_emb"].index_select(0, pos.reshape(1).long())
-    return x + pe[None]
+    return shard_hint(x + pe[None], "batch", "seq", "embed_act")
 
 
 def _dec_head(cfg, params, x: torch.Tensor) -> torch.Tensor:
@@ -137,7 +142,7 @@ def _dec_head(cfg, params, x: torch.Tensor) -> torch.Tensor:
     if Vp != V:
         pad = torch.arange(Vp, device=x.device) < V
         logits = logits + torch.where(pad, 0.0, -1e9).to(logits.dtype)
-    return logits
+    return shard_hint(logits, "batch", "seq", "vocab")
 
 
 def _decoder(cfg, params, tokens, frames) -> torch.Tensor:

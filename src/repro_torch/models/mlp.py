@@ -1,6 +1,7 @@
 """Channel mixers: SwiGLU / GEGLU / GELU MLP.
 
-Port of ``repro/models/mlp.py`` for one device.  GELU is the tanh
+Port of ``repro/models/mlp.py``, with JAX's ``shard_hint`` sites (no-ops
+unless sharding rules are active).  GELU is the tanh
 approximation, ``jax.nn.gelu``'s default.  The LUT activation override
 waits for queue A's LUT items.
 """
@@ -10,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import shard_hint
 from repro_torch.models import common as cm
 
 
@@ -38,10 +40,12 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 def mlp(cfg: cm.ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.act in ("swiglu", "geglu"):
         act = F.silu if cfg.act == "swiglu" else _gelu
-        h = act(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = act(shard_hint(x @ p["w_gate"], "batch", "seq", "ff")) * \
+            shard_hint(x @ p["w_up"], "batch", "seq", "ff")
     else:
-        h = _gelu(x @ p["w_up"] + p["b_up"])
+        h = shard_hint(x @ p["w_up"] + p["b_up"], "batch", "seq", "ff")
+        h = _gelu(h)
     y = h @ p["w_down"]
     if "b_down" in p:
         y = y + p["b_down"]
-    return y
+    return shard_hint(y, "batch", "seq", "embed_act")

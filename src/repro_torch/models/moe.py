@@ -1,7 +1,7 @@
 """Mixture-of-Experts channel mixer: a float32 router, top-k experts under
 a Switch-style fixed capacity, and one batched SwiGLU over the experts.
 
-Port of ``repro/models/moe.py`` for one device.  Every shape is static,
+Port of ``repro/models/moe.py``.  Every shape is static,
 as JAX's: a layer's ``T`` tokens fill an ``(E_local, C, d)`` buffer with
 ``C = max(1, int(T·k·capacity_factor / E))`` slots an expert, so a
 (token, choice) pair past its expert's capacity is dropped (its weight is
@@ -23,18 +23,24 @@ dropped pair.  The expert products stay cuBLAS batched GEMMs, as JAX's
 
 ``moe_body`` keeps JAX's expert-shard arguments (``e_offset``,
 ``n_local``): its partial outputs over the shards sum to the whole.
-``moe_ffn`` runs all experts on one device; JAX's ``shard_map`` + ``psum``
-branch waits for ROADMAP item A18.8 (``distributed/sharding.py``).
+``moe_ffn`` runs all experts on one device, unless sharding rules are
+active (``distributed.sharding``) that put ``experts`` on a mesh axis
+whose size ``m`` divides ``E``: then each rank runs its ``E / m`` experts
+on its batch shard (``local_map``), the partial outputs are summed over
+that axis and the router loss averaged, as JAX's ``shard_map`` + ``psum``
+branch (:func:`_moe_expert_parallel`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Iterator, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models import common as cm
 
 # the lists that moe_body appends its routes to (see log_routes)
@@ -165,13 +171,96 @@ def moe_body(cfg: cm.ModelConfig, p: dict, x: torch.Tensor, e_offset: int,
 
 def moe_ffn(cfg: cm.ModelConfig, p: dict, x: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> ``(y (B, S, d), aux)``: all experts on this device,
-    the tokens of the whole batch routed together.  JAX's expert-parallel
-    branch (``shard_map`` over the ``experts`` mesh axis, ``psum`` of the
-    partials) is ROADMAP item A18.8."""
+    """x (B, S, d) -> ``(y (B, S, d), aux)``.  With no rules active: all
+    experts here, the tokens of the whole batch routed together.  Under
+    rules that put ``experts`` on a mesh axis dividing ``E``: the
+    expert-parallel branch (:func:`_moe_expert_parallel`); otherwise, on
+    a ``DTensor`` ``x``, the same branch with every expert on every rank
+    (JAX's fallback to all experts local)."""
+    rules = sharding.current_rules()
+    ep_axis = rules.table.get("experts") if rules is not None else None
+    if ep_axis is not None and \
+            cfg.moe.n_experts % rules.axis_size(ep_axis):
+        ep_axis = None
+    if ep_axis is not None or (rules is not None and
+                               sharding.is_dtensor(x)):
+        return _moe_expert_parallel(cfg, rules, ep_axis, p, x)
     B, S, d = x.shape
     y, aux = moe_body(cfg, p, x.reshape(B * S, d), 0, cfg.moe.n_experts)
     return y.reshape(B, S, d), aux
+
+
+def _moe_expert_parallel(cfg: cm.ModelConfig, rules, ep_axis: str, p: dict,
+                         x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's ``shard_map`` branch of ``moe_ffn``: the experts' weights
+    sharded over ``ep_axis`` (size ``m``; None: m = 1, every expert on
+    every rank) and whole over the other axes,
+    the router replicated, ``x`` over the data axes by batch.  Each rank
+    runs ``moe_body`` on its ``E / m`` experts (``e_offset = rank · E /
+    m``) and its tokens; ``y`` is summed over ``ep_axis`` and ``aux``
+    summed over it and divided by ``m``, then averaged over the data
+    axes.  The sums run in the compute dtype (``y``) and float32
+    (``aux``).  ``x`` may be a ``DTensor`` or, with ``p`` too, a plain
+    tensor, which is taken as replicated (and then ``y`` and ``aux``
+    come back whole, as plain tensors)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = rules.mesh
+    m = rules.axis_size(ep_axis)           # 1 for None
+    n_local = cfg.moe.n_experts // m
+    B, S, d = x.shape
+    dp = rules.table.get("batch") or ()
+    dp = dp if isinstance(dp, tuple) else (dp,)
+    x_pl = rules.placements("batch", None, None, shape=(B, S, d))
+    w_pl = sharding.placements_of(rules, (ep_axis, None, None))
+    rep = (Replicate(),) * mesh.ndim
+    names = sorted(p)
+    # JAX pmeans aux over the whole data axes, whether or not they split
+    # this batch
+    dp_size = math.prod(rules.axis_size(a) for a in dp)
+    ep_group = mesh.get_group(ep_axis) if ep_axis else None
+    dp_groups = [mesh.get_group(a) for a in dp]
+    offset = mesh.get_local_rank(ep_axis) * n_local if ep_axis else 0
+
+    def body(xl, *leaves):
+        Bl, Sl, _ = xl.shape
+        y, aux = moe_body(cfg, dict(zip(names, leaves)),
+                          xl.reshape(Bl * Sl, d), offset, n_local)
+        if ep_group is not None:
+            y = sharding.all_sum(y, ep_group)
+            aux = sharding.all_sum(aux, ep_group) / m
+        for g in dp_groups:
+            aux = sharding.all_sum(aux, g)
+        if dp_size > 1:
+            aux = aux / dp_size
+        return y.reshape(Bl, Sl, d), aux
+
+    def placed(t):
+        return t if isinstance(t, DTensor) else DTensor.from_local(
+            t, mesh, rep, run_check=False)
+
+    # the gradients: a rank's share of x's and the router's over
+    # ep_axis (its experts' part) and of every weight's over the mesh
+    # dims that split the batch; whole where the ranks ran the same work
+    ep_dim = rules.mesh_dim(ep_axis) if ep_axis else None
+    x_grad = tuple(Partial() if i == ep_dim else pl
+                   for i, pl in enumerate(x_pl))
+    w_grad = tuple(Partial() if x_pl[i].is_shard() else w_pl[i]
+                   for i in range(mesh.ndim))
+    r_grad = tuple(Partial() if i == ep_dim or x_pl[i].is_shard()
+                   else Replicate() for i in range(mesh.ndim))
+    y, aux = local_map(
+        body, out_placements=(x_pl, rep),
+        in_placements=(x_pl,) + tuple(rep if k == "router" else w_pl
+                                      for k in names),
+        in_grad_placements=(x_grad,) + tuple(
+            r_grad if k == "router" else w_grad for k in names),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(placed(x), *(placed(p[k]) for k in names))
+    if not isinstance(x, DTensor):          # plain in, plain out
+        return y.full_tensor(), aux.full_tensor()
+    return y, aux
 
 
 @contextlib.contextmanager

@@ -1,6 +1,7 @@
 """RG-LRU recurrent block (Griffin / RecurrentGemma temporal mixer).
 
-Port of ``repro/models/rglru.py`` for one device.  The recurrence (De et
+Port of ``repro/models/rglru.py``, with JAX's ``shard_hint`` sites
+(no-ops unless sharding rules are active).  The recurrence (De et
 al., 2024):
 
     r_t = sigma(W_a x_t + b_a)                  (recurrence gate)
@@ -29,6 +30,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import shard_hint
 from repro_torch.models import common as cm
 from repro_torch.models.mlp import _gelu
 from repro_torch.models.ssm import conv_step, softplus
@@ -97,12 +99,13 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def rglru_forward(cfg: cm.ModelConfig, p: dict, x: torch.Tensor
                   ) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d)."""
-    xb = x @ p["w_x"]
-    gate = _gelu(x @ p["w_gate"])
+    xb = shard_hint(x @ p["w_x"], "batch", "seq", "lru")
+    gate = shard_hint(_gelu(x @ p["w_gate"]), "batch", "seq", "lru")
     xb = _causal_conv(p, xb, cfg.rglru.conv_width)
     a, b = _gates(cfg, p, xb)
     h = linear_scan(a, b)
-    return (h.to(x.dtype) * gate) @ p["w_out"]
+    return shard_hint((h.to(x.dtype) * gate) @ p["w_out"], "batch", "seq",
+                      "embed_act")
 
 
 def init_rglru_cache(cfg: cm.ModelConfig, batch: int, device) -> dict:

@@ -1,7 +1,8 @@
 """Mamba-2 SSD (state-space duality) mixer: the chunked parallel form for
 training and prefill, the O(1)-state recurrence for decode.
 
-Port of ``repro/models/ssm.py`` for one device.  Parameters keep JAX's
+Port of ``repro/models/ssm.py``, with JAX's ``shard_hint`` sites
+(no-ops unless sharding rules are active).  Parameters keep JAX's
 names, shapes and dtypes: ``A_log``, ``dt_bias`` and ``D`` are float32
 inside a model of any compute dtype, and all the decay math
 (``softplus(dt + dt_bias)``, ``A = -exp(A_log)``, the cumulative sums and
@@ -35,6 +36,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (is_dtensor, shard_coordinate,
+                                               shard_hint)
 from repro_torch.models import common as cm
 
 
@@ -91,22 +94,27 @@ def _gate_norm(cfg, p, y, z):
     return cm.rmsnorm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
 
 
-def mamba2_forward(cfg: cm.ModelConfig, p: dict, x: torch.Tensor
-                   ) -> torch.Tensor:
-    """Full-sequence SSD. x: (B, S, d) -> (B, S, d)."""
-    sc, d_in, H, Pd, N, G = _dims(cfg)
-    B, S, _ = x.shape
-    Q = min(sc.chunk, S)
+def ssd(chunk: int, G: int, xs: torch.Tensor, dtr: torch.Tensor,
+        Bm: torch.Tensor, Cm: torch.Tensor, A_log: torch.Tensor,
+        dt_bias: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """The SSD scan of one layer: ``xs`` (B, S, H, P), the raw step sizes
+    ``dtr`` (B, S, H), ``Bm``/``Cm`` (B, S, G·N) of ``G`` groups and the
+    heads' ``A_log``, ``dt_bias`` and ``D`` (H,) -> y (B, S, H, P) in
+    float32, chunk by chunk (intra-chunk products, chunk end states, the
+    inter-chunk recurrence, the states' outputs).  Heads are independent
+    given their group's B and C, so ``DTensor`` inputs run a rank's heads
+    at a time (:func:`_ssd_sharded`)."""
+    if is_dtensor(xs):
+        return _ssd_sharded(chunk, G, xs, dtr, Bm, Cm, A_log, dt_bias, D)
+    B, S, H, Pd = xs.shape
+    N = Bm.shape[-1] // G
+    Q = min(chunk, S)
     assert S % Q == 0, f"seq {S} not divisible by ssd chunk {Q}"
     nc, rep = S // Q, H // G
+    dev = xs.device
 
-    z, xbc, dtr = _split_proj(cfg, p, x)
-    xbc = _causal_conv(p, xbc, sc.conv_width)
-    xs, Bm, Cm = torch.split(xbc, [d_in, G * N, G * N], dim=-1)
-    xs = xs.reshape(B, S, H, Pd)
-
-    dt = softplus(dtr.float() + p["dt_bias"])                    # (B,S,H)
-    A = -torch.exp(p["A_log"])                                   # (H,)
+    dt = softplus(dtr.float() + dt_bias)                    # (B,S,H)
+    A = -torch.exp(A_log)                                   # (H,)
     a_dt = (dt * A).reshape(B, nc, Q, H)
     xd = (xs.float() * dt[..., None]).reshape(B, nc, Q, H, Pd)
     Bc = Bm.float().reshape(B, nc, Q, G, N)
@@ -116,7 +124,7 @@ def mamba2_forward(cfg: cm.ModelConfig, p: dict, x: torch.Tensor
     # 1. intra-chunk: L[q,s] = exp(cs_q - cs_s) for s <= q, else 0
     seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]   # (B,nc,Q,Q,H)
     upper = ~torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                   device=x.device))
+                                   device=dev))
     L = torch.exp(seg.masked_fill(upper[:, :, None], -torch.inf))
     scores = torch.einsum("bcqgn,bcsgn->bcqsg", Cc, Bc)  # (B,nc,Q,Q,G)
     M = (scores[..., None] * L.view(B, nc, Q, Q, G, rep)).reshape(
@@ -132,7 +140,7 @@ def mamba2_forward(cfg: cm.ModelConfig, p: dict, x: torch.Tensor
 
     # 3. inter-chunk recurrence, chunk by chunk: the state before each
     chunk_decay = torch.exp(cs[:, :, -1, :])                     # (B,nc,H)
-    h = torch.zeros((B, H, Pd, N), dtype=torch.float32, device=x.device)
+    h = torch.zeros((B, H, Pd, N), dtype=torch.float32, device=dev)
     prev = []
     for c in range(nc):
         prev.append(h)
@@ -144,9 +152,62 @@ def mamba2_forward(cfg: cm.ModelConfig, p: dict, x: torch.Tensor
                          prev.reshape(B, nc, G, rep, Pd, N)).reshape(
         B, nc, Q, H, Pd) * torch.exp(cs)[..., None]
     y = (y_diag + y_off).reshape(B, S, H, Pd)
-    y = y + p["D"][None, None, :, None] * xs.float()
+    y = y + D[None, None, :, None] * xs.float()
+    return y
+
+
+def _ssd_sharded(chunk, G, xs, dtr, Bm, Cm, A_log, dt_bias, D):
+    """:func:`ssd` of ``DTensor``s by ``local_map``: each rank runs the
+    heads ``xs`` holds (its heads dim as placed), with their groups' B and
+    C and their entries of the (replicated) per-head parameters; the
+    ranks' gradients of B, C and those parameters are then summed."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, xs_pl = xs.device_mesh, tuple(xs.placements)
+    r, ways = shard_coordinate(mesh, xs_pl, 2)
+    H = xs.shape[2]
+    Hl, rep, N = H // ways, H // G, Bm.shape[-1] // G
+    if Hl % rep and rep % Hl:
+        raise ValueError(f"{Hl} local heads do not cover whole groups of "
+                         f"{rep}")
+    g_lo, g_hi = r * Hl // rep, (r * Hl + Hl - 1) // rep + 1
+    bc_pl = tuple(Replicate() if p.is_shard(2) else p for p in xs_pl)
+    bc_grad = tuple(Partial() if p.is_shard(2) else b
+                    for p, b in zip(xs_pl, bc_pl))
+    rep_pl = (Replicate(),) * mesh.ndim
+    par_grad = tuple(Partial() if p.is_shard(2) else Replicate()
+                     for p in xs_pl)
+
+    def local(xl, dl, bl, cl, al, tl, dd):
+        heads, groups = slice(r * Hl, (r + 1) * Hl), slice(g_lo * N, g_hi * N)
+        return ssd(chunk, g_hi - g_lo, xl, dl, bl[..., groups],
+                   cl[..., groups], al[heads], tl[heads], dd[heads])
+
+    return local_map(
+        local, out_placements=list(xs_pl),
+        in_placements=(xs_pl, xs_pl, bc_pl, bc_pl, rep_pl, rep_pl, rep_pl),
+        in_grad_placements=(xs_pl, xs_pl, bc_grad, bc_grad, par_grad,
+                            par_grad, par_grad),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(xs, dtr, Bm, Cm, A_log, dt_bias, D)
+
+
+def mamba2_forward(cfg: cm.ModelConfig, p: dict, x: torch.Tensor
+                   ) -> torch.Tensor:
+    """Full-sequence SSD. x: (B, S, d) -> (B, S, d)."""
+    sc, d_in, H, Pd, N, G = _dims(cfg)
+    B, S, _ = x.shape
+
+    z, xbc, dtr = _split_proj(cfg, p, x)
+    xbc = _causal_conv(p, xbc, sc.conv_width)
+    xs, Bm, Cm = torch.split(xbc, [d_in, G * N, G * N], dim=-1)
+    xs = shard_hint(xs.reshape(B, S, H, Pd), "batch", "seq", "heads", None)
+
+    y = ssd(sc.chunk, G, xs, dtr, Bm, Cm, p["A_log"], p["dt_bias"], p["D"])
     y = y.reshape(B, S, d_in).to(x.dtype)
-    return _gate_norm(cfg, p, y, z) @ p["w_out"]
+    return shard_hint(_gate_norm(cfg, p, y, z) @ p["w_out"], "batch", "seq",
+                      "embed_act")
 
 
 def init_mamba2_cache(cfg: cm.ModelConfig, batch: int, device) -> dict:

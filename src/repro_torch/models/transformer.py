@@ -1,7 +1,8 @@
 """Decoder-only LM stack: the training loss, prefill and single-token
 decode over layers dispatched by kind.
 
-Port of ``repro/models/transformer.py`` for one device.  JAX
+Port of ``repro/models/transformer.py``, with JAX's ``shard_hint`` sites
+(no-ops unless sharding rules are active).  JAX
 ``lax.scan``s the smallest repeating unit of the layer pattern and
 rematerialises it; the port keeps the parameters as a list with one dict
 per layer, in model order, and loops over it, and caches mirror that
@@ -28,6 +29,8 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import is_dtensor, shard_hint
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_mod
@@ -166,7 +169,7 @@ def _embed(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
     x = F.embedding(tokens, params["embed"])
     if cfg.emb_scale:
         x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(x.dtype)
-    return x
+    return shard_hint(x, "batch", "seq_act", "embed_act")
 
 
 def _head(cfg, params, x: torch.Tensor) -> torch.Tensor:
@@ -174,6 +177,7 @@ def _head(cfg, params, x: torch.Tensor) -> torch.Tensor:
         logits = x @ params["embed"].T
     else:
         logits = x @ params["head"]
+    logits = shard_hint(logits, "batch", "seq", "vocab")
     V, Vp = cfg.vocab_size, padded_vocab(cfg)
     if Vp != V:  # mask pad columns out of the softmax
         pad = torch.arange(Vp, device=x.device) < V
@@ -197,6 +201,9 @@ def _stack(cfg, params, tokens: torch.Tensor,
     aux = None
     for kind, p in zip(cfg.pattern, params["layers"]):
         x, a = layer_forward(cfg, kind, p, x, positions)
+        # the sequence-parallel residual stream (JAX hints its scanned
+        # layers; the port's loop hints every layer)
+        x = shard_hint(x, "batch", "seq_act", None)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
@@ -231,6 +238,46 @@ def lm_loss(cfg: cm.ModelConfig, params: dict, batch: dict,
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
+def _vocab_split(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a ``DTensor`` whose last dim is split over a mesh
+    dim of more than one rank."""
+    if not is_dtensor(t):
+        return False
+    return any(p.is_shard(t.ndim - 1) and t.device_mesh.size(i) > 1
+               for i, p in enumerate(t.placements))
+
+
+def _gold_vocab_parallel(lg: torch.Tensor, tg: torch.Tensor
+                         ) -> torch.Tensor:
+    """``lg.gather(-1, tg)`` of vocab-sharded logits, a rank at a time:
+    each rank reads the gold logits that fall in its vocab slice (zero
+    elsewhere) and one all-reduce of (B, S - 1) over the vocab's shards
+    adds them.  (DTensor's own gather would gather the whole logits.)"""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, lg_pl, last = lg.device_mesh, tuple(lg.placements), lg.ndim - 1
+    tg_pl = tuple(Replicate() if p.is_shard(last) else p for p in lg_pl)
+    groups = [mesh.get_group(i) for i, p in enumerate(lg_pl)
+              if p.is_shard(last)]
+    r, _ = sharding.shard_coordinate(mesh, lg_pl, last)
+
+    def local(lgl, tgl):
+        v = lgl.shape[-1]
+        idx = tgl - r * v
+        ok = (idx >= 0) & (idx < v)
+        got = lgl.gather(-1, idx.clamp(0, v - 1)[..., None])[..., 0]
+        got = torch.where(ok, got, 0.0)
+        for g in groups:
+            got = sharding.all_sum(got, g)
+        return got
+
+    return local_map(local, out_placements=list(tg_pl),
+                     in_placements=(lg_pl, tg_pl),
+                     in_grad_placements=(lg_pl, tg_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(lg, tg)
+
+
 def cross_entropy(logits: torch.Tensor, tokens: torch.Tensor
                   ) -> torch.Tensor:
     """Next-token CE in float32: the mean over the ``B·(S−1)`` predicted
@@ -240,8 +287,22 @@ def cross_entropy(logits: torch.Tensor, tokens: torch.Tensor
     sums to order)."""
     lg = logits[:, :-1].float()
     tg = tokens[:, 1:].long()
-    lse = torch.logsumexp(lg, dim=-1)
-    gold = lg.gather(-1, tg[..., None])[..., 0]
+    if _vocab_split(lg):
+        # vocab-parallel: DTensor's logsumexp would gather the whole
+        # vocab on every rank; the max and the sum over the vocab shards
+        # are all-reduces of (B, S - 1), held whole over the vocab's
+        # shards (and so their gradients, which then meet the logits'
+        # shards where they lie)
+        m = shard_hint(lg.detach().amax(-1, keepdim=True), "batch", "seq",
+                       None)
+        s = shard_hint(torch.exp(lg - m).sum(-1), "batch", "seq")
+        lse = torch.log(s) + m[..., 0]
+    else:
+        lse = torch.logsumexp(lg, dim=-1)
+    if _vocab_split(lg):
+        gold = _gold_vocab_parallel(lg, tg)
+    else:
+        gold = lg.gather(-1, tg[..., None])[..., 0]
     return (lse - gold).mean()
 
 

@@ -1,5 +1,6 @@
 """Trees of tensors: the port's counterpart of ``jax.tree.map``,
-``jax.tree.leaves`` and ``jax.tree_util.tree_flatten_with_path``.
+``jax.tree.leaves`` and ``jax.tree_util.tree_flatten_with_path``
+(:func:`tree_flatten_with_names`, :func:`tree_flatten_with_keys`).
 
 A tree is a tensor, a tuple or named tuple of trees (a minibatch fit's
 ``(state, counter)``, an ``OptState``), a list of trees (an LM's
@@ -75,6 +76,39 @@ def _visit(t, path: str, names: list, leaves: list) -> None:
             _visit(t[k], f"{path}[{k!r}]", names, leaves)
     else:
         names.append(path)
+        leaves.append(t)
+
+
+def tree_flatten_with_keys(tree) -> tuple[list[tuple], list[Any]]:
+    """``(paths, leaves)`` in :func:`tree_leaves`' order, each path the
+    tuple of keys from the root to the leaf as JAX's
+    ``launch.shardings._path_keys`` reads a key path: a dict key, a tuple
+    or list index, and ``None`` for a named tuple's field (JAX's
+    ``GetAttrKey`` has neither a ``key`` nor an ``idx``).
+
+    >>> import torch
+    >>> from repro_torch.optim.optimizers import OptState
+    >>> tree = {"layers": [{"wq": torch.zeros(2)}],
+    ...         "opt": OptState(torch.zeros(()), {"m": torch.zeros(2)})}
+    >>> tree_flatten_with_keys(tree)[0]
+    [('layers', 0, 'wq'), ('opt', None), ('opt', None, 'm')]
+    """
+    paths: list[tuple] = []
+    leaves: list[Any] = []
+    _visit_keys(tree, (), paths, leaves)
+    return paths, leaves
+
+
+def _visit_keys(t, path: tuple, paths: list, leaves: list) -> None:
+    if isinstance(t, (tuple, list)):
+        named = hasattr(t, "_fields")
+        for i, x in enumerate(t):
+            _visit_keys(x, path + (None if named else i,), paths, leaves)
+    elif isinstance(t, dict):
+        for k in sorted(t):
+            _visit_keys(t[k], path + (k,), paths, leaves)
+    else:
+        paths.append(path)
         leaves.append(t)
 
 

@@ -1348,3 +1348,63 @@ def test_ops_entry_points_equal_plain(tmp_table):
     v = torch.randn((2, 2, 300, 64), generator=g, device=dev)
     assert (ops.flash_attention(q, k, v) - ref.flash_attention_ref(
         q, k, v, causal=True)).abs().max() <= 2e-5
+
+
+# -- the sharded path: flash attention through local_map, fake paths ---------
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
+                                     (torch.float32, 64)])
+def test_flash_through_local_map_is_bit_equal(dtype, D):
+    """``dispatch.flash_attention`` of DTensors on a (1, 1) NCCL mesh
+    under ``make_rules`` (each rank's heads by ``local_map``) launches the
+    same kernels on the same tensors as the plain call: the output and the
+    q, k, v gradients bit for bit, one forward and one backward launch."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed.sharding import make_rules, use_rules
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, S, H, Kh = 2, 256, 4, 2
+    q, k, v, do = (torch.randn((B, S, h, D), generator=g, device=dev,
+                               dtype=dtype)
+                   for h in (H, Kh, Kh, H))
+
+    def run(q, k, v, do):
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        out = dispatch.flash_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        return out, grads
+
+    want, want_g = run(q, k, v, do)
+    with single_process_world("nccl"):
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        rules = make_rules(mesh, n_heads=H, n_kv_heads=Kh)
+        with use_rules(rules):
+            place = [distribute_tensor(t, mesh, rules.placements(
+                "batch", None, "heads", None), src_data_rank=None)
+                for t in (q, k, v, do)]
+            before = (flash_attention.launches, flash_attention_bwd.launches)
+            got, got_g = run(*place)
+            after = (flash_attention.launches, flash_attention_bwd.launches)
+    assert after == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got.full_tensor(), want)
+    for a, b in zip(got_g, want_g):
+        assert torch.equal(a.full_tensor(), b)
+
+
+def test_real_cuda_tensor_never_takes_the_fake_path():
+    """A CUDA tensor is not traced: the wrapper launches its kernel (the
+    count moves) and returns the plain version's values."""
+    from repro_torch.kernels import build as kbuild
+
+    dev = require_cuda()
+    x = torch.linspace(-9.0, 9.0, 4099, device=dev)
+    table = lut.sigmoid_lut(device=dev)
+    assert not kbuild.traced(x, table.table)
+    before = lut_activation.launches
+    got = lut_activation(x, table.table, x_min=table.x_min,
+                         x_max=table.x_max)
+    assert lut_activation.launches == before + 1
+    assert torch.equal(got, ref.lut_activation_ref(
+        x, table.table, table.x_min, table.x_max))

@@ -464,9 +464,19 @@ def test_train_cli_runs_the_smoke_config_on_the_cpu():
 
 @pytest.mark.parametrize("flag", ["--production-mesh", "--multi-pod"])
 def test_train_cli_mesh_flags_raise_naming_their_items(flag):
-    with pytest.raises(NotImplementedError, match="17.2.*A18.8"):
+    """Outside a launcher's world of 256 (512) ranks the production mesh
+    raises naming both sizes and leaves no process group behind; a
+    checkpoint directory on a mesh raises naming item 12b."""
+    import torch.distributed as dist
+
+    need = "512" if flag == "--multi-pod" else "256"
+    with pytest.raises(ValueError, match=f"{need} ranks.*has 1"):
         train.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
                     flag])
+    assert not dist.is_initialized()
+    with pytest.raises(NotImplementedError, match="12b"):
+        train.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
+                    flag, "--ckpt-dir", "unused"])
 
 
 def test_train_cli_defaults_to_the_card():

@@ -760,3 +760,116 @@ def card_mesh_scenario(rank: int, world: int) -> dict:
                           merge_plan=card_plan(mp, comp, cell)
                           ).state.cpu().numpy()
             for cell in CARD_CELLS}
+
+
+# -- the MoE's expert-parallel branch (tests/test_torch_moe_ep.py) ---------
+
+EP_ARCHS = ("phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b")
+
+
+def ep_inputs(arch: str, seed: int = 5) -> dict:
+    """float32 MoE parameters, an input ``x`` (2, 16, d) and a cotangent
+    ``ct`` for ``arch``'s smoke config, from numpy."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config(arch)
+    d, f, E = cfg.d_model, cfg.moe.d_ff, cfg.moe.n_experts
+    r = np.random.default_rng(seed)
+
+    def w(*shape):
+        return (r.standard_normal(shape) / np.sqrt(shape[-2])).astype(
+            np.float32)
+
+    return {"p": {"router": w(d, E), "w_gate": w(E, d, f),
+                  "w_up": w(E, d, f), "w_down": w(E, f, d)},
+            "x": r.standard_normal((2, 16, d)).astype(np.float32),
+            "ct": r.standard_normal((2, 16, d)).astype(np.float32)}
+
+
+def _ep_jax_case(arch: str, sharded: bool) -> dict:
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs
+    from repro.distributed.sharding import make_rules, use_rules
+    from repro.models import moe
+
+    cfg = configs.get_smoke_config(arch)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    inp = ep_inputs(arch)
+    rules = None
+    if sharded:
+        mesh = jax.make_mesh((1, 2), ("data", "model"))
+        rules = make_rules(mesh, n_heads=cfg.n_heads,
+                           n_kv_heads=cfg.n_kv_heads)
+
+    def loss(p, x):
+        y, aux = moe.moe_ffn(cfg, p, x)
+        return jnp.sum(y * inp["ct"]) + aux, (y, aux)
+
+    with use_rules(rules):
+        p = jax.tree.map(jnp.asarray, inp["p"])
+        (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True))(p, jnp.asarray(inp["x"]))
+    return {"y": np.asarray(y), "aux": np.asarray(aux),
+            "gp": jax.tree.map(np.asarray, gp), "gx": np.asarray(gx)}
+
+
+def jax_ep_main(out_path: str) -> None:
+    """JAX's ``moe_ffn`` at both MoE smoke configs on a (1, 2) ``("data",
+    "model")`` mesh of 2 forced CPU devices (the ``shard_map`` branch)
+    and without rules (one device): outputs, aux and gradients."""
+    dump({(arch, sharded): _ep_jax_case(arch, sharded)
+          for arch in EP_ARCHS for sharded in (True, False)}, out_path)
+
+
+def ep_scenario(rank: int, world: int) -> dict:
+    """The port's ``moe_ffn`` on a (1, ``world``) ``("data", "model")``
+    gloo mesh under ``make_rules`` (the expert-parallel branch, experts
+    over ``model``), the parameters and input placed by
+    ``launch.shardings``: ``{arch: (y, aux, grads, routes, local expert
+    shapes)}`` as numpy, whole."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import make_rules, use_rules
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+
+    mesh = make_host_mesh(1, world, device_type="cpu")
+    out = {}
+    for arch in EP_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        inp = ep_inputs(arch)
+        rules = make_rules(mesh, n_heads=cfg.n_heads,
+                           n_kv_heads=cfg.n_kv_heads)
+        with use_rules(rules):
+            p = sh.distribute_tree(
+                rules, {"moe": {k: torch.from_numpy(v) for k, v in
+                                inp["p"].items()}}, sh.param_axes)["moe"]
+            p = {k: v.detach().requires_grad_() for k, v in p.items()}
+            x = sh.distribute_tree(rules, torch.from_numpy(inp["x"]),
+                                   sh.batch_axes).detach().requires_grad_()
+            with moe.log_routes() as routes:
+                y, aux = moe.moe_ffn(cfg, p, x)
+            ct = sh.distribute_tree(rules, torch.from_numpy(inp["ct"]),
+                                    sh.batch_axes)
+            loss = (y * ct).sum() + aux
+            grads = torch.autograd.grad(loss, [p[k] for k in sorted(p)]
+                                        + [x])
+        out[arch] = {
+            "y": y.full_tensor().detach().numpy(),
+            "aux": aux.full_tensor().detach().numpy(),
+            "gp": {k: g.full_tensor().numpy()
+                   for k, g in zip(sorted(p), grads)},
+            "gx": grads[-1].full_tensor().numpy(),
+            "topi": [t.numpy() for t, _ in routes],
+            "kept": [k.numpy() for _, k in routes],
+            "w_gate_local": tuple(p["w_gate"].to_local().shape),
+        }
+    return out

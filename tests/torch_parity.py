@@ -109,3 +109,35 @@ def single_process_world(backend: str = "gloo"):
     finally:
         if started:
             dist.destroy_process_group()
+
+
+def jax_place(cfg, path: tuple):
+    """The key path of the JAX leaf that holds the port's leaf at ``path``
+    (``tree.tree_flatten_with_keys``' spelling) in a parameter, optimizer
+    or cache tree of JAX config ``cfg``, and whether that leaf is stacked
+    (a leading repeat axis): JAX ``lax.scan``s the repeating unit of the
+    layer pattern (``stack``/``scan``, one leaf a unit position, the rest
+    in ``tail``) and an encoder-decoder's layers; the port keeps one dict
+    a layer."""
+    path = list(path)
+    for i, k in enumerate(path):
+        nxt = path[i + 1] if i + 1 < len(path) else None
+        if k == "layers" and isinstance(nxt, int):
+            pre, j, rest = path[:i], nxt, path[i + 2:]
+            if pre and pre[-1] in ("encoder", "decoder"):
+                return tuple(pre + ["scan"] + rest), True
+            unit, reps, tail = cfg.scan_groups()
+            if j < reps * len(unit):
+                return tuple(pre + ["stack", "scan", j % len(unit)]
+                             + rest), True
+            return tuple(pre + ["stack", "tail", j - reps * len(unit)]
+                         + rest), False
+    if cfg.encoder is not None and path[0] in ("self", "cross"):
+        return tuple([path[0]] + path[2:]), True          # an encdec cache
+    if isinstance(path[0], int):                          # an LM cache
+        unit, reps, tail = cfg.scan_groups()
+        j = path[0]
+        if j < reps * len(unit):
+            return tuple(["scan", j % len(unit)] + path[1:]), True
+        return tuple(["tail", j - reps * len(unit)] + path[1:]), False
+    return tuple(path), False
